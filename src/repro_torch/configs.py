@@ -1,0 +1,189 @@
+"""Model configuration for the PyTorch port.
+
+A copy of the JAX package's ``repro.configs.base`` (the port imports
+nothing of that package): the frozen :class:`ModelConfig`, the layer
+kinds, and the two configurations the serving path runs — the Mixtral
+8x7B target and the Mistral 7B draft.  ``reduced()`` gives the same
+smoke-size variants, so a test can build one config for both packages
+from the same fields.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+# Layer kinds usable in ``layer_pattern``.
+ATTN = "attn"      # global (full, causal) attention
+SWA = "swa"        # sliding-window (local) attention
+RGLRU = "rglru"    # RG-LRU recurrent block (Griffin / RecurrentGemma)
+RWKV = "rwkv"      # RWKV-6 time-mix block (attention-free)
+
+LAYER_KINDS = (ATTN, SWA, RGLRU, RWKV)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyper-parameters + framework knobs.
+
+    ``layer_pattern`` is the repeating layer group; the model has
+    ``n_layers / len(layer_pattern)`` groups, and layer ``l`` has kind
+    ``layer_pattern[l % len(layer_pattern)]``.
+    """
+
+    name: str
+    arch_type: str                       # dense|moe|hybrid|ssm|vlm|audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                    # 0 -> d_model // n_heads
+    layer_pattern: tuple = (ATTN,)
+    sliding_window: int = 4096
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 2.0
+    moe_dropless: bool = False           # capacity = n_tokens at every phase
+    moe_pattern: tuple = ()              # which pattern positions use MoE
+    # positional / misc
+    rope_theta: float = 10_000.0
+    use_rope: bool = True
+    norm: str = "rmsnorm"                # rmsnorm|layernorm
+    activation: str = "swiglu"           # swiglu|gelu|geglu
+    tie_embeddings: bool = False
+    # encoder-decoder (whisper)
+    encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_len: int = 1500
+    # recurrent (RG-LRU)
+    rnn_width: int = 0                   # 0 -> d_model
+    conv_width: int = 4
+    # RWKV
+    rwkv_head_size: int = 64
+    # numerics
+    dtype: str = "bfloat16"
+    # KV-cache storage for full-attention layers: 'bfloat16' or 'int8'
+    # (per-row-per-head absmax quantization)
+    kv_cache_dtype: str = "bfloat16"
+    remat: bool = True
+    offload_carries: bool = False
+    supports_long_context: bool = False
+    optimizer: str = "adamw"
+    source: str = ""                     # citation for the config
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim",
+                               self.d_model // max(self.n_heads, 1))
+        if self.rnn_width == 0:
+            object.__setattr__(self, "rnn_width", self.d_model)
+        if self.n_layers % len(self.layer_pattern) != 0:
+            raise ValueError(
+                f"{self.name}: n_layers={self.n_layers} not divisible by "
+                f"layer_pattern of length {len(self.layer_pattern)}")
+        for k in self.layer_pattern:
+            if k not in LAYER_KINDS:
+                raise ValueError(f"unknown layer kind {k!r}")
+        if self.arch_type == "moe" and (self.n_experts <= 0 or self.top_k <= 0):
+            raise ValueError(f"{self.name}: moe arch needs n_experts/top_k")
+        if self.is_moe and not self.moe_pattern:
+            object.__setattr__(self, "moe_pattern",
+                               tuple(k in (ATTN, SWA)
+                                     for k in self.layer_pattern))
+        if self.moe_pattern and len(self.moe_pattern) != len(self.layer_pattern):
+            raise ValueError(f"{self.name}: moe_pattern length mismatch")
+
+    # ------------------------------------------------------------------
+    @property
+    def n_groups(self) -> int:
+        return self.n_layers // len(self.layer_pattern)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def layer_kind(self, layer: int) -> str:
+        return self.layer_pattern[layer % len(self.layer_pattern)]
+
+    def layer_is_moe(self, layer: int) -> bool:
+        return bool(self.is_moe and
+                    self.moe_pattern[layer % len(self.layer_pattern)])
+
+    def reduced(self, d_model: int = 256, n_layers: int = 0,
+                n_experts: int = 4, vocab: int = 512) -> "ModelConfig":
+        """Smoke-test variant of the same family: <=2 groups, tiny dims
+        (field for field what the JAX package's ``reduced`` gives)."""
+        pat = self.layer_pattern
+        if n_layers == 0:
+            n_layers = len(pat) * min(2, self.n_groups)
+        n_heads = max(2, min(4, self.n_heads))
+        n_kv = 1 if self.n_kv_heads == 1 else max(1, min(2, self.n_kv_heads))
+        while n_heads % n_kv:
+            n_kv -= 1
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=n_layers,
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=d_model // n_heads,
+            d_ff=d_model * 3,
+            vocab_size=vocab,
+            n_experts=min(n_experts, self.n_experts) if self.is_moe else 0,
+            top_k=min(self.top_k, 2) if self.is_moe else 0,
+            rnn_width=d_model,
+            sliding_window=min(self.sliding_window, 64),
+            n_encoder_layers=min(2, self.n_encoder_layers),
+            encoder_len=32 if self.encoder_decoder else self.encoder_len,
+            rwkv_head_size=32,
+            dtype="float32",
+            remat=False,
+        )
+
+
+# ---------------------------------------------------------------------------
+# The paper's own models (Mixtral target + Mistral draft).
+MIXTRAL_8X7B = ModelConfig(
+    name="mixtral-8x7b", arch_type="moe", n_layers=32, d_model=4096,
+    n_heads=32, n_kv_heads=8, d_ff=14336, vocab_size=32000,
+    n_experts=8, top_k=2, rope_theta=1e6,
+    source="arXiv:2401.04088",
+)
+
+MISTRAL_7B = ModelConfig(
+    name="mistral-7b", arch_type="dense", n_layers=32, d_model=4096,
+    n_heads=32, n_kv_heads=8, d_ff=14336, vocab_size=32000,
+    layer_pattern=(SWA,), sliding_window=4096, rope_theta=1e4,
+    source="arXiv:2310.06825",
+)
+
+CONFIGS = {c.name: c for c in (MIXTRAL_8X7B, MISTRAL_7B)}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in CONFIGS:
+        raise KeyError(f"unknown arch {name!r}; the port has "
+                       f"{sorted(CONFIGS)}")
+    return CONFIGS[name]
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on.  ``"cuda"`` (the default) needs
+    a card: without one this raises instead of quietly running the plain
+    versions on the CPU — pass ``device="cpu"`` for that."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the port's plain versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

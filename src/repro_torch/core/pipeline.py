@@ -1,0 +1,160 @@
+"""SpecOffloadEngine — the two-phase speculative engine (paper §3).
+
+Counterpart of ``repro/core/pipeline.py`` without placement and the
+planner: zig-zag microbatched prefill (§4.1.1) and the dual-batch
+rotation (§4.1.2).
+
+* :meth:`SpecOffloadEngine.prefill_batch` — prefill a prompt batch into
+  a fresh :class:`BatchState` (first greedy token staged in ``t_next``).
+* :meth:`SpecOffloadEngine.decode_round` — one rotation round.
+* :meth:`SpecOffloadEngine.finalize` — assemble the emission logs of the
+  two interleaved batches into a dense ``(B, gen_len)`` array.
+* :meth:`SpecOffloadEngine.generate` — the three above in one call.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ModelConfig, resolve_device
+from repro_torch.core.interleave import (BatchState, InterleavedPipeline,
+                                         RoundOutput)
+from repro_torch.models import model as M
+from repro_torch.models.transformer import init_cache
+from repro_torch.params import init_params
+
+
+def required_cache_len(prompt_len: int, gen_len: int, n_cand: int) -> int:
+    """Per-sequence KV capacity for a decode of ``gen_len`` tokens: the last
+    speculative round can overshoot, and the draft cache briefly holds
+    ``n_cand + 1`` uncommitted positions before rollback."""
+    return prompt_len + gen_len + 3 * (n_cand + 1) + 4
+
+
+@dataclass
+class GenerationResult:
+    tokens: np.ndarray            # (B, gen_len)
+    rounds: int
+    accept_counts: list
+
+
+class SpecOffloadEngine:
+    def __init__(self, target_cfg: ModelConfig, draft_cfg: ModelConfig,
+                 device="cuda"):
+        self.tcfg = target_cfg
+        self.dcfg = draft_cfg
+        self.device = resolve_device(device)
+        self.tp = None
+        self.dp = None
+        self._pipe: InterleavedPipeline | None = None
+
+    # ------------------------------------------------------------------
+    def load(self, target_params, draft_params):
+        self.tp = target_params
+        self.dp = draft_params
+        self._pipe = None
+
+    def init_from_seed(self, seed: int = 0):
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        self.load(init_params(self.tcfg, g, self.device),
+                  init_params(self.dcfg, g, self.device))
+
+    # ------------------------------------------------------------------
+    def _prefill_zigzag(self, params, cfg, tokens, bs_prefill: int,
+                        max_len: int):
+        """Microbatched prefill (zig-zag §4.1.1): ``bs_prefill`` prompts at
+        a time; the chunk caches are then concatenated."""
+        b = tokens.shape[0]
+        last_logits, caches = [], []
+        for i in range(0, b, bs_prefill):
+            chunk = tokens[i:i + bs_prefill]
+            c = init_cache(cfg, chunk.shape[0], max_len, self.device)
+            lg, c = M.prefill(params, cfg, chunk, c)
+            last_logits.append(lg)
+            caches.append(c)
+        if len(caches) == 1:
+            return last_logits[0], caches[0]
+        return torch.cat(last_logits, 0), _concat_caches(caches)
+
+    # ------------------------------------------------------------------
+    def prefill_batch(self, prompts, max_len: int,
+                      bs_prefill: int | None = None) -> BatchState:
+        """Zig-zag prefill of a ``(B, L)`` prompt batch into a fresh
+        :class:`BatchState` with KV capacity ``max_len`` per sequence; the
+        first greedy token is staged in ``t_next`` and recorded as the
+        first emission."""
+        assert self.tp is not None, "call load()/init_from_seed() first"
+        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
+                                  device=self.device)
+        bs_prefill = bs_prefill or max(1, prompts.shape[0])
+        lg, tc = self._prefill_zigzag(self.tp, self.tcfg, prompts,
+                                      bs_prefill, max_len)
+        _, dc = self._prefill_zigzag(self.dp, self.dcfg, prompts, bs_prefill,
+                                     max_len)
+        t0 = torch.argmax(lg, dim=-1)
+        return BatchState(target_cache=tc, draft_cache=dc, t_next=t0,
+                          drafts=None, draft_pendings=None,
+                          emitted=[(t0.cpu().numpy()[:, None], 1)])
+
+    def pipeline(self, n_cand: int) -> InterleavedPipeline:
+        """The (cached) dual-batch rotation pipeline for ``n_cand``."""
+        assert self.tp is not None, "call load()/init_from_seed() first"
+        if self._pipe is None or self._pipe.n_cand != n_cand:
+            self._pipe = InterleavedPipeline(self.tp, self.tcfg, self.dp,
+                                             self.dcfg, n_cand)
+        return self._pipe
+
+    def decode_round(self, verify: BatchState, gen: BatchState,
+                     n_cand: int, record: bool = True) -> RoundOutput:
+        """One rotation round: verify ``verify``, draft for ``gen``."""
+        pipe = self.pipeline(n_cand)
+        pipe.warmup(verify)
+        return pipe.step(verify, gen, record=record)
+
+    def finalize(self, states: list, gen_len: int) -> tuple:
+        """Dense ``(B_total, gen_len)`` tokens from the two batches'
+        emission logs (+ per-round accept counts)."""
+        widths = [int(np.asarray(st.emitted[0][0]).shape[0]) for st in states]
+        out = np.zeros((sum(widths), gen_len), np.int32)
+        accepts = []
+        row0 = 0
+        for st, width in zip(states, widths):
+            fills = [list() for _ in range(width)]
+            for toks, n in st.emitted:
+                toks = np.asarray(toks)
+                n = np.asarray(n) + np.zeros(toks.shape[0], np.int64)
+                for r in range(toks.shape[0]):
+                    fills[r].extend(toks[r, :int(n[r])].tolist())
+                if toks.shape[1] > 1:
+                    accepts.append(n - 1)
+            for r, f in enumerate(fills):
+                out[row0 + r] = (f + [0] * gen_len)[:gen_len]
+            row0 += width
+        return out, accepts
+
+    # ------------------------------------------------------------------
+    def generate(self, prompts, gen_len: int, n_cand: int = 4,
+                 max_len: int | None = None) -> GenerationResult:
+        """prompts (B, L) int, split into the two interleaved batches;
+        rotate rounds until every sequence has ``gen_len`` tokens."""
+        assert self.tp is not None, "call load()/init_from_seed() first"
+        prompts = np.asarray(prompts)
+        b, length = prompts.shape
+        max_len = max_len or required_cache_len(length, gen_len, n_cand)
+        half = b // 2
+        states = [self.prefill_batch(bt, max_len, max(1, b // 2))
+                  for bt in (prompts[:half], prompts[half:])]
+        s0, s1, rounds = self.pipeline(n_cand).run(states, gen_len)
+        out, accepts = self.finalize([s0, s1], gen_len)
+        return GenerationResult(out, rounds, accepts)
+
+
+def _concat_caches(caches):
+    """Concat per-chunk caches over the batch axis."""
+    layers = [{k: torch.cat([c["layers"][l][k] for c in caches], 0)
+               for k in caches[0]["layers"][l]}
+              for l in range(len(caches[0]["layers"]))]
+    pos = torch.cat([c["pos"] for c in caches], 0)
+    return {"layers": layers, "pos": pos}

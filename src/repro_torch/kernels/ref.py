@@ -1,0 +1,129 @@
+"""Plain PyTorch versions of the port's kernels (the ``ref.py`` contract).
+
+Each function computes what its CUDA kernel computes, in the JAX
+package's layouts, materializing full score matrices (clarity over
+speed).  A kernel wrapper takes these only for tensors on the CPU; the
+tests hold them against the Pallas kernels, and ``chip_smoke.py`` holds
+the CUDA kernels against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, scale=None, causal=True, window=None):
+    """q (B,Hq,Sq,d), k/v (B,Hkv,Skv,d) -> (B,Hq,Sq,d)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    qg = q.reshape(b, hkv, g, sq, d).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > qp - window
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def anc_mask_from_bits(anc_bits, m: int):
+    """(m,) int32 ancestor bitmasks -> (m, m) bool visibility, bit j of
+    row i marking buffer row j (bits past 31 read bit 31, as the kernels'
+    ``clip(col, 0, 31)`` does)."""
+    j = torch.clamp(torch.arange(m, device=anc_bits.device), max=31)
+    return ((anc_bits.long()[:, None] >> j[None, :]) & 1) > 0
+
+
+def decode_attention_ref(q, k, v, lengths, *, scale=None, window=None,
+                         anc_mask=None):
+    """q (B,Hq,m,d); k/v (B,Hkv,S,d); lengths (B,).  Causal over the m new
+    tokens at positions [len-m, len) — or, with ``anc_mask`` (m, m) bool,
+    ancestor-or-self masking of the m-row speculation buffer."""
+    b, hq, m, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    dev = q.device
+    lengths = lengths.to(dev).long()
+    qg = q.reshape(b, hkv, g, m, d).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    if anc_mask is not None:
+        assert window is None, "tree masking requires full attention"
+        kp2 = torch.arange(skv, device=dev)[None, :]
+        col = kp2 - (lengths[:, None] - m)                       # (B, S)
+        allowed = anc_mask[:, col.clamp(0, m - 1)].permute(1, 0, 2)
+        ok = ((col < 0)[:, None, :]
+              | (((col >= 0) & (col < m))[:, None, :] & allowed))
+    else:
+        kp = torch.arange(skv, device=dev)[None, None, :]
+        qp = (lengths[:, None, None] - m
+              + torch.arange(m, device=dev)[None, :, None])      # (B, m, 1)
+        ok = (kp <= qp) & (kp < lengths[:, None, None])
+        if window is not None:
+            ok &= kp > qp - window
+    s = torch.where(ok[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(b, hq, m, d).to(q.dtype)
+
+
+def gather_paged_kv_ref(k_pool, v_pool, block_tables, *, k_scale=None,
+                        v_scale=None, dtype=torch.float32):
+    """Materialize per-sequence contiguous KV from a block pool.
+
+    k_pool/v_pool (NB, BS, H, d) [int8 when scales (NB, BS, H, 1) are
+    given]; block_tables (B, MBS) -> k/v (B, MBS*BS, H, d) in ``dtype``.
+    Table entries <= 0 resolve to block 0; rows past a sequence's length
+    hold whatever the pool holds and must be masked by the caller.
+    """
+    nb, bs, h, d = k_pool.shape
+    bt = block_tables.long().clamp_min(0)
+    b, mbs = bt.shape
+    idx = (bt[:, :, None] * bs
+           + torch.arange(bs, device=bt.device)[None, None, :]).reshape(b, -1)
+    k = k_pool.reshape(nb * bs, h, d)[idx]
+    v = v_pool.reshape(nb * bs, h, d)[idx]
+    if k_scale is not None:
+        k = k.float() * k_scale.reshape(nb * bs, h, 1)[idx]
+        v = v.float() * v_scale.reshape(nb * bs, h, 1)[idx]
+    return k.to(dtype), v.to(dtype)
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
+                               k_scale=None, v_scale=None, scale=None,
+                               anc_bits=None):
+    """Plain version of the paged kernel: gather, then contiguous decode."""
+    k, v = gather_paged_kv_ref(k_pool, v_pool, block_tables,
+                               k_scale=k_scale, v_scale=v_scale)
+    anc = (None if anc_bits is None
+           else anc_mask_from_bits(anc_bits, q.shape[2]))
+    return decode_attention_ref(q, k.transpose(1, 2), v.transpose(1, 2),
+                                lengths, scale=scale,
+                                anc_mask=anc).to(q.dtype)
+
+
+def ffn_act(h, activation: str):
+    """silu for swiglu; tanh-approximate gelu (``jax.nn.gelu``'s default)
+    for gelu/geglu."""
+    if activation == "swiglu":
+        return F.silu(h)
+    if activation in ("gelu", "geglu"):
+        return F.gelu(h, approximate="tanh")
+    raise ValueError(activation)
+
+
+def moe_ffn_ref(buf, w_gate, w_up, w_down, *, activation="swiglu"):
+    """buf (E,C,D); w_gate/w_up (E,D,F); w_down (E,F,D) -> (E,C,D)."""
+    buff = buf.float()
+    h = ffn_act(torch.bmm(buff, w_gate.float()), activation)
+    h = h * torch.bmm(buff, w_up.float())
+    return torch.bmm(h, w_down.float()).to(buf.dtype)

@@ -1,0 +1,219 @@
+"""Decoder stack: per-layer apply, cache plumbing, phase dispatch.
+
+Counterpart of ``repro/models/transformer.py`` for ATTN/SWA layers.  The
+JAX package stacks parameters and caches over layer groups for a
+``lax.scan``; here both are plain lists with one entry per layer (layer
+``l`` has kind ``cfg.layer_kind(l)``), and the forward pass is a Python
+loop.
+
+Caches are dicts ``{"layers": [per-layer dict], "pos": (B,) int64}``
+(plus ``"block_tables"`` (B, MBS) int32 for a paged serving cache), and
+are updated **in place**.
+
+Phases: ``prefill`` (the whole prompt, fills the cache) and ``decode``
+(Sq new tokens per sequence at positions ``cache["pos"]``; writes are
+eager and the returned pendings carry what :func:`commit_cache` needs to
+undo the ring writes of rejected tokens).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs import ATTN, SWA, ModelConfig, resolve_device
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.attention import (apply_attention, init_kv_cache,
+                                          init_paged_kv_pool,
+                                          paged_row_indices, quantize_rows,
+                                          restore_rejected_rows)
+from repro_torch.models.layers import (apply_mlp, apply_norm,
+                                       unembed)
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in (ATTN, SWA):
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+
+
+def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
+                pos, phase: str, use_moe: bool = False,
+                block_tables=None):
+    """Returns (x, cache, pending)."""
+    _check_kind(kind)
+    window = cfg.sliding_window if kind == SWA else None
+    out, cache, saved = apply_attention(
+        params["attn"], apply_norm(params["ln1"], x, cfg.norm),
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+        use_rope=cfg.use_rope, window=window, cache=cache, pos=pos,
+        phase=phase, block_tables=block_tables if kind == ATTN else None)
+    x = x + out
+    h = apply_norm(params["ln2"], x, cfg.norm)
+    if use_moe:
+        # decode steps are few-token: dropless dispatch keeps speculative
+        # verification exact (no batch-dependent drops)
+        cf = (float("inf") if (cfg.moe_dropless or phase == "decode")
+              else cfg.capacity_factor)
+        f = moe_lib.apply_moe(params["ffn"], h, n_experts=cfg.n_experts,
+                              top_k=cfg.top_k, activation=cfg.activation,
+                              capacity_factor=cf)
+    else:
+        f = apply_mlp(params["ffn"], h, cfg.activation)
+    x = x + f
+    pending = {"saved": saved} if phase == "decode" else {}
+    return x, cache, pending
+
+
+# ---------------------------------------------------------------------------
+# caches
+
+
+def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     device) -> dict:
+    _check_kind(kind)
+    if kind == ATTN:
+        return init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
+                             cfg.torch_dtype, device,
+                             quant=cfg.kv_cache_dtype == "int8")
+    return init_kv_cache(batch, min(cfg.sliding_window, max_len),
+                         cfg.n_kv_heads, cfg.head_dim, cfg.torch_dtype, device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cuda") -> dict:
+    device = resolve_device(device)
+    return {"layers": [init_layer_cache(cfg, cfg.layer_kind(l), batch,
+                                        max_len, device)
+                       for l in range(cfg.n_layers)],
+            "pos": torch.zeros((batch,), dtype=torch.int64, device=device)}
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
+                     block_size: int, max_blocks_per_seq: int,
+                     kv_quant: bool | None = None, device="cuda") -> dict:
+    """Serving cache with paged full-attention KV: each ATTN layer has one
+    ``(num_blocks, block_size, Hkv, d)`` pool addressed through the
+    ``block_tables`` rows (0 = the reserved scratch block); SWA layers
+    keep per-slot rings.  ``kv_quant`` overrides ``cfg.kv_cache_dtype``
+    for the pools."""
+    device = resolve_device(device)
+    quant = (cfg.kv_cache_dtype == "int8") if kv_quant is None else kv_quant
+    layers = []
+    for l in range(cfg.n_layers):
+        kind = cfg.layer_kind(l)
+        if kind == ATTN:
+            layers.append(init_paged_kv_pool(num_blocks, block_size,
+                                             cfg.n_kv_heads, cfg.head_dim,
+                                             cfg.torch_dtype, device,
+                                             quant=quant))
+        else:
+            layers.append(init_layer_cache(cfg, kind, batch,
+                                           max_blocks_per_seq * block_size,
+                                           device))
+    return {"layers": layers,
+            "pos": torch.zeros((batch,), dtype=torch.int64, device=device),
+            "block_tables": torch.zeros((batch, max_blocks_per_seq),
+                                        dtype=torch.int32, device=device)}
+
+
+def admit_sequence_paged(cfg: ModelConfig, cache: dict, prefill: dict,
+                         slot: int, table_row, length: int,
+                         n_shared: int) -> dict:
+    """In place: graft a (B=1) contiguous prefill cache into batch slot
+    ``slot`` of a paged serving cache.  ATTN layers scatter prefill rows
+    [``n_shared * block_size``, ``length``) into the blocks of
+    ``table_row`` (rows of prefix-shared blocks are already in the pool);
+    other layers copy their per-slot state.  Rows are quantized on insert
+    when the pool is int8 and the prefill cache is not."""
+    row = torch.as_tensor(table_row, dtype=torch.int32,
+                          device=cache["block_tables"].device)
+    start = n_shared * _paged_block_size(cache, cfg)
+    for l in range(cfg.n_layers):
+        big, small = cache["layers"][l], prefill["layers"][l]
+        if cfg.layer_kind(l) == ATTN:
+            _paged_insert_layer(big, small, row, start, length)
+        else:
+            for key in big:
+                big[key][slot] = small[key][0].to(big[key].dtype)
+    cache["pos"][slot] = length
+    cache["block_tables"][slot] = row
+    return cache
+
+
+def _paged_block_size(cache: dict, cfg: ModelConfig) -> int:
+    for l in range(cfg.n_layers):
+        if cfg.layer_kind(l) == ATTN:
+            return cache["layers"][l]["k"].shape[1]
+    raise ValueError("paged cache has no full-attention layer")
+
+
+def _paged_insert_layer(pool: dict, prefill: dict, table_row, start: int,
+                        length: int) -> None:
+    """In place: scatter one layer's prefill rows [start, length) into its
+    block pool (``pool`` leaves (NB, BS, H, d), ``prefill`` (1, L, H, d))."""
+    nb, bs = pool["k"].shape[:2]
+    i = torch.arange(start, length, device=table_row.device)
+    idx = paged_row_indices(table_row[None, :], i[None, :], bs)[0]
+
+    def scat(p, rows):
+        p.view((nb * bs,) + p.shape[2:])[idx] = rows.to(p.dtype)
+
+    src = {k: v[0, start:length] for k, v in prefill.items()}
+    if "k_scale" in pool and "k_scale" not in prefill:
+        kq, ks = quantize_rows(src["k"])
+        vq, vs = quantize_rows(src["v"])
+        src = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    for key in pool:
+        scat(pool[key], src[key])
+
+
+def release_slot_paged(cache: dict, slot: int) -> dict:
+    """In place: point a retired slot's table row at the scratch block and
+    rewind its ``pos``, so the still-running fused round can never write
+    into blocks that were freed (and possibly re-granted)."""
+    cache["block_tables"][slot] = 0
+    cache["pos"][slot] = 0
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# forward
+
+
+def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
+                    cache: dict | None = None):
+    """Run the decoder over embedded inputs x (B, S, D): a loop over
+    layers.  Returns (hidden, cache, pendings)."""
+    pos = cache["pos"] if (cache is not None and phase == "decode") else None
+    block_tables = (cache.get("block_tables")
+                    if (cache is not None and phase == "decode") else None)
+    pendings = []
+    for l in range(cfg.n_layers):
+        layer_cache = cache["layers"][l] if cache is not None else None
+        x, _, pend = apply_layer(params["layers"][l], cfg, cfg.layer_kind(l),
+                                 x, layer_cache, pos, phase,
+                                 use_moe=cfg.layer_is_moe(l),
+                                 block_tables=block_tables)
+        pendings.append(pend)
+    return x, cache, pendings
+
+
+def logits_from_hidden(params: dict, cfg: ModelConfig, x):
+    h = apply_norm(params["final_norm"], x, cfg.norm)
+    return unembed(params["embed"], h)
+
+
+def commit_cache(cfg: ModelConfig, cache: dict, pendings, n_commit,
+                 sq: int) -> dict:
+    """Finalize a verify step: keep ``n_commit`` (B,) of the ``sq`` written
+    tokens, restore the ring rows of the rest (in place), and advance
+    ``pos``.  Full-attention rows past ``pos`` are invisible, so they
+    need no undo."""
+    nc = n_commit.long()
+    for l in range(cfg.n_layers):
+        saved = pendings[l].get("saved")
+        if cfg.layer_kind(l) == SWA and saved:
+            restore_rejected_rows(cache["layers"][l], saved, cache["pos"], nc)
+    out = {"layers": cache["layers"], "pos": cache["pos"] + nc}
+    if "block_tables" in cache:
+        out["block_tables"] = cache["block_tables"]
+    return out

@@ -1,0 +1,122 @@
+"""Model parameters: seeded initialization and conversion from JAX.
+
+The port's parameters are plain dicts of tensors::
+
+    {"embed": {"tok": (V, D), "head": (D, V)},
+     "layers": [per-layer dict, one per layer],
+     "final_norm": {"scale": (D,)}}
+
+with each layer ``{"ln1": {"scale"}, "ln2": {"scale"}, "attn": {"wq",
+"wk", "wv", "wo"}, "ffn": {...}}``; a dense FFN holds ``w_gate``/
+``w_up`` (D, F) and ``w_down`` (F, D), an MoE FFN ``router`` (D, E) f32
+and ``w_gate``/``w_up`` (E, D, F), ``w_down`` (E, F, D).  Matrices are
+``(in, out)`` as in the JAX package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ATTN, SWA, ModelConfig, resolve_device
+
+
+def _trunc_normal(shape, std, generator, device, dtype):
+    """Normal(0, std) truncated at +-3 std, drawn in f32 (the JAX
+    package's ``dense_init`` / ``_expert_init``)."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, std=std, a=-3 * std, b=3 * std,
+                                generator=generator)
+    return t.to(dtype)
+
+
+def _dense(d_in, d_out, generator, device, dtype):
+    return _trunc_normal((d_in, d_out), d_in ** -0.5, generator, device,
+                         dtype)
+
+
+def _init_layer(cfg: ModelConfig, kind: str, use_moe: bool, generator,
+                device) -> dict:
+    if kind not in (ATTN, SWA):
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    dt, d, f, hd = cfg.torch_dtype, cfg.d_model, cfg.d_ff, cfg.head_dim
+    ones = lambda: {"scale": torch.ones((d,), dtype=dt, device=device)}
+    p = {"ln1": ones(), "ln2": ones(),
+         "attn": {"wq": _dense(d, cfg.n_heads * hd, generator, device, dt),
+                  "wk": _dense(d, cfg.n_kv_heads * hd, generator, device, dt),
+                  "wv": _dense(d, cfg.n_kv_heads * hd, generator, device, dt),
+                  "wo": _dense(cfg.n_heads * hd, d, generator, device, dt)}}
+    gated = cfg.activation in ("swiglu", "geglu")
+    if use_moe:
+        e = cfg.n_experts
+        ffn = {"router": _dense(d, e, generator, device, torch.float32),
+               "w_up": _trunc_normal((e, d, f), d ** -0.5, generator, device,
+                                     dt),
+               "w_down": _trunc_normal((e, f, d), f ** -0.5, generator,
+                                       device, dt)}
+        if gated:
+            ffn["w_gate"] = _trunc_normal((e, d, f), d ** -0.5, generator,
+                                          device, dt)
+    else:
+        ffn = {"w_up": _dense(d, f, generator, device, dt),
+               "w_down": _dense(f, d, generator, device, dt)}
+        if gated:
+            ffn["w_gate"] = _dense(d, f, generator, device, dt)
+    p["ffn"] = ffn
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda") -> dict:
+    """Random parameters with the JAX package's distributions: truncated
+    normal with std ``d_in**-0.5`` for every matrix (experts included),
+    N(0, 0.02) embeddings, an f32 router, unit norm scales.  Every draw
+    comes from ``generator``, which must live on ``device``.  (The draws
+    differ from ``jax.random``'s; hold the two packages against each
+    other with :func:`from_jax`.)"""
+    device = resolve_device(device)
+    dt = cfg.torch_dtype
+    layers = [_init_layer(cfg, cfg.layer_kind(l), cfg.layer_is_moe(l),
+                          generator, device) for l in range(cfg.n_layers)]
+    embed = {"tok": (torch.randn((cfg.vocab_size, cfg.d_model),
+                                 generator=generator, device=device)
+                     * 0.02).to(dt)}
+    if not cfg.tie_embeddings:
+        embed["head"] = _dense(cfg.d_model, cfg.vocab_size, generator,
+                               device, dt)
+    return {"embed": embed, "layers": layers,
+            "final_norm": {"scale": torch.ones((cfg.d_model,), dtype=dt,
+                                               device=device)}}
+
+
+def _to_torch(a, device) -> torch.Tensor:
+    a = np.array(a)                  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16
+        return (torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+                .to(device))
+    return torch.from_numpy(a).to(device)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """Convert the JAX package's parameter pytree, after
+    ``jax.tree.map(np.asarray, params)``, into the port's structure.
+
+    The JAX ``layers`` entry is a tuple with one dict per
+    ``layer_pattern`` position whose leaves are stacked over layer groups
+    on a leading axis; layer ``l`` is group ``l // P``, position
+    ``l % P`` for a pattern of length P.
+    """
+    device = resolve_device(device)
+    pat = len(cfg.layer_pattern)
+    layers = [_map(lambda a, g=l // pat: _to_torch(np.asarray(a)[g], device),
+                   tree["layers"][l % pat])
+              for l in range(cfg.n_layers)]
+    return {"embed": _map(lambda a: _to_torch(a, device), tree["embed"]),
+            "layers": layers,
+            "final_norm": _map(lambda a: _to_torch(a, device),
+                               tree["final_norm"])}
