@@ -5,24 +5,32 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; imports nothing of JAX.  Phases, each printed
-on its own lines:
+on its own lines with its wall seconds:
 
 1. environment: the card's name and power limit, torch/CUDA versions,
    the kernels' build time (every ``csrc/*.cu``, one nvcc each, in
    parallel);
 2. every kernel against its plain PyTorch version on the card at the
-   cases of tests/test_kernels.py, the serving path's shapes and a
-   stress shape each: max error against the tolerance (f32 2e-5 with
-   TF32 off, bf16 2e-2), kernel time (CUDA events, L2 flushed before
-   each launch), its bound on this card and what sets it, the plain
-   version's time and one library call's time as a yardstick;
-3. serve: Mixtral-8x7B / Mistral-7B widths, 4 layers each, bf16,
-   weights from a seed; ``ServingEngine(max_batch=4, n_cand=4)`` over 12
-   Poisson requests (prompt 512, gen 32-64), with every kernel's launch
-   count read around the run;
-4. lossless: the same widths, 2 layers each, f32, ``max_batch=2``, 6
-   requests with mid-flight admission; every stream must equal the
-   port's own target-only greedy decode;
+   cases of tests/test_kernels.py, the serving paths' shapes and a
+   stress shape each: max error against the tolerance (attention and
+   the FFN f32 2e-5 with TF32 off, bf16 2e-2; ``rglru_scan`` 1e-5;
+   ``wkv6`` 2e-4), kernel time (CUDA events, L2 flushed before each
+   launch), its bound on this card and what sets it, the plain
+   version's time and one library call's time as a yardstick where one
+   PyTorch call computes the same function;
+3. serve, bf16, weights from a seed, ``max_batch=4``, ``n_cand=4``,
+   Poisson requests (prompt 512, gen 32-64), every kernel's launch count
+   read around each run: (a) paged, Mixtral-8x7B / Mistral-7B widths, 4
+   layers each, 12 requests; (b) contiguous (``paged=False``),
+   RWKV-6-7B at full width and depth (32 layers) with a 2-layer
+   Mistral-7B-width draft, 8 requests; (c) contiguous,
+   RecurrentGemma-2B at full width and depth (27 layers), the same kind
+   of draft, 8 requests; (d) contiguous, the widths of (a), 8 requests;
+4. lossless, f32, ``max_batch=2``, 6 requests with mid-flight
+   admission, every stream equal to the port's own target-only greedy
+   decode: Mixtral / Mistral widths (2 layers) paged and contiguous,
+   RWKV-6 widths (2 layers), RecurrentGemma widths (3 layers, one
+   group);
 5. the kernels as one JSON object; 6. the device as one JSON object.
 
 Any failure raises and exits non-zero; so does a machine with no card.
@@ -30,6 +38,7 @@ Any failure raises and exits non-zero; so does a machine with no card.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -44,11 +53,19 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no TF32
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TOL_RGLRU, TOL_WKV6 = 1e-5, 2e-4      # tests/test_kernels.py:153,169-171
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:297",
     "flash_attention": "src/repro/kernels/flash_attention.py:111",
     "moe_ffn": "src/repro/kernels/moe_ffn.py:68",
+    "decode_attention": "src/repro/kernels/decode_attention.py:129",
+    "rglru_scan": "src/repro/kernels/rglru_scan.py:49",
+    "wkv6": "src/repro/kernels/wkv6.py:57",
 }
+# the serving run whose launches each kernel reports (its path)
+PATH_RUN = {"paged_decode_attention": "3a", "flash_attention": "3a",
+            "moe_ffn": "3a", "decode_attention": "3d", "rglru_scan": "3c",
+            "wkv6": "3b"}
 
 
 def _bound(n_bytes: float, n_ops: float, dtype: str):
@@ -95,9 +112,9 @@ class Bench:
         return float(np.median([s.elapsed_time(e) for s, e in ev]))
 
 
-def _check(name, case, got, want, dtype):
+def _check(name, case, got, want, dtype, tol=None):
     import torch
-    tol = TOL[dtype]
+    tol = TOL[dtype] if tol is None else tol
     err = (got.float() - want.float()).abs()
     ok = bool((err <= tol + tol * want.float().abs()).all())
     bad = int(torch.isnan(got.float()).sum())
@@ -125,10 +142,13 @@ def kernel_cases(bench) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_ffn as mf
     from repro_torch.kernels import paged_decode_attention as pd
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import wkv6 as wk
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -180,6 +200,9 @@ def kernel_cases(bench) -> dict:
     main["flash_attention"] = flash_case("prefill s512 (serve path)", 1, 32, 8,
                                          512, 128, True, None, torch.bfloat16)
     flash_case("stress s4096", 1, 32, 8, 4096, 128, True, None, torch.bfloat16)
+    for dt in (torch.float32, torch.bfloat16):    # RecurrentGemma SWA prefill
+        flash_case("d256 mqa s512 w2048 (rg prefill)", 1, 10, 1, 512, 256,
+                   True, 2048, dt)
 
     # -- paged decode attention --------------------------------------------
     def paged_case(label, b, hq, hkv, m, bs, d, lengths, dt, quant=False,
@@ -292,6 +315,119 @@ def kernel_cases(bench) -> dict:
                                torch.bfloat16)
     moe_case("prefill c257 (serve path)", 8, 257, 4096, 14336, torch.bfloat16)
     torch.cuda.empty_cache()
+
+    # -- contiguous decode attention ----------------------------------------
+    def decode_case(label, b, hq, hkv, m, s, d, lengths, dt, window=None,
+                    anc=None):
+        """The cache is made (B, S, Hkv, d), as the model keeps it, and
+        handed over as a transposed view."""
+        dname = str(dt).split(".")[1]
+        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+        q = rn(b, hq, m, d, dt=dt)
+        k = rn(b, s, hkv, d, dt=dt).transpose(1, 2)
+        v = rn(b, s, hkv, d, dt=dt).transpose(1, 2)
+        ab = None if anc is None else torch.as_tensor(anc, dtype=torch.int32,
+                                                      device=dev)
+        amask = None if ab is None else ref.anc_mask_from_bits(ab, m)
+        call = lambda: da.decode_attention(q, k, v, lengths, window=window,
+                                           anc_bits=ab)
+        plain = lambda: ref.decode_attention_ref(q, k, v, lengths,
+                                                 window=window,
+                                                 anc_mask=amask)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        err = _check("decode_attention", label, got, want, dname)
+        kpos = torch.arange(s, device=dev)[None, None, :]
+        qpos = (lengths.long()[:, None, None] - m
+                + torch.arange(m, device=dev)[None, :, None])
+        vis = (kpos <= qpos) & (kpos < lengths.long()[:, None, None])
+        if window is not None:
+            vis &= kpos > qpos - window
+        if ab is not None:
+            col = kpos - (lengths.long()[:, None, None] - m)
+            bit = (ab.long()[None, :, None] >> col.clamp(0, 31)) & 1
+            vis = (col < 0) | ((col >= 0)
+                               & (kpos < lengths.long()[:, None, None])
+                               & (bit > 0))
+        rows_read = float(lengths.clamp(max=s).sum())
+        bound = _bound(2.0 * hkv * d * k.element_size() * rows_read
+                       + _nbytes(q, got, lengths),
+                       4.0 * hq * d * float(vis.sum()), dname)
+        ke = k.repeat_interleave(hq // hkv, 1).contiguous()
+        ve = v.repeat_interleave(hq // hkv, 1).contiguous()
+        lib = lambda: F.scaled_dot_product_attention(q, ke, ve,
+                                                     attn_mask=vis[:, None])
+        r = (err, bench.ms(call), bound, bench.ms(plain), bench.ms(lib))
+        _report("decode_attention", label, dname, *r)
+        return r
+
+    for dt in (torch.float32, torch.bfloat16):
+        for b, hq, hkv, m, s, d, window in [
+                (2, 4, 2, 1, 256, 64, None), (2, 4, 2, 5, 256, 64, None),
+                (1, 8, 1, 4, 512, 128, None), (2, 2, 2, 3, 300, 64, None),
+                (1, 4, 2, 4, 256, 64, 64)]:
+            lens = rng.integers(m + 8, s + 1, b)
+            decode_case(f"b{b} hq{hq} hkv{hkv} m{m} s{s} d{d} w{window}", b,
+                        hq, hkv, m, s, d, lens, dt, window=window)
+        decode_case("tree anc_bits m4", 2, 4, 2, 4, 128, 64, [37, 50], dt,
+                    anc=[1, 3, 5, 11])
+        decode_case("d256 mqa m5", 2, 10, 1, 5, 640, 256, [300, 640], dt)
+    decode_case("verify f32 (lossless phase)", 2, 32, 8, 5, 640, 128,
+                main_lens[:2], torch.float32)
+    main["decode_attention"] = decode_case(
+        "verify b4 m5 s640 (serve path)", 4, 32, 8, 5, 640, 128, main_lens,
+        torch.bfloat16)
+    decode_case("stress b8 S32768 m5", 8, 32, 8, 5, 32768, 128, [32768] * 8,
+                torch.bfloat16)
+    torch.cuda.empty_cache()
+
+    # -- RG-LRU scan ----------------------------------------------------------
+    def rglru_case(label, b, s, w):
+        a = torch.sigmoid(rn(b, s, w))
+        g, h0 = rn(b, s, w), rn(b, w)
+        call = lambda: rg.rglru_scan(a, g, h0)
+        plain = lambda: ref.rglru_scan_ref(a, g, h0)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        err = _check("rglru_scan", label, got, want, "float32", TOL_RGLRU)
+        bound = _bound(_nbytes(a, g, h0, got), 2.0 * b * s * w, "float32")
+        r = (err, bench.ms(call), bound, bench.ms(plain), None)
+        _report("rglru_scan", label, "float32", *r)
+        return r
+
+    for b, s, w in [(2, 64, 256), (1, 128, 100), (4, 32, 512)]:
+        rglru_case(f"b{b} s{s} w{w}", b, s, w)
+    main["rglru_scan"] = rglru_case("verify b4 s5 w2560 (serve path)", 4, 5,
+                                    2560)
+    rglru_case("prefill b1 s512 w2560 (serve path)", 1, 512, 2560)
+    rglru_case("stress b8 s4096 w2560", 8, 4096, 2560)
+
+    # -- WKV-6 ----------------------------------------------------------------
+    def wkv6_case(label, b, h, s, hd, stack):
+        """r/k/v/w as the model hands them over: (B, S, H, hd) transposed."""
+        r, k, v = (rn(b, s, h, hd).transpose(1, 2) for _ in range(3))
+        w = torch.sigmoid(rn(b, s, h, hd)).transpose(1, 2)
+        u, s0 = rn(h, hd) * 0.1, rn(b, h, hd, hd) * 0.1
+        call = lambda: wk.wkv6(r, k, v, w, u, s0, stack=stack)
+        plain = lambda: ref.wkv6_ref(r, k, v, w, u, s0, stack=stack)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        err = max(_check("wkv6", label + f" out{i}", x, y, "float32",
+                         TOL_WKV6) for i, (x, y) in enumerate(zip(got, want)))
+        bound = _bound(_nbytes(r, k, v, w, u, s0, *got[:1], *got[2:])
+                       + (0 if stack else _nbytes(got[1])),
+                       6.0 * b * h * s * hd * hd, "float32")
+        r_ = (err, bench.ms(call), bound, bench.ms(plain), None)
+        _report("wkv6", label, "float32", *r_)
+        return r_
+
+    for b, h, s, hd in [(1, 2, 32, 64), (2, 4, 16, 64), (1, 1, 64, 128)]:
+        wkv6_case(f"b{b} h{h} s{s} hd{hd}", b, h, s, hd, False)
+    main["wkv6"] = wkv6_case("verify+stack b4 h64 s5 (serve path)", 4, 64, 5,
+                             64, True)
+    wkv6_case("prefill b1 h64 s512 (serve path)", 1, 64, 512, 64, False)
+    wkv6_case("stress b8 h64 s2048", 8, 64, 2048, 64, False)
+    torch.cuda.empty_cache()
     return main
 
 
@@ -310,21 +446,40 @@ def _engine(tcfg, dcfg, config, seed):
     return eng
 
 
-def serve_phase() -> dict:
+def _free() -> None:
+    """Give the memory of a run's dropped engine and weights back to the
+    card before the next run allocates."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _draft_for(tcfg, n_layers):
+    """The Mistral-7B-width draft of a target, with the target's vocab
+    (the pairing of repro/launch/serve.py:160-161)."""
+    from repro_torch.configs import MISTRAL_7B
+    return dataclasses.replace(MISTRAL_7B, n_layers=n_layers,
+                               vocab_size=tcfg.vocab_size, dtype=tcfg.dtype)
+
+
+def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
+              must_not_launch=()) -> dict:
+    """Serve ``n_requests`` Poisson requests (prompt 512, gen 32-64) with
+    ``max_batch=4``, ``n_cand=4``; every kernel's launches are counted
+    from 0 over the run.  Returns {kernel: launches}."""
     import torch
 
-    from repro_torch.configs import MISTRAL_7B, MIXTRAL_8X7B
     from repro_torch.kernels import reset_launches, wrappers
     from repro_torch.serving.engine import SchedulerConfig, latency_percentiles
     from repro_torch.serving.trace import poisson_requests
 
-    tcfg = dataclasses.replace(MIXTRAL_8X7B, n_layers=4)
-    dcfg = dataclasses.replace(MISTRAL_7B, n_layers=4)
-    eng = _engine(tcfg, dcfg, SchedulerConfig(max_batch=4, n_cand=4), seed=0)
+    t_run = time.perf_counter()
+    eng = _engine(tcfg, dcfg, SchedulerConfig(max_batch=4, n_cand=4,
+                                              paged=paged), seed=0)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, tcfg.vocab_size, 512).astype(np.int32)
-               for _ in range(12)]
-    gens = rng.integers(32, 65, 12).tolist()
+               for _ in range(n_requests)]
+    gens = rng.integers(32, 65, n_requests).tolist()
     reqs = poisson_requests(prompts, gens, rate_rps=4.0, seed=0)
     for r in reqs:
         assert eng.submit(r), f"request {r.rid} rejected"
@@ -339,50 +494,74 @@ def serve_phase() -> dict:
     st = eng.stats()
     fused = eng.engine.pipeline(4).trace_counts["fused"]
     ttft = latency_percentiles(done, "ttft_s")
-    print(f"  served {len(done)} requests, {st['tokens_out']} tokens in "
+    print(f"  [{label}] {tcfg.name} {tcfg.n_layers} layers / draft "
+          f"{dcfg.n_layers} layers, {'paged' if paged else 'contiguous'}: "
+          f"served {len(done)} requests, {st['tokens_out']} tokens in "
           f"{wall:.3f}s wall: {st['tok_per_s']:.2f} tok/s over "
           f"{st['rounds']} rounds, occupancy {st['mean_occupancy']:.3f}")
-    print(f"  round p50={1e3 * st['round_s_p50']:.2f}ms "
+    print(f"  [{label}] round p50={1e3 * st['round_s_p50']:.2f}ms "
           f"p95={1e3 * st['round_s_p95']:.2f}ms  ttft p50={ttft['p50']:.3f}s "
           f"p95={ttft['p95']:.3f}s (virtual clock)  acceptance="
           f"{st['acceptance']:.4f}")
-    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
-          f"  fused shape signatures={fused}  launches={launches}")
+    print(f"  [{label}] peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  fused shape "
+          f"signatures={fused}  launches={launches}")
     assert len(done) == len(reqs), "not every request finished"
     for r in reqs:
         assert r.result is not None and len(r.result) == r.max_new_tokens
         assert ((r.result >= 0) & (r.result < tcfg.vocab_size)).all()
     assert fused == 1, f"fused round ran at {fused} shape signatures"
-    for name, n in launches.items():
-        assert n > 0, f"{name} was never launched on the serving path"
-    del eng
-    torch.cuda.empty_cache()
+    for name in must_launch:
+        assert launches[name] > 0, f"{name} was never launched in run {label}"
+    for name in must_not_launch:
+        assert launches[name] == 0, f"{name} was launched in run {label}"
+    n_prefills = len(reqs) + (0 if paged else 2)    # + the parked dummies
+    print(f"  [{label}] {n_prefills} prefills, {st['rounds']} rounds; "
+          f"run wall {time.perf_counter() - t_run:.1f}s", flush=True)
+    del eng, done
+    _free()
     return launches
 
 
-def lossless_phase() -> None:
+def serve_phase() -> dict:
+    """Runs 3a-3d; returns {run label: launches}."""
+    from repro_torch.configs import (MISTRAL_7B, MIXTRAL_8X7B,
+                                     RECURRENTGEMMA_2B, RWKV6_7B, SWA)
+
+    mix = dataclasses.replace(MIXTRAL_8X7B, n_layers=4)
+    mis = dataclasses.replace(MISTRAL_7B, n_layers=4)
+    runs = {"3a": serve_run("3a", mix, mis, True, 12,
+                            ("paged_decode_attention", "flash_attention",
+                             "moe_ffn"))}
+    rw_draft = _draft_for(RWKV6_7B, 2)
+    runs["3b"] = serve_run("3b", RWKV6_7B, rw_draft, False, 8,
+                           ("wkv6", "flash_attention"))
+    # RWKV has no attention: every flash launch is the draft's prefill
+    assert runs["3b"]["flash_attention"] == 2 * (8 + 2)
+    rg_draft = _draft_for(RECURRENTGEMMA_2B, 2)
+    runs["3c"] = serve_run("3c", RECURRENTGEMMA_2B, rg_draft, False, 8,
+                           ("rglru_scan", "flash_attention"))
+    # one flash launch per attention layer per prefill (8 requests + the 2
+    # parked dummies): the target's SWA layers run it at head dim 256
+    n_swa = sum(RECURRENTGEMMA_2B.layer_kind(l) == SWA
+                for l in range(RECURRENTGEMMA_2B.n_layers))
+    assert runs["3c"]["flash_attention"] == (n_swa + 2) * (8 + 2)
+    print(f"  [3c] flash launches at head dim 256 (target SWA prefill): "
+          f"{n_swa * (8 + 2)} of {runs['3c']['flash_attention']}")
+    runs["3d"] = serve_run("3d", mix, mis, False, 8,
+                           ("decode_attention", "flash_attention", "moe_ffn"),
+                           ("paged_decode_attention",))
+    return runs
+
+
+def _greedy_check(label, tp, tcfg, reqs) -> None:
+    """Every served stream equals the port's own target-only greedy
+    decode; on a mismatch name the first divergent position and the
+    top-2 logit gap there."""
     import torch
 
-    from repro_torch.configs import MISTRAL_7B, MIXTRAL_8X7B
     from repro_torch.models import model as M
     from repro_torch.models.transformer import init_cache
-    from repro_torch.serving.engine import SchedulerConfig
-    from repro_torch.serving.trace import poisson_requests
-
-    tcfg = dataclasses.replace(MIXTRAL_8X7B, n_layers=2, dtype="float32")
-    dcfg = dataclasses.replace(MISTRAL_7B, n_layers=2, dtype="float32")
-    eng = _engine(tcfg, dcfg, SchedulerConfig(max_batch=2, n_cand=4), seed=1)
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, tcfg.vocab_size, int(n)).astype(np.int32)
-               for n in rng.integers(40, 130, 6)]
-    gens = rng.integers(16, 33, 6).tolist()
-    reqs = poisson_requests(prompts, gens, rate_rps=20.0, seed=1)
-    for r in reqs:
-        assert eng.submit(r)
-    done = eng.run()
-    assert len(done) == len(reqs)
-    assert any(r.queue_s > 0 for r in reqs), "no mid-flight admission"
-    tp = eng.engine.tp
     for r in reqs:
         steps = r.max_new_tokens
         cache = init_cache(tcfg, 1, len(r.prompt) + steps + 1, "cuda")
@@ -399,16 +578,64 @@ def lossless_phase() -> None:
         if not np.array_equal(ref_toks, r.result):
             i = int(np.nonzero(ref_toks != r.result)[0][0])
             raise AssertionError(
-                f"request {r.rid}: served stream diverges from greedy decode "
-                f"at position {i} (served {r.result[i]}, greedy "
-                f"{ref_toks[i]}, top-2 logit gap there {gaps[i]:.3e})")
-        print(f"  request {r.rid}: prompt {len(r.prompt)}, {steps} tokens "
-              f"identical to greedy decode (min top-2 gap "
+                f"[{label}] request {r.rid}: served stream diverges from "
+                f"greedy decode at position {i} (served {r.result[i]}, "
+                f"greedy {ref_toks[i]}, top-2 logit gap there {gaps[i]:.3e})")
+        print(f"  [{label}] request {r.rid}: prompt {len(r.prompt)}, {steps} "
+              f"tokens identical to greedy decode (min top-2 gap "
               f"{min(gaps):.3e})")
-    print(f"  fused shape signatures="
-          f"{eng.engine.pipeline(4).trace_counts['fused']}")
-    del eng, tp
-    torch.cuda.empty_cache()
+
+
+def lossless_run(label, tcfg, dcfg, paged, must_launch) -> None:
+    import torch
+
+    from repro_torch.kernels import reset_launches, wrappers
+    from repro_torch.serving.engine import SchedulerConfig
+    from repro_torch.serving.trace import poisson_requests
+
+    t_run = time.perf_counter()
+    eng = _engine(tcfg, dcfg, SchedulerConfig(max_batch=2, n_cand=4,
+                                              paged=paged), seed=1)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, tcfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(40, 130, 6)]
+    gens = rng.integers(16, 33, 6).tolist()
+    reqs = poisson_requests(prompts, gens, rate_rps=20.0, seed=1)
+    for r in reqs:
+        assert eng.submit(r)
+    done = eng.run()
+    assert len(done) == len(reqs)
+    assert any(r.queue_s > 0 for r in reqs), "no mid-flight admission"
+    fused = eng.engine.pipeline(4).trace_counts["fused"]
+    assert fused == 1, f"fused round ran at {fused} shape signatures"
+    reset_launches()
+    _greedy_check(label, eng.engine.tp, tcfg, reqs)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in wrappers()}
+    for name in must_launch:           # the greedy decode ran the kernels
+        assert launches[name] > 0, f"[{label}] greedy decode skipped {name}"
+    print(f"  [{label}] {tcfg.name} {tcfg.n_layers} layers, "
+          f"{'paged' if paged else 'contiguous'}: fused shape "
+          f"signatures={fused}; greedy decode launches={launches}; run wall "
+          f"{time.perf_counter() - t_run:.1f}s", flush=True)
+    del eng, done
+    _free()
+
+
+def lossless_phase() -> None:
+    from repro_torch.configs import (MISTRAL_7B, MIXTRAL_8X7B,
+                                     RECURRENTGEMMA_2B, RWKV6_7B)
+    f32 = lambda c, n: dataclasses.replace(c, n_layers=n, dtype="float32")
+    mix, mis = f32(MIXTRAL_8X7B, 2), f32(MISTRAL_7B, 2)
+    lossless_run("4a", mix, mis, True, ("flash_attention", "decode_attention",
+                                        "moe_ffn"))
+    lossless_run("4b", mix, mis, False, ("flash_attention",
+                                         "decode_attention", "moe_ffn"))
+    rw = f32(RWKV6_7B, 2)
+    lossless_run("4c", rw, _draft_for(rw, 2), False, ("wkv6",))
+    rgc = f32(RECURRENTGEMMA_2B, 3)
+    lossless_run("4d", rgc, _draft_for(rgc, 2), False,
+                 ("rglru_scan", "flash_attention"))
 
 
 # ---------------------------------------------------------------------------
@@ -426,6 +653,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
+    t_all = time.perf_counter()
     print("== 1. environment")
     print(smi)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -437,20 +665,30 @@ def main() -> int:
           + ", ".join(f"{k}={v:.2f}" for k, v in per_source.items()) + ")",
           flush=True)
 
+    phases = {}
+    t0 = time.perf_counter()
     print("== 2. kernels against their plain versions")
     main_cases = kernel_cases(Bench(torch))
-    print("== 3. serve (full widths, 4 layers each, bf16)", flush=True)
-    launches = serve_phase()
-    print("== 4. lossless (full widths, 2 layers each, f32)", flush=True)
+    phases["2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    print("== 3. serve (bf16, weights from a seed)", flush=True)
+    runs = serve_phase()
+    phases["3"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    print("== 4. lossless (f32)", flush=True)
     lossless_phase()
+    phases["4"] = time.perf_counter() - t0
+    print("  phase wall seconds: " + ", ".join(
+        f"{k}={v:.1f}" for k, v in phases.items())
+        + f", total {time.perf_counter() - t_all:.1f}")
 
     kernels = []
-    for name in ("paged_decode_attention", "flash_attention", "moe_ffn"):
+    for name, run in PATH_RUN.items():
         err, ms, (bound_ms, bound_by), plain_ms, lib_ms = main_cases[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{name}.cu",
                         "replaces": REPLACES[name],
-                        "launches": launches[name], "max_abs_err": err,
+                        "launches": runs[run][name], "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": lib_ms})
     print("== 5. kernels")

@@ -2,8 +2,9 @@
 
 A copy of the JAX package's ``repro.configs.base`` (the port imports
 nothing of that package): the frozen :class:`ModelConfig`, the layer
-kinds, and the two configurations the serving path runs — the Mixtral
-8x7B target and the Mistral 7B draft.  ``reduced()`` gives the same
+kinds, and the configurations the serving paths run — the Mixtral 8x7B
+target and the Mistral 7B draft, and the RecurrentGemma-2B and RWKV-6
+7B targets of the contiguous path.  ``reduced()`` gives the same
 smoke-size variants, so a test can build one config for both packages
 from the same fields.
 """
@@ -166,7 +167,32 @@ MISTRAL_7B = ModelConfig(
     source="arXiv:2310.06825",
 )
 
-CONFIGS = {c.name: c for c in (MIXTRAL_8X7B, MISTRAL_7B)}
+# Recurrent targets (served on the contiguous path, ``paged=False``).
+RECURRENTGEMMA_2B = ModelConfig(
+    name="recurrentgemma-2b", arch_type="hybrid",
+    n_layers=26 + 1, d_model=2560, n_heads=10, n_kv_heads=1,
+    d_ff=7680, vocab_size=256_000,
+    layer_pattern=(RGLRU, RGLRU, SWA), sliding_window=2048,
+    rnn_width=2560, conv_width=4,
+    head_dim=256, tie_embeddings=True,
+    supports_long_context=True,
+    source="arXiv:2402.19427",
+)
+# The model card has 26 layers; the (RG-LRU, RG-LRU, SWA) pattern needs a
+# multiple of 3, so the repo runs 27 (9 groups): one layer more.
+
+RWKV6_7B = ModelConfig(
+    name="rwkv6-7b", arch_type="ssm",
+    n_layers=32, d_model=4096, n_heads=0, n_kv_heads=0,
+    d_ff=14336, vocab_size=65536,
+    layer_pattern=(RWKV,), rwkv_head_size=64,
+    head_dim=64,  # informational; attention-free
+    supports_long_context=True,
+    source="arXiv:2404.05892",
+)
+
+CONFIGS = {c.name: c for c in (MIXTRAL_8X7B, MISTRAL_7B, RECURRENTGEMMA_2B,
+                               RWKV6_7B)}
 
 
 def get_config(name: str) -> ModelConfig:

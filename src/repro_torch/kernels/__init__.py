@@ -6,10 +6,14 @@ on CPU tensors.  Each wrapper function counts its kernel launches in its
 
 
 def wrappers() -> tuple:
-    """The three kernel wrapper functions, in path order."""
-    from repro_torch.kernels import (flash_attention as fa, moe_ffn as mf,
-                                     paged_decode_attention as pd)
-    return (pd.paged_decode_attention, fa.flash_attention, mf.moe_ffn)
+    """The six kernel wrapper functions: the paged path's three, then the
+    contiguous path's."""
+    from repro_torch.kernels import (decode_attention as da,
+                                     flash_attention as fa, moe_ffn as mf,
+                                     paged_decode_attention as pd,
+                                     rglru_scan as rg, wkv6 as wk)
+    return (pd.paged_decode_attention, fa.flash_attention, mf.moe_ffn,
+            da.decode_attention, rg.rglru_scan, wk.wkv6)
 
 
 def reset_launches() -> None:

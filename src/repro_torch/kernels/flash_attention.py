@@ -16,7 +16,7 @@ from repro_torch.kernels import _build, ref
 
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
          + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def flash_attention(q, k, v, *, scale=None, causal=True, window=None):

@@ -13,10 +13,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.decode_attention import max_rows
 
 _ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-MAX_ROWS = 128          # g * m query rows one CTA holds
 HEAD_DIMS = (64, 128, 256)
 
 
@@ -65,8 +65,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
             v_scale=v_scale, scale=scale, anc_bits=anc_bits)
 
     _build.require(d in HEAD_DIMS, f"head dim must be one of {HEAD_DIMS}")
-    _build.require((hq // hkv) * m <= MAX_ROWS,
-                   f"g * m must be <= {MAX_ROWS}")
+    _build.require((hq // hkv) * m <= max_rows(d),
+                   f"g * m must be <= {max_rows(d)} at head dim {d}")
     _build.require(block_tables.dtype == torch.int32
                    and lengths.dtype == torch.int32,
                    "block_tables and lengths must be int32")

@@ -127,3 +127,33 @@ def moe_ffn_ref(buf, w_gate, w_up, w_down, *, activation="swiglu"):
     h = ffn_act(torch.bmm(buff, w_gate.float()), activation)
     h = h * torch.bmm(buff, w_up.float())
     return torch.bmm(h, w_down.float()).to(buf.dtype)
+
+
+def rglru_scan_ref(a, gated, h0):
+    """a/gated (B,S,W) f32, h0 (B,W) f32 -> h_all (B,S,W): the state
+    ``h_t = a_t * h_{t-1} + g_t`` after every step."""
+    h, out = h0, []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + gated[:, t]
+        out.append(h)
+    return torch.stack(out, dim=1)
+
+
+def wkv6_ref(r, k, v, w, u, s0, *, stack: bool = False):
+    """r/k/v/w (B,H,S,hd) f32; u (H,hd); s0 (B,H,hd,hd) f32.  Per head
+    ``y_t = r_t (S + u k_t v_t^T)``, then ``S <- diag(w_t) S + k_t v_t^T``.
+    Returns (y (B,H,S,hd), s_final (B,H,hd,hd)); with ``stack`` also every
+    state (B,S+1,H,hd,hd), index t being the state after t steps."""
+    states, ys = [s0], []
+    s = s0
+    for t in range(r.shape[2]):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]          # (B,H,hd,hd)
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, :, t],
+                               s + u[None, :, :, None] * kv))
+        s = w[:, :, t, :, None] * s + kv
+        if stack:
+            states.append(s)
+    y = torch.stack(ys, dim=2)
+    if stack:
+        return y, s, torch.stack(states, dim=1)
+    return y, s

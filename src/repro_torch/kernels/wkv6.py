@@ -1,0 +1,70 @@
+"""RWKV-6 WKV recurrence: wrapper of ``csrc/wkv6.cu``.
+
+Replaces the TPU kernel ``repro/kernels/wkv6.py::wkv6``.  On CPU tensors
+it returns the plain version (:func:`repro_torch.kernels.ref.wkv6_ref`);
+on CUDA tensors it launches the kernel or raises.  ``launches`` counts
+kernel launches.  The kernel is bound by bytes (see the source's note).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+         + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+HEAD_DIMS = (64, 128)
+
+
+def _strides(t) -> tuple:
+    """Strides of the axes that are longer than 1 (the only ones that
+    address anything)."""
+    return tuple(st for st, n in zip(t.stride(), t.shape) if n > 1)
+
+
+def wkv6(r, k, v, w, u, s0, *, stack: bool = False):
+    """r/k/v/w (B, H, S, hd) f32; u (H, hd) f32; s0 (B, H, hd, hd) f32.
+
+    Returns (y (B, H, S, hd), s_final (B, H, hd, hd)); with ``stack`` also
+    every state (B, S+1, H, hd, hd), index t the state after t steps (the
+    rollback stack of speculative verify).  r/k/v/w may be strided views
+    (a transposed (B, S, H, hd) tensor) as long as they share their
+    strides and their last dimension is contiguous.
+    """
+    _build.require(r.dim() == 4 and all(t.shape == r.shape
+                                        for t in (k, v, w)),
+                   "r/k/v/w must be (B, H, S, hd) of one shape")
+    b, h, s, hd = r.shape
+    _build.require(u.shape == (h, hd) and s0.shape == (b, h, hd, hd),
+                   "u must be (H, hd) and s0 (B, H, hd, hd)")
+    _build.require(all(t.dtype == torch.float32 for t in (r, k, v, w, u, s0)),
+                   "wkv6 takes float32 tensors")
+    if not _build.use_kernel(r, k, v, w, u, s0):
+        return ref.wkv6_ref(r, k, v, w, u, s0, stack=stack)
+
+    _build.require(hd in HEAD_DIMS, f"head size must be one of {HEAD_DIMS}")
+    _build.require(all(_strides(t) == _strides(r) for t in (k, v, w))
+                   and r.stride(3) == 1,
+                   "r/k/v/w must share strides with a contiguous last dim")
+    _build.check_contiguous(u=u, s0=s0)
+    fn = _build.bind("wkv6", "wkv6", _ARGS)
+    y = torch.empty((b, h, s, hd), dtype=torch.float32, device=r.device)
+    states = (torch.empty((b, s + 1, h, hd, hd), dtype=torch.float32,
+                          device=r.device) if stack else None)
+    s_fin = (None if stack else
+             torch.empty((b, h, hd, hd), dtype=torch.float32,
+                         device=r.device))
+    rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), s0.data_ptr(), y.data_ptr(), _build.ptr(s_fin),
+            _build.ptr(states), b, h, s, hd, r.stride(0), r.stride(1),
+            r.stride(2), _build.stream_ptr(r))
+    _build.check(rc, "wkv6")
+    wkv6.launches += 1
+    if stack:
+        return y, states[:, -1], states
+    return y, s_fin
+
+
+wkv6.launches = 0

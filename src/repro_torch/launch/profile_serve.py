@@ -1,17 +1,21 @@
 """Where a serving round spends its time on the card.
 
-    python -m repro_torch.launch.profile_serve [--layers 4] [--rounds 20]
+    python -m repro_torch.launch.profile_serve [--arch mixtral-8x7b]
+        [--layers 4] [--draft-layers N] [--contiguous] [--rounds 20]
 
-Builds the serving configuration of ``chip_smoke.py``'s serve phase
-(Mixtral-8x7B target / Mistral-7B draft widths, ``--layers`` layers each,
-bf16, weights from a seed, ``max_batch=4``, ``n_cand=4``), fills every
-slot with 512-token prompts, runs ``--warmup`` scheduler steps, then
-traces ``--rounds`` steady-state steps (no admissions) with
+Builds a serving configuration of ``chip_smoke.py``'s serve phase
+(``--arch`` target — Mixtral-8x7B by default, or RWKV-6-7B or
+RecurrentGemma-2B — with ``--layers`` layers, 0 for the full depth, and
+a Mistral-7B-width draft of ``--draft-layers`` layers with the target's
+vocabulary; bf16, weights from a seed, ``max_batch=4``, ``n_cand=4``,
+paged KV unless ``--contiguous``, which the recurrent targets need),
+fills every slot with 512-token prompts, runs ``--warmup`` scheduler
+steps, then traces ``--rounds`` steady-state steps (no admissions) with
 ``torch.profiler``.  The wall time per round is taken over ``--rounds``
 untraced steps first (the profiler slows the host); then it prints the
 device time per round over the traced steps, the device's idle share
 (one minus device time over untraced wall time), and the device time by
-kernel and by group (the port's three kernels, cuBLAS products, the
+kernel and by group (the port's six kernels, cuBLAS products, the
 rest).  ``--trace PATH`` also writes the Chrome trace.  Needs a CUDA
 card.
 """
@@ -26,13 +30,16 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import MISTRAL_7B, MIXTRAL_8X7B
+from repro_torch.configs import MISTRAL_7B, get_config
 from repro_torch.params import init_params
 from repro_torch.serving.engine import SchedulerConfig, ServingEngine
 from repro_torch.serving.trace import poisson_requests
 
 GROUPS = (("moe_ffn kernels", r"grouped_gemm_kernel"),
           ("paged_decode_attention kernel", r"paged_decode_kernel"),
+          ("decode_attention kernel", r"decode_kernel"),
+          ("rglru_scan kernel", r"rglru_scan_kernel"),
+          ("wkv6 kernel", r"wkv6_kernel"),
           ("flash_attention kernel", r"flash_fwd_kernel"),
           ("cuBLAS products", r"gemm|gemv|cutlass|xmma|cublas|nvjet|sm90_"),
           ("everything else", r""))
@@ -47,17 +54,28 @@ def _device_us(evt) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--arch", default="mixtral-8x7b")
+    ap.add_argument("--layers", type=int, default=4,
+                    help="target layers (0: the configuration's depth)")
+    ap.add_argument("--draft-layers", type=int, default=None,
+                    help="draft layers (default: --layers)")
+    ap.add_argument("--contiguous", action="store_true",
+                    help="contiguous KV (paged=False) instead of paged")
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--trace", default=None,
                     help="write the Chrome trace of the traced steps here")
     args = ap.parse_args(argv)
 
-    tcfg = dataclasses.replace(MIXTRAL_8X7B, n_layers=args.layers)
-    dcfg = dataclasses.replace(MISTRAL_7B, n_layers=args.layers)
+    tcfg = get_config(args.arch)
+    if args.layers:
+        tcfg = dataclasses.replace(tcfg, n_layers=args.layers)
+    dcfg = dataclasses.replace(
+        MISTRAL_7B, n_layers=args.draft_layers or args.layers or 2,
+        vocab_size=tcfg.vocab_size)
     eng = ServingEngine(tcfg, dcfg, device="cuda",
-                        config=SchedulerConfig(max_batch=4, n_cand=4))
+                        config=SchedulerConfig(max_batch=4, n_cand=4,
+                                               paged=not args.contiguous))
     g = torch.Generator(device="cuda").manual_seed(0)
     eng.load(init_params(tcfg, g, "cuda"), init_params(dcfg, g, "cuda"))
     rng = np.random.default_rng(0)
@@ -84,8 +102,10 @@ def main(argv=None):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = {e.key: _device_us(e) / 1e3 / args.rounds for e in kernels}
     busy = sum(dev_ms.values())
-    print(f"{torch.cuda.get_device_name(0)}: {args.layers} layers each, "
-          f"{args.rounds} steady-state rounds")
+    print(f"{torch.cuda.get_device_name(0)}: {tcfg.name} {tcfg.n_layers} "
+          f"layers, draft {dcfg.n_layers} layers, "
+          f"{'contiguous' if args.contiguous else 'paged'}, {args.rounds} "
+          f"steady-state rounds")
     print(f"wall {wall_ms:.3f} ms/round, device {busy:.3f} ms/round, "
           f"device idle share {1 - busy / wall_ms:.3f}")
     left = dict(dev_ms)

@@ -8,12 +8,14 @@ pool ``(NB, BS, Hkv, d)``.
 KV caches are updated **in place**: every write helper mutates the
 cache tensors it is given and returns the same dict.
 
-On CUDA tensors prefill runs the flash-attention kernel and paged verify
-the paged-decode kernel; on CPU tensors they run the plain paths the JAX
+On CUDA tensors prefill runs the flash-attention kernel, paged verify the
+paged-decode kernel and verify over a contiguous, non-ring cache the
+decode-attention kernel; on CPU tensors they run the plain paths the JAX
 package runs off the TPU (``attention_chunked``; ``paged_gather`` +
-``attention_direct``).  A CUDA tensor never reaches a plain version of a
-kernel.  The ring-buffer decode of sliding-window layers has no TPU
-kernel and stays plain PyTorch on both devices.
+``attention_direct``; ``attention_direct``).  A CUDA tensor never
+reaches a plain version of a kernel.  The ring-buffer decode of
+sliding-window layers has no TPU kernel and stays plain PyTorch on both
+devices.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_decode_attention as _pd
 from repro_torch.kernels.ref import NEG_INF, gather_paged_kv_ref
@@ -362,12 +365,22 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
                 _write_cache(cache, k, v, pos, window if ring else None)
                 k_read = cache["k"].to(q.dtype)
                 v_read = cache["v"].to(q.dtype)
-            if ring:
-                kv_positions = ring_slot_positions(n_slots, pos + sq, n_slots)
+            if x.is_cuda and not ring:
+                # slot index = logical position: the kernel reads the
+                # (B, S, Hkv, d) cache through a transposed view
+                out = _da.decode_attention(
+                    q.transpose(1, 2).contiguous(), k_read.transpose(1, 2),
+                    v_read.transpose(1, 2), (pos + sq).to(torch.int32),
+                    scale=scale, window=window)
+                out = out.transpose(1, 2).reshape(b, sq, -1)
             else:
-                kv_positions = torch.arange(n_slots, device=x.device)
-            mask = attention_mask(q_positions, kv_positions, window)
-            out = attention_direct(q, k_read, v_read, mask, scale)
+                if ring:
+                    kv_positions = ring_slot_positions(n_slots, pos + sq,
+                                                       n_slots)
+                else:
+                    kv_positions = torch.arange(n_slots, device=x.device)
+                mask = attention_mask(q_positions, kv_positions, window)
+                out = attention_direct(q, k_read, v_read, mask, scale)
     else:
         raise ValueError(phase)
     return out @ params["wo"], cache, saved

@@ -1,0 +1,88 @@
+"""RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427).
+
+Counterpart of ``repro/models/rglru.py``.  Block structure::
+
+    x ──ln──┬── w_y ── gelu ─────────────────┐
+            └── w_x ── causal conv1d ── RG-LRU ──*──  w_out ── (+residual)
+
+The gates (``r``, ``i``, ``log a``, ``a``, the gated input) are plain
+PyTorch in f32; the time recurrence ``h_t = a_t * h_{t-1} + g_t`` is the
+``rglru_scan`` kernel on CUDA tensors (its plain version on the CPU).
+
+State: ``{"h": (B, W) f32, "conv": (B, conv_width-1, W)}``.  A
+multi-token decode (S <= 16) also returns the per-step state stack that
+``commit`` selects from, index 0 being the state before the first step.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import rglru_scan as _rg
+
+_C = 8.0
+_EPS = 1e-6
+
+
+def init_rglru_state(batch: int, width: int, conv_width: int, dtype,
+                     device) -> dict:
+    return {"h": torch.zeros((batch, width), device=device),
+            "conv": torch.zeros((batch, conv_width - 1, width), dtype=dtype,
+                                device=device)}
+
+
+def _conv1d_causal(x, conv_state, w, b):
+    """Depthwise causal conv over time; x (B,S,W), state (B,cw-1,W).
+    Returns (y (B,S,W), new_state)."""
+    cw = w.shape[0]
+    full = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    y = torch.zeros_like(x)
+    for i in range(cw):
+        y = y + full[:, i:i + s] * w[cw - 1 - i]
+    new_state = full[:, -(cw - 1):] if cw > 1 else conv_state
+    return y + b, new_state
+
+
+def _rglru_scan(params: dict, x, h0):
+    """The RG-LRU over x (B,S,W) from h0 (B,W) f32: gates in f32, then
+    the recurrence.  Returns h_all (B,S,W) f32 (the output is the state)."""
+    xf = x.float()
+    r = torch.sigmoid(xf @ params["w_a"].float() + params["b_a"])
+    i = torch.sigmoid(xf @ params["w_i"].float() + params["b_i"])
+    log_a = -_C * F.softplus(params["a_param"]) * r
+    a = torch.exp(log_a)
+    gated = (torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), _EPS, 1.0))
+             * (i * xf))
+    return _rg.rglru_scan(a, gated, h0)
+
+
+def apply_rglru_block(params: dict, x, state: dict):
+    """Full recurrent block over x (B,S,D).  Returns (out (B,S,D),
+    new_state, state_stack); ``state_stack`` (S <= 16 only, else None)
+    is ``{"h": (B,S+1,W), "conv": (B,S+1,cw-1,W)}``."""
+    y_branch = F.gelu(x @ params["w_y"], approximate="tanh")
+    xb = x @ params["w_x"]
+    cw = params["conv_w"].shape[0]
+    conv_out, conv_final = _conv1d_causal(xb, state["conv"], params["conv_w"],
+                                          params["conv_b"])
+    h_all = _rglru_scan(params, conv_out, state["h"])
+    out = (h_all.to(x.dtype) * y_branch) @ params["w_out"]
+    new_state = {"h": h_all[:, -1], "conv": conv_final}
+
+    s = x.shape[1]
+    stack = None
+    if s <= 16:
+        full = torch.cat([state["conv"].to(xb.dtype), xb], dim=1)
+        conv_stack = torch.stack([full[:, i + 1:i + cw] for i in range(s)],
+                                 dim=1)                       # (B,S,cw-1,W)
+        stack = {"h": torch.cat([state["h"][:, None], h_all], dim=1),
+                 "conv": torch.cat([state["conv"][:, None].to(xb.dtype),
+                                    conv_stack], dim=1)}
+    return out, new_state, stack
+
+
+def select_rglru_state(stack: dict, index) -> dict:
+    """Per-sequence state at step ``index`` (B,) of the stack."""
+    bi = torch.arange(index.shape[0], device=index.device)
+    return {"h": stack["h"][bi, index], "conv": stack["conv"][bi, index]}

@@ -1,0 +1,120 @@
+"""RWKV-6 "Finch" block (arXiv:2404.05892): attention-free time mixing
+with data-dependent per-channel decay.
+
+Counterpart of ``repro/models/rwkv.py``.  Time mix, per head of size
+``hd`` with state S (hd, hd)::
+
+    y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T,   w_t = exp(-exp(w0 + tanh(x_w A) B))
+
+The projections, the token shift and the group norm are plain PyTorch;
+the recurrence is the ``wkv6`` kernel on CUDA tensors (its plain version
+on the CPU), in prefill and in verify.  The JAX prefill scans in
+``jax.checkpoint`` segments only to bound training's backward pass;
+serving has none, so the port runs the whole sequence in one call.
+
+State per layer: ``{"S": (B,H,hd,hd) f32, "ts_a": (B,D), "ts_c": (B,D)}``
+(the last inputs of the time-mix and channel-mix token shifts).  A
+multi-token decode (S <= 16) also returns the per-step state stack that
+``commit`` selects from, index 0 being the state before the first step.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import wkv6 as _wk
+
+
+def init_rwkv_state(batch: int, d_model: int, head_size: int, dtype,
+                    device) -> dict:
+    h = d_model // head_size
+    return {"S": torch.zeros((batch, h, head_size, head_size),
+                             device=device),
+            "ts_a": torch.zeros((batch, d_model), dtype=dtype, device=device),
+            "ts_c": torch.zeros((batch, d_model), dtype=dtype, device=device)}
+
+
+def _token_shift(x, prev):
+    """The x_{t-1} stream: ``prev`` for t=0, x shifted right otherwise."""
+    return torch.cat([prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _lerp(x, x_prev, mu):
+    return x + (x_prev - x) * mu
+
+
+def apply_rwkv_tmix(params: dict, x, state_S, ts_prev, head_size: int):
+    """Time mix over x (B,S,D).  Returns (out, S_stack, new ts (B,D)):
+    ``S_stack`` is (B,S+1,H,hd,hd) — every state, index 0 = ``state_S`` —
+    for S <= 16, else the final state as (B,1,H,hd,hd)."""
+    b, s, d = x.shape
+    h = d // head_size
+    xp = _token_shift(x, ts_prev)
+    r = _lerp(x, xp, params["mu_r"]) @ params["w_r"]
+    k = _lerp(x, xp, params["mu_k"]) @ params["w_k"]
+    v = _lerp(x, xp, params["mu_v"]) @ params["w_v"]
+    g = F.silu(_lerp(x, xp, params["mu_g"]) @ params["w_g"])
+    xw = _lerp(x, xp, params["mu_w"]).float()
+    w_log = (params["w0"]
+             + torch.tanh(xw @ params["w_lora_a"]) @ params["w_lora_b"])
+    w = torch.exp(-torch.exp(w_log))                  # (B,S,D) in (0, 1)
+
+    def heads(z):                                     # -> (B,H,S,hd) view
+        return z.reshape(b, s, h, head_size).float().transpose(1, 2)
+
+    u = params["u"].reshape(h, head_size)
+    if s <= 16:     # decode/verify keeps every per-step state for rollback
+        y, _, S_stack = _wk.wkv6(heads(r), heads(k), heads(v), heads(w), u,
+                                 state_S, stack=True)
+    else:
+        y, s_last = _wk.wkv6(heads(r), heads(k), heads(v), heads(w), u,
+                             state_S)
+        S_stack = s_last[:, None]
+    y = y.transpose(1, 2)                             # (B,S,H,hd)
+
+    # per-head RMS "group norm"
+    var = y.square().mean(-1, keepdim=True)
+    y = y * torch.rsqrt(var + 1e-6)
+    y = (y.reshape(b, s, d) * params["ln_x"]).to(x.dtype)
+    out = (y * g) @ params["w_o"]
+    return out, S_stack, x[:, -1]
+
+
+def apply_rwkv_cmix(params: dict, x, ts_prev):
+    xp = _token_shift(x, ts_prev)
+    k = _lerp(x, xp, params["mu_k"]) @ params["w_k"]
+    kv = torch.square(torch.relu(k)) @ params["w_v"]
+    r = torch.sigmoid(_lerp(x, xp, params["mu_r"]) @ params["w_r"])
+    return r * kv, x[:, -1]
+
+
+def apply_rwkv_block(tmix: dict, cmix: dict, ln1, ln2, x, state: dict,
+                     head_size: int, norm_fn):
+    """Full RWKV layer (pre-norm residual twice).  Returns (out,
+    new_state, state_stack|None); ``state_stack`` (S <= 16 only) holds
+    the per-step S and token-shift inputs, index 0 the state before the
+    first step."""
+    s = x.shape[1]
+    a_in = norm_fn(ln1, x)
+    a_out, S_stack, ts_a = apply_rwkv_tmix(tmix, a_in, state["S"],
+                                           state["ts_a"], head_size)
+    x = x + a_out
+    c_in = norm_fn(ln2, x)
+    c_out, ts_c = apply_rwkv_cmix(cmix, c_in, state["ts_c"])
+    x = x + c_out
+    new_state = {"S": S_stack[:, -1], "ts_a": ts_a, "ts_c": ts_c}
+    stack = None
+    if s <= 16:
+        stack = {"S": S_stack,
+                 "ts_a": torch.cat([state["ts_a"][:, None].to(a_in.dtype),
+                                    a_in], dim=1),
+                 "ts_c": torch.cat([state["ts_c"][:, None].to(c_in.dtype),
+                                    c_in], dim=1)}
+    return x, new_state, stack
+
+
+def select_rwkv_state(stack: dict, index) -> dict:
+    """Per-sequence state at step ``index`` (B,) of the stack."""
+    bi = torch.arange(index.shape[0], device=index.device)
+    return {key: stack[key][bi, index] for key in ("S", "ts_a", "ts_c")}

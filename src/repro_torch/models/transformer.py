@@ -1,26 +1,31 @@
 """Decoder stack: per-layer apply, cache plumbing, phase dispatch.
 
-Counterpart of ``repro/models/transformer.py`` for ATTN/SWA layers.  The
-JAX package stacks parameters and caches over layer groups for a
-``lax.scan``; here both are plain lists with one entry per layer (layer
-``l`` has kind ``cfg.layer_kind(l)``), and the forward pass is a Python
-loop.
+Counterpart of ``repro/models/transformer.py`` for ATTN, SWA, RG-LRU and
+RWKV-6 layers.  The JAX package stacks parameters and caches over layer
+groups for a ``lax.scan``; here both are plain lists with one entry per
+layer (layer ``l`` has kind ``cfg.layer_kind(l)``), and the forward pass
+is a Python loop.
 
 Caches are dicts ``{"layers": [per-layer dict], "pos": (B,) int64}``
 (plus ``"block_tables"`` (B, MBS) int32 for a paged serving cache), and
-are updated **in place**.
+are updated **in place**: KV rows are written into the cache tensors,
+and a recurrent layer's new state is copied into its state tensors.
 
 Phases: ``prefill`` (the whole prompt, fills the cache) and ``decode``
 (Sq new tokens per sequence at positions ``cache["pos"]``; writes are
 eager and the returned pendings carry what :func:`commit_cache` needs to
-undo the ring writes of rejected tokens).
+undo the writes of rejected tokens: saved ring rows, recurrent state
+stacks).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs import ATTN, SWA, ModelConfig, resolve_device
+from repro_torch.configs import (ATTN, RGLRU, RWKV, SWA, ModelConfig,
+                                 resolve_device)
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.attention import (apply_attention, init_kv_cache,
                                           init_paged_kv_pool,
                                           paged_row_indices, quantize_rows,
@@ -29,16 +34,42 @@ from repro_torch.models.layers import (apply_mlp, apply_norm,
                                        unembed)
 
 
-def _check_kind(kind: str) -> None:
-    if kind not in (ATTN, SWA):
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+def _set_state(cache: dict | None, new_state: dict) -> None:
+    """In place: copy a recurrent layer's new state into its cache."""
+    if cache is not None:
+        for key, val in new_state.items():
+            cache[key].copy_(val)
 
 
 def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
                 pos, phase: str, use_moe: bool = False,
                 block_tables=None):
     """Returns (x, cache, pending)."""
-    _check_kind(kind)
+    norm = lambda p, z: apply_norm(p, z, cfg.norm)
+    if kind == RGLRU:
+        state = (cache if cache is not None else
+                 rglru_lib.init_rglru_state(x.shape[0], cfg.rnn_width,
+                                            cfg.conv_width, x.dtype,
+                                            x.device))
+        out, new_state, stack = rglru_lib.apply_rglru_block(
+            params["rec"], norm(params["ln1"], x), state)
+        x = x + out
+        x = x + apply_mlp(params["ffn"], norm(params["ln2"], x),
+                          cfg.activation)
+        _set_state(cache, new_state)
+        return x, cache, ({"stack": stack} if phase == "decode" else {})
+    if kind == RWKV:
+        state = (cache if cache is not None else
+                 rwkv_lib.init_rwkv_state(x.shape[0], cfg.d_model,
+                                          cfg.rwkv_head_size, x.dtype,
+                                          x.device))
+        x, new_state, stack = rwkv_lib.apply_rwkv_block(
+            params["tmix"], params["cmix"], params["ln1"], params["ln2"], x,
+            state, cfg.rwkv_head_size, norm)
+        _set_state(cache, new_state)
+        return x, cache, ({"stack": stack} if phase == "decode" else {})
+    if kind not in (ATTN, SWA):
+        raise ValueError(kind)
     window = cfg.sliding_window if kind == SWA else None
     out, cache, saved = apply_attention(
         params["attn"], apply_norm(params["ln1"], x, cfg.norm),
@@ -69,13 +100,23 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      device) -> dict:
-    _check_kind(kind)
     if kind == ATTN:
         return init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
                              cfg.torch_dtype, device,
                              quant=cfg.kv_cache_dtype == "int8")
-    return init_kv_cache(batch, min(cfg.sliding_window, max_len),
-                         cfg.n_kv_heads, cfg.head_dim, cfg.torch_dtype, device)
+    if kind == SWA:
+        return init_kv_cache(batch, min(cfg.sliding_window, max_len),
+                             cfg.n_kv_heads, cfg.head_dim, cfg.torch_dtype,
+                             device)
+    if kind == RGLRU:
+        return rglru_lib.init_rglru_state(batch, cfg.rnn_width,
+                                          cfg.conv_width, cfg.torch_dtype,
+                                          device)
+    if kind == RWKV:
+        return rwkv_lib.init_rwkv_state(batch, cfg.d_model,
+                                        cfg.rwkv_head_size, cfg.torch_dtype,
+                                        device)
+    raise ValueError(kind)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -205,14 +246,21 @@ def logits_from_hidden(params: dict, cfg: ModelConfig, x):
 def commit_cache(cfg: ModelConfig, cache: dict, pendings, n_commit,
                  sq: int) -> dict:
     """Finalize a verify step: keep ``n_commit`` (B,) of the ``sq`` written
-    tokens, restore the ring rows of the rest (in place), and advance
-    ``pos``.  Full-attention rows past ``pos`` are invisible, so they
-    need no undo."""
+    tokens, restore the ring rows of the rest (in place), set each
+    recurrent layer to its state after ``n_commit`` steps (in place), and
+    advance ``pos``.  Full-attention rows past ``pos`` are invisible, so
+    they need no undo."""
     nc = n_commit.long()
     for l in range(cfg.n_layers):
-        saved = pendings[l].get("saved")
-        if cfg.layer_kind(l) == SWA and saved:
-            restore_rejected_rows(cache["layers"][l], saved, cache["pos"], nc)
+        kind = cfg.layer_kind(l)
+        if kind == SWA and pendings[l].get("saved"):
+            restore_rejected_rows(cache["layers"][l], pendings[l]["saved"],
+                                  cache["pos"], nc)
+        elif kind in (RGLRU, RWKV):
+            sel = (rglru_lib.select_rglru_state if kind == RGLRU
+                   else rwkv_lib.select_rwkv_state)
+            _set_state(cache["layers"][l],
+                       sel(pendings[l]["stack"], torch.clamp(nc, 0, sq)))
     out = {"layers": cache["layers"], "pos": cache["pos"] + nc}
     if "block_tables" in cache:
         out["block_tables"] = cache["block_tables"]

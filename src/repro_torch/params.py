@@ -6,18 +6,21 @@ The port's parameters are plain dicts of tensors::
      "layers": [per-layer dict, one per layer],
      "final_norm": {"scale": (D,)}}
 
-with each layer ``{"ln1": {"scale"}, "ln2": {"scale"}, "attn": {"wq",
-"wk", "wv", "wo"}, "ffn": {...}}``; a dense FFN holds ``w_gate``/
-``w_up`` (D, F) and ``w_down`` (F, D), an MoE FFN ``router`` (D, E) f32
-and ``w_gate``/``w_up`` (E, D, F), ``w_down`` (E, F, D).  Matrices are
-``(in, out)`` as in the JAX package.
+with each attention layer ``{"ln1": {"scale"}, "ln2": {"scale"},
+"attn": {"wq", "wk", "wv", "wo"}, "ffn": {...}}``; a dense FFN holds
+``w_gate``/``w_up`` (D, F) and ``w_down`` (F, D), an MoE FFN ``router``
+(D, E) f32 and ``w_gate``/``w_up`` (E, D, F), ``w_down`` (E, F, D).  An
+RG-LRU layer holds ``rec`` (:func:`repro_torch.models.rglru.init_rglru`)
+and a dense ``ffn``; an RWKV-6 layer ``tmix`` and ``cmix``
+(:mod:`repro_torch.models.rwkv`).  Matrices are ``(in, out)`` as in the
+JAX package.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.configs import ATTN, SWA, ModelConfig, resolve_device
+from repro_torch.configs import RGLRU, RWKV, ModelConfig, resolve_device
 
 
 def _trunc_normal(shape, std, generator, device, dtype):
@@ -34,17 +37,68 @@ def _dense(d_in, d_out, generator, device, dtype):
                          dtype)
 
 
+def _normal(shape, std, generator, device, dtype):
+    return (torch.randn(shape, generator=generator, device=device)
+            * std).to(dtype)
+
+
+def _init_rglru(cfg: ModelConfig, generator, device) -> dict:
+    """``repro/models/rglru.py::init_rglru``: ``a_param`` such that
+    a = exp(-8 softplus(a_param)) is U(0.9, 0.999), conv N(0, 0.1), zero
+    biases (the gate biases f32)."""
+    dt, d, w = cfg.torch_dtype, cfg.d_model, cfg.rnn_width
+    u = 0.9 + 0.099 * torch.rand((w,), generator=generator, device=device)
+    return {"w_y": _dense(d, w, generator, device, dt),
+            "w_x": _dense(d, w, generator, device, dt),
+            "w_out": _dense(w, d, generator, device, dt),
+            "conv_w": _normal((cfg.conv_width, w), 0.1, generator, device,
+                              dt),
+            "conv_b": torch.zeros((w,), dtype=dt, device=device),
+            "w_a": _dense(w, w, generator, device, dt),
+            "b_a": torch.zeros((w,), device=device),
+            "w_i": _dense(w, w, generator, device, dt),
+            "b_i": torch.zeros((w,), device=device),
+            "a_param": torch.log(torch.expm1(-torch.log(u) / 8.0))}
+
+
+def _init_rwkv(cfg: ModelConfig, generator, device) -> tuple:
+    """``repro/models/rwkv.py::init_rwkv_tmix`` / ``init_rwkv_cmix``:
+    token-shift mixes at 0.5, decay base linspace(-6, -2), an f32 LoRA
+    (64 wide) for the data-dependent decay, bonus ``u`` N(0, 0.1)."""
+    dt, d, f = cfg.torch_dtype, cfg.d_model, cfg.d_ff
+    half = lambda: torch.full((d,), 0.5, dtype=dt, device=device)
+    dense = lambda i, o: _dense(i, o, generator, device, dt)
+    tmix = {"mu_r": half(), "mu_k": half(), "mu_v": half(), "mu_g": half(),
+            "mu_w": half(),
+            "w_r": dense(d, d), "w_k": dense(d, d), "w_v": dense(d, d),
+            "w_g": dense(d, d), "w_o": dense(d, d),
+            "w0": torch.linspace(-6.0, -2.0, d, device=device),
+            "w_lora_a": _dense(d, 64, generator, device, torch.float32),
+            "w_lora_b": _normal((64, d), 0.01, generator, device,
+                                torch.float32),
+            "u": _normal((d,), 0.1, generator, device, torch.float32),
+            "ln_x": torch.ones((d,), device=device)}
+    cmix = {"mu_k": half(), "mu_r": half(), "w_k": dense(d, f),
+            "w_v": dense(f, d), "w_r": dense(d, d)}
+    return tmix, cmix
+
+
 def _init_layer(cfg: ModelConfig, kind: str, use_moe: bool, generator,
                 device) -> dict:
-    if kind not in (ATTN, SWA):
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     dt, d, f, hd = cfg.torch_dtype, cfg.d_model, cfg.d_ff, cfg.head_dim
     ones = lambda: {"scale": torch.ones((d,), dtype=dt, device=device)}
-    p = {"ln1": ones(), "ln2": ones(),
-         "attn": {"wq": _dense(d, cfg.n_heads * hd, generator, device, dt),
-                  "wk": _dense(d, cfg.n_kv_heads * hd, generator, device, dt),
-                  "wv": _dense(d, cfg.n_kv_heads * hd, generator, device, dt),
-                  "wo": _dense(cfg.n_heads * hd, d, generator, device, dt)}}
+    p = {"ln1": ones(), "ln2": ones()}
+    if kind == RWKV:
+        p["tmix"], p["cmix"] = _init_rwkv(cfg, generator, device)
+        return p
+    if kind == RGLRU:
+        p["rec"] = _init_rglru(cfg, generator, device)
+    else:
+        p["attn"] = {
+            "wq": _dense(d, cfg.n_heads * hd, generator, device, dt),
+            "wk": _dense(d, cfg.n_kv_heads * hd, generator, device, dt),
+            "wv": _dense(d, cfg.n_kv_heads * hd, generator, device, dt),
+            "wo": _dense(cfg.n_heads * hd, d, generator, device, dt)}
     gated = cfg.activation in ("swiglu", "geglu")
     if use_moe:
         e = cfg.n_experts
@@ -69,7 +123,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> dict:
     """Random parameters with the JAX package's distributions: truncated
     normal with std ``d_in**-0.5`` for every matrix (experts included),
-    N(0, 0.02) embeddings, an f32 router, unit norm scales.  Every draw
+    N(0, 0.02) embeddings, an f32 router, unit norm scales, and the
+    recurrent layers' own (:func:`_init_rglru`, :func:`_init_rwkv`).  Every draw
     comes from ``generator``, which must live on ``device``.  (The draws
     differ from ``jax.random``'s; hold the two packages against each
     other with :func:`from_jax`.)"""

@@ -1,7 +1,8 @@
 """Continuous-batching request scheduler on top of the SpecOffload engine.
 
-Counterpart of the core of ``repro/serving/engine.py``: paged target KV,
-chain speculation, FIFO/SJF admission on a virtual clock.
+Counterpart of the core of ``repro/serving/engine.py``: paged or
+contiguous target KV, chain speculation, FIFO/SJF admission on a virtual
+clock.
 
 * Each of the two interleaved half-batches is a fixed-shape
   :class:`BatchState` of ``max_batch`` slots, so the fused round runs at
@@ -12,7 +13,12 @@ chain speculation, FIFO/SJF admission on a virtual clock.
 * Freed slots are refilled mid-flight at round boundaries: a queued
   request is prefilled (B=1) on admission and its target KV is scattered
   into blocks granted from the half's pool (full prompt blocks shared
-  through the prefix cache), its draft ring copied into the slot.
+  through the prefix cache), its draft ring copied into the slot.  With
+  ``paged=False`` every slot holds a contiguous ``(max_len)`` cache (or
+  a recurrent state), bootstrapped with a parked one-token dummy, and
+  admission copies the whole B=1 prefill cache into the slot: the
+  substrate of targets without full-attention layers (RecurrentGemma,
+  RWKV-6).
   Admission happens only while the half's drafts are un-staged, so every
   stream stays token-identical to a target-only greedy decode.
 * Requests carry ``arrival_s``; the scheduler admits only arrived
@@ -68,8 +74,8 @@ class ServeRequest:
 
 @dataclass
 class SchedulerConfig:
-    """Continuous-batching knobs the port supports (paged KV, chain
-    speculation, virtual clock)."""
+    """Continuous-batching knobs the port supports (paged or contiguous
+    KV, chain speculation, virtual clock)."""
     max_batch: int = 8            # slots per interleaved half (total 2x)
     n_cand: int = 4               # draft candidates per round
     eos_id: int = -1              # -1: never stop early
@@ -80,11 +86,13 @@ class SchedulerConfig:
     pad_id: int = 0
     max_len: int | None = None    # per-slot KV capacity; derived from the
                                   # queue at first run() when None
+    paged: bool = True            # block-table pool instead of per-slot
+                                  # contiguous target KV
     block_size: int = 16          # tokens per KV block
     num_blocks: int | None = None # per-half pool size (incl. the scratch
                                   # block 0); None -> every slot can reach
                                   # max_len
-    kv_quant_cold: bool = False   # int8-quantize the pool on write
+    kv_quant_cold: bool = False   # int8-quantize the pool on write (paged)
 
 
 @dataclass
@@ -155,7 +163,7 @@ class ServingEngine:
         returned."""
         if ((self._max_len is not None
                 and self._required_len(req) > self._max_len)
-                or (self.config.num_blocks is not None
+                or (self.config.paged and self.config.num_blocks is not None
                     and self._required_blocks(req)
                     > self.config.num_blocks - 1)):
             req.rejected = "never_fits"
@@ -196,6 +204,16 @@ class ServingEngine:
                 raise ValueError("run() with an empty queue and no "
                                  "SchedulerConfig.max_len to size caches")
             self._max_len = max(self._required_len(r) for r in self._queue)
+        if not cfg.paged:
+            # park a 1-token dummy sequence in every slot: shapes are fixed
+            # for the serving lifetime, requests are spliced in by _admit
+            dummy = np.zeros((cfg.max_batch, 1), np.int32)
+            self._halves = [self.engine.prefill_batch(dummy, self._max_len,
+                                                      cfg.max_batch)
+                            for _ in range(2)]
+            self._slots = [[_Slot() for _ in range(cfg.max_batch)]
+                           for _ in range(2)]
+            return
         # a block multiple, so the (B=1, max_len) prefill caches and the
         # paged serving caches agree on every non-ATTN leaf shape
         bs = cfg.block_size
@@ -279,36 +297,39 @@ class ServingEngine:
             picked = None
             for req in self._admission_order(arrived):
                 prompt = self._admit_tokens(req)
-                grant = self._try_grant(h, prompt, req)
-                if grant is not None:
-                    picked = (req, prompt, grant)
-                    break
+                grant = None
+                if cfg.paged:
+                    grant = self._try_grant(h, prompt, req)
+                    if grant is None:    # block pressure: stays queued
+                        continue
+                picked = (req, prompt, grant)
+                break
             if picked is None:
                 break
-            req, prompt, (block_ids, n_shared) = picked
+            req, prompt, grant = picked
             slot_idx = free.pop(0)
             self._queue.remove(req)
             req.admitted_s = self._now
             req.admitted_run = len(self._windows)
             t_wall = time.time()
             st = self.engine.prefill_batch(prompt[None, :], self._max_len)
-            row = np.zeros(self._max_len // cfg.block_size, np.int32)
-            row[:len(block_ids)] = block_ids
-            admit_sequence_paged(self.target_cfg, half.target_cache,
-                                 st.target_cache, slot_idx, row, len(prompt),
-                                 n_shared)
-            dc = half.draft_cache
-            for big, small in zip(dc["layers"], st.draft_cache["layers"]):
-                for key in big:
-                    big[key][slot_idx] = small[key][0]
-            dc["pos"][slot_idx] = st.draft_cache["pos"][0]
+            if cfg.paged:
+                block_ids, n_shared = grant
+                row = np.zeros(self._max_len // cfg.block_size, np.int32)
+                row[:len(block_ids)] = block_ids
+                admit_sequence_paged(self.target_cfg, half.target_cache,
+                                     st.target_cache, slot_idx, row,
+                                     len(prompt), n_shared)
+            else:
+                _splice_slot(half.target_cache, st.target_cache, slot_idx)
+            _splice_slot(half.draft_cache, st.draft_cache, slot_idx)
             t0 = int(st.emitted[0][0][0, 0])
             half.t_next[slot_idx] = t0
             self._now += time.time() - t_wall
             req.first_token_s = self._now
             slot = slots[slot_idx]
             slot.req, slot.emitted, slot.done = req, [t0], False
-            slot.blocks = list(block_ids)
+            slot.blocks = list(grant[0]) if grant else []
             # a 1-token request (or instant EOS) finishes at admission
             if ((cfg.eos_id >= 0 and t0 == cfg.eos_id)
                     or len(slot.emitted) >= req.max_new_tokens):
@@ -434,16 +455,25 @@ class ServingEngine:
                                   r.finished_run + 1))
         return toks / max(sum(self._window_wall(w) for w in wins), 1e-9)
 
+    def _attn_cache_bytes(self, cache: dict) -> int:
+        return sum(t.numel() * t.element_size()
+                   for l, layer in enumerate(cache["layers"])
+                   if self.target_cfg.layer_kind(l) == ATTN
+                   for t in layer.values())
+
     def kv_stats(self) -> dict:
-        """KV accounting for the target's full-attention pools: the
-        serving-lifetime high-water mark of granted blocks."""
+        """KV accounting for the target's full-attention layers: the
+        serving-lifetime high-water mark of granted blocks when paged, the
+        whole (B, max_len) caches when contiguous (every slot is always
+        materialized there)."""
         if self._halves is None:
             return {}
-        tc = self._halves[0].target_cache
-        pool_bytes = sum(t.numel() * t.element_size()
-                         for l, layer in enumerate(tc["layers"])
-                         if self.target_cfg.layer_kind(l) == ATTN
-                         for t in layer.values())
+        if not self.config.paged:
+            full = float(sum(self._attn_cache_bytes(hf.target_cache)
+                             for hf in self._halves))
+            return {"paged": False, "pool_bytes_total": full,
+                    "peak_kv_bytes": full}
+        pool_bytes = self._attn_cache_bytes(self._halves[0].target_cache)
         per_block = pool_bytes / self._num_blocks
         peak = sum(a.peak_used for a in self._allocs)
         return {"paged": True, "block_size": self.config.block_size,
@@ -477,3 +507,12 @@ class ServingEngine:
             "rejected": self.rejected_total,
             "kv": self.kv_stats(),
         }
+
+
+def _splice_slot(big: dict, small: dict, slot: int) -> None:
+    """In place: copy sequence 0 of a (B=1) prefill cache into batch slot
+    ``slot`` of a serving cache, for every layer leaf and ``pos``."""
+    for big_l, small_l in zip(big["layers"], small["layers"]):
+        for key in big_l:
+            big_l[key][slot] = small_l[key][0]
+    big["pos"][slot] = small["pos"][0]

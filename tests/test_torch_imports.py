@@ -14,9 +14,12 @@ torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_ffn as mf  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as pd  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
+from repro_torch.kernels import wkv6 as wk  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(repro_torch.__file__)
@@ -39,7 +42,11 @@ def test_importing_every_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == len(_modules()) >= 20
+    assert int(out.stdout.strip()) == len(_modules()) >= 25
+    assert {"repro_torch.kernels.decode_attention",
+            "repro_torch.kernels.rglru_scan", "repro_torch.kernels.wkv6",
+            "repro_torch.models.rglru",
+            "repro_torch.models.rwkv"} <= set(_modules())
 
 
 def _imports(path):
@@ -72,6 +79,14 @@ WRAPPER_CALLS = {
     "moe": (mf, "moe_ffn_ref", lambda: mf.moe_ffn(
         torch.zeros(2, 3, 8), torch.zeros(2, 8, 4), torch.zeros(2, 8, 4),
         torch.zeros(2, 4, 8))),
+    "decode": (da, "decode_attention_ref", lambda: da.decode_attention(
+        torch.zeros(1, 4, 2, 64), torch.zeros(1, 2, 8, 64),
+        torch.zeros(1, 2, 8, 64), torch.tensor([5], dtype=torch.int32))),
+    "rglru": (rg, "rglru_scan_ref", lambda: rg.rglru_scan(
+        torch.zeros(1, 3, 8), torch.zeros(1, 3, 8), torch.zeros(1, 8))),
+    "wkv6": (wk, "wkv6_ref", lambda: wk.wkv6(
+        *[torch.zeros(1, 2, 3, 64)] * 4, torch.zeros(2, 64),
+        torch.zeros(1, 2, 64, 64))),
 }
 
 

@@ -1,8 +1,10 @@
 """The port's kernel wrappers on the CPU (their plain PyTorch versions)
 against the JAX package's Pallas kernels in interpret mode, at the cases
 of tests/test_kernels.py plus int8 pools, tree ancestor bitmasks, sliding
-windows, padding and gelu.  Inputs come from numpy seeds and go through
-both packages.  Tolerances: f32 2e-5, bf16 2e-2 (the Pallas tests')."""
+windows, padding, gelu and the recurrences' state stacks.  Inputs come
+from numpy seeds and go through both packages.  Tolerances are the
+Pallas tests': attention and the FFN f32 2e-5, bf16 2e-2; ``rglru_scan``
+1e-5; ``wkv6`` 2e-4."""
 import numpy as np
 import pytest
 
@@ -12,9 +14,12 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_ffn as mf  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as pd  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
+from repro_torch.kernels import wkv6 as wk  # noqa: E402
 
 DT = {"f32": (jnp.float32, torch.float32),
       "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -146,6 +151,87 @@ def test_moe_ffn_matches_pallas(dt, e, c, d, f, activation):
     _close(got, want, dt)
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,m,skv,d,window,tree", [
+    (2, 4, 2, 1, 256, 64, None, False),     # plain decode
+    (2, 4, 2, 5, 256, 64, None, False),     # speculative verify (n_cand=4)
+    (1, 8, 1, 4, 512, 128, None, False),    # MQA
+    (2, 2, 2, 3, 300, 64, None, False),     # non-multiple cache length
+    (1, 4, 2, 4, 256, 64, 64, False),       # sliding window cache
+    (2, 4, 2, 4, 128, 64, None, True),      # tree ancestor bitmasks
+])
+def test_decode_attention_matches_pallas(dt, b, hq, hkv, m, skv, d, window,
+                                         tree):
+    rng = np.random.default_rng(6)
+    qj, qt = _both(rng.standard_normal((b, hq, m, d), np.float32), dt)
+    kj, kt = _both(rng.standard_normal((b, hkv, skv, d), np.float32), dt)
+    vj, vt = _both(rng.standard_normal((b, hkv, skv, d), np.float32), dt)
+    lengths = rng.integers(m + 8, skv + 1, b).astype(np.int32)
+    anc_j = jnp.asarray(TREE_ANC) if tree else None
+    anc_t = torch.from_numpy(TREE_ANC) if tree else None
+    want = ops.decode_attention(qj, kj, vj, jnp.asarray(lengths),
+                                window=window, block_k=64, anc_bits=anc_j,
+                                interpret=True)
+    got = da.decode_attention(qt, kt, vt, torch.from_numpy(lengths),
+                              window=window, anc_bits=anc_t)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    _close(got, want, dt)
+
+
+def test_decode_attention_reads_a_transposed_cache():
+    """The model hands the kernel its (B, S, Hkv, d) cache as a transposed
+    view; the result equals the contiguous (B, Hkv, S, d) call."""
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 5, 64), np.float32))
+    cache = torch.from_numpy(rng.standard_normal((2, 2, 40, 2, 64),
+                                                 np.float32))
+    lengths = torch.tensor([17, 40], dtype=torch.int32)
+    k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    got = da.decode_attention(q, k, v, lengths)
+    want = da.decode_attention(q, k.contiguous(), v.contiguous(), lengths)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,s,w", [(2, 64, 256), (1, 128, 100), (4, 32, 512)])
+def test_rglru_scan_matches_pallas(b, s, w):
+    rng = np.random.default_rng(8)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((b, s, w), np.float32)))
+    g = rng.standard_normal((b, s, w), np.float32)
+    h0 = rng.standard_normal((b, w), np.float32)
+    want = ops.rglru_scan(jnp.asarray(a), jnp.asarray(g), jnp.asarray(h0),
+                          block_w=128, interpret=True)
+    got = rg.rglru_scan(torch.from_numpy(a), torch.from_numpy(g),
+                        torch.from_numpy(h0))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("b,h,s,hd", [(1, 2, 32, 64), (2, 4, 16, 64),
+                                      (1, 1, 64, 128)])
+def test_wkv6_matches_pallas(b, h, s, hd):
+    """y and the final state against the Pallas kernel; the state stack's
+    last entry is the final state and its first the initial one."""
+    rng = np.random.default_rng(9)
+    r, k, v = (rng.standard_normal((b, h, s, hd), np.float32)
+               for _ in range(3))
+    w = 1.0 / (1.0 + np.exp(-rng.standard_normal((b, h, s, hd), np.float32)))
+    u = rng.standard_normal((h, hd), np.float32) * 0.1
+    s0 = rng.standard_normal((b, h, hd, hd), np.float32) * 0.1
+    want_y, want_s = ops.wkv6(*map(jnp.asarray, (r, k, v, w, u, s0)),
+                              interpret=True)
+    tin = [torch.from_numpy(x) for x in (r, k, v, w, u, s0)]
+    y, s_fin, stack = wk.wkv6(*tin, stack=True)
+    tol = dict(rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **tol)
+    np.testing.assert_allclose(s_fin.numpy(), np.asarray(want_s), **tol)
+    assert stack.shape == (b, s + 1, h, hd, hd)
+    torch.testing.assert_close(stack[:, 0], tin[5], rtol=0, atol=0)
+    torch.testing.assert_close(stack[:, -1], s_fin, rtol=0, atol=0)
+    y2, s2 = wk.wkv6(*tin)
+    torch.testing.assert_close(y2, y, rtol=0, atol=0)
+    torch.testing.assert_close(s2, s_fin, rtol=0, atol=0)
+
+
 def test_wrappers_reject_bad_inputs():
     q = torch.zeros(1, 4, 2, 64)
     pool = torch.zeros(3, 8, 2, 64)
@@ -161,3 +247,13 @@ def test_wrappers_reject_bad_inputs():
                    torch.zeros(2, 8, 4), torch.zeros(2, 4, 8))
     with pytest.raises(ValueError):       # mixed devices are refused
         _build.use_kernel(q, torch.zeros(1, device="meta"))
+    with pytest.raises(ValueError):       # the recurrences take f32 only
+        rg.rglru_scan(torch.zeros(1, 2, 8).bfloat16(),
+                      torch.zeros(1, 2, 8).bfloat16(), torch.zeros(1, 8))
+    with pytest.raises(ValueError):       # u must be (H, hd)
+        x = torch.zeros(1, 2, 3, 32)
+        wk.wkv6(x, x, x, x, torch.zeros(3, 32), torch.zeros(1, 2, 32, 32))
+    with pytest.raises(ValueError):       # a window and a tree together
+        da.decode_attention(q, torch.zeros(1, 2, 8, 64),
+                            torch.zeros(1, 2, 8, 64), lens, window=4,
+                            anc_bits=torch.ones(2, dtype=torch.int32))

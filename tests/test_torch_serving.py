@@ -152,6 +152,31 @@ def test_sjf_bucketed_int8_stream_matches_jax(models):
         je.kv_stats()["pool_bytes_total"] * 1.01
 
 
+def test_contiguous_sjf_bucketed_stream_matches_jax(models):
+    """``paged=False`` (per-slot contiguous caches, dummy-parked slots,
+    whole-cache splice on admission) with SJF and length buckets gives
+    the JAX engine's streams and KV accounting exactly."""
+    (jt, jd, jtp, jdp), (tt, td, ttp, tdp) = models
+    cfg = dict(max_batch=2, n_cand=2, admission="sjf", length_bucket=8,
+               paged=False)
+    je = jserve.ServingEngine(jt, jd, config=jserve.SchedulerConfig(**cfg))
+    je.load(jtp, jdp)
+    te = tserve.ServingEngine(tt, td, config=tserve.SchedulerConfig(**cfg),
+                              device=CPU)
+    te.load(ttp, tdp)
+    jreqs = _trace(jt.vocab_size, j_poisson, rate_rps=1e6)
+    treqs = _trace(tt.vocab_size, poisson_requests, rate_rps=1e6)
+    for eng, reqs in ((je, jreqs), (te, treqs)):
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+    for jr, tr in zip(jreqs, treqs):
+        np.testing.assert_array_equal(tr.result, jr.result,
+                                      err_msg=f"rid {tr.rid} vs JAX")
+    assert te.kv_stats() == je.kv_stats()
+    assert te.engine.pipeline(2).trace_counts["fused"] == 1
+
+
 def test_submit_rejects_what_never_fits(models):
     _, (tt, td, ttp, tdp) = models
     te = tserve.ServingEngine(tt, td, device=CPU, config=tserve.SchedulerConfig(
