@@ -454,14 +454,6 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
-def _draft_for(tcfg, n_layers):
-    """The Mistral-7B-width draft of a target, with the target's vocab
-    (the pairing of repro/launch/serve.py:160-161)."""
-    from repro_torch.configs import MISTRAL_7B
-    return dataclasses.replace(MISTRAL_7B, n_layers=n_layers,
-                               vocab_size=tcfg.vocab_size, dtype=tcfg.dtype)
-
-
 def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
               must_not_launch=()) -> dict:
     """Serve ``n_requests`` Poisson requests (prompt 512, gen 32-64) with
@@ -525,20 +517,20 @@ def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
 
 def serve_phase() -> dict:
     """Runs 3a-3d; returns {run label: launches}."""
-    from repro_torch.configs import (MISTRAL_7B, MIXTRAL_8X7B,
-                                     RECURRENTGEMMA_2B, RWKV6_7B, SWA)
+    from repro_torch.configs import (MIXTRAL_8X7B, RECURRENTGEMMA_2B,
+                                     RWKV6_7B, SWA, draft_for)
 
     mix = dataclasses.replace(MIXTRAL_8X7B, n_layers=4)
-    mis = dataclasses.replace(MISTRAL_7B, n_layers=4)
+    mis = draft_for(mix, 4)
     runs = {"3a": serve_run("3a", mix, mis, True, 12,
                             ("paged_decode_attention", "flash_attention",
                              "moe_ffn"))}
-    rw_draft = _draft_for(RWKV6_7B, 2)
+    rw_draft = draft_for(RWKV6_7B, 2)
     runs["3b"] = serve_run("3b", RWKV6_7B, rw_draft, False, 8,
                            ("wkv6", "flash_attention"))
     # RWKV has no attention: every flash launch is the draft's prefill
     assert runs["3b"]["flash_attention"] == 2 * (8 + 2)
-    rg_draft = _draft_for(RECURRENTGEMMA_2B, 2)
+    rg_draft = draft_for(RECURRENTGEMMA_2B, 2)
     runs["3c"] = serve_run("3c", RECURRENTGEMMA_2B, rg_draft, False, 8,
                            ("rglru_scan", "flash_attention"))
     # one flash launch per attention layer per prefill (8 requests + the 2
@@ -623,18 +615,19 @@ def lossless_run(label, tcfg, dcfg, paged, must_launch) -> None:
 
 
 def lossless_phase() -> None:
-    from repro_torch.configs import (MISTRAL_7B, MIXTRAL_8X7B,
-                                     RECURRENTGEMMA_2B, RWKV6_7B)
+    from repro_torch.configs import (MIXTRAL_8X7B, RECURRENTGEMMA_2B,
+                                     RWKV6_7B, draft_for)
     f32 = lambda c, n: dataclasses.replace(c, n_layers=n, dtype="float32")
-    mix, mis = f32(MIXTRAL_8X7B, 2), f32(MISTRAL_7B, 2)
+    mix = f32(MIXTRAL_8X7B, 2)
+    mis = draft_for(mix, 2)
     lossless_run("4a", mix, mis, True, ("flash_attention", "decode_attention",
                                         "moe_ffn"))
     lossless_run("4b", mix, mis, False, ("flash_attention",
                                          "decode_attention", "moe_ffn"))
     rw = f32(RWKV6_7B, 2)
-    lossless_run("4c", rw, _draft_for(rw, 2), False, ("wkv6",))
+    lossless_run("4c", rw, draft_for(rw, 2), False, ("wkv6",))
     rgc = f32(RECURRENTGEMMA_2B, 3)
-    lossless_run("4d", rgc, _draft_for(rgc, 2), False,
+    lossless_run("4d", rgc, draft_for(rgc, 2), False,
                  ("rglru_scan", "flash_attention"))
 
 

@@ -167,6 +167,15 @@ MISTRAL_7B = ModelConfig(
     source="arXiv:2310.06825",
 )
 
+
+def draft_for(target: ModelConfig, n_layers: int) -> ModelConfig:
+    """The Mistral-7B-width draft of ``n_layers`` layers that serves beside
+    ``target``: it takes the target's vocabulary and dtype."""
+    return dataclasses.replace(MISTRAL_7B, n_layers=n_layers,
+                               vocab_size=target.vocab_size,
+                               dtype=target.dtype)
+
+
 # Recurrent targets (served on the contiguous path, ``paged=False``).
 RECURRENTGEMMA_2B = ModelConfig(
     name="recurrentgemma-2b", arch_type="hybrid",

@@ -1,13 +1,13 @@
 """Where a serving round spends its time on the card.
 
     python -m repro_torch.launch.profile_serve [--arch mixtral-8x7b]
-        [--layers 4] [--draft-layers N] [--contiguous] [--rounds 20]
+        [--layers 4] [--contiguous] [--rounds 20]
 
 Builds a serving configuration of ``chip_smoke.py``'s serve phase
 (``--arch`` target — Mixtral-8x7B by default, or RWKV-6-7B or
 RecurrentGemma-2B — with ``--layers`` layers, 0 for the full depth, and
-a Mistral-7B-width draft of ``--draft-layers`` layers with the target's
-vocabulary; bf16, weights from a seed, ``max_batch=4``, ``n_cand=4``,
+its Mistral-7B-width draft (``configs.draft_for``) of as many layers, 2
+at full depth; bf16, weights from a seed, ``max_batch=4``, ``n_cand=4``,
 paged KV unless ``--contiguous``, which the recurrent targets need),
 fills every slot with 512-token prompts, runs ``--warmup`` scheduler
 steps, then traces ``--rounds`` steady-state steps (no admissions) with
@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import MISTRAL_7B, get_config
+from repro_torch.configs import draft_for, get_config
 from repro_torch.params import init_params
 from repro_torch.serving.engine import SchedulerConfig, ServingEngine
 from repro_torch.serving.trace import poisson_requests
@@ -57,8 +57,6 @@ def main(argv=None):
     ap.add_argument("--arch", default="mixtral-8x7b")
     ap.add_argument("--layers", type=int, default=4,
                     help="target layers (0: the configuration's depth)")
-    ap.add_argument("--draft-layers", type=int, default=None,
-                    help="draft layers (default: --layers)")
     ap.add_argument("--contiguous", action="store_true",
                     help="contiguous KV (paged=False) instead of paged")
     ap.add_argument("--warmup", type=int, default=10)
@@ -70,9 +68,7 @@ def main(argv=None):
     tcfg = get_config(args.arch)
     if args.layers:
         tcfg = dataclasses.replace(tcfg, n_layers=args.layers)
-    dcfg = dataclasses.replace(
-        MISTRAL_7B, n_layers=args.draft_layers or args.layers or 2,
-        vocab_size=tcfg.vocab_size)
+    dcfg = draft_for(tcfg, args.layers or 2)
     eng = ServingEngine(tcfg, dcfg, device="cuda",
                         config=SchedulerConfig(max_batch=4, n_cand=4,
                                                paged=not args.contiguous))

@@ -34,7 +34,7 @@ from repro.serving import engine as jserve  # noqa: E402
 from repro.serving.trace import poisson_requests as j_poisson  # noqa: E402
 from repro_torch.configs import (MISTRAL_7B, MIXTRAL_8X7B,  # noqa: E402
                                  RECURRENTGEMMA_2B, RGLRU, RWKV, RWKV6_7B,
-                                 get_config)
+                                 draft_for, get_config)
 from repro_torch.core.pipeline import SpecOffloadEngine  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import rglru as trglru  # noqa: E402
@@ -73,6 +73,15 @@ def test_configs_copy_the_jax_fields():
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
         assert get_config(tc.name) is tc
     assert RECURRENTGEMMA_2B.n_layers == 27 and RECURRENTGEMMA_2B.tie_embeddings
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_draft_for_pairs_mistral_widths_with_the_target_vocab(name):
+    _, tc = FAMILIES[name]
+    tc = dataclasses.replace(tc, dtype="float32")
+    want = dataclasses.replace(J_MISTRAL, n_layers=2,
+                               vocab_size=tc.vocab_size, dtype="float32")
+    assert dataclasses.asdict(draft_for(tc, 2)) == dataclasses.asdict(want)
 
 
 def test_init_params_matches_the_jax_structure(family):
