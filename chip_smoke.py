@@ -9,10 +9,16 @@ on its own lines with its wall seconds:
 
 1. environment: the card's name and power limit, torch/CUDA versions,
    the kernels' build time (every ``csrc/*.cu``, one nvcc each, in
-   parallel);
+   parallel), and what ``-Xptxas -v`` said of the two tensor-core
+   kernels (registers, static shared memory, spills per instantiation);
 2. every kernel against its plain PyTorch version on the card at the
    cases of tests/test_kernels.py, the serving paths' shapes and a
-   stress shape each: max error against the tolerance (attention and
+   stress shape each, plus the edges of the tensor-core kernels (flash
+   at 100 tokens, windowed and bidirectional at head dims 64/128/256 and
+   fed (B, S, H, d) views; ``moe_ffn`` at C 1, 7, 33 and 300 at Mixtral
+   widths), each ``flash_attention`` and ``moe_ffn`` line naming the
+   path that ran (tensor-core bf16 or exact f32): max error against the
+   tolerance (attention and
    the FFN f32 2e-5 with TF32 off, bf16 2e-2; ``rglru_scan`` 1e-5;
    ``wkv6`` 2e-4), kernel time (CUDA events, L2 flushed before each
    launch), its bound on this card and what sets it, the plain
@@ -126,12 +132,19 @@ def _check(name, case, got, want, dtype, tol=None):
     return max_err
 
 
-def _report(name, case, dtype, max_err, ms, bound, plain_ms, lib_ms):
+def _report(name, case, dtype, max_err, ms, bound, plain_ms, lib_ms,
+            path=""):
     bound_ms, bound_by = bound
     lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+    path = f" [{path}]" if path else ""
     print(f"  {name:<23} {case:<34} {dtype:<8} err={max_err:.2e} "
           f"kernel={ms:.4f}ms bound={bound_ms:.4f}ms({bound_by}) "
-          f"plain={plain_ms:.4f}ms library={lib}ms", flush=True)
+          f"plain={plain_ms:.4f}ms library={lib}ms{path}", flush=True)
+
+
+def _tc_path(dt) -> str:
+    """Which kernel of flash_attention / moe_ffn a dtype runs."""
+    return "tensor-core bf16" if str(dt).endswith("bfloat16") else "exact f32"
 
 
 # ---------------------------------------------------------------------------
@@ -157,10 +170,17 @@ def kernel_cases(bench) -> dict:
     main = {}
 
     # -- flash attention ---------------------------------------------------
-    def flash_case(label, b, hq, hkv, sq, d, causal, window, dt):
+    def flash_case(label, b, hq, hkv, sq, d, causal, window, dt,
+                   model_layout=False):
+        """With ``model_layout`` q/k/v are made (B, S, H, d), as the model
+        keeps them, and handed over as transposed views."""
         dname = str(dt).split(".")[1]
-        q, k, v = rn(b, hq, sq, d, dt=dt), rn(b, hkv, sq, d, dt=dt), \
-            rn(b, hkv, sq, d, dt=dt)
+        if model_layout:
+            q, k, v = (rn(b, sq, h, d, dt=dt).transpose(1, 2)
+                       for h in (hq, hkv, hkv))
+        else:
+            q, k, v = rn(b, hq, sq, d, dt=dt), rn(b, hkv, sq, d, dt=dt), \
+                rn(b, hkv, sq, d, dt=dt)
         kw = dict(causal=causal, window=window)
         got = fa.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
@@ -185,7 +205,7 @@ def kernel_cases(bench) -> dict:
         r = (err, bench.ms(lambda: fa.flash_attention(q, k, v, **kw)), bound,
              bench.ms(lambda: ref.flash_attention_ref(q, k, v, **kw)),
              bench.ms(lib))
-        _report("flash_attention", label, dname, *r)
+        _report("flash_attention", label, dname, *r, path=_tc_path(dt))
         return r
 
     for dt in (torch.float32, torch.bfloat16):
@@ -199,10 +219,19 @@ def kernel_cases(bench) -> dict:
                None, torch.float32)
     main["flash_attention"] = flash_case("prefill s512 (serve path)", 1, 32, 8,
                                          512, 128, True, None, torch.bfloat16)
+    flash_case("prefill s512 (B,S,H,d) views", 1, 32, 8, 512, 128, True, None,
+               torch.bfloat16, model_layout=True)
     flash_case("stress s4096", 1, 32, 8, 4096, 128, True, None, torch.bfloat16)
     for dt in (torch.float32, torch.bfloat16):    # RecurrentGemma SWA prefill
         flash_case("d256 mqa s512 w2048 (rg prefill)", 1, 10, 1, 512, 256,
                    True, 2048, dt)
+    flash_case("d256 mqa s512 w2048 (B,S,H,d) views", 1, 10, 1, 512, 256,
+               True, 2048, torch.bfloat16, model_layout=True)
+    for d in (64, 128, 256):          # the tensor-core kernel's edges
+        for causal, window in ((True, None), (True, 40), (False, None)):
+            flash_case(f"edge s100 d{d} c{int(causal)} w{window}", 1, 4, 2,
+                       100, d, causal, window, torch.bfloat16,
+                       model_layout=window is not None)
 
     # -- paged decode attention --------------------------------------------
     def paged_case(label, b, hq, hkv, m, bs, d, lengths, dt, quant=False,
@@ -283,12 +312,15 @@ def kernel_cases(bench) -> dict:
                torch.bfloat16)
 
     # -- MoE FFN -------------------------------------------------------------
-    def moe_case(label, e, c, d, f, dt, activation="swiglu"):
+    def moe_weights(e, d, f, dt):
+        return ((rn(e, d, f) * d ** -0.5).to(dt),
+                (rn(e, d, f) * d ** -0.5).to(dt),
+                (rn(e, f, d) * f ** -0.5).to(dt))
+
+    def moe_case(label, e, c, d, f, dt, activation="swiglu", weights=None):
         dname = str(dt).split(".")[1]
         buf = rn(e, c, d, dt=dt)
-        wg = (rn(e, d, f) * d ** -0.5).to(dt)
-        wu = (rn(e, d, f) * d ** -0.5).to(dt)
-        wd = (rn(e, f, d) * f ** -0.5).to(dt)
+        wg, wu, wd = weights or moe_weights(e, d, f, dt)
         call = lambda: mf.moe_ffn(buf, wg, wu, wd, activation=activation)
         plain = lambda: ref.moe_ffn_ref(buf, wg, wu, wd, activation=activation)
         got, want = call(), plain()
@@ -301,7 +333,7 @@ def kernel_cases(bench) -> dict:
             h = ref.ffn_act(torch.bmm(buf, wg), activation)
             return torch.bmm(h * torch.bmm(buf, wu), wd)
         r = (err, bench.ms(call), bound, bench.ms(plain), bench.ms(lib))
-        _report("moe_ffn", label, dname, *r)
+        _report("moe_ffn", label, dname, *r, path=_tc_path(dt))
         return r
 
     for dt in (torch.float32, torch.bfloat16):
@@ -311,9 +343,15 @@ def kernel_cases(bench) -> dict:
         moe_case("gelu e4 c20 d64 f192", 4, 20, 64, 192, dt, "gelu")
     moe_case("verify c10 f32 (lossless phase)", 8, 10, 4096, 14336,
              torch.float32)
+    mix_w = moe_weights(8, 4096, 14336, torch.bfloat16)
     main["moe_ffn"] = moe_case("verify c20 (serve path)", 8, 20, 4096, 14336,
-                               torch.bfloat16)
-    moe_case("prefill c257 (serve path)", 8, 257, 4096, 14336, torch.bfloat16)
+                               torch.bfloat16, weights=mix_w)
+    moe_case("prefill c257 (serve path)", 8, 257, 4096, 14336, torch.bfloat16,
+             weights=mix_w)
+    for c in (1, 7, 33, 300):         # token tiles of 8, 8, 40, 2 x 152
+        moe_case(f"edge c{c} d4096 f14336", 8, c, 4096, 14336,
+                 torch.bfloat16, weights=mix_w)
+    del mix_w
     torch.cuda.empty_cache()
 
     # -- contiguous decode attention ----------------------------------------
@@ -657,6 +695,12 @@ def main() -> int:
           f"(nvcc seconds per source: "
           + ", ".join(f"{k}={v:.2f}" for k, v in per_source.items()) + ")",
           flush=True)
+    for src, kern in (("moe_ffn", "moe_wgmma_kernel"),
+                      ("flash_attention", "flash_fwd_wgmma_kernel")):
+        print(f"  ptxas -v {kern} (<template args>: registers, static smem "
+              "B, spill stores/loads B): " + "; ".join(
+                  f"<{a}>: {r}, {sm}, {ss}/{sl}"
+                  for a, r, sm, ss, sl in _build.ptxas_usage(src, kern)))
 
     phases = {}
     t0 = time.perf_counter()

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,7 +32,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v"]
 
 # dtype codes shared with the C entry points
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -82,7 +84,37 @@ def _finish(name: str, started) -> None:
     if proc.returncode != 0:
         raise KernelBuildError(f"nvcc failed on {name}.cu "
                                f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)       # atomic: a concurrent loader sees all or none
+
+
+def ptxas_usage(name: str, kernel: str) -> list:
+    """What ``-Xptxas -v`` said of each instantiation of ``kernel`` in
+    ``csrc/<name>.cu`` (built): [(template arguments, registers, shared
+    memory bytes, spill store bytes, spill load bytes)]."""
+    log = _lib_path(name).with_suffix(".log").read_text()
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = m.group(1) if kernel in m.group(1) else None
+            spills = (0, 0)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            args = ",".join(a or b for a, b in re.findall(
+                r"Li(\d+)E|Lb(\d)E", cur.split(kernel, 1)[1]))
+            rows.append((args, int(m.group(1)),
+                         int(smem.group(1)) if smem else 0, *spills))
+            cur = None
+    return rows
 
 
 def sources() -> list:

@@ -5,6 +5,13 @@ flash_attention``.  On CPU tensors it returns the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); on CUDA tensors
 it launches the kernel or raises.  ``launches`` counts kernel launches.
 The kernel is bound by operations (see the source's note).
+
+bf16 runs the tensor-core kernel, which reads q/k/v and writes the
+output through their strides: any layout with a contiguous last dim
+whose other strides are multiples of 8 elements, so the model hands over
+its (B, S, H, d) tensors as ``transpose(1, 2)`` views and gets the output
+back in the same layout.  f32 runs the exact CUDA-core kernel, which
+takes contiguous (B, H, S, d) tensors (copied here when they are not).
 """
 from __future__ import annotations
 
@@ -14,16 +21,27 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
          + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 HEAD_DIMS = (64, 128, 256)
+
+
+def _strides(t) -> list:
+    """(b, h, s) element strides of a (B, H, S, d) tensor for a tensor
+    map, which needs multiples of 8 (16 bytes in bf16)."""
+    _build.require(t.stride(3) == 1, "the last dim must be contiguous")
+    out = [t.stride(i) for i in range(3)]
+    _build.require(all(st % 8 == 0 for st in out), "strides must be "
+                   "multiples of 8 elements (16 bytes)")
+    return out
 
 
 def flash_attention(q, k, v, *, scale=None, causal=True, window=None):
     """q (B, Hq, Sq, d); k/v (B, Hkv, Skv, d) -> (B, Hq, Sq, d).
 
     Query and key positions both start at 0; ``causal`` masks keys after
-    the query, ``window`` keys at or before ``q_pos - window``.
+    the query, ``window`` keys at or before ``q_pos - window``.  The
+    output has q's strides where q is dense (``torch.empty_like``).
     """
     b, hq, sq, d = q.shape
     _build.require(k.dim() == 4 and k.shape[0] == b and k.shape[3] == d
@@ -40,14 +58,17 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None):
                                        window=window)
 
     _build.require(d in HEAD_DIMS, f"head dim must be one of {HEAD_DIMS}")
-    _build.check_contiguous(q=q, k=k, v=v)
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    if q.dtype == torch.float32:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         _build.require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte "
                        "aligned")
+    strides = (ctypes.c_int64 * 12)(*(_strides(q) + _strides(k) + _strides(v)
+                                      + _strides(out)))
     fn = _build.bind("flash_attention", "flash_attention", _ARGS)
-    out = torch.empty_like(q)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, hq, hkv, sq, skv, d,
+            ctypes.addressof(strides), b, hq, hkv, sq, skv, d,
             float(d ** -0.5 if scale is None else scale), int(causal),
             0 if window is None else int(window),
             _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))

@@ -35,12 +35,12 @@ from repro_torch.params import init_params
 from repro_torch.serving.engine import SchedulerConfig, ServingEngine
 from repro_torch.serving.trace import poisson_requests
 
-GROUPS = (("moe_ffn kernels", r"grouped_gemm_kernel"),
+GROUPS = (("moe_ffn kernels", r"moe_wgmma_kernel|grouped_gemm_kernel"),
           ("paged_decode_attention kernel", r"paged_decode_kernel"),
           ("decode_attention kernel", r"decode_kernel"),
           ("rglru_scan kernel", r"rglru_scan_kernel"),
           ("wkv6 kernel", r"wkv6_kernel"),
-          ("flash_attention kernel", r"flash_fwd_kernel"),
+          ("flash_attention kernel", r"flash_fwd_(wgmma_)?kernel"),
           ("cuBLAS products", r"gemm|gemv|cutlass|xmma|cublas|nvjet|sm90_"),
           ("everything else", r""))
 

@@ -294,11 +294,10 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
 
     saved = {}
     if phase == "prefill":
-        if x.is_cuda:
+        if x.is_cuda:                    # (B, S, H, d) read through strides
             out = _fa.flash_attention(
-                q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-                v.transpose(1, 2).contiguous(), scale=scale, causal=True,
-                window=window)
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                scale=scale, causal=True, window=window)
             out = out.transpose(1, 2).reshape(b, sq, n_heads * head_dim)
         else:
             qp = q_positions[0]
