@@ -9,14 +9,22 @@ on its own lines with its wall seconds:
 
 1. environment: the card's name and power limit, torch/CUDA versions,
    the kernels' build time (every ``csrc/*.cu``, one nvcc each, in
-   parallel), and what ``-Xptxas -v`` said of the two tensor-core
-   kernels (registers, static shared memory, spills per instantiation);
+   parallel), and what ``-Xptxas -v`` said of the tensor-core kernels
+   and the verify kernels (registers, static shared memory, spills per
+   instantiation);
 2. every kernel against its plain PyTorch version on the card at the
    cases of tests/test_kernels.py, the serving paths' shapes and a
    stress shape each, plus the edges of the tensor-core kernels (flash
    at 100 tokens, windowed and bidirectional at head dims 64/128/256 and
    fed (B, S, H, d) views; ``moe_ffn`` at C 1, 7, 33 and 300 at Mixtral
-   widths), each ``flash_attention`` and ``moe_ffn`` line naming the
+   widths) and of the split-KV verify kernels (the grid, n_split and CTA
+   count printed for the serve and stress shapes; lengths 1, 6, 63, 64
+   and 65 in a 32768-token capacity, where nearly every split is empty;
+   a 64-key tile boundary inside the last m positions, in f32, bf16,
+   int8 and a tree; a sliding window; m = 1; q and the output as
+   (B, S, H, d) views; the serve-shape call made twice and its outputs
+   required to be bitwise equal), each ``flash_attention`` and
+   ``moe_ffn`` line naming the
    path that ran (tensor-core bf16 or exact f32): max error against the
    tolerance (attention and
    the FFN f32 2e-5 with TF32 off, bf16 2e-2; ``rglru_scan`` 1e-5;
@@ -234,15 +242,31 @@ def kernel_cases(bench) -> dict:
                        model_layout=window is not None)
 
     # -- paged decode attention --------------------------------------------
+    def split_note(name, b, hkv, capacity):
+        """The split-KV grid the wrapper launches for these shapes."""
+        ns = da.n_split(b, hkv, capacity)
+        print(f"  {name:<23} grid (B {b}, Hkv {hkv}, n_split {ns}) = "
+              f"{b * hkv * ns} CTAs for capacity {capacity}", flush=True)
+
+    def q_tensor(b, hq, m, d, dt, model_layout):
+        """With ``model_layout`` q is made (B, m, Hq, d), as the model
+        keeps it, and handed over as a transposed view."""
+        if model_layout:
+            return rn(b, m, hq, d, dt=dt).transpose(1, 2)
+        return rn(b, hq, m, d, dt=dt)
+
     def paged_case(label, b, hq, hkv, m, bs, d, lengths, dt, quant=False,
-                   anc=None):
+                   anc=None, capacity=None, model_layout=False, repeat=False):
+        """``capacity`` (tokens, a multiple of bs) sets the block table's
+        width beyond the longest sequence, as the serving pool does; with
+        ``repeat`` the call is made twice and must give the same bits."""
         dname = str(dt).split(".")[1]
         lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
-        mbs = -(-int(lengths.max()) // bs)
+        mbs = -(-max(int(lengths.max()), capacity or 0) // bs)
         nb = b * mbs + 1
         perm = (torch.randperm(nb - 1, generator=gen, device=dev) + 1)
         bt = perm.reshape(b, mbs).to(torch.int32)
-        q = rn(b, hq, m, d, dt=dt)
+        q = q_tensor(b, hq, m, d, dt, model_layout)
         if quant:
             kp = torch.randint(-127, 128, (nb, bs, hkv, d), generator=gen,
                                device=dev, dtype=torch.int8)
@@ -262,6 +286,15 @@ def kernel_cases(bench) -> dict:
         got, want = call(), plain()
         torch.cuda.synchronize()
         err = _check("paged_decode_attention", label, got, want, dname)
+        if model_layout:
+            assert got.stride() == q.stride(), "output not in q's layout"
+        if repeat:
+            again = call()
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (
+                f"paged_decode_attention {label}: two calls differ")
+            print(f"  paged_decode_attention  {label}: two calls bitwise "
+                  "equal", flush=True)
         lens = lengths.long().cpu().numpy()
         row_b = kp.element_size() * d + (4 if quant else 0)   # one head's row
         kv_bytes = float(2 * hkv * row_b * lens.sum())
@@ -305,11 +338,33 @@ def kernel_cases(bench) -> dict:
     main_lens = rng.integers(512, 608, 4)
     paged_case("verify f32 (lossless phase)", 2, 32, 8, 5, 16, 128,
                main_lens[:2], torch.float32)
+    split_note("paged_decode_attention", 4, 8, 640)
     main["paged_decode_attention"] = paged_case(
         "verify b4 m5 ~560 tokens (serve path)", 4, 32, 8, 5, 16, 128,
-        main_lens, torch.bfloat16)
+        main_lens, torch.bfloat16, capacity=640, repeat=True)
+    split_note("paged_decode_attention", 8, 8, 32768)
     paged_case("stress b8 L32768 m5", 8, 32, 8, 5, 16, 128, [32768] * 8,
                torch.bfloat16)
+    # split edges: nearly every split of a 32768-token capacity is empty
+    paged_case("split edges m1 L1 cap32768", 4, 32, 8, 1, 16, 128,
+               [1, 1, 2, 7], torch.bfloat16, capacity=32768)
+    paged_case("split edges m5 L6/63/64/65 cap32768", 4, 32, 8, 5, 16, 128,
+               [6, 63, 64, 65], torch.bfloat16, capacity=32768)
+    # a 64-key tile boundary inside the last m positions of every sequence
+    for dt in (torch.float32, torch.bfloat16):
+        paged_case("boundary in last m5", 4, 32, 8, 5, 16, 128,
+                   [130, 66, 194, 258], dt, capacity=640)
+    paged_case("boundary in last m5 int8", 4, 32, 8, 5, 16, 128,
+               [130, 66, 194, 258], torch.bfloat16, quant=True, capacity=640)
+    paged_case("boundary tree anc_bits m4", 2, 4, 2, 4, 16, 64, [130, 66],
+               torch.bfloat16, anc=[1, 3, 5, 11], capacity=640)
+    paged_case("verify b4 m1 (greedy)", 4, 32, 8, 1, 16, 128, main_lens,
+               torch.bfloat16, capacity=640)
+    paged_case("verify b4 m5 (B,S,H,d) q/out", 4, 32, 8, 5, 16, 128,
+               main_lens, torch.bfloat16, capacity=640, model_layout=True)
+    paged_case("verify b4 m5 f32 (B,S,H,d) q/out", 2, 32, 8, 5, 16, 128,
+               main_lens[:2], torch.float32, capacity=640, model_layout=True)
+    torch.cuda.empty_cache()
 
     # -- MoE FFN -------------------------------------------------------------
     def moe_weights(e, d, f, dt):
@@ -356,12 +411,14 @@ def kernel_cases(bench) -> dict:
 
     # -- contiguous decode attention ----------------------------------------
     def decode_case(label, b, hq, hkv, m, s, d, lengths, dt, window=None,
-                    anc=None):
+                    anc=None, model_layout=False, repeat=False):
         """The cache is made (B, S, Hkv, d), as the model keeps it, and
-        handed over as a transposed view."""
+        handed over as a transposed view; so is q with ``model_layout``.
+        With ``repeat`` the call is made twice and must give the same
+        bits."""
         dname = str(dt).split(".")[1]
         lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
-        q = rn(b, hq, m, d, dt=dt)
+        q = q_tensor(b, hq, m, d, dt, model_layout)
         k = rn(b, s, hkv, d, dt=dt).transpose(1, 2)
         v = rn(b, s, hkv, d, dt=dt).transpose(1, 2)
         ab = None if anc is None else torch.as_tensor(anc, dtype=torch.int32,
@@ -375,6 +432,15 @@ def kernel_cases(bench) -> dict:
         got, want = call(), plain()
         torch.cuda.synchronize()
         err = _check("decode_attention", label, got, want, dname)
+        if model_layout:
+            assert got.stride() == q.stride(), "output not in q's layout"
+        if repeat:
+            again = call()
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (
+                f"decode_attention {label}: two calls differ")
+            print(f"  decode_attention        {label}: two calls bitwise "
+                  "equal", flush=True)
         kpos = torch.arange(s, device=dev)[None, None, :]
         qpos = (lengths.long()[:, None, None] - m
                 + torch.arange(m, device=dev)[None, :, None])
@@ -409,14 +475,36 @@ def kernel_cases(bench) -> dict:
                         hq, hkv, m, s, d, lens, dt, window=window)
         decode_case("tree anc_bits m4", 2, 4, 2, 4, 128, 64, [37, 50], dt,
                     anc=[1, 3, 5, 11])
+        split_note("decode_attention", 2, 1, 640)
         decode_case("d256 mqa m5", 2, 10, 1, 5, 640, 256, [300, 640], dt)
     decode_case("verify f32 (lossless phase)", 2, 32, 8, 5, 640, 128,
                 main_lens[:2], torch.float32)
+    split_note("decode_attention", 4, 8, 640)
     main["decode_attention"] = decode_case(
         "verify b4 m5 s640 (serve path)", 4, 32, 8, 5, 640, 128, main_lens,
-        torch.bfloat16)
+        torch.bfloat16, repeat=True)
+    split_note("decode_attention", 8, 8, 32768)
     decode_case("stress b8 S32768 m5", 8, 32, 8, 5, 32768, 128, [32768] * 8,
                 torch.bfloat16)
+    decode_case("split edges m1 L1 S32768", 4, 32, 8, 1, 32768, 128,
+                [1, 1, 2, 7], torch.bfloat16)
+    decode_case("split edges m5 L6/63/64/65 S32768", 4, 32, 8, 5, 32768,
+                128, [6, 63, 64, 65], torch.bfloat16)
+    for dt in (torch.float32, torch.bfloat16):
+        decode_case("boundary in last m5", 4, 32, 8, 5, 640, 128,
+                    [130, 66, 194, 258], dt)
+    # keys before the window's first tile are never read; three of the
+    # lengths put a 64-key tile boundary inside the last m positions
+    decode_case("window 64 boundary in last m5", 4, 32, 8, 5, 4096, 128,
+                [3970, 4033, 2050, 700], torch.bfloat16, window=64)
+    decode_case("boundary tree anc_bits m4", 2, 4, 2, 4, 640, 64, [130, 66],
+                torch.bfloat16, anc=[1, 3, 5, 11])
+    decode_case("verify b4 m1 (greedy)", 4, 32, 8, 1, 640, 128, main_lens,
+                torch.bfloat16)
+    decode_case("verify b4 m5 (B,S,H,d) q/out", 4, 32, 8, 5, 640, 128,
+                main_lens, torch.bfloat16, model_layout=True)
+    decode_case("verify b4 m5 f32 (B,S,H,d) q/out", 2, 32, 8, 5, 640, 128,
+                main_lens[:2], torch.float32, model_layout=True)
     torch.cuda.empty_cache()
 
     # -- RG-LRU scan ----------------------------------------------------------
@@ -696,7 +784,10 @@ def main() -> int:
           + ", ".join(f"{k}={v:.2f}" for k, v in per_source.items()) + ")",
           flush=True)
     for src, kern in (("moe_ffn", "moe_wgmma_kernel"),
-                      ("flash_attention", "flash_fwd_wgmma_kernel")):
+                      ("flash_attention", "flash_fwd_wgmma_kernel"),
+                      ("paged_decode_attention", "paged_decode_mma_kernel"),
+                      ("paged_decode_attention", "paged_decode_kernel"),
+                      ("decode_attention", "decode_mma_kernel")):
         print(f"  ptxas -v {kern} (<template args>: registers, static smem "
               "B, spill stores/loads B): " + "; ".join(
                   f"<{a}>: {r}, {sm}, {ss}/{sl}"

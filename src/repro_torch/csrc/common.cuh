@@ -1,8 +1,8 @@
 // Shared helpers of the port's Hopper kernels: element conversions
 // between the storage types (f32, bf16, int8) and the f32 the kernels
-// compute in, the dtype codes the Python wrappers pass, and the body of
-// the skinny-q verify attention that the contiguous (decode_attention.cu)
-// and the paged (paged_decode_attention.cu) kernels share.
+// compute in, the dtype codes the Python wrappers pass, and the split-KV
+// verify attention that the contiguous (decode_attention.cu) and the
+// paged (paged_decode_attention.cu) kernels share (its note below).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,20 +50,65 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 
 // ---------------------------------------------------------------------------
-// Skinny-q verify attention: one CTA per (sequence, KV head) holds the g*m
-// query rows of that head, so every KV row is read from device memory
-// once.  A loop inside the CTA walks the kDecodeTile-row tiles that hold
-// visible keys: from the sliding window's first key (if any) to
-// kv_end = the number of valid rows.  K and V tiles are loaded with
-// 8-element vector loads, dequantized to f32 in shared memory, and an
-// online softmax in f32 (masked scores -1e30, final division by
-// max(l, 1e-30), as on the TPU) accumulates the output in shared memory.
-// The caller's row function maps a logical key position to the addresses
-// of its K and V rows (and its int8 scale index): a block-table lookup for
-// the paged pool, strides for a contiguous cache.
+// Split-KV verify attention: the body the contiguous (decode_attention.cu)
+// and the paged (paged_decode_attention.cu) kernels share.
+//
+// The work of one call is B * Hkv skinny products: the g*m query rows of
+// one KV head (20 at Mixtral's verify shape) against that head's keys.
+// Each KV row serves only those g*m rows, so the call is bound by bytes
+// (~g*m/2 operations per byte, far under the H100's ~295), and B * Hkv
+// CTAs (32 at the serving shape) cannot keep 132 SMs' worth of loads in
+// flight.  So the key axis is split as well: the grid is (B, Hkv,
+// n_split), n_split chosen by the wrapper from shapes alone (about two
+// CTAs per SM; kernels/decode_attention.py::n_split), never from the
+// lengths, which stay on the card.  Each CTA cuts [first, kv_end) -- from
+// the sliding window's first key, if any, to the number of valid rows --
+// into n_split chunks of whole kKeyTile-row tiles, computed on the device
+// from lengths[b], and runs an online softmax over its chunk into a
+// partial (acc, m, l) per query row.  A CTA whose chunk is empty reads no
+// KV and leaves the partial (m = -1e30, l = 0).
+//
+// Merge: in one launch.  Every CTA writes its partial to the wrapper's
+// f32 workspace and takes a ticket from an int32 counter per (b, h); the
+// CTA that draws the last ticket merges the n_split partials of that
+// (b, h) in split order 0, 1, ... (so the result has the same bits
+// whichever CTA finishes last; no float atomics), writes the output and
+// sets the counter back to 0 for the next call.  A partial with l = 0 is
+// empty and skipped.  A split can hold no visible key for some row (its
+// keys lie after the row's position, before the window, or outside the
+// row's tree ancestors): with the finite -1e30 every masked score then
+// gives exp(0) = 1 and the partial holds a finite sum of V rows under
+// m = -1e30, which the merge weights by exp(-1e30 - m_global) = 0.  The
+// final division by max(l, 1e-30) is done once, after the merge.  With
+// n_split = 1 the CTA writes the output itself.
+//
+// Two bodies compute a partial:
+// - decode_mma_body (bf16 q and KV: the path every serve run takes):
+//   tensor cores, mma.sync m16n8k16 with f32 accumulators.  The keys are
+//   the M side of S^T = K Q^T and the g*m rows the N side, rounded to 8
+//   (20 rows: 3 n-tiles); P is rounded to bf16 and O^T = V^T P^T puts the
+//   head dim on M.  KV tiles of 64 rows stream through a 3-stage cp.async
+//   ring (XOR-swizzled 16-byte chunks, no padding, so two CTAs fit an SM
+//   at d <= 128); operands come from shared memory by ldmatrix (.trans
+//   for V), q's fragments stay in registers.  Warp w owns query n-tiles
+//   w and w + 8 and runs their softmax on the S^T fragment in registers
+//   (row max and sum over the 8 lanes that share a column; exp by
+//   __expf, whose error is far under P's bf16 rounding; the mask is
+//   skipped on tiles every row sees whole).  In O^T = V^T P^T each warp
+//   owns head-dim m-tiles and runs every n-tile up to the capacity NTC
+//   (g*m rounded up to 1, 2, 4, 8, 16 n-tiles) with no test, so the
+//   products of one V^T fragment interleave instead of waiting on a
+//   branch per (m-tile, n-tile) pair.
+// - decode_core_body (f32 or int8 KV: the lossless path and int8 pools):
+//   the exact f32 body on the CUDA cores, 32-row tiles dequantized into
+//   shared memory, one (row, key) score per thread and step.
+// Both read q and write the output through (batch, head, token) strides,
+// so the model hands over its (B, S, H, d) tensors as transposed views.
 
-constexpr int kDecodeThreads = 256;
-constexpr int kDecodeTile = 32;        // KV rows per iteration: one per lane
+constexpr int kKeyTile = 64;           // keys per split unit and mma tile
+constexpr int kDecodeThreads = 256;    // CUDA-core body
+constexpr int kDecodeTile = 32;        // CUDA-core body: KV rows a step
+constexpr int kDecodeStages = 3;       // mma body: cp.async ring depth
 
 template <typename KT>
 struct KVRow {
@@ -71,6 +116,180 @@ struct KVRow {
   const KT* v;
   size_t scale_idx;
 };
+
+// What both kernels pass their body: q/out through element strides of
+// their (batch, head, token) axes, the lengths, the optional ancestor
+// bitmasks, the merge workspace and the shapes.
+struct DecodeArgs {
+  const void* q;
+  void* out;
+  long long q_sb, q_sh, q_sm, o_sb, o_sh, o_sm;
+  const int* lengths;
+  const int* anc;
+  float* part_acc;        // (B, Hkv, n_split, g*m, d), n_split > 1 only
+  float2* part_ml;        // (B, Hkv, n_split, g*m): (m, l)
+  int* counters;          // (B * Hkv), zero between calls
+  int n_q_heads, n_kv_heads, m, n_split, window;
+  float scale;
+};
+
+// The keys [k_begin, k_end) of split `split`: the nt whole kKeyTile
+// tiles that hold [first, kv_end) dealt out in order, split s taking
+// tiles [s * nt / n_split, (s + 1) * nt / n_split) (empty when nt <
+// n_split and the share rounds to nothing).
+struct SplitRange {
+  int k_begin, k_end;
+};
+
+__device__ __forceinline__ SplitRange split_range(int len, int kv_end, int m,
+                                                  int window, int n_split,
+                                                  int split) {
+  const int first = window > 0 ? max(0, len - m - window + 1) : 0;
+  const int t_lo = first / kKeyTile;
+  const int t_hi = (max(kv_end, 0) + kKeyTile - 1) / kKeyTile;
+  const int nt = max(t_hi - t_lo, 0);
+  const int ts = t_lo + split * nt / n_split;
+  const int te = t_lo + (split + 1) * nt / n_split;
+  SplitRange r;
+  r.k_begin = ts * kKeyTile;
+  r.k_end = te > ts ? min(te * kKeyTile, kv_end) : r.k_begin;
+  return r;
+}
+
+// Whether query row token mi (at position len - m + mi) sees key kpos:
+// causal, inside the window when window > 0, or by ancestor bitmask
+// `bits` over the last m rows when has_anc; never at kpos >= kv_end.
+__device__ __forceinline__ bool key_visible(int kpos, int mi, int len, int m,
+                                            int kv_end, int window,
+                                            bool has_anc, int bits) {
+  bool ok;
+  if (has_anc) {
+    const int spec0 = len - m, col = kpos - spec0;
+    const int bit = (bits >> min(max(col, 0), 31)) & 1;
+    ok = (kpos < spec0) || (col >= 0 && kpos < len && bit);
+  } else {
+    const int qpos = len - m + mi;
+    ok = (kpos <= qpos) && (kpos < len);
+    if (window > 0) ok = ok && (kpos > qpos - window);
+  }
+  return ok && kpos < kv_end;
+}
+
+// Query row r = gi * m + mi is token mi of query head h * g + gi.
+__device__ __forceinline__ long long q_row_off(const DecodeArgs& a, int b,
+                                               int h, int r, bool out) {
+  const int g = a.n_q_heads / a.n_kv_heads, gi = r / a.m, mi = r % a.m;
+  return out ? b * a.o_sb + (h * g + gi) * a.o_sh + mi * a.o_sm
+             : b * a.q_sb + (h * g + gi) * a.q_sh + mi * a.q_sm;
+}
+
+constexpr int kMergeChunk = 8;       // splits merged per pass
+
+// The end of every CTA: acc (rows x D f32 in shared memory, not yet
+// divided by l) with m_s / l_s (rows) is this split's partial.  With one
+// split it is the answer; otherwise it goes to the workspace, and the CTA
+// that draws the last ticket of its (b, h) merges all of them in split
+// order, kMergeChunk splits a pass: the passes' (m, l) pairs are loaded
+// at once into `scratch` ((2 * kMergeChunk + 1) * rows floats of shared
+// memory), and acc, m_s and l_s become the running merge, so every
+// thread keeps up to kMergeChunk loads of 16 bytes in flight.
+template <typename QT, int D>
+__device__ __forceinline__ void split_epilogue(const DecodeArgs& a,
+                                               float* acc, float* m_s,
+                                               float* l_s, float* scratch,
+                                               int b, int h, int split,
+                                               bool empty, int nthreads) {
+  __shared__ int last;
+  constexpr int kV = D / 4;                 // float4 units of a row
+  const int tid = threadIdx.x;
+  const int rows = (a.n_q_heads / a.n_kv_heads) * a.m;
+  QT* out = static_cast<QT*>(a.out);
+  if (a.n_split > 1) {
+    const size_t bh = static_cast<size_t>(b) * a.n_kv_heads + h;
+    const size_t base = (bh * a.n_split + split) * rows;
+    for (int r = tid; r < rows; r += nthreads)
+      a.part_ml[base + r] = make_float2(m_s[r], l_s[r]);
+    if (!empty) {
+      float4* dst = reinterpret_cast<float4*>(a.part_acc + base * D);
+      for (int i = tid; i < rows * kV; i += nthreads)
+        dst[i] = reinterpret_cast<const float4*>(acc)[i];
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(a.counters + bh, 1) == a.n_split - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+
+    float2* ml = reinterpret_cast<float2*>(scratch);   // chunk x rows
+    float* resc = scratch + 2 * kMergeChunk * rows;    // rows
+    const size_t first = bh * a.n_split * rows;
+    for (int i = tid; i < rows * kV; i += nthreads)
+      reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = tid; r < rows; r += nthreads) {
+      m_s[r] = REPRO_NEG_INF;
+      l_s[r] = 0.f;
+    }
+    for (int s0 = 0; s0 < a.n_split; s0 += kMergeChunk) {
+      const int ns = min(kMergeChunk, a.n_split - s0);
+      __syncthreads();                     // the last pass is done
+      for (int i = tid; i < ns * rows; i += nthreads)
+        ml[i] = __ldcg(a.part_ml + first + s0 * rows + i);
+      __syncthreads();
+      // per row: the new running max, the old sum's factor, and each
+      // split's weight (0 for an empty split, whose acc was not written)
+      for (int r = tid; r < rows; r += nthreads) {
+        float mg = m_s[r];
+        for (int s = 0; s < ns; ++s)
+          if (ml[s * rows + r].y > 0.f) mg = fmaxf(mg, ml[s * rows + r].x);
+        const float c = expf(m_s[r] - mg);
+        float l = l_s[r] * c;
+        for (int s = 0; s < ns; ++s) {
+          float2& e = ml[s * rows + r];
+          const float w = e.y > 0.f ? expf(e.x - mg) : 0.f;
+          l += e.y * w;
+          e.x = w;
+        }
+        m_s[r] = mg;
+        l_s[r] = l;
+        resc[r] = c;
+      }
+      __syncthreads();
+      for (int i = tid; i < rows * kV; i += nthreads) {
+        const int r = i / kV;
+        float4 o = reinterpret_cast<float4*>(acc)[i];
+        const float c = resc[r];
+        o.x *= c; o.y *= c; o.z *= c; o.w *= c;
+        float4 v[kMergeChunk];
+#pragma unroll
+        for (int s = 0; s < kMergeChunk; ++s)
+          if (s < ns && ml[s * rows + r].x != 0.f)
+            v[s] = __ldcg(reinterpret_cast<const float4*>(
+                              a.part_acc + (first + (s0 + s) * rows) * D)
+                          + i);
+#pragma unroll
+        for (int s = 0; s < kMergeChunk; ++s) {
+          const float w = s < ns ? ml[s * rows + r].x : 0.f;
+          if (w != 0.f) {
+            o.x += w * v[s].x; o.y += w * v[s].y;
+            o.z += w * v[s].z; o.w += w * v[s].w;
+          }
+        }
+        reinterpret_cast<float4*>(acc)[i] = o;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) a.counters[bh] = 0;
+  }
+  for (int i = tid; i < rows * D; i += nthreads) {
+    const int r = i / D, c = i % D;
+    out[q_row_off(a, b, h, r, true) + c] =
+        from_f<QT>(acc[i] / fmaxf(l_s[r], 1e-30f));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// CUDA-core body (f32 and int8 KV): exact f32 arithmetic.
 
 template <int D>
 __host__ __device__ constexpr size_t decode_smem_floats(int rows) {
@@ -80,22 +299,20 @@ __host__ __device__ constexpr size_t decode_smem_floats(int rows) {
          + 3 * static_cast<size_t>(rows);                   // max, sum, corr
 }
 
-// q/out (B, Hq, m, D) contiguous; query row r = gi * m + mi is token mi of
-// query head h * g + gi, at logical position len - m + mi.  Keys are
-// visible causally (k_pos <= q_pos), inside the window (k_pos > q_pos -
-// window) when window > 0, or by ancestor bitmask over the last m rows
-// when anc is given; never at k_pos >= kv_end.
 template <typename QT, typename KT, int D, typename RowFn>
-__device__ __forceinline__ void decode_attention_body(
-    const QT* __restrict__ q, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ anc,
-    QT* __restrict__ out, int b, int h, int n_q_heads, int n_kv_heads,
-    int m, int len, int kv_end, int window, float scale, RowFn row_of) {
+__device__ __forceinline__ void decode_core_body(
+    const DecodeArgs& a, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, int b, int h, int split, int len,
+    int kv_end, RowFn row_of) {
   static_assert(kDecodeTile == 32, "one KV row per lane in the softmax");
+  static_assert(kKeyTile % kDecodeTile == 0, "splits hold whole tiles");
   static_assert(D % 8 == 0, "8-element vector loads");
   constexpr int kThreads = kDecodeThreads, kTile = kDecodeTile;
-  const int g = n_q_heads / n_kv_heads, rows = g * m;
+  const int m = a.m, rows = (a.n_q_heads / a.n_kv_heads) * m;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const QT* q = static_cast<const QT*>(a.q);
+  const SplitRange sr = split_range(len, kv_end, m, a.window, a.n_split,
+                                    split);
 
   extern __shared__ float smem[];
   float* qs = smem;                         // rows x D
@@ -108,9 +325,8 @@ __device__ __forceinline__ void decode_attention_body(
   float* corr = l_run + rows;               // rows
 
   for (int i = tid; i < rows * D; i += kThreads) {
-    const int r = i / D, c = i % D, gi = r / m, mi = r % m;
-    qs[i] = to_f(q[((static_cast<size_t>(b) * n_q_heads + h * g + gi) * m
-                    + mi) * D + c]);
+    const int r = i / D, c = i % D;
+    qs[i] = to_f(q[q_row_off(a, b, h, r, false) + c]);
     acc[i] = 0.f;
   }
   for (int r = tid; r < rows; r += kThreads) {
@@ -119,15 +335,12 @@ __device__ __forceinline__ void decode_attention_body(
   }
   __syncthreads();
 
-  const int first = window > 0 ? max(0, len - m - window + 1) : 0;
-  const int n_tiles = (kv_end + kTile - 1) / kTile;
-  for (int t = first / kTile; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
+  for (int k0 = sr.k_begin; k0 < sr.k_end; k0 += kTile) {
     // K/V rows [k0, k0 + 32), 8 elements a thread
     for (int i = tid; i < kTile * D / 8; i += kThreads) {
       const int r = i / (D / 8), c = (i % (D / 8)) * 8, pos = k0 + r;
       float kv[8], vv[8];
-      if (pos < kv_end) {
+      if (pos < sr.k_end) {
         const KVRow<KT> kvr = row_of(pos);
         load8(kvr.k + c, kv);
         load8(kvr.v + c, vv);
@@ -156,19 +369,10 @@ __device__ __forceinline__ void decode_attention_body(
       float s = 0.f;
 #pragma unroll 8
       for (int c = 0; c < D; ++c) s += qr[c] * kr[c];
-      s *= scale;
-      const int kpos = k0 + kk;
-      bool ok;
-      if (anc != nullptr) {
-        const int spec0 = len - m, col = kpos - spec0;
-        const int bit = (anc[mi] >> min(max(col, 0), 31)) & 1;
-        ok = (kpos < spec0) || (col >= 0 && kpos < len && bit);
-      } else {
-        const int qpos = len - m + mi;
-        ok = (kpos <= qpos) && (kpos < len);
-        if (window > 0) ok = ok && (kpos > qpos - window);
-      }
-      ss[i] = (ok && kpos < kv_end) ? s : REPRO_NEG_INF;
+      const bool ok = key_visible(k0 + kk, mi, len, m, kv_end, a.window,
+                                  a.anc != nullptr,
+                                  a.anc != nullptr ? a.anc[mi] : 0);
+      ss[i] = ok ? s * a.scale : REPRO_NEG_INF;
     }
     __syncthreads();
 
@@ -200,19 +404,333 @@ __device__ __forceinline__ void decode_attention_body(
     for (int i = tid; i < rows * D; i += kThreads) {
       const int r = i / D, c = i % D;
       const float* pr = ss + r * kTile;
-      float a = acc[i] * corr[r];
+      float s = acc[i] * corr[r];
 #pragma unroll 8
-      for (int kk = 0; kk < kTile; ++kk) a += pr[kk] * vs[kk * D + c];
-      acc[i] = a;
+      for (int kk = 0; kk < kTile; ++kk) s += pr[kk] * vs[kk * D + c];
+      acc[i] = s;
     }
     __syncthreads();
   }
+  __syncthreads();                   // qs is free: the merge's scratch
+  split_epilogue<QT, D>(a, acc, m_run, l_run, qs, b, h, split,
+                        sr.k_begin >= sr.k_end, kThreads);
+}
 
-  for (int i = tid; i < rows * D; i += kThreads) {
-    const int r = i / D, c = i % D, gi = r / m, mi = r % m;
-    out[((static_cast<size_t>(b) * n_q_heads + h * g + gi) * m + mi) * D + c] =
-        from_f<QT>(acc[i] / fmaxf(l_run[r], 1e-30f));
+// ---------------------------------------------------------------------------
+// Tensor-core body (bf16 q and KV): mma.sync m16n8k16, f32 accumulators.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
+                                        const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_addr(p)));
+}
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Shared-memory tiles of `cols` bf16 columns, rows of 16-byte chunks
+// placed at chunk ^ (row % 8): ldmatrix's eight row addresses of one
+// column chunk then fall in eight different bank groups, with no padding.
+__device__ __forceinline__ int swz(int row, int chunk, int cols) {
+  return row * cols + ((chunk ^ (row & 7)) << 3);
+}
+
+// NTC: the query n-tiles (8 rows each) the CTA computes, g*m rounded up
+// to 1, 2, 4, 8 or 16 (10 at d 256, whose max_rows is 76): the n-tile
+// loops of the P V product run to NTC with no test, so their products
+// interleave; the padded columns are computed and never written.
+template <int D, int NTC>
+struct MmaCfg {
+  static constexpr int kWarps = 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kMT = D / 16;                  // head-dim m-tiles
+  // S phase: warp w owns n-tiles w and w + 8
+  static constexpr int kNTS = (NTC + kWarps - 1) / kWarps;
+  // P V phase: warp w owns m-tiles w % kMTB + 8 u (u < kMTW) and, where
+  // there are fewer m-tiles than warps (d 64), every kWPM-th n-tile
+  static constexpr int kMTB = kMT < kWarps ? kMT : kWarps;
+  static constexpr int kMTW = kMT / kMTB;
+  static constexpr int kWPM = kWarps / kMTB;
+  static constexpr int kNTO = (NTC + kWPM - 1) / kWPM;
+  static constexpr int kRowsP = 8 * kNTO * kWPM;      // P rows held
+  static constexpr int kStageElems = 2 * kKeyTile * D;  // K then V
+  static constexpr int kSmem = kDecodeStages * kStageElems * 2  // ring
+                               + kRowsP * kKeyTile * 2          // P
+                               + 3 * kRowsP * 4;                // corr, m, l
+  // two CTAs an SM where registers (128 a thread) and shared memory allow
+  static constexpr int kMinBlocks = D <= 128 && kNTS * kMTW * kNTO < 8 ? 2 : 1;
+  static_assert(D % 64 == 0, "8 chunks a row for the swizzle");
+};
+
+// The n-tile capacity the dispatch picks for g*m query rows.
+__host__ __device__ constexpr int n_tile_cap(int rows, int d) {
+  return rows <= 8 ? 1 : rows <= 16 ? 2 : rows <= 32 ? 4 : rows <= 64 ? 8
+         : d > 128 ? 10 : 16;
+}
+
+template <int D, int NTC, typename RowFn>
+__device__ __forceinline__ void decode_mma_body(const DecodeArgs& a, int b,
+                                                int h, int split, int len,
+                                                int kv_end, RowFn row_of) {
+  using C = MmaCfg<D, NTC>;
+  constexpr int kW = C::kWarps, kT = C::kThreads, kCh = D / 8;
+  constexpr int NTW = C::kNTS;
+  const int m = a.m, rows = (a.n_q_heads / a.n_kv_heads) * m;
+  const int n_nt = (rows + 7) / 8;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const bool has_anc = a.anc != nullptr;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  const SplitRange sr = split_range(len, kv_end, m, a.window, a.n_split,
+                                    split);
+  const int n_tiles = (sr.k_end - sr.k_begin + kKeyTile - 1) / kKeyTile;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* p_s = ring + kDecodeStages * C::kStageElems;  // rows x 64
+  float* corr_s = reinterpret_cast<float*>(p_s + C::kRowsP * kKeyTile);
+  float* m_s = corr_s + C::kRowsP;
+  float* l_s = m_s + C::kRowsP;
+  // the warp's P V tiles: m-tiles mt0 + 8 u, n-tiles nt0 + kWPM i
+  const int mt0 = warp % C::kMTB, nt0 = warp / C::kMTB;
+
+  // q's B fragments (k = head dim, n = row) for the warp's n-tiles, the
+  // running max / sum of its rows 2tq, 2tq + 1 of each n-tile
+  uint32_t qf[NTW][D / 16][2];
+  float m_run[NTW][2], l_run[NTW][2];
+  int bits[NTW][2];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) {
+    const int nt = warp + j * kW, rq = nt * 8 + gq;
+    const bool ok = nt < n_nt && rq < rows;
+    const __nv_bfloat16* qr = q + (ok ? q_row_off(a, b, h, rq, false) : 0);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const int c = ks * 16 + 2 * tq;
+      qf[j][ks][0] = ok ? *reinterpret_cast<const uint32_t*>(qr + c) : 0u;
+      qf[j][ks][1] = ok ? *reinterpret_cast<const uint32_t*>(qr + c + 8) : 0u;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      m_run[j][e] = REPRO_NEG_INF;
+      l_run[j][e] = 0.f;
+      bits[j][e] = has_anc ? a.anc[(nt * 8 + 2 * tq + e) % m] : 0;
+    }
   }
+  float o[C::kMTW][C::kNTO][4];
+#pragma unroll
+  for (int u = 0; u < C::kMTW; ++u)
+#pragma unroll
+    for (int i = 0; i < C::kNTO; ++i)
+      o[u][i][0] = o[u][i][1] = o[u][i][2] = o[u][i][3] = 0.f;
+
+  // K/V tile t (64 rows from k_begin + 64 t) into ring stage `st`; rows
+  // past k_end are zero (their P is 0, and 0 * garbage could be NaN)
+  auto load_tile = [&](int t, int st) {
+    __nv_bfloat16* kd = ring + st * C::kStageElems;
+    __nv_bfloat16* vd = kd + kKeyTile * D;
+    const int k0 = sr.k_begin + t * kKeyTile;
+    for (int i = tid; i < kKeyTile * kCh; i += kT) {
+      const int r = i / kCh, c = i % kCh, pos = k0 + r;
+      const int off = swz(r, c, D);
+      if (pos < sr.k_end) {
+        const KVRow<__nv_bfloat16> kvr = row_of(pos);
+        cp_async16(kd + off, kvr.k + c * 8);
+        cp_async16(vd + off, kvr.v + c * 8);
+      } else {
+        *reinterpret_cast<uint4*>(kd + off) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(vd + off) = make_uint4(0, 0, 0, 0);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int t = 0; t < kDecodeStages - 1; ++t) {
+    if (t < n_tiles) load_tile(t, t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kDecodeStages - 2>();
+    __syncthreads();                 // tile t landed; tile t - 1 consumed
+    if (t + kDecodeStages - 1 < n_tiles)
+      load_tile(t + kDecodeStages - 1, (t + kDecodeStages - 1) % kDecodeStages);
+    cp_async_commit();
+    const __nv_bfloat16* kt = ring + (t % kDecodeStages) * C::kStageElems;
+    const __nv_bfloat16* vt = kt + kKeyTile * D;
+    const int k0 = sr.k_begin + t * kKeyTile;
+    // every key of the tile visible to every query row
+    const bool full =
+        k0 + kKeyTile <= kv_end
+        && (has_anc ? k0 + kKeyTile <= len - m
+                    : k0 + kKeyTile <= len - m + 1
+                          && (a.window <= 0 || k0 > len - 1 - a.window));
+
+    // S^T = K Q^T for the warp's n-tiles, softmax in registers, P to smem
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const int nt = warp + j * kW;
+      if (nt >= n_nt) continue;      // warp-uniform
+      float s[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) s[mt][0] = s[mt][1] = s[mt][2] = s[mt][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          uint32_t af[4];
+          ldsm_x4(af, kt + swz(mt * 16 + (lane & 15), ks * 2 + (lane >> 4), D));
+          mma_bf16(s[mt], af, qf[j][ks][0], qf[j][ks][1]);
+        }
+      }
+      // scale and mask; a tile whose every key every row sees needs no mask
+      if (full) {
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[mt][i] *= a.scale;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int mi = (nt * 8 + 2 * tq + e) % m;
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              float& v = s[mt][2 * hf + e];
+              v = key_visible(k0 + mt * 16 + gq + 8 * hf, mi, len, m, kv_end,
+                              a.window, has_anc, bits[j][e])
+                      ? v * a.scale
+                      : REPRO_NEG_INF;
+            }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = nt * 8 + 2 * tq + e;
+        float mx = REPRO_NEG_INF;
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+          mx = fmaxf(mx, fmaxf(s[mt][e], s[mt][2 + e]));
+#pragma unroll
+        for (int x = 4; x < 32; x <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+        const float m_new = fmaxf(m_run[j][e], mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const float p = __expf(s[mt][2 * hf + e] - m_new);
+            sum += p;
+            const int kk = mt * 16 + gq + 8 * hf;
+            p_s[swz(r, kk >> 3, kKeyTile) + (kk & 7)] = __float2bfloat16(p);
+          }
+        }
+#pragma unroll
+        for (int x = 4; x < 32; x <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, x);
+        const float c = __expf(m_run[j][e] - m_new);
+        l_run[j][e] = l_run[j][e] * c + sum;
+        m_run[j][e] = m_new;
+        if (gq == 0) corr_s[r] = c;
+      }
+    }
+    __syncthreads();                 // P and corr of tile t
+
+    // O^T = O^T * corr + V^T P^T: each V^T fragment serves the warp's
+    // kNTO n-tiles, whose products are independent
+#pragma unroll
+    for (int i = 0; i < C::kNTO; ++i) {
+      const int r = (nt0 + C::kWPM * i) * 8 + 2 * tq;
+      const float c0 = corr_s[r], c1 = corr_s[r + 1];
+#pragma unroll
+      for (int u = 0; u < C::kMTW; ++u) {
+        o[u][i][0] *= c0; o[u][i][1] *= c1; o[u][i][2] *= c0; o[u][i][3] *= c1;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKeyTile / 16; ++kk) {
+      uint32_t af[C::kMTW][4], bf[C::kNTO][2];
+#pragma unroll
+      for (int u = 0; u < C::kMTW; ++u)
+        ldsm_x4_t(af[u], vt + swz(kk * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                  (mt0 + 8 * u) * 2 + ((lane >> 3) & 1), D));
+#pragma unroll
+      for (int i = 0; i < C::kNTO; ++i)
+        ldsm_x2(bf[i][0], bf[i][1],
+                p_s + swz((nt0 + C::kWPM * i) * 8 + (lane & 7),
+                          kk * 2 + ((lane >> 3) & 1), kKeyTile));
+#pragma unroll
+      for (int u = 0; u < C::kMTW; ++u)
+#pragma unroll
+        for (int i = 0; i < C::kNTO; ++i)
+          mma_bf16(o[u][i], af[u], bf[i][0], bf[i][1]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                   // the ring is free: acc goes there
+
+  float* acc = reinterpret_cast<float*>(ring);     // rows x D
+#pragma unroll
+  for (int u = 0; u < C::kMTW; ++u)
+#pragma unroll
+    for (int i = 0; i < C::kNTO; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = (nt0 + C::kWPM * i) * 8 + 2 * tq + (e & 1);
+        const int c = (mt0 + 8 * u) * 16 + gq + 8 * (e >> 1);
+        if (r < rows) acc[r * D + c] = o[u][i][e];
+      }
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) {
+    const int nt = warp + j * kW;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = nt * 8 + 2 * tq + e;
+      if (nt < n_nt && r < rows && gq == 0) {
+        m_s[r] = m_run[j][e];
+        l_s[r] = l_run[j][e];
+      }
+    }
+  }
+  __syncthreads();
+  // P is free: the merge's scratch ((2 * kMergeChunk + 1) * rows floats
+  // of kRowsP * 32)
+  split_epilogue<__nv_bfloat16, D>(a, acc, m_s, l_s,
+                                   reinterpret_cast<float*>(p_s), b, h,
+                                   split, n_tiles == 0, kT);
 }
 
 }  // namespace repro

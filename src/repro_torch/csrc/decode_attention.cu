@@ -14,97 +14,151 @@
 // 10 for Mixtral's g=4, m=5), far under the ~295 the H100 needs to be
 // compute-bound.
 //
-// Design: the verify-attention body of common.cuh, shared with the paged
-// kernel: one CTA per (sequence, KV head) holding the g*m query rows, so
-// every KV row is read once, and an online softmax in f32.  The TPU grid
-// pads the cache to a block multiple and visits every block; here the CTA
-// walks only the tiles below min(len, S) (and from the window's first key
-// when there is a window).  The cache is read through (batch, head, slot)
-// strides, so the model passes its (B, S, Hkv, d) cache as a transposed
-// view with no copy.  Split-KV, TMA and wgmma are later work.
+// Design: the split-KV body of common.cuh, shared with the paged kernel
+// (see its note): a (B, Hkv, n_split) grid, each CTA one chunk of whole
+// 64-key tiles of [first, min(len, S)) -- from the window's first key
+// when there is a window -- and the last CTA of a (sequence, head)
+// merging the partials in split order.  The TPU grid pads the cache to a
+// block multiple and visits every block; here only the tiles below
+// min(len, S) are read.  bf16 runs the tensor-core body (mma.sync,
+// 3-stage cp.async ring), f32 the exact CUDA-core body.  The cache is read
+// through (batch, head, slot) strides, and q and the output through their
+// own, so the model passes its (B, S, Hkv, d) cache and (B, S, H, d)
+// queries as transposed views with no copy.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace repro;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kDecodeThreads) decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ lengths, const int* __restrict__ anc,
-    T* __restrict__ out, int n_q_heads, int n_kv_heads, int m, int n_slots,
-    long long sb, long long sh, long long ss, float scale, int window) {
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int len = lengths[b];
-  const size_t base = static_cast<size_t>(b) * sb + static_cast<size_t>(h) * sh;
-  auto row_of = [=](int pos) {
-    const size_t off = base + static_cast<size_t>(pos) * ss;
-    return KVRow<T>{k + off, v + off, 0};
+template <typename T>
+struct ContigKV {
+  const T* k;
+  const T* v;
+  long long sb, sh, ss;
+  int n_slots;
+};
+
+template <typename T>
+__device__ __forceinline__ auto contig_rows(const ContigKV<T>& kv, int b,
+                                            int h) {
+  const size_t base = static_cast<size_t>(b) * kv.sb
+                      + static_cast<size_t>(h) * kv.sh;
+  return [=](int pos) {
+    const size_t off = base + static_cast<size_t>(pos) * kv.ss;
+    return KVRow<T>{kv.k + off, kv.v + off, 0};
   };
-  decode_attention_body<T, T, D>(q, nullptr, nullptr, anc, out, b, h,
-                                 n_q_heads, n_kv_heads, m, len,
-                                 min(len, n_slots), window, scale, row_of);
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* lengths,
-           const void* anc, void* out, int batch, int hq, int hkv, int m,
-           int n_slots, long long sb, long long sh, long long ss, float scale,
-           int window, cudaStream_t stream) {
-  const size_t smem = decode_smem_floats<D>((hq / hkv) * m) * sizeof(float);
-  auto kern = decode_kernel<T, D>;
+template <int D>
+__global__ void __launch_bounds__(kDecodeThreads) decode_kernel(
+    DecodeArgs a, ContigKV<float> kv) {
+  const int b = blockIdx.x, h = blockIdx.y, len = a.lengths[b];
+  decode_core_body<float, float, D>(a, nullptr, nullptr, b, h, blockIdx.z,
+                                    len, min(len, kv.n_slots),
+                                    contig_rows(kv, b, h));
+}
+
+template <int D, int NTC>
+__global__ void __launch_bounds__(MmaCfg<D, NTC>::kThreads,
+                                  MmaCfg<D, NTC>::kMinBlocks)
+    decode_mma_kernel(DecodeArgs a, ContigKV<__nv_bfloat16> kv) {
+  const int b = blockIdx.x, h = blockIdx.y, len = a.lengths[b];
+  decode_mma_body<D, NTC>(a, b, h, blockIdx.z, len, min(len, kv.n_slots),
+                          contig_rows(kv, b, h));
+}
+
+template <int D>
+int launch_f32(const DecodeArgs& a, const ContigKV<float>& kv, int batch,
+               cudaStream_t stream) {
+  const int rows = (a.n_q_heads / a.n_kv_heads) * a.m;
+  const size_t smem = decode_smem_floats<D>(rows) * sizeof(float);
+  auto kern = decode_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3(batch, hkv), kDecodeThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<const int*>(anc), static_cast<T*>(out), hq, hkv, m, n_slots,
-      sb, sh, ss, scale, window);
+  kern<<<dim3(batch, a.n_kv_heads, a.n_split), kDecodeThreads, smem,
+         stream>>>(a, kv);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v,
-               const void* lengths, const void* anc, void* out, int batch,
-               int hq, int hkv, int m, int n_slots, long long sb, long long sh,
-               long long ss, float scale, int window, cudaStream_t stream) {
-  switch (d) {
-    case 64:
-      return launch<T, 64>(q, k, v, lengths, anc, out, batch, hq, hkv, m,
-                           n_slots, sb, sh, ss, scale, window, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, lengths, anc, out, batch, hq, hkv, m,
-                            n_slots, sb, sh, ss, scale, window, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, lengths, anc, out, batch, hq, hkv, m,
-                            n_slots, sb, sh, ss, scale, window, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+template <int D, int NTC>
+int launch_mma(const DecodeArgs& a, const ContigKV<__nv_bfloat16>& kv,
+               int batch, cudaStream_t stream) {
+  using C = MmaCfg<D, NTC>;
+  auto kern = decode_mma_kernel<D, NTC>;
+  static unsigned smem_set = 0;
+  cudaError_t err = set_smem_once(kern, C::kSmem, &smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<dim3(batch, a.n_kv_heads, a.n_split), C::kThreads, C::kSmem,
+         stream>>>(a, kv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the n-tile capacity of g*m rows (n_tile_cap in common.cuh)
+template <int D>
+int dispatch_mma(int rows, const DecodeArgs& a, const ContigKV<__nv_bfloat16>& kv, int batch,
+                 cudaStream_t stream) {
+  switch (n_tile_cap(rows, D)) {
+    case 1: return launch_mma<D, 1>(a, kv, batch, stream);
+    case 2: return launch_mma<D, 2>(a, kv, batch, stream);
+    case 4: return launch_mma<D, 4>(a, kv, batch, stream);
+    case 8: return launch_mma<D, 8>(a, kv, batch, stream);
+    default: return launch_mma<D, (D > 128 ? 10 : 16)>(a, kv, batch, stream);
   }
 }
 
 }  // namespace
 
-// k and v share the element strides (sb, sh, ss) of their (batch, head,
-// slot) axes; their last dimension is contiguous.  window <= 0 means no
-// sliding window; anc may be null.
+// strides: the (batch, head, token) element strides of q, of out, then the
+// (batch, head, slot) strides that k and v share (their last dimension is
+// contiguous).  part_acc / part_ml / counters: the merge workspace, as for
+// paged_decode_attention.  window <= 0 means no sliding window; anc may be
+// null.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* lengths, const void* anc,
-                                void* out, int batch, int hq, int hkv, int m,
-                                int d, int n_slots, long long sb, long long sh,
-                                long long ss, float scale, int window,
-                                int dtype, void* stream) {
+                                void* out, void* part_acc, void* part_ml,
+                                void* counters, const long long* strides,
+                                int batch, int hq, int hkv, int m, int d,
+                                int n_slots, int n_split, float scale,
+                                int window, int dtype, void* stream) {
   using namespace repro;
-  if (hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (hq % hkv != 0 || n_split < 1
+      || (n_split > 1 && (part_acc == nullptr || counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  DecodeArgs a{q, out, strides[0], strides[1], strides[2], strides[3],
+               strides[4], strides[5], static_cast<const int*>(lengths),
+               static_cast<const int*>(anc), static_cast<float*>(part_acc),
+               static_cast<float2*>(part_ml), static_cast<int*>(counters),
+               hq, hkv, m, n_split, window, scale};
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return dispatch_d<float>(d, q, k, v, lengths, anc, out, batch, hq, hkv, m,
-                             n_slots, sb, sh, ss, scale, window, st);
-  if (dtype == kBF16)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, lengths, anc, out, batch, hq,
-                                     hkv, m, n_slots, sb, sh, ss, scale,
-                                     window, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = (hq / hkv) * m;
+  if (dtype == kF32) {
+    const ContigKV<float> kv{static_cast<const float*>(k),
+                             static_cast<const float*>(v), strides[6],
+                             strides[7], strides[8], n_slots};
+    switch (d) {
+      case 64: return launch_f32<64>(a, kv, batch, st);
+      case 128: return launch_f32<128>(a, kv, batch, st);
+      case 256: return launch_f32<256>(a, kv, batch, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (dtype != kBF16 || rows > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ContigKV<__nv_bfloat16> kv{static_cast<const __nv_bfloat16*>(k),
+                                   static_cast<const __nv_bfloat16*>(v),
+                                   strides[6], strides[7], strides[8],
+                                   n_slots};
+  switch (d) {
+    case 64: return dispatch_mma<64>(rows, a, kv, batch, st);
+    case 128: return dispatch_mma<128>(rows, a, kv, batch, st);
+    case 256:
+      if (rows > 80) return static_cast<int>(cudaErrorInvalidValue);
+      return dispatch_mma<256>(rows, a, kv, batch, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

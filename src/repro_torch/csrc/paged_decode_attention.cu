@@ -14,14 +14,19 @@
 // H100 needs to be compute-bound.  At the serving path's ~600-token
 // contexts the whole call moves ~10 MB and is bound by launch latency.
 //
-// Design: the verify-attention body of common.cuh (one CTA per
-// (sequence, KV head) holding the g*m query rows of that head, online
-// softmax in f32).  The TPU grid walks every logical block of the table
-// in order (decode_attention.py:281); here the CTA walks only the
-// ceil(len / 32) tiles of 32 rows that hold the sequence's tokens, with
-// each row's physical block looked up in the table (entries <= 0 resolve
-// to block 0).  Split-KV across CTAs, TMA and wgmma are later work.
+// Design: the split-KV body of common.cuh (see its note).  The TPU grid
+// walks every logical block of the table in order (decode_attention.py:
+// 281); here a (B, Hkv, n_split) grid cuts each sequence's ceil(len / 64)
+// key tiles into n_split chunks, one CTA each, and the last CTA of a
+// (sequence, head) merges the partials in split order.  Each row's
+// physical block is looked up in the table (entries <= 0 resolve to block
+// 0) as its 16-byte chunks are queued.  bf16 pools run the tensor-core
+// body (mma.sync, 3-stage cp.async ring); f32 and int8 pools run the
+// exact CUDA-core body, int8 dequantized to f32 as the TPU kernel does.
 #include "common.cuh"
+#include "hopper.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -29,93 +34,147 @@ using namespace repro;
 
 constexpr int kMaxRows = 128;      // g * m query rows per CTA
 
-template <typename QT, typename KT, int D>
-__global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
-    const QT* __restrict__ q, const KT* __restrict__ k_pool,
-    const KT* __restrict__ v_pool, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ tables,
-    const int* __restrict__ lengths, const int* __restrict__ anc,
-    QT* __restrict__ out, int n_q_heads, int n_kv_heads, int m,
-    int block_size, int max_blocks, float scale) {
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int len = lengths[b];
-  const int* table = tables + static_cast<size_t>(b) * max_blocks;
-  // logical position -> pool row through the block table (entries <= 0
-  // resolve to block 0)
-  auto row_of = [=](int pos) {
-    const int lb = min(pos / block_size, max_blocks - 1);
+template <typename KT>
+struct PagedKV {
+  const KT* k_pool;
+  const KT* v_pool;
+  const float* k_scale;
+  const float* v_scale;
+  const int* tables;
+  int block_size, max_blocks;
+};
+
+// logical position -> pool row through the block table (entries <= 0
+// resolve to block 0)
+template <typename KT>
+__device__ __forceinline__ auto paged_rows(const PagedKV<KT>& kv, int b,
+                                           int h, int n_kv_heads, int d) {
+  const int* table = kv.tables + static_cast<size_t>(b) * kv.max_blocks;
+  return [=](int pos) {
+    const int lb = min(pos / kv.block_size, kv.max_blocks - 1);
     const int blk = max(table[lb], 0);
-    const size_t row = (static_cast<size_t>(blk) * block_size
-                        + pos % block_size) * n_kv_heads + h;
-    return KVRow<KT>{k_pool + row * D, v_pool + row * D, row};
+    const size_t row = (static_cast<size_t>(blk) * kv.block_size
+                        + pos % kv.block_size) * n_kv_heads + h;
+    return KVRow<KT>{kv.k_pool + row * d, kv.v_pool + row * d, row};
   };
-  decode_attention_body<QT, KT, D>(q, k_scale, v_scale, anc, out, b, h,
-                                   n_q_heads, n_kv_heads, m, len, len, 0,
-                                   scale, row_of);
 }
 
 template <typename QT, typename KT, int D>
-int launch(const void* q, const void* kp, const void* vp, const void* ksc,
-           const void* vsc, const void* tables, const void* lengths,
-           const void* anc, void* out, int batch, int hq, int hkv, int m,
-           int block_size, int max_blocks, float scale,
-           cudaStream_t stream) {
-  const int rows = (hq / hkv) * m;
+__global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
+    DecodeArgs a, PagedKV<KT> kv) {
+  const int b = blockIdx.x, h = blockIdx.y, len = a.lengths[b];
+  decode_core_body<QT, KT, D>(a, kv.k_scale, kv.v_scale, b, h, blockIdx.z,
+                              len, len,
+                              paged_rows(kv, b, h, a.n_kv_heads, D));
+}
+
+template <int D, int NTC>
+__global__ void __launch_bounds__(MmaCfg<D, NTC>::kThreads,
+                                  MmaCfg<D, NTC>::kMinBlocks)
+    paged_decode_mma_kernel(DecodeArgs a, PagedKV<__nv_bfloat16> kv) {
+  const int b = blockIdx.x, h = blockIdx.y, len = a.lengths[b];
+  decode_mma_body<D, NTC>(a, b, h, blockIdx.z, len, len,
+                          paged_rows(kv, b, h, a.n_kv_heads, D));
+}
+
+template <typename QT, typename KT, int D>
+int launch_core(const DecodeArgs& a, const PagedKV<KT>& kv, int batch,
+                cudaStream_t stream) {
+  const int rows = (a.n_q_heads / a.n_kv_heads) * a.m;
   const size_t smem = decode_smem_floats<D>(rows) * sizeof(float);
   auto kern = paged_decode_kernel<QT, KT, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3(batch, hkv), kDecodeThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(kp),
-      static_cast<const KT*>(vp), static_cast<const float*>(ksc),
-      static_cast<const float*>(vsc), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<const int*>(anc),
-      static_cast<QT*>(out), hq, hkv, m, block_size, max_blocks, scale);
+  kern<<<dim3(batch, a.n_kv_heads, a.n_split), kDecodeThreads, smem,
+         stream>>>(a, kv);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, int NTC>
+int launch_mma(const DecodeArgs& a, const PagedKV<__nv_bfloat16>& kv,
+               int batch, cudaStream_t stream) {
+  using C = MmaCfg<D, NTC>;
+  auto kern = paged_decode_mma_kernel<D, NTC>;
+  static unsigned smem_set = 0;
+  cudaError_t err = set_smem_once(kern, C::kSmem, &smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<dim3(batch, a.n_kv_heads, a.n_split), C::kThreads, C::kSmem,
+         stream>>>(a, kv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the n-tile capacity of g*m rows (n_tile_cap in common.cuh)
+template <int D>
+int dispatch_mma(int rows, const DecodeArgs& a, const PagedKV<__nv_bfloat16>& kv, int batch,
+                 cudaStream_t stream) {
+  switch (n_tile_cap(rows, D)) {
+    case 1: return launch_mma<D, 1>(a, kv, batch, stream);
+    case 2: return launch_mma<D, 2>(a, kv, batch, stream);
+    case 4: return launch_mma<D, 4>(a, kv, batch, stream);
+    case 8: return launch_mma<D, 8>(a, kv, batch, stream);
+    default: return launch_mma<D, (D > 128 ? 10 : 16)>(a, kv, batch, stream);
+  }
+}
+
 template <typename QT, typename KT>
-int dispatch_d(int d, const void* q, const void* kp, const void* vp,
-               const void* ksc, const void* vsc, const void* tables,
-               const void* lengths, const void* anc, void* out, int batch,
-               int hq, int hkv, int m, int block_size, int max_blocks,
-               float scale, cudaStream_t stream) {
-  switch (d) {
-    case 64:
-      return launch<QT, KT, 64>(q, kp, vp, ksc, vsc, tables, lengths, anc,
-                                out, batch, hq, hkv, m, block_size,
-                                max_blocks, scale, stream);
-    case 128:
-      return launch<QT, KT, 128>(q, kp, vp, ksc, vsc, tables, lengths, anc,
-                                 out, batch, hq, hkv, m, block_size,
-                                 max_blocks, scale, stream);
-    case 256:
-      return launch<QT, KT, 256>(q, kp, vp, ksc, vsc, tables, lengths, anc,
-                                 out, batch, hq, hkv, m, block_size,
-                                 max_blocks, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+int dispatch_d(int d, const DecodeArgs& a, const PagedKV<KT>& kv, int batch,
+               cudaStream_t stream) {
+  const int rows = (a.n_q_heads / a.n_kv_heads) * a.m;
+  if constexpr (std::is_same<QT, __nv_bfloat16>::value
+                && std::is_same<KT, __nv_bfloat16>::value) {
+    switch (d) {
+      case 64: return dispatch_mma<64>(rows, a, kv, batch, stream);
+      case 128: return dispatch_mma<128>(rows, a, kv, batch, stream);
+      case 256:
+        if (rows > 80) return static_cast<int>(cudaErrorInvalidValue);
+        return dispatch_mma<256>(rows, a, kv, batch, stream);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (d) {
+      case 64: return launch_core<QT, KT, 64>(a, kv, batch, stream);
+      case 128: return launch_core<QT, KT, 128>(a, kv, batch, stream);
+      case 256: return launch_core<QT, KT, 256>(a, kv, batch, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
 }  // namespace
 
+// strides: the (batch, head, token) element strides of q, then of out.
+// part_acc / part_ml: the f32 merge workspace, (B, Hkv, n_split, g*m, d)
+// and (B, Hkv, n_split, g*m, 2), null when n_split is 1; counters: B*Hkv
+// int32, zero before the call and zero after it.
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,
-    const void* lengths, const void* anc, void* out, int batch, int hq,
-    int hkv, int m, int d, int block_size, int max_blocks, float scale,
-    int q_dtype, int kv_dtype, void* stream) {
+    const void* lengths, const void* anc, void* out, void* part_acc,
+    void* part_ml, void* counters, const long long* strides, int batch,
+    int hq, int hkv, int m, int d, int block_size, int max_blocks,
+    int n_split, float scale, int q_dtype, int kv_dtype, void* stream) {
   using namespace repro;
-  if (hq % hkv != 0 || (hq / hkv) * m > kMaxRows)
+  if (hq % hkv != 0 || (hq / hkv) * m > kMaxRows || n_split < 1
+      || (n_split > 1 && (part_acc == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  DecodeArgs a{q, out, strides[0], strides[1], strides[2], strides[3],
+               strides[4], strides[5], static_cast<const int*>(lengths),
+               static_cast<const int*>(anc), static_cast<float*>(part_acc),
+               static_cast<float2*>(part_ml), static_cast<int*>(counters),
+               hq, hkv, m, n_split, 0, scale};
   auto st = static_cast<cudaStream_t>(stream);
 #define REPRO_PAGED(QT, KT)                                                  \
-  return dispatch_d<QT, KT>(d, q, k_pool, v_pool, k_scale, v_scale, tables, \
-                            lengths, anc, out, batch, hq, hkv, m,           \
-                            block_size, max_blocks, scale, st)
+  return dispatch_d<QT, KT>(                                                 \
+      d, a,                                                                  \
+      PagedKV<KT>{static_cast<const KT*>(k_pool),                            \
+                  static_cast<const KT*>(v_pool),                            \
+                  static_cast<const float*>(k_scale),                        \
+                  static_cast<const float*>(v_scale),                        \
+                  static_cast<const int*>(tables), block_size, max_blocks},  \
+      batch, st)
   if (q_dtype == kF32 && kv_dtype == kF32) REPRO_PAGED(float, float);
   if (q_dtype == kBF16 && kv_dtype == kBF16)
     REPRO_PAGED(__nv_bfloat16, __nv_bfloat16);

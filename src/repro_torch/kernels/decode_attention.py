@@ -15,12 +15,67 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-         + [ctypes.c_longlong] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2
-         + [ctypes.c_void_p])
+_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float]
+         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 HEAD_DIMS = (64, 128, 256)
 _SMEM_FLOATS = 232_448 // 4          # a CTA's shared memory on Hopper
 _TILE = 32                           # kDecodeTile in common.cuh
+KEY_TILE = 64                        # kKeyTile in common.cuh: split unit
+N_SMS = 132                          # streaming multiprocessors of an H100
+CTAS_PER_SM = 2                      # the tensor-core body's occupancy
+
+_COUNTERS: dict = {}                 # (device, stream) -> int32 zeros
+
+
+def n_split(batch: int, n_kv_heads: int, capacity: int) -> int:
+    """Key splits per (sequence, KV head) of the verify kernels' grid.
+
+    A function of shapes only: ``capacity`` is the most keys a sequence
+    can hold (``max_blocks * block_size`` paged, ``n_slots`` contiguous).
+    About two CTAs per SM in one wave (CTAS_PER_SM * N_SMS // (B * Hkv)
+    splits), never more splits than the capacity has KEY_TILE-key tiles,
+    so every split the capacity can fill holds at least one whole tile.
+    """
+    tiles = max(1, -(-int(capacity) // KEY_TILE))
+    want = max(1, (CTAS_PER_SM * N_SMS) // max(1, batch * n_kv_heads))
+    return min(want, tiles)
+
+
+def split_workspace(b: int, hkv: int, splits: int, rows: int, d: int,
+                    device, stream: int = 0) -> tuple:
+    """(part_acc, part_ml, counters) for a call with ``splits`` > 1: f32
+    partials (B, Hkv, n_split, rows, d) and their (m, l) pairs from
+    ``torch.empty``, and int32 counters, one per (sequence, KV head),
+    allocated zeroed once per device and stream (calls on one stream run
+    in order, so they may share them) and kept at zero by the kernel;
+    (None, None, None) for one split."""
+    if splits == 1:
+        return None, None, None
+    part_acc = torch.empty((b, hkv, splits, rows, d), dtype=torch.float32,
+                           device=device)
+    part_ml = torch.empty((b, hkv, splits, rows, 2), dtype=torch.float32,
+                          device=device)
+    key = (torch.device(device), stream)
+    cnt = _COUNTERS.get(key)
+    if cnt is None or cnt.numel() < b * hkv:
+        cnt = torch.zeros(max(1024, b * hkv), dtype=torch.int32,
+                          device=device)
+        _COUNTERS[key] = cnt
+    return part_acc, part_ml, cnt
+
+
+def token_strides(t, name: str) -> list:
+    """(batch, head, token) element strides of a (B, H, m, d) q or
+    output: the last dim contiguous, the others multiples of 8 elements
+    (16-byte vector loads), 16-byte aligned.  The stride of an axis of
+    size 1 is never used and counts as 0."""
+    _build.require(t.stride(3) == 1, f"{name} must have a contiguous last "
+                   "dim")
+    out = [t.stride(i) if t.shape[i] > 1 else 0 for i in range(3)]
+    _build.require(all(st % 8 == 0 for st in out), f"{name} strides must be "
+                   "multiples of 8 elements")
+    _build.require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+    return out
 
 
 def max_rows(d: int) -> int:
@@ -35,12 +90,14 @@ def decode_attention(q, k, v, lengths, *, scale=None, window=None,
     """Verify attention against a contiguous cache.
 
     q (B, Hq, m, d) — the m new tokens, already written into the cache at
-    positions [len-m, len); k/v (B, Hkv, S, d) f32 or bf16 in q's dtype,
+    positions [len-m, len), possibly a strided view such as the model's
+    (B, m, Hq, d) tensor transposed; k/v (B, Hkv, S, d) f32 or bf16 in q's dtype,
     possibly a strided view (k and v sharing strides, last dim
     contiguous); lengths (B,) int32 valid cache length (= pos + m).
     Causal over the m tokens, within ``window`` (slot index = logical
     position) if given, or, with ``anc_bits`` (m,) int32, ancestor-bitmask
-    masking of a speculation-tree buffer.  Returns (B, Hq, m, d).
+    masking of a speculation-tree buffer.  Returns (B, Hq, m, d), laid
+    out like q where q is dense (``torch.empty_like``).
     """
     b, hq, m, d = q.shape
     _build.require(k.dim() == 4 and k.shape[0] == b and k.shape[3] == d
@@ -72,18 +129,26 @@ def decode_attention(q, k, v, lengths, *, scale=None, window=None,
                    and all(s % 8 == 0 for s in k.stride()[:3]),
                    "k/v must share strides that are multiples of 8, with a "
                    "contiguous last dim")
-    _build.check_contiguous(q=q, lengths=lengths, anc_bits=anc_bits)
+    _build.check_contiguous(lengths=lengths, anc_bits=anc_bits)
     for name, t in (("k", k), ("v", v)):
         _build.require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte "
                        "aligned")
-    fn = _build.bind("decode_attention", "decode_attention", _ARGS)
     out = torch.empty_like(q)
+    strides = (ctypes.c_int64 * 9)(*(token_strides(q, "q")
+                                     + token_strides(out, "out")
+                                     + list(k.stride()[:3])))
+    splits = n_split(b, hkv, k.shape[2])
+    fn = _build.bind("decode_attention", "decode_attention", _ARGS)
+    stream = _build.stream_ptr(q)
+    part_acc, part_ml, cnt = split_workspace(b, hkv, splits, (hq // hkv) * m,
+                                             d, q.device, stream)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            _build.ptr(anc_bits), out.data_ptr(), b, hq, hkv, m, d,
-            k.shape[2], k.stride(0), k.stride(1), k.stride(2),
+            _build.ptr(anc_bits), out.data_ptr(), _build.ptr(part_acc),
+            _build.ptr(part_ml), _build.ptr(cnt), ctypes.addressof(strides),
+            b, hq, hkv, m, d, k.shape[2], splits,
             float(d ** -0.5 if scale is None else scale),
             0 if window is None else int(window), _build.DTYPE_CODE[q.dtype],
-            _build.stream_ptr(q))
+            stream)
     _build.check(rc, "decode_attention")
     decode_attention.launches += 1
     return out

@@ -4,7 +4,10 @@ Replaces the TPU kernel ``repro/kernels/decode_attention.py::
 paged_decode_attention``.  On CPU tensors it returns the plain version
 (:func:`repro_torch.kernels.ref.paged_decode_attention_ref`); on CUDA
 tensors it launches the kernel or raises.  ``launches`` counts kernel
-launches.  The kernel is bound by bytes (see the source's note).
+launches.  The kernel is bound by bytes (see the source's note).  The
+grid, its split count and the merge workspace are those of
+:mod:`repro_torch.kernels.decode_attention`, whose kernel shares the
+body; q and the output go through their strides in the same way.
 """
 from __future__ import annotations
 
@@ -13,9 +16,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.decode_attention import max_rows
+from repro_torch.kernels.decode_attention import (max_rows, n_split,
+                                                  split_workspace,
+                                                  token_strides)
 
-_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float]
+_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_float]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 HEAD_DIMS = (64, 128, 256)
 
@@ -26,12 +31,14 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     """Verify attention against a paged (block-pool) cache.
 
     q (B, Hq, m, d) — the m new tokens, already written into the pool at
-    logical positions [len-m, len); k_pool/v_pool (NB, BS, Hkv, d) f32 or
+    logical positions [len-m, len), possibly a strided view such as the
+    model's (B, m, Hq, d) tensor transposed; k_pool/v_pool (NB, BS, Hkv, d) f32 or
     bf16, or int8 with ``k_scale``/``v_scale`` (NB, BS, Hkv, 1) f32;
     block_tables (B, MBS) int32 (entries <= 0 read block 0); lengths (B,)
     int32 valid tokens (= pos + m).  Causal over the m tokens, or, with
     ``anc_bits`` (m,) int32, ancestor-bitmask masking of a speculation
-    tree buffer.  Returns (B, Hq, m, d) in q's dtype.
+    tree buffer.  Returns (B, Hq, m, d) in q's dtype, laid out like q
+    where q is dense (``torch.empty_like``).
     """
     b, hq, m, d = q.shape
     nb, bs, hkv, d_k = k_pool.shape
@@ -72,24 +79,32 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
                    "block_tables and lengths must be int32")
     if anc_bits is not None:
         _build.require(anc_bits.dtype == torch.int32, "anc_bits must be int32")
-    _build.check_contiguous(q=q, k_pool=k_pool, v_pool=v_pool,
+    _build.check_contiguous(k_pool=k_pool, v_pool=v_pool,
                             block_tables=block_tables, lengths=lengths,
                             k_scale=k_scale, v_scale=v_scale,
                             anc_bits=anc_bits)
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         _build.require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte "
                        "aligned")
+    out = torch.empty_like(q)
+    strides = (ctypes.c_int64 * 6)(*(token_strides(q, "q")
+                                     + token_strides(out, "out")))
+    mbs = block_tables.shape[1]
+    splits = n_split(b, hkv, mbs * bs)
     fn = _build.bind("paged_decode_attention", "paged_decode_attention",
                      _ARGS)
-    out = torch.empty_like(q)
+    stream = _build.stream_ptr(q)
+    part_acc, part_ml, cnt = split_workspace(b, hkv, splits, (hq // hkv) * m,
+                                             d, q.device, stream)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             _build.ptr(k_scale), _build.ptr(v_scale),
             block_tables.data_ptr(), lengths.data_ptr(),
-            _build.ptr(anc_bits), out.data_ptr(), b, hq, hkv, m, d, bs,
-            block_tables.shape[1],
+            _build.ptr(anc_bits), out.data_ptr(), _build.ptr(part_acc),
+            _build.ptr(part_ml), _build.ptr(cnt), ctypes.addressof(strides),
+            b, hq, hkv, m, d, bs, mbs, splits,
             float(d ** -0.5 if scale is None else scale),
             _build.DTYPE_CODE[q.dtype], _build.DTYPE_CODE[k_pool.dtype],
-            _build.stream_ptr(q))
+            stream)
     _build.check(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out

@@ -35,9 +35,11 @@ from repro_torch.params import init_params
 from repro_torch.serving.engine import SchedulerConfig, ServingEngine
 from repro_torch.serving.trace import poisson_requests
 
+# Each kernel lands in the first group whose pattern it matches: the paged
+# pattern comes first, since the contiguous one also matches its names.
 GROUPS = (("moe_ffn kernels", r"moe_wgmma_kernel|grouped_gemm_kernel"),
-          ("paged_decode_attention kernel", r"paged_decode_kernel"),
-          ("decode_attention kernel", r"decode_kernel"),
+          ("paged_decode_attention kernel", r"paged_decode_(mma_)?kernel"),
+          ("decode_attention kernel", r"decode_(mma_)?kernel"),
           ("rglru_scan kernel", r"rglru_scan_kernel"),
           ("wkv6 kernel", r"wkv6_kernel"),
           ("flash_attention kernel", r"flash_fwd_(wgmma_)?kernel"),

@@ -319,8 +319,9 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
         paged_write(cache, k, v, block_tables, pos)
         if x.is_cuda:
             lengths = (pos + sq).to(torch.int32)
+            # (B, S, H, d) q read and the output written through strides
             out = _pd.paged_decode_attention(
-                q.transpose(1, 2).contiguous(), cache["k"], cache["v"],
+                q.transpose(1, 2), cache["k"], cache["v"],
                 block_tables.to(torch.int32), lengths,
                 k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
                 scale=scale)
@@ -366,9 +367,10 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
                 v_read = cache["v"].to(q.dtype)
             if x.is_cuda and not ring:
                 # slot index = logical position: the kernel reads the
-                # (B, S, Hkv, d) cache through a transposed view
+                # (B, S, Hkv, d) cache and the (B, S, H, d) q, and writes
+                # the output, through transposed views
                 out = _da.decode_attention(
-                    q.transpose(1, 2).contiguous(), k_read.transpose(1, 2),
+                    q.transpose(1, 2), k_read.transpose(1, 2),
                     v_read.transpose(1, 2), (pos + sq).to(torch.int32),
                     scale=scale, window=window)
                 out = out.transpose(1, 2).reshape(b, sq, -1)
