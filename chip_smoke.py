@@ -9,9 +9,9 @@ on its own lines with its wall seconds:
 
 1. environment: the card's name and power limit, torch/CUDA versions,
    the kernels' build time (every ``csrc/*.cu``, one nvcc each, in
-   parallel), and what ``-Xptxas -v`` said of the tensor-core kernels
-   and the verify kernels (registers, static shared memory, spills per
-   instantiation);
+   parallel), and what ``-Xptxas -v`` said of the tensor-core kernels,
+   the verify kernels and the recurrences' kernels (registers, static
+   shared memory, spills per instantiation);
 2. every kernel against its plain PyTorch version on the card at the
    cases of tests/test_kernels.py, the serving paths' shapes and a
    stress shape each, plus the edges of the tensor-core kernels (flash
@@ -23,13 +23,19 @@ on its own lines with its wall seconds:
    a 64-key tile boundary inside the last m positions, in f32, bf16,
    int8 and a tree; a sliding window; m = 1; q and the output as
    (B, S, H, d) views; the serve-shape call made twice and its outputs
-   required to be bitwise equal), each ``flash_attention`` and
-   ``moe_ffn`` line naming the
-   path that ran (tensor-core bf16 or exact f32): max error against the
-   tolerance (attention and
-   the FFN f32 2e-5 with TF32 off, bf16 2e-2; ``rglru_scan`` 1e-5;
-   ``wkv6`` 2e-4), kernel time (CUDA events, L2 flushed before each
-   launch), its bound on this card and what sets it, the plain
+   required to be bitwise equal) and of the recurrences (``wkv6`` with
+   the model's decay range, w = exp(-exp(U[-8, 4])) with channels at
+   w == 0 and w = 1 - 1e-7, at the verify, prefill and stress shapes, at
+   ragged lengths 100 and 1000 and at head size 128; the RG-LRU with its
+   gates fused in at the verify, prefill and stress shapes, x in bf16
+   and f32, widths 100 and 102), each ``flash_attention`` and
+   ``moe_ffn`` line naming the path that ran (tensor-core bf16 or exact
+   f32) and each recurrence line its route (serial, chunked or
+   parallel): max error against the tolerance (attention and the FFN
+   f32 2e-5 with TF32 off, bf16 2e-2; ``rglru_scan`` 1e-5; ``wkv6`` 2e-4,
+   against its plain version evaluated in f64), kernel time (CUDA
+   events, L2 flushed before each launch), its bound on this card and
+   what sets it, the plain
    version's time and one library call's time as a yardstick where one
    PyTorch call computes the same function;
 3. serve, bf16, weights from a seed, ``max_batch=4``, ``n_cand=4``,
@@ -39,7 +45,8 @@ on its own lines with its wall seconds:
    RWKV-6-7B at full width and depth (32 layers) with a 2-layer
    Mistral-7B-width draft, 8 requests; (c) contiguous,
    RecurrentGemma-2B at full width and depth (27 layers), the same kind
-   of draft, 8 requests; (d) contiguous, the widths of (a), 8 requests;
+   of draft, 8 requests (the RG-LRU through its fused entry, never the
+   bare scan); (d) contiguous, the widths of (a), 8 requests;
 4. lossless, f32, ``max_batch=2``, 6 requests with mid-flight
    admission, every stream equal to the port's own target-only greedy
    decode: Mixtral / Mistral widths (2 layers) paged and contiguous,
@@ -80,6 +87,9 @@ REPLACES = {
 PATH_RUN = {"paged_decode_attention": "3a", "flash_attention": "3a",
             "moe_ffn": "3a", "decode_attention": "3d", "rglru_scan": "3c",
             "wkv6": "3b"}
+# the wrapper whose launches a kernel reports, where the path calls
+# another entry of the kernel's source than the TPU kernel's counterpart
+PATH_ENTRY = {"rglru_scan": "rglru_gated_scan"}
 
 
 def _bound(n_bytes: float, n_ops: float, dtype: str):
@@ -518,41 +528,117 @@ def kernel_cases(bench) -> dict:
         err = _check("rglru_scan", label, got, want, "float32", TOL_RGLRU)
         bound = _bound(_nbytes(a, g, h0, got), 2.0 * b * s * w, "float32")
         r = (err, bench.ms(call), bound, bench.ms(plain), None)
-        _report("rglru_scan", label, "float32", *r)
+        _report("rglru_scan", label, "float32", *r, path=rg.route(s))
+        return r
+
+    def gated_case(label, b, s, w, x_dt=torch.bfloat16):
+        """The fused entry as the model calls it: f32 products, the conv
+        output in the model's dtype, RecurrentGemma's a_param (a in
+        [0.9, 0.999]) with a few channels past softplus's threshold."""
+        xa, xi = rn(b, s, w), rn(b, s, w)
+        x = rn(b, s, w, dt=x_dt)
+        b_a, b_i = rn(w) * 0.5, rn(w) * 0.5
+        u = 0.9 + 0.099 * torch.rand((w,), generator=gen, device=dev)
+        a_param = torch.log(torch.expm1(-torch.log(u) / 8.0))
+        a_param[:3] = 25.0
+        h0 = rn(b, w)
+        args = (xa, xi, x, b_a, b_i, a_param, h0)
+        call = lambda: rg.rglru_gated_scan(*args)
+        plain = lambda: ref.rglru_gated_scan_ref(*args)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        dname = str(x_dt).split(".")[1]
+        err = _check("rglru_gated_scan", label, got, want, "float32",
+                     TOL_RGLRU)
+        # 22 f32 operations an element, as csrc/rglru_scan.cu counts them
+        bound = _bound(_nbytes(*args, got), 22.0 * b * s * w, "float32")
+        r = (err, bench.ms(call), bound, bench.ms(plain), None)
+        _report("rglru_gated_scan", label, f"x {dname}", *r,
+                path=rg.route(s))
         return r
 
     for b, s, w in [(2, 64, 256), (1, 128, 100), (4, 32, 512)]:
         rglru_case(f"b{b} s{s} w{w}", b, s, w)
-    main["rglru_scan"] = rglru_case("verify b4 s5 w2560 (serve path)", 4, 5,
-                                    2560)
+    rglru_case("verify b4 s5 w2560 (serve path)", 4, 5, 2560)
     rglru_case("prefill b1 s512 w2560 (serve path)", 1, 512, 2560)
     rglru_case("stress b8 s4096 w2560", 8, 4096, 2560)
+    rglru_case("ragged b2 s1000 w102", 2, 1000, 102)
+    main["rglru_scan"] = gated_case("verify b4 s5 w2560 (serve path)", 4, 5,
+                                    2560)
+    gated_case("prefill b1 s512 w2560 (serve path)", 1, 512, 2560)
+    gated_case("stress b8 s4096 w2560", 8, 4096, 2560)
+    for x_dt in (torch.float32,):        # the lossless phase's f32 model
+        gated_case("verify b2 s5 w2560 f32", 2, 5, 2560, x_dt)
+        gated_case("prefill b1 s130 w2560 f32", 1, 130, 2560, x_dt)
+    gated_case("b2 s40 w100", 2, 40, 100)
+    gated_case("b2 s40 w102 (one channel a thread)", 2, 40, 102)
+    gated_case("decode b4 s1 w2560", 4, 1, 2560)
 
     # -- WKV-6 ----------------------------------------------------------------
-    def wkv6_case(label, b, h, s, hd, stack):
-        """r/k/v/w as the model hands them over: (B, S, H, hd) transposed."""
+    def wkv6_case(label, b, h, s, hd, stack, decay="sigmoid"):
+        """r/k/v/w as the model hands them over: (B, S, H, hd) transposed.
+        ``decay`` "sigmoid" draws w in ~(0.1, 0.9); "model" draws it as
+        the model forms it, exp(-exp(w_log)) with w_log ~ U[-8, 4], and
+        sets channel 0 to w == 0 and channel 1 to w = 1 - 1e-7."""
         r, k, v = (rn(b, s, h, hd).transpose(1, 2) for _ in range(3))
-        w = torch.sigmoid(rn(b, s, h, hd)).transpose(1, 2)
+        if decay == "sigmoid":
+            w = torch.sigmoid(rn(b, s, h, hd)).transpose(1, 2)
+        else:
+            w_log = torch.rand((b, s, h, hd), generator=gen,
+                               device=dev) * 12.0 - 8.0
+            w = torch.exp(-torch.exp(w_log))
+            w[..., 0] = 0.0
+            w[..., 1] = 1.0 - 1e-7
+            w = w.transpose(1, 2)
         u, s0 = rn(h, hd) * 0.1, rn(b, h, hd, hd) * 0.1
         call = lambda: wk.wkv6(r, k, v, w, u, s0, stack=stack)
         plain = lambda: ref.wkv6_ref(r, k, v, w, u, s0, stack=stack)
-        got, want = call(), plain()
+        # the plain version evaluated in f64: in f32 its multiply-then-add
+        # loses part of a 1 - 1e-7 decay to rounding every step, more than
+        # the kernels do (printed below for the model's decays)
+        got = call()
+        want = [x.float() for x in ref.wkv6_ref(
+            *(t.double() for t in (r, k, v, w, u, s0)), stack=stack)]
         torch.cuda.synchronize()
         err = max(_check("wkv6", label + f" out{i}", x, y, "float32",
                          TOL_WKV6) for i, (x, y) in enumerate(zip(got, want)))
+        if decay == "model":
+            f32 = plain()
+            print(f"  {'wkv6':<23} {label}: the plain version in f32 is off "
+                  f"by {float((f32[0] - want[0]).abs().max()):.2e} (y)",
+                  flush=True)
+            del f32
         bound = _bound(_nbytes(r, k, v, w, u, s0, *got[:1], *got[2:])
                        + (0 if stack else _nbytes(got[1])),
                        6.0 * b * h * s * hd * hd, "float32")
         r_ = (err, bench.ms(call), bound, bench.ms(plain), None)
-        _report("wkv6", label, "float32", *r_)
+        path = wk.route(s, stack)
+        if path == "chunked":
+            path += f", slab {wk.slab(b, h, hd)}"
+        _report("wkv6", label, "float32", *r_, path=path)
         return r_
 
     for b, h, s, hd in [(1, 2, 32, 64), (2, 4, 16, 64), (1, 1, 64, 128)]:
         wkv6_case(f"b{b} h{h} s{s} hd{hd}", b, h, s, hd, False)
+    # head size 128 on the serial route (verify with the stack)
+    wkv6_case("hd128 verify+stack b1 h32 s5", 1, 32, 5, 128, True, "model")
     main["wkv6"] = wkv6_case("verify+stack b4 h64 s5 (serve path)", 4, 64, 5,
                              64, True)
     wkv6_case("prefill b1 h64 s512 (serve path)", 1, 64, 512, 64, False)
     wkv6_case("stress b8 h64 s2048", 8, 64, 2048, 64, False)
+    # the model's decay range, exact zeros and 1 - 1e-7 included
+    wkv6_case("model decay verify+stack b4 h64 s5", 4, 64, 5, 64, True,
+              "model")
+    wkv6_case("model decay prefill b1 h64 s512", 1, 64, 512, 64, False,
+              "model")
+    wkv6_case("model decay stress b8 h64 s2048", 8, 64, 2048, 64, False,
+              "model")
+    for s in (100, 1000):
+        wkv6_case(f"model decay ragged b1 h64 s{s}", 1, 64, s, 64, False,
+                  "model")
+    wkv6_case("model decay prefill hd128 b1 h32 s512", 1, 32, 512, 128,
+              False, "model")
+    wkv6_case("model decay decode b4 h64 s1", 4, 64, 1, 64, False, "model")
     torch.cuda.empty_cache()
     return main
 
@@ -587,7 +673,7 @@ def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
     from 0 over the run.  Returns {kernel: launches}."""
     import torch
 
-    from repro_torch.kernels import reset_launches, wrappers
+    from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.serving.engine import SchedulerConfig, latency_percentiles
     from repro_torch.serving.trace import poisson_requests
 
@@ -608,7 +694,7 @@ def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in wrappers()}
+    launches = launch_counts()
     st = eng.stats()
     fused = eng.engine.pipeline(4).trace_counts["fused"]
     ttft = latency_percentiles(done, "ttft_s")
@@ -653,12 +739,15 @@ def serve_phase() -> dict:
                              "moe_ffn"))}
     rw_draft = draft_for(RWKV6_7B, 2)
     runs["3b"] = serve_run("3b", RWKV6_7B, rw_draft, False, 8,
-                           ("wkv6", "flash_attention"))
+                           ("wkv6", "wkv6 serial", "wkv6 chunked",
+                            "flash_attention"))
     # RWKV has no attention: every flash launch is the draft's prefill
     assert runs["3b"]["flash_attention"] == 2 * (8 + 2)
     rg_draft = draft_for(RECURRENTGEMMA_2B, 2)
     runs["3c"] = serve_run("3c", RECURRENTGEMMA_2B, rg_draft, False, 8,
-                           ("rglru_scan", "flash_attention"))
+                           ("rglru_gated_scan", "rglru_gated_scan serial",
+                            "rglru_gated_scan parallel", "flash_attention"),
+                           ("rglru_scan",))
     # one flash launch per attention layer per prefill (8 requests + the 2
     # parked dummies): the target's SWA layers run it at head dim 256
     n_swa = sum(RECURRENTGEMMA_2B.layer_kind(l) == SWA
@@ -707,7 +796,7 @@ def _greedy_check(label, tp, tcfg, reqs) -> None:
 def lossless_run(label, tcfg, dcfg, paged, must_launch) -> None:
     import torch
 
-    from repro_torch.kernels import reset_launches, wrappers
+    from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.serving.engine import SchedulerConfig
     from repro_torch.serving.trace import poisson_requests
 
@@ -729,7 +818,7 @@ def lossless_run(label, tcfg, dcfg, paged, must_launch) -> None:
     reset_launches()
     _greedy_check(label, eng.engine.tp, tcfg, reqs)
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in wrappers()}
+    launches = launch_counts()
     for name in must_launch:           # the greedy decode ran the kernels
         assert launches[name] > 0, f"[{label}] greedy decode skipped {name}"
     print(f"  [{label}] {tcfg.name} {tcfg.n_layers} layers, "
@@ -754,7 +843,7 @@ def lossless_phase() -> None:
     lossless_run("4c", rw, draft_for(rw, 2), False, ("wkv6",))
     rgc = f32(RECURRENTGEMMA_2B, 3)
     lossless_run("4d", rgc, draft_for(rgc, 2), False,
-                 ("rglru_scan", "flash_attention"))
+                 ("rglru_gated_scan", "flash_attention"))
 
 
 # ---------------------------------------------------------------------------
@@ -787,7 +876,11 @@ def main() -> int:
                       ("flash_attention", "flash_fwd_wgmma_kernel"),
                       ("paged_decode_attention", "paged_decode_mma_kernel"),
                       ("paged_decode_attention", "paged_decode_kernel"),
-                      ("decode_attention", "decode_mma_kernel")):
+                      ("decode_attention", "decode_mma_kernel"),
+                      ("wkv6", "wkv6_kernel"),
+                      ("wkv6", "wkv6_chunked_kernel"),
+                      ("rglru_scan", "rglru_serial_kernel"),
+                      ("rglru_scan", "rglru_parallel_kernel")):
         print(f"  ptxas -v {kern} (<template args>: registers, static smem "
               "B, spill stores/loads B): " + "; ".join(
                   f"<{a}>: {r}, {sm}, {ss}/{sl}"
@@ -816,7 +909,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{name}.cu",
                         "replaces": REPLACES[name],
-                        "launches": runs[run][name], "max_abs_err": err,
+                        "launches": runs[run][PATH_ENTRY.get(name, name)],
+                        "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": lib_ms})
     print("== 5. kernels")

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels
-// (moe_ffn.cu, flash_attention.cu): TMA tensor maps and loads, mbarrier
+// (moe_ffn.cu, flash_attention.cu; wkv6.cu's chunked kernel uses the TMA
+// and mbarrier parts): TMA tensor maps and loads, mbarrier
 // pipelines, wgmma shared-memory descriptors and fences, setmaxnreg.
 // All inline PTX; cuTensorMapEncodeTiled is looked up at run time with
 // cudaGetDriverEntryPoint, so the libraries need no -lcuda.
@@ -36,13 +37,16 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of rank dims (innermost first; stride_bytes[i] is the
-// step of dim i + 1) loading boxes of box[] elements with the 128-byte
-// swizzle wgmma reads; out-of-bounds elements load as zeros.  Returns
-// false when the encoder refuses it (unaligned base or strides).
-inline bool make_map(CUtensorMap* map, const void* base, int rank,
-                     const uint64_t* dims, const uint64_t* stride_bytes,
-                     const uint32_t* box) {
+// A tensor map of rank dims (innermost first; stride_bytes[i] is the
+// step of dim i + 1) loading boxes of box[] elements, by default bf16
+// with the 128-byte swizzle wgmma reads; out-of-bounds elements load as
+// zeros.  Returns false when the encoder refuses it (unaligned base or
+// strides).
+inline bool make_map(
+    CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+    const uint64_t* stride_bytes, const uint32_t* box,
+    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   cuuint64_t gd[5], gs[4];
@@ -53,9 +57,8 @@ inline bool make_map(CUtensorMap* map, const void* base, int rank,
     es[i] = 1;
     if (i + 1 < rank) gs[i] = stride_bytes[i];
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(base), gd, gs, bx, es,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, dtype, rank, const_cast<void*>(base), gd, gs, bx, es,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -6,16 +6,31 @@ on CPU tensors.  Each wrapper function counts its kernel launches in its
 
 
 def wrappers() -> tuple:
-    """The six kernel wrapper functions: the paged path's three, then the
-    contiguous path's."""
+    """The kernel wrapper functions: the paged path's three, then the
+    contiguous path's, then the RG-LRU's fused entry (the model's call
+    of the ``rglru_scan`` kernel source)."""
     from repro_torch.kernels import (decode_attention as da,
                                      flash_attention as fa, moe_ffn as mf,
                                      paged_decode_attention as pd,
                                      rglru_scan as rg, wkv6 as wk)
     return (pd.paged_decode_attention, fa.flash_attention, mf.moe_ffn,
-            da.decode_attention, rg.rglru_scan, wk.wkv6)
+            da.decode_attention, rg.rglru_scan, wk.wkv6,
+            rg.rglru_gated_scan)
+
+
+def launch_counts() -> dict:
+    """{wrapper name: launches}, and {"<name> <route>": launches} for each
+    route of a wrapper that picks between kernels (``route_launches``)."""
+    counts = {}
+    for fn in wrappers():
+        counts[fn.__name__] = fn.launches
+        for route, n in getattr(fn, "route_launches", {}).items():
+            counts[f"{fn.__name__} {route}"] = n
+    return counts
 
 
 def reset_launches() -> None:
     for fn in wrappers():
         fn.launches = 0
+        for route in getattr(fn, "route_launches", {}):
+            fn.route_launches[route] = 0

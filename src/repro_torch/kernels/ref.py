@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+RGLRU_C, RGLRU_EPS = 8.0, 1e-6       # repro/models/rglru.py's _C, _EPS
 
 
 def flash_attention_ref(q, k, v, *, scale=None, causal=True, window=None):
@@ -137,6 +138,25 @@ def rglru_scan_ref(a, gated, h0):
         h = a[:, t] * h + gated[:, t]
         out.append(h)
     return torch.stack(out, dim=1)
+
+
+def rglru_gates_ref(xa, xi, x, b_a, b_i, a_param):
+    """The RG-LRU's decay and gated input from xa = x @ w_a, xi = x @ w_i
+    (B,S,W) f32, the conv output x (B,S,W) and b_a, b_i, a_param (W,) f32
+    (``repro/models/rglru.py:97-103``).  Returns (a, gated) (B,S,W) f32."""
+    r = torch.sigmoid(xa + b_a)
+    i = torch.sigmoid(xi + b_i)
+    log_a = -RGLRU_C * F.softplus(a_param) * r
+    a = torch.exp(log_a)
+    gated = (torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), RGLRU_EPS,
+                                    1.0))
+             * (i * x.float()))
+    return a, gated
+
+
+def rglru_gated_scan_ref(xa, xi, x, b_a, b_i, a_param, h0):
+    """The gates, then the recurrence: h_all (B,S,W) f32."""
+    return rglru_scan_ref(*rglru_gates_ref(xa, xi, x, b_a, b_i, a_param), h0)
 
 
 def wkv6_ref(r, k, v, w, u, s0, *, stack: bool = False):

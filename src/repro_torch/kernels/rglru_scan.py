@@ -1,10 +1,20 @@
-"""RG-LRU time recurrence: wrapper of ``csrc/rglru_scan.cu``.
+"""RG-LRU time recurrence: wrappers of ``csrc/rglru_scan.cu``.
 
-Replaces the TPU kernel ``repro/kernels/rglru_scan.py::rglru_scan``.  On
-CPU tensors it returns the plain version
-(:func:`repro_torch.kernels.ref.rglru_scan_ref`); on CUDA tensors it
-launches the kernel or raises.  ``launches`` counts kernel launches.
-The kernel is bound by bytes (see the source's note).
+Two entries share one scan body:
+
+- :func:`rglru_scan` ``(a, g, h0)`` replaces the TPU kernel
+  ``repro/kernels/rglru_scan.py::rglru_scan``;
+- :func:`rglru_gated_scan` also forms the gates from the two products,
+  the conv output and the parameters (what the model calls).
+
+On CPU tensors each returns its plain version
+(:func:`repro_torch.kernels.ref.rglru_scan_ref`,
+:func:`repro_torch.kernels.ref.rglru_gated_scan_ref`); on CUDA tensors
+it launches the kernel or raises.  :func:`route` picks the serial kernel
+(verify, decode) or the time-parallel one (prefill) from the step count
+alone.  Each function counts its launches in ``launches``, and each
+route's in ``route_launches``.  The kernels
+are bound by bytes (see the source's note).
 """
 from __future__ import annotations
 
@@ -14,7 +24,28 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_GATED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+PARALLEL_MIN_STEPS = 17     # fewer steps: the serial kernel
+# the time-parallel kernel's layout (csrc/rglru_scan.cu's kSegSteps,
+# kSegsPerWarp, kSegs): (steps a segment, segments one warp's shuffles
+# compose, segments a tile of eight warps); tiles are walked in order
+LAYOUT = (4, 16, 128)
+
+
+def route(seq: int) -> str:
+    """"serial" or "parallel": the kernel a call of ``seq`` steps takes."""
+    return "serial" if seq < PARALLEL_MIN_STEPS else "parallel"
+
+
+def _launch_shape(seq: int, width: int, *tensors) -> tuple:
+    """(parallel, vec): the kernel and the channels a thread of the
+    time-parallel kernel owns (4 for 16-byte loads along W where the
+    width and every tensor's alignment allow it)."""
+    parallel = route(seq) == "parallel"
+    aligned = width % 4 == 0 and all(
+        t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
+    return int(parallel), 4 if parallel and aligned else 1
 
 
 def rglru_scan(a, gated, h0):
@@ -35,11 +66,53 @@ def rglru_scan(a, gated, h0):
     _build.check_contiguous(a=a, gated=gated, h0=h0)
     fn = _build.bind("rglru_scan", "rglru_scan", _ARGS)
     out = torch.empty_like(a)
+    parallel, vec = _launch_shape(s, w, a, gated, out)
     rc = fn(a.data_ptr(), gated.data_ptr(), h0.data_ptr(), out.data_ptr(),
-            b, s, w, _build.stream_ptr(a))
+            b, s, w, parallel, vec, _build.stream_ptr(a))
     _build.check(rc, "rglru_scan")
     rglru_scan.launches += 1
+    rglru_scan.route_launches[route(s)] += 1
     return out
 
 
 rglru_scan.launches = 0
+rglru_scan.route_launches = {"serial": 0, "parallel": 0}
+
+
+def rglru_gated_scan(xa, xi, x, b_a, b_i, a_param, h0):
+    """The RG-LRU with its gates (``repro/models/rglru.py:97-108``).
+
+    xa = x @ w_a and xi = x @ w_i (B, S, W) f32; x, the conv output,
+    (B, S, W) f32 or bf16; b_a, b_i, a_param (W,) f32; h0 (B, W) f32.
+    Returns h_all (B, S, W) f32.
+    """
+    _build.require(xa.dim() == 3 and xi.shape == xa.shape
+                   and x.shape == xa.shape, "xa/xi/x must be (B, S, W)")
+    b, s, w = xa.shape
+    _build.require(h0.shape == (b, w) and all(
+        p.shape == (w,) for p in (b_a, b_i, a_param)),
+        "h0 must be (B, W) and b_a/b_i/a_param (W,)")
+    _build.require(all(t.dtype == torch.float32
+                       for t in (xa, xi, b_a, b_i, a_param, h0))
+                   and x.dtype in (torch.float32, torch.bfloat16),
+                   "the gates take float32 (x float32 or bfloat16)")
+    if not _build.use_kernel(xa, xi, x, b_a, b_i, a_param, h0):
+        return ref.rglru_gated_scan_ref(xa, xi, x, b_a, b_i, a_param, h0)
+
+    _build.check_contiguous(xa=xa, xi=xi, x=x, b_a=b_a, b_i=b_i,
+                            a_param=a_param, h0=h0)
+    fn = _build.bind("rglru_scan", "rglru_gated_scan", _GATED_ARGS)
+    out = torch.empty_like(xa)
+    parallel, vec = _launch_shape(s, w, xa, xi, x, out)
+    rc = fn(xa.data_ptr(), xi.data_ptr(), x.data_ptr(), b_a.data_ptr(),
+            b_i.data_ptr(), a_param.data_ptr(), h0.data_ptr(),
+            out.data_ptr(), b, s, w, _build.DTYPE_CODE[x.dtype], parallel,
+            vec, _build.stream_ptr(xa))
+    _build.check(rc, "rglru_gated_scan")
+    rglru_gated_scan.launches += 1
+    rglru_gated_scan.route_launches[route(s)] += 1
+    return out
+
+
+rglru_gated_scan.launches = 0
+rglru_gated_scan.route_launches = {"serial": 0, "parallel": 0}

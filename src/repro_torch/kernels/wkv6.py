@@ -2,8 +2,12 @@
 
 Replaces the TPU kernel ``repro/kernels/wkv6.py::wkv6``.  On CPU tensors
 it returns the plain version (:func:`repro_torch.kernels.ref.wkv6_ref`);
-on CUDA tensors it launches the kernel or raises.  ``launches`` counts
-kernel launches.  The kernel is bound by bytes (see the source's note).
+on CUDA tensors it launches one of two kernels or raises: the serial one
+for verify and decode (at most ``CHUNKED_MIN_STEPS`` steps, or with the
+state stack), the chunked one for prefill (:func:`route` decides from
+shapes and ``stack`` alone).  ``launches`` counts the launches of both,
+``route_launches`` each route's.
+The kernels are bound by bytes (see the source's note).
 """
 from __future__ import annotations
 
@@ -15,7 +19,26 @@ from repro_torch.kernels import _build, ref
 
 _ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
          + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+_CHUNKED_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
 HEAD_DIMS = (64, 128)
+CHUNK, SUB = 16, 4          # steps a chunk and a sub-chunk (chunked kernel)
+CHUNKED_MIN_STEPS = 17      # fewer steps, or a stack: the serial kernel
+WHOLE_HEAD_FROM = 2 * 132   # (batch x heads) from which a CTA owns a head
+
+
+def route(seq: int, stack: bool) -> str:
+    """"serial" or "chunked": the kernel a call of ``seq`` steps takes."""
+    return "serial" if stack or seq < CHUNKED_MIN_STEPS else "chunked"
+
+
+def slab(batch: int, n_heads: int, hd: int) -> int:
+    """Columns of the state one CTA of the chunked kernel owns: 32, which
+    spreads a batch-1 prefill over 2 (hd 64) or 4 (hd 128) CTAs a head,
+    or at head size 64 the whole head once the call has two CTAs an SM's
+    worth of heads (a whole head forms its decay products once, not once
+    per slab)."""
+    return 64 if hd == 64 and batch * n_heads >= WHOLE_HEAD_FROM else 32
 
 
 def _strides(t) -> tuple:
@@ -49,8 +72,23 @@ def wkv6(r, k, v, w, u, s0, *, stack: bool = False):
                    and r.stride(3) == 1,
                    "r/k/v/w must share strides with a contiguous last dim")
     _build.check_contiguous(u=u, s0=s0)
-    fn = _build.bind("wkv6", "wkv6", _ARGS)
     y = torch.empty((b, h, s, hd), dtype=torch.float32, device=r.device)
+    if route(s, stack) == "chunked":
+        _build.require(all(t.data_ptr() % 16 == 0 for t in (r, k, v, w))
+                       and all(st % 4 == 0 for st in _strides(r)[:-1]),
+                       "the chunked wkv6 needs 16-byte aligned rows")
+        s_fin = torch.empty((b, h, hd, hd), dtype=torch.float32,
+                            device=r.device)
+        fn = _build.bind("wkv6", "wkv6_chunked", _CHUNKED_ARGS)
+        rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_fin.data_ptr(),
+                b, h, s, hd, slab(b, h, hd), r.stride(0), r.stride(1),
+                r.stride(2), _build.stream_ptr(r))
+        _build.check(rc, "wkv6_chunked")
+        wkv6.launches += 1
+        wkv6.route_launches["chunked"] += 1
+        return y, s_fin
+    fn = _build.bind("wkv6", "wkv6", _ARGS)
     states = (torch.empty((b, s + 1, h, hd, hd), dtype=torch.float32,
                           device=r.device) if stack else None)
     s_fin = (None if stack else
@@ -62,9 +100,11 @@ def wkv6(r, k, v, w, u, s0, *, stack: bool = False):
             r.stride(2), _build.stream_ptr(r))
     _build.check(rc, "wkv6")
     wkv6.launches += 1
+    wkv6.route_launches["serial"] += 1
     if stack:
         return y, states[:, -1], states
     return y, s_fin
 
 
 wkv6.launches = 0
+wkv6.route_launches = {"serial": 0, "chunked": 0}

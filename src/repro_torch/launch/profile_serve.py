@@ -1,7 +1,7 @@
 """Where a serving round spends its time on the card.
 
     python -m repro_torch.launch.profile_serve [--arch mixtral-8x7b]
-        [--layers 4] [--contiguous] [--rounds 20]
+        [--layers 4] [--contiguous] [--rounds 20] [--ttft 8]
 
 Builds a serving configuration of ``chip_smoke.py``'s serve phase
 (``--arch`` target — Mixtral-8x7B by default, or RWKV-6-7B or
@@ -14,10 +14,13 @@ steps, then traces ``--rounds`` steady-state steps (no admissions) with
 ``torch.profiler``.  The wall time per round is taken over ``--rounds``
 untraced steps first (the profiler slows the host); then it prints the
 device time per round over the traced steps, the device's idle share
-(one minus device time over untraced wall time), and the device time by
-kernel and by group (the port's six kernels, cuBLAS products, the
-rest).  ``--trace PATH`` also writes the Chrome trace.  Needs a CUDA
-card.
+(one minus device time over untraced wall time), and the device time
+and launches per round by kernel and by group (the port's kernels,
+cuBLAS products, the rest).  ``--ttft N`` first serves N Poisson
+requests on the same engine as ``chip_smoke.py``'s serve runs do
+(prompt 512, generation 32-64, 4 requests/s, seed 0) and prints their
+time to first token on the virtual clock.  ``--trace PATH`` also writes
+the Chrome trace.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -32,16 +35,19 @@ import torch
 
 from repro_torch.configs import draft_for, get_config
 from repro_torch.params import init_params
-from repro_torch.serving.engine import SchedulerConfig, ServingEngine
+from repro_torch.serving.engine import (SchedulerConfig, ServingEngine,
+                                        latency_percentiles)
 from repro_torch.serving.trace import poisson_requests
 
 # Each kernel lands in the first group whose pattern it matches: the paged
 # pattern comes first, since the contiguous one also matches its names.
+# The recurrences' patterns match both their earlier single kernels and
+# the serial / chunked (wkv6) and serial / time-parallel (RG-LRU) pairs.
 GROUPS = (("moe_ffn kernels", r"moe_wgmma_kernel|grouped_gemm_kernel"),
           ("paged_decode_attention kernel", r"paged_decode_(mma_)?kernel"),
           ("decode_attention kernel", r"decode_(mma_)?kernel"),
-          ("rglru_scan kernel", r"rglru_scan_kernel"),
-          ("wkv6 kernel", r"wkv6_kernel"),
+          ("rglru_scan kernels", r"rglru_(scan|serial|parallel)_kernel"),
+          ("wkv6 kernels", r"wkv6_(chunked_)?kernel"),
           ("flash_attention kernel", r"flash_fwd_(wgmma_)?kernel"),
           ("cuBLAS products", r"gemm|gemv|cutlass|xmma|cublas|nvjet|sm90_"),
           ("everything else", r""))
@@ -63,6 +69,8 @@ def main(argv=None):
                     help="contiguous KV (paged=False) instead of paged")
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=20)
+    ap.add_argument("--ttft", type=int, default=0,
+                    help="first serve this many requests and print TTFT")
     ap.add_argument("--trace", default=None,
                     help="write the Chrome trace of the traced steps here")
     args = ap.parse_args(argv)
@@ -76,6 +84,17 @@ def main(argv=None):
                                                paged=not args.contiguous))
     g = torch.Generator(device="cuda").manual_seed(0)
     eng.load(init_params(tcfg, g, "cuda"), init_params(dcfg, g, "cuda"))
+    if args.ttft:
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, tcfg.vocab_size, 512).astype(np.int32)
+                   for _ in range(args.ttft)]
+        gens = rng.integers(32, 65, args.ttft).tolist()
+        for r in poisson_requests(prompts, gens, rate_rps=4.0, seed=0):
+            eng.submit(r)
+        done = eng.run()
+        t = latency_percentiles(done, "ttft_s")
+        print(f"ttft over {len(done)} requests (virtual clock): "
+              f"p50={t['p50']:.4f}s p95={t['p95']:.4f}s")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, tcfg.vocab_size, 512).astype(np.int32)
                for _ in range(8)]
@@ -99,6 +118,7 @@ def main(argv=None):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = {e.key: _device_us(e) / 1e3 / args.rounds for e in kernels}
+    calls = {e.key: e.count / args.rounds for e in kernels}
     busy = sum(dev_ms.values())
     print(f"{torch.cuda.get_device_name(0)}: {tcfg.name} {tcfg.n_layers} "
           f"layers, draft {dcfg.n_layers} layers, "
@@ -112,7 +132,8 @@ def main(argv=None):
         for k in hit:
             del left[k]
         print(f"  {label:<32} {sum(hit.values()):9.3f} ms/round "
-              f"({sum(hit.values()) / max(busy, 1e-9):.1%} of device time)")
+              f"({sum(hit.values()) / max(busy, 1e-9):.1%} of device time, "
+              f"{sum(calls[k] for k in hit):.1f} launches/round)")
     print("top kernels by device time:")
     for k, v in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {v:9.4f} ms/round  {k[:110]}")

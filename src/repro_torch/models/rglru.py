@@ -5,9 +5,12 @@ Counterpart of ``repro/models/rglru.py``.  Block structure::
     x ──ln──┬── w_y ── gelu ─────────────────┐
             └── w_x ── causal conv1d ── RG-LRU ──*──  w_out ── (+residual)
 
-The gates (``r``, ``i``, ``log a``, ``a``, the gated input) are plain
-PyTorch in f32; the time recurrence ``h_t = a_t * h_{t-1} + g_t`` is the
-``rglru_scan`` kernel on CUDA tensors (its plain version on the CPU).
+The two gate products ``x @ w_a`` and ``x @ w_i`` are f32 products on
+weights that :mod:`repro_torch.params` stores f32 (``.float()`` is then
+the tensor itself); the gates (``r``, ``i``, ``log a``, ``a``, the
+gated input) and the time recurrence ``h_t = a_t * h_{t-1} + g_t`` are
+one ``rglru_gated_scan`` kernel on CUDA tensors (its plain version on
+the CPU).
 
 State: ``{"h": (B, W) f32, "conv": (B, conv_width-1, W)}``.  A
 multi-token decode (S <= 16) also returns the per-step state stack that
@@ -19,9 +22,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import rglru_scan as _rg
-
-_C = 8.0
-_EPS = 1e-6
 
 
 def init_rglru_state(batch: int, width: int, conv_width: int, dtype,
@@ -45,16 +45,14 @@ def _conv1d_causal(x, conv_state, w, b):
 
 
 def _rglru_scan(params: dict, x, h0):
-    """The RG-LRU over x (B,S,W) from h0 (B,W) f32: gates in f32, then
-    the recurrence.  Returns h_all (B,S,W) f32 (the output is the state)."""
+    """The RG-LRU over x (B,S,W) from h0 (B,W) f32: the gate products in
+    f32, then the gates and the recurrence in one kernel.  Returns h_all
+    (B,S,W) f32 (the output is the state)."""
     xf = x.float()
-    r = torch.sigmoid(xf @ params["w_a"].float() + params["b_a"])
-    i = torch.sigmoid(xf @ params["w_i"].float() + params["b_i"])
-    log_a = -_C * F.softplus(params["a_param"]) * r
-    a = torch.exp(log_a)
-    gated = (torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), _EPS, 1.0))
-             * (i * xf))
-    return _rg.rglru_scan(a, gated, h0)
+    return _rg.rglru_gated_scan(xf @ params["w_a"].float(),
+                                xf @ params["w_i"].float(), x,
+                                params["b_a"], params["b_i"],
+                                params["a_param"], h0)
 
 
 def apply_rglru_block(params: dict, x, state: dict):

@@ -10,8 +10,10 @@ with each attention layer ``{"ln1": {"scale"}, "ln2": {"scale"},
 "attn": {"wq", "wk", "wv", "wo"}, "ffn": {...}}``; a dense FFN holds
 ``w_gate``/``w_up`` (D, F) and ``w_down`` (F, D), an MoE FFN ``router``
 (D, E) f32 and ``w_gate``/``w_up`` (E, D, F), ``w_down`` (E, F, D).  An
-RG-LRU layer holds ``rec`` (:func:`repro_torch.models.rglru.init_rglru`)
-and a dense ``ffn``; an RWKV-6 layer ``tmix`` and ``cmix``
+RG-LRU layer holds ``rec`` (:func:`_init_rglru`; its gate weights
+``w_a``/``w_i`` are stored f32 whatever the model's dtype, cast once
+here, since the gate products are f32 as in the JAX package) and a
+dense ``ffn``; an RWKV-6 layer ``tmix`` and ``cmix``
 (:mod:`repro_torch.models.rwkv`).  Matrices are ``(in, out)`` as in the
 JAX package.
 """
@@ -45,7 +47,9 @@ def _normal(shape, std, generator, device, dtype):
 def _init_rglru(cfg: ModelConfig, generator, device) -> dict:
     """``repro/models/rglru.py::init_rglru``: ``a_param`` such that
     a = exp(-8 softplus(a_param)) is U(0.9, 0.999), conv N(0, 0.1), zero
-    biases (the gate biases f32)."""
+    biases (the gate biases f32; the gate weights drawn in the model's
+    dtype and stored f32, the type of their products, so that no call
+    casts them)."""
     dt, d, w = cfg.torch_dtype, cfg.d_model, cfg.rnn_width
     u = 0.9 + 0.099 * torch.rand((w,), generator=generator, device=device)
     return {"w_y": _dense(d, w, generator, device, dt),
@@ -54,9 +58,9 @@ def _init_rglru(cfg: ModelConfig, generator, device) -> dict:
             "conv_w": _normal((cfg.conv_width, w), 0.1, generator, device,
                               dt),
             "conv_b": torch.zeros((w,), dtype=dt, device=device),
-            "w_a": _dense(w, w, generator, device, dt),
+            "w_a": _dense(w, w, generator, device, dt).float(),
             "b_a": torch.zeros((w,), device=device),
-            "w_i": _dense(w, w, generator, device, dt),
+            "w_i": _dense(w, w, generator, device, dt).float(),
             "b_i": torch.zeros((w,), device=device),
             "a_param": torch.log(torch.expm1(-torch.log(u) / 8.0))}
 
@@ -171,6 +175,10 @@ def from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     layers = [_map(lambda a, g=l // pat: _to_torch(np.asarray(a)[g], device),
                    tree["layers"][l % pat])
               for l in range(cfg.n_layers)]
+    for layer in layers:            # the gate weights f32, as _init_rglru
+        if "rec" in layer:
+            rec = layer["rec"]
+            rec["w_a"], rec["w_i"] = rec["w_a"].float(), rec["w_i"].float()
     return {"embed": _map(lambda a: _to_torch(a, device), tree["embed"]),
             "layers": layers,
             "final_norm": _map(lambda a: _to_torch(a, device),
