@@ -17,13 +17,19 @@ on its own lines with its wall seconds:
    stress shape each, plus the edges of the tensor-core kernels (flash
    at 100 tokens, windowed and bidirectional at head dims 64/128/256 and
    fed (B, S, H, d) views; ``moe_ffn`` at C 1, 7, 33 and 300 at Mixtral
-   widths) and of the split-KV verify kernels (the grid, n_split and CTA
-   count printed for the serve and stress shapes; lengths 1, 6, 63, 64
-   and 65 in a 32768-token capacity, where nearly every split is empty;
+   widths, and at the tree verify's dispatch, C 40 in bf16 for 3e and
+   C 20 in f32 for 4e/4f) and of the split-KV verify kernels (the grid,
+   n_split and CTA count printed for the serve and stress shapes;
+   lengths 1, 6, 63, 64 and 65 in a 32768-token capacity, where nearly
+   every split is empty;
    a 64-key tile boundary inside the last m positions, in f32, bf16,
    int8 and a tree; a sliding window; m = 1; q and the output as
    (B, S, H, d) views; the serve-shape call made twice and its outputs
-   required to be bitwise equal) and of the recurrences (``wkv6`` with
+   required to be bitwise equal; speculation trees at the serve shape,
+   ``anc_bits`` of tree (3, 2) at m 10 and of (2, 2, 2, 2) at m 31, in
+   f32 and bf16, each also with a 64-key tile boundary inside the last m
+   rows, with ``scaled_dot_product_attention`` under the equivalent
+   boolean mask as the library yardstick) and of the recurrences (``wkv6`` with
    the model's decay range, w = exp(-exp(U[-8, 4])) with channels at
    w == 0 and w = 1 - 1e-7, at the verify, prefill and stress shapes, at
    ragged lengths 100 and 1000 and at head size 128; the RG-LRU with its
@@ -46,12 +52,27 @@ on its own lines with its wall seconds:
    Mistral-7B-width draft, 8 requests; (c) contiguous,
    RecurrentGemma-2B at full width and depth (27 layers), the same kind
    of draft, 8 requests (the RG-LRU through its fused entry, never the
-   bare scan); (d) contiguous, the widths of (a), 8 requests;
+   bare scan); (d) contiguous, the widths of (a), 8 requests; (e) paged
+   tree speculation, tree (3, 2), the widths of (a) with the draft made
+   all-attention, 8 requests: one fused shape signature, every verify
+   round through ``paged_decode_attention`` with ``anc_bits`` (those
+   launches counted apart from the causal ones), and the histogram of
+   accepted path lengths;
 4. lossless, f32, ``max_batch=2``, 6 requests with mid-flight
    admission, every stream equal to the port's own target-only greedy
    decode: Mixtral / Mistral widths (2 layers) paged and contiguous,
    RWKV-6 widths (2 layers), RecurrentGemma widths (3 layers, one
-   group);
+   group); then tree (3, 2) at Mixtral widths (2 layers), paged (e) and
+   contiguous (f), the draft being the target's configuration with the
+   target's weights plus seeded noise (``DRAFT_NOISE`` times each
+   tensor's standard deviation), so that rounds accept part of the path
+   as well as all of it (both are required); and (g) sampled
+   acceptance: ``sampled_acceptance`` and ``tree_sampled_acceptance``
+   on the card against the same call on the CPU with the same f32
+   logits and noise (the tokens must be equal), and a Leviathan check
+   (vocabulary 8, fixed draft and target logits, 2^18 rows, drafts
+   sampled from the draft): the first emitted token's frequencies must
+   lie within 5 standard errors of the target's softmax;
 5. the kernels as one JSON object; 6. the device as one JSON object.
 
 Any failure raises and exits non-zero; so does a machine with no card.
@@ -75,6 +96,8 @@ HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no TF32
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TOL_RGLRU, TOL_WKV6 = 1e-5, 2e-4      # tests/test_kernels.py:153,169-171
+TREE = (3, 2)                         # the served speculation tree
+DRAFT_NOISE = 0.05                    # 4e/4f: the draft's weight noise
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:297",
     "flash_attention": "src/repro/kernels/flash_attention.py:111",
@@ -167,6 +190,17 @@ def _tc_path(dt) -> str:
 
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
+
+# the verify kernels' tree cases at the serve shape: (branching, m, lengths
+# putting a 64-key tile boundary inside the last m rows of every sequence)
+TREE_CASES = (((3, 2), 10, [130, 70, 200, 260]),
+              ((2, 2, 2, 2), 31, [150, 80, 210, 270]))
+
+
+def tree_bits(branching) -> list:
+    """The int32 ancestor bitmasks of a speculation tree's buffer."""
+    from repro_torch.core.spec_decode import tree_layout
+    return tree_layout(branching)["anc_bits"].tolist()
 
 
 def kernel_cases(bench) -> dict:
@@ -305,13 +339,6 @@ def kernel_cases(bench) -> dict:
                 f"paged_decode_attention {label}: two calls differ")
             print(f"  paged_decode_attention  {label}: two calls bitwise "
                   "equal", flush=True)
-        lens = lengths.long().cpu().numpy()
-        row_b = kp.element_size() * d + (4 if quant else 0)   # one head's row
-        kv_bytes = float(2 * hkv * row_b * lens.sum())
-        keys = float(sum(max(0, int(n) - m + i + 1)
-                         for n in lens for i in range(m)))
-        bound = _bound(kv_bytes + _nbytes(q, got, bt, lengths),
-                       4.0 * hq * d * keys, dname)
         kg, vg = ref.gather_paged_kv_ref(kp, vp, bt, dtype=dt, **sc)
         kg = kg.transpose(1, 2).repeat_interleave(hq // hkv, 1).contiguous()
         vg = vg.transpose(1, 2).repeat_interleave(hq // hkv, 1).contiguous()
@@ -327,6 +354,11 @@ def kernel_cases(bench) -> dict:
                                                                    None])
                                & (bit > 0))
         mask = vis[:, None]
+        lens = lengths.long().cpu().numpy()
+        row_b = kp.element_size() * d + (4 if quant else 0)   # one head's row
+        kv_bytes = float(2 * hkv * row_b * lens.sum())
+        bound = _bound(kv_bytes + _nbytes(q, got, bt, lengths),
+                       4.0 * hq * d * float(vis.sum()), dname)
         lib = lambda: F.scaled_dot_product_attention(q, kg, vg,
                                                      attn_mask=mask)
         r = (err, bench.ms(call), bound, bench.ms(plain), bench.ms(lib))
@@ -374,6 +406,12 @@ def kernel_cases(bench) -> dict:
                main_lens, torch.bfloat16, capacity=640, model_layout=True)
     paged_case("verify b4 m5 f32 (B,S,H,d) q/out", 2, 32, 8, 5, 16, 128,
                main_lens[:2], torch.float32, capacity=640, model_layout=True)
+    for br, m, bnd in TREE_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            paged_case(f"tree {br} m{m} ~560 tokens", 4, 32, 8, m, 16, 128,
+                       main_lens, dt, anc=tree_bits(br), capacity=640)
+            paged_case(f"tree {br} m{m} boundary in last m", 4, 32, 8, m,
+                       16, 128, bnd, dt, anc=tree_bits(br), capacity=640)
     torch.cuda.empty_cache()
 
     # -- MoE FFN -------------------------------------------------------------
@@ -408,9 +446,13 @@ def kernel_cases(bench) -> dict:
         moe_case("gelu e4 c20 d64 f192", 4, 20, 64, 192, dt, "gelu")
     moe_case("verify c10 f32 (lossless phase)", 8, 10, 4096, 14336,
              torch.float32)
+    moe_case("tree verify c20 f32 (4e/4f: B 2 x 10 nodes)", 8, 20, 4096,
+             14336, torch.float32)
     mix_w = moe_weights(8, 4096, 14336, torch.bfloat16)
     main["moe_ffn"] = moe_case("verify c20 (serve path)", 8, 20, 4096, 14336,
                                torch.bfloat16, weights=mix_w)
+    moe_case("tree verify c40 (3e serve path: B 4 x 10 nodes)", 8, 40, 4096,
+             14336, torch.bfloat16, weights=mix_w)
     moe_case("prefill c257 (serve path)", 8, 257, 4096, 14336, torch.bfloat16,
              weights=mix_w)
     for c in (1, 7, 33, 300):         # token tiles of 8, 8, 40, 2 x 152
@@ -515,6 +557,12 @@ def kernel_cases(bench) -> dict:
                 main_lens, torch.bfloat16, model_layout=True)
     decode_case("verify b4 m5 f32 (B,S,H,d) q/out", 2, 32, 8, 5, 640, 128,
                 main_lens[:2], torch.float32, model_layout=True)
+    for br, m, bnd in TREE_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            decode_case(f"tree {br} m{m} s640 ~560 tokens", 4, 32, 8, m, 640,
+                        128, main_lens, dt, anc=tree_bits(br))
+            decode_case(f"tree {br} m{m} boundary in last m", 4, 32, 8, m,
+                        640, 128, bnd, dt, anc=tree_bits(br))
     torch.cuda.empty_cache()
 
     # -- RG-LRU scan ----------------------------------------------------------
@@ -667,10 +715,11 @@ def _free() -> None:
 
 
 def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
-              must_not_launch=()) -> dict:
+              must_not_launch=(), spec_tree=None) -> dict:
     """Serve ``n_requests`` Poisson requests (prompt 512, gen 32-64) with
-    ``max_batch=4``, ``n_cand=4``; every kernel's launches are counted
-    from 0 over the run.  Returns {kernel: launches}."""
+    ``max_batch=4``, ``n_cand=4`` (or tree speculation of ``spec_tree``);
+    every kernel's launches are counted from 0 over the run.  Returns
+    {kernel: launches}."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launches
@@ -679,7 +728,8 @@ def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
 
     t_run = time.perf_counter()
     eng = _engine(tcfg, dcfg, SchedulerConfig(max_batch=4, n_cand=4,
-                                              paged=paged), seed=0)
+                                              paged=paged,
+                                              spec_tree=spec_tree), seed=0)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, tcfg.vocab_size, 512).astype(np.int32)
                for _ in range(n_requests)]
@@ -696,17 +746,20 @@ def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
     wall = time.perf_counter() - t0
     launches = launch_counts()
     st = eng.stats()
-    fused = eng.engine.pipeline(4).trace_counts["fused"]
+    fused = st["fused_compiles"]
     ttft = latency_percentiles(done, "ttft_s")
+    mode = f"tree {spec_tree}" if spec_tree else "chain"
     print(f"  [{label}] {tcfg.name} {tcfg.n_layers} layers / draft "
-          f"{dcfg.n_layers} layers, {'paged' if paged else 'contiguous'}: "
+          f"{dcfg.n_layers} layers, {'paged' if paged else 'contiguous'}, "
+          f"{mode}: "
           f"served {len(done)} requests, {st['tokens_out']} tokens in "
           f"{wall:.3f}s wall: {st['tok_per_s']:.2f} tok/s over "
           f"{st['rounds']} rounds, occupancy {st['mean_occupancy']:.3f}")
     print(f"  [{label}] round p50={1e3 * st['round_s_p50']:.2f}ms "
           f"p95={1e3 * st['round_s_p95']:.2f}ms  ttft p50={ttft['p50']:.3f}s "
           f"p95={ttft['p95']:.3f}s (virtual clock)  acceptance="
-          f"{st['acceptance']:.4f}")
+          f"{st['acceptance']:.4f}  accepted-length histogram "
+          f"{st['accept_hist']}")
     print(f"  [{label}] peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  fused shape "
           f"signatures={fused}  launches={launches}")
@@ -719,6 +772,16 @@ def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
         assert launches[name] > 0, f"{name} was never launched in run {label}"
     for name in must_not_launch:
         assert launches[name] == 0, f"{name} was launched in run {label}"
+    if spec_tree is not None and paged:
+        # every verify round: one tree launch per target layer, no other
+        tree = launches["paged_decode_attention tree"]
+        assert tree == tcfg.n_layers * st["rounds"], (
+            f"{tree} tree verify launches over {st['rounds']} rounds")
+        assert launches["paged_decode_attention causal"] == 0
+        print(f"  [{label}] paged_decode_attention with anc_bits: {tree} "
+              f"launches = {tcfg.n_layers} layers x {st['rounds']} verify "
+              "rounds; decode_attention (the draft's root feed, m 1): "
+              f"{launches['decode_attention tree']}")
     n_prefills = len(reqs) + (0 if paged else 2)    # + the parked dummies
     print(f"  [{label}] {n_prefills} prefills, {st['rounds']} rounds; "
           f"run wall {time.perf_counter() - t_run:.1f}s", flush=True)
@@ -728,7 +791,7 @@ def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
 
 
 def serve_phase() -> dict:
-    """Runs 3a-3d; returns {run label: launches}."""
+    """Runs 3a-3e; returns {run label: launches}."""
     from repro_torch.configs import (MIXTRAL_8X7B, RECURRENTGEMMA_2B,
                                      RWKV6_7B, SWA, draft_for)
 
@@ -758,6 +821,13 @@ def serve_phase() -> dict:
     runs["3d"] = serve_run("3d", mix, mis, False, 8,
                            ("decode_attention", "flash_attention", "moe_ffn"),
                            ("paged_decode_attention",))
+    # tree speculation needs an all-attention draft (as the JAX serving
+    # bench makes it)
+    mis_attn = dataclasses.replace(mis, layer_pattern=("attn",) * 4)
+    runs["3e"] = serve_run("3e", mix, mis_attn, True, 8,
+                           ("paged_decode_attention", "flash_attention",
+                            "moe_ffn", "paged_decode_attention tree"),
+                           spec_tree=TREE)
     return runs
 
 
@@ -793,16 +863,45 @@ def _greedy_check(label, tp, tcfg, reqs) -> None:
               f"{min(gaps):.3e})")
 
 
-def lossless_run(label, tcfg, dcfg, paged, must_launch) -> None:
+def _noisy_copy(params, scale: float, gen):
+    """The weights plus seeded Gaussian noise of ``scale`` times each
+    tensor's standard deviation (constant tensors, the norms, stay)."""
+    import torch
+    if isinstance(params, dict):
+        return {k: _noisy_copy(v, scale, gen) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(_noisy_copy(v, scale, gen) for v in params)
+    if not (isinstance(params, torch.Tensor) and params.is_floating_point()
+            and params.numel() > 1):
+        return params
+    x = params.float()
+    noise = torch.randn(x.shape, generator=gen, device=x.device)
+    return (x + scale * x.std() * noise).to(params.dtype)
+
+
+def lossless_run(label, tcfg, dcfg, paged, must_launch, spec_tree=None,
+                 serve_must_launch=()) -> None:
+    """Serve 6 requests with mid-flight admission and hold every stream
+    against the greedy decode.  With ``spec_tree`` the draft is the
+    target's configuration with its weights plus ``DRAFT_NOISE``, and
+    the rounds must accept part of the path as well as all of it."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launches
-    from repro_torch.serving.engine import SchedulerConfig
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import SchedulerConfig, ServingEngine
     from repro_torch.serving.trace import poisson_requests
 
     t_run = time.perf_counter()
-    eng = _engine(tcfg, dcfg, SchedulerConfig(max_batch=2, n_cand=4,
-                                              paged=paged), seed=1)
+    config = SchedulerConfig(max_batch=2, n_cand=4, paged=paged,
+                             spec_tree=spec_tree)
+    if spec_tree is None:
+        eng = _engine(tcfg, dcfg, config, seed=1)
+    else:
+        eng = ServingEngine(tcfg, tcfg, config=config, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(1)
+        tp = init_params(tcfg, g, "cuda")
+        eng.load(tp, _noisy_copy(tp, DRAFT_NOISE, g))
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, tcfg.vocab_size, int(n)).astype(np.int32)
                for n in rng.integers(40, 130, 6)]
@@ -810,11 +909,26 @@ def lossless_run(label, tcfg, dcfg, paged, must_launch) -> None:
     reqs = poisson_requests(prompts, gens, rate_rps=20.0, seed=1)
     for r in reqs:
         assert eng.submit(r)
+    reset_launches()
     done = eng.run()
+    torch.cuda.synchronize()
+    served = launch_counts()
     assert len(done) == len(reqs)
     assert any(r.queue_s > 0 for r in reqs), "no mid-flight admission"
-    fused = eng.engine.pipeline(4).trace_counts["fused"]
+    st = eng.stats()
+    fused = st["fused_compiles"]
     assert fused == 1, f"fused round ran at {fused} shape signatures"
+    for name in serve_must_launch:
+        assert served[name] > 0, f"[{label}] serving never launched {name}"
+    if spec_tree is not None:
+        hist, depth = st["accept_hist"], len(spec_tree)
+        print(f"  [{label}] tree {spec_tree}, draft = target + "
+              f"{DRAFT_NOISE} x std noise: {st['rounds']} rounds, "
+              f"accepted-length histogram (live slots, a = 0..{depth}) "
+              f"{hist}; serving launches "
+              f"{ {k: n for k, n in served.items() if n} }")
+        assert sum(hist[1:depth]) > 0 and hist[depth] > 0, (
+            f"[{label}] rounds must accept part of the path and all of it")
     reset_launches()
     _greedy_check(label, eng.engine.tp, tcfg, reqs)
     torch.cuda.synchronize()
@@ -827,6 +941,73 @@ def lossless_run(label, tcfg, dcfg, paged, must_launch) -> None:
           f"{time.perf_counter() - t_run:.1f}s", flush=True)
     del eng, done
     _free()
+
+
+def sampled_run(label) -> None:
+    """Sampled acceptance on the card: chain and tree against the same
+    calls on the CPU (f32 logits, the same noise; tokens equal), then the
+    Leviathan check of the first emitted token's distribution."""
+    import torch
+
+    from repro_torch.core import spec_decode as S
+    t_run = time.perf_counter()
+    gen = torch.Generator().manual_seed(4)
+    rn = lambda *shape: torch.randn(shape, generator=gen)
+    b, m, v = 8, 4, 32000
+    dl = 2.0 * rn(b, m, v)
+    tl = torch.cat([dl, 2.0 * rn(b, 1, v)], 1) + 0.5 * rn(b, m + 1, v)
+    drafts = torch.argmax(dl + S.gumbel_noise(gen, (b, m, v), "cpu"), -1)
+    args = (drafts, dl, tl) + S.acceptance_noise(gen, b, m, v, "cpu")
+    want = S.sampled_acceptance(*args)
+    got = S.sampled_acceptance(*(x.cuda() for x in args))
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_.cpu(), w_), f"[{label}] chain: card != CPU"
+    # a (3, 2) tree drafted by the draft logits' top-k at each parent
+    n = S.tree_n_nodes(TREE)
+    lay = S.tree_layout(TREE)
+    dlt = 2.0 * rn(b, n, v)
+    tlt = dlt + 0.5 * rn(b, n, v)
+    toks = torch.zeros((b, n), dtype=torch.int64)
+    toks[:, 0] = torch.randint(0, v, (b,), generator=gen)
+    for i in range(n):
+        fc = int(lay["first_child"][i])
+        if fc >= 0:
+            k = TREE[int(lay["depth"][i])]
+            toks[:, fc:fc + k] = S.top_k_indices(dlt[:, i], k)
+    targs = (toks, dlt, tlt, TREE) + S.tree_acceptance_noise(gen, b, TREE, v,
+                                                             "cpu")
+    twant = S.tree_sampled_acceptance(*targs)
+    tgot = S.tree_sampled_acceptance(*(x.cuda() if torch.is_tensor(x) else x
+                                       for x in targs))
+    for g_, w_ in zip(tgot, twant):
+        assert torch.equal(g_.cpu(), w_), f"[{label}] tree: card != CPU"
+    print(f"  [{label}] sampled_acceptance B {b} m {m} V {v}: card == CPU "
+          f"(n_accept {want[0].tolist()}); tree_sampled_acceptance {TREE}: "
+          f"card == CPU (n_accept {twant[0].tolist()})")
+    # Leviathan: with drafts sampled from the draft, the first emitted
+    # token is distributed as the target's softmax at position 0
+    rows, vv = 1 << 18, 8
+    cg = torch.Generator(device="cuda").manual_seed(5)
+    dl8 = torch.tensor([[1.5, 0.2, -0.3, 0.9, -1.0, 0.0, 0.4, -0.6]] * m,
+                       device="cuda")
+    dl8[1:] = dl8[1:].roll(1, -1)
+    tl8 = torch.tensor([[0.3, 1.1, -0.5, 0.0, 0.8, -1.2, 0.6, -0.1]]
+                       * (m + 1), device="cuda")
+    dlr, tlr = dl8.expand(rows, m, vv), tl8.expand(rows, m + 1, vv)
+    dr = torch.argmax(dlr + S.gumbel_noise(cg, (rows, m, vv), "cuda"), -1)
+    a, nxt, _ = S.sampled_acceptance(dr, dlr, tlr, *S.acceptance_noise(
+        cg, rows, m, vv, "cuda"))
+    first = torch.where(a >= 1, dr[:, 0], nxt)
+    freq = torch.bincount(first, minlength=vv).double().cpu() / rows
+    p = torch.softmax(tl8[0].double(), -1).cpu()
+    se = torch.sqrt(p * (1 - p) / rows)
+    z = float(((freq - p).abs() / se).max())
+    print(f"  [{label}] Leviathan check, {rows} rows, vocabulary {vv}: "
+          f"largest deviation {float((freq - p).abs().max()):.2e} = "
+          f"{z:.2f} standard errors (limit 5); mean accepted "
+          f"{float(a.float().mean()):.3f} of {m}; run wall "
+          f"{time.perf_counter() - t_run:.1f}s", flush=True)
+    assert z <= 5.0, f"[{label}] first token off the target by {z:.2f} SE"
 
 
 def lossless_phase() -> None:
@@ -844,6 +1025,14 @@ def lossless_phase() -> None:
     rgc = f32(RECURRENTGEMMA_2B, 3)
     lossless_run("4d", rgc, draft_for(rgc, 2), False,
                  ("rglru_gated_scan", "flash_attention"))
+    lossless_run("4e", mix, None, True, ("flash_attention",
+                                         "decode_attention", "moe_ffn"),
+                 spec_tree=TREE,
+                 serve_must_launch=("paged_decode_attention tree",))
+    lossless_run("4f", mix, None, False, ("flash_attention",
+                                          "decode_attention", "moe_ffn"),
+                 spec_tree=TREE, serve_must_launch=("decode_attention tree",))
+    sampled_run("4g")
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Interleaved Batch Pipeline (paper §4.1): dual-batch rotation, chain mode.
+"""Interleaved Batch Pipeline (paper §4.1): dual-batch rotation, chain or
+tree mode.
 
 Counterpart of ``repro/core/interleave.py``.  In slot t_n the target
 verifies batch V's drafts while the draft model generates candidates for
@@ -6,7 +7,11 @@ batch D; the roles swap in t_{n+1}.  The JAX package fuses both halves
 into one jit program; here the fused round runs eagerly on one CUDA
 stream (overlapping draft and verify on two streams is later work).
 
-All shapes inside a round are fixed by ``(batch, n_cand)``.
+All shapes inside a round are fixed by ``(batch, n_cand)``, or by
+``(batch, tree)`` in tree mode, where the staged drafts are the (B, N)
+BFS token buffer of a speculation tree and both caches of batch V are
+compacted to the accepted path inside the fused round (no separate
+rollback).
 ``trace_counts["fused"]`` counts the distinct input shape signatures the
 fused round has seen — the eager stand-in for the JAX package's compile
 count, so a shape-stable server keeps it at 1 (and a later CUDA-graph
@@ -22,8 +27,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.core.spec_decode import (draft_generate, greedy_acceptance,
-                                          rollback_draft)
+from repro_torch.core.spec_decode import (draft_generate,
+                                          draft_tree_generate, emit_slots,
+                                          greedy_acceptance, rollback_draft,
+                                          tree_commit_cache,
+                                          tree_greedy_acceptance,
+                                          tree_n_nodes, tree_spec,
+                                          tree_supported)
 from repro_torch.models import model as M
 
 
@@ -34,6 +44,7 @@ class BatchState:
     draft_cache: dict
     t_next: torch.Tensor         # (B,) last committed token (not yet fed)
     drafts: torch.Tensor | None  # (B, m) candidates awaiting verification
+                                 # ((B, N) tree buffer in tree mode)
     draft_pendings: list | None  # rollback info for the draft steps
     emitted: list                # host-side: list of (tokens, n_emitted)
 
@@ -70,16 +81,48 @@ def fused_verify_and_draft(target_params, target_cfg: ModelConfig,
         draft_params, draft_cfg, draft_state["draft_cache"],
         draft_state["t_next"], n_cand)
 
-    m = drafts.shape[1]
-    keep = torch.arange(m, device=drafts.device)[None, :] < a[:, None]
-    out = torch.cat([torch.where(keep, drafts, 0),
-                     torch.zeros_like(a[:, None])], dim=1)
-    out.scatter_(1, a[:, None], nxt[:, None])
-
-    verify_out = {"target_cache": tcache, "tokens": out, "n_emitted": a + 1,
+    verify_out = {"target_cache": tcache,
+                  "tokens": emit_slots(drafts, a, nxt), "n_emitted": a + 1,
                   "t_next": nxt, "n_accept": a}
     draft_out = {"drafts": new_drafts, "draft_cache": dcache,
                  "pendings": dpend}
+    return verify_out, draft_out
+
+
+def fused_tree_verify_and_draft(target_params, target_cfg: ModelConfig,
+                                draft_params, draft_cfg: ModelConfig,
+                                verify_state: dict, draft_state: dict,
+                                branching: tuple):
+    """Tree-mode fused round: the target verifies batch V's speculation
+    tree (ancestor-masked, one forward over all ``n_nodes`` buffer rows)
+    while the draft expands a fresh tree for batch D.
+
+    verify_state: {target_cache, draft_cache, t_next, drafts} where
+    ``drafts`` is the (B, N) BFS token buffer (column 0 == t_next).  Both
+    of batch V's caches are committed by accepted-path compaction here
+    (:func:`tree_commit_cache`), so the round needs no rollback call.
+    """
+    branching = tuple(branching)
+    n_nodes = tree_n_nodes(branching)
+    tlogits, tcache, _ = M.decode(target_params, target_cfg,
+                                  verify_state["target_cache"],
+                                  verify_state["drafts"],
+                                  spec_tree=tree_spec(
+                                      branching,
+                                      device=verify_state["drafts"].device))
+    a, nxt, out, path_idx = tree_greedy_acceptance(verify_state["drafts"],
+                                                   tlogits, branching)
+    tcache = tree_commit_cache(target_cfg, tcache, path_idx, a, branching)
+    vdcache = tree_commit_cache(draft_cfg, verify_state["draft_cache"],
+                                path_idx, a, branching, pos_offset=n_nodes)
+
+    drafts, _, dcache = draft_tree_generate(
+        draft_params, draft_cfg, draft_state["draft_cache"],
+        draft_state["t_next"], branching)
+    verify_out = {"target_cache": tcache, "draft_cache": vdcache,
+                  "tokens": out, "n_emitted": a + 1, "t_next": nxt,
+                  "n_accept": a}
+    draft_out = {"drafts": drafts, "draft_cache": dcache, "pendings": None}
     return verify_out, draft_out
 
 
@@ -109,13 +152,25 @@ class InterleavedPipeline:
     ``trace_counts`` records, per entry point, how many distinct input
     shape signatures it has run with; a scheduler that keeps shapes
     stable sees ``trace_counts['fused'] == 1`` for its whole lifetime.
+    ``tree`` (a branching tuple) selects tree mode, which needs
+    all-attention decoder-only target and draft models; its rounds never
+    call the rollback entry.
     """
 
     def __init__(self, target_params, target_cfg, draft_params, draft_cfg,
-                 n_cand: int):
+                 n_cand: int, tree=None):
         self.tp, self.tcfg = target_params, target_cfg
         self.dp, self.dcfg = draft_params, draft_cfg
         self.n_cand = n_cand
+        self.tree = tuple(tree) if tree is not None else None
+        if self.tree is not None:
+            for name, cfg in (("target", target_cfg), ("draft", draft_cfg)):
+                if not tree_supported(cfg):
+                    raise ValueError(
+                        f"tree speculation requires an all-attention "
+                        f"decoder-only {name} model (layer_pattern="
+                        f"{cfg.layer_pattern!r})")
+            tree_n_nodes(self.tree)          # validates shape and node cap
         self.trace_counts = {"fused": 0, "draft": 0, "rollback": 0}
         self._seen = {k: set() for k in self.trace_counts}
 
@@ -132,8 +187,15 @@ class InterleavedPipeline:
         if state.drafts is not None:
             return
         self._count("draft", state.draft_cache, state.t_next)
-        d, _, dc, pend = draft_generate(self.dp, self.dcfg, state.draft_cache,
-                                        state.t_next, self.n_cand)
+        if self.tree is not None:
+            d, _, dc = draft_tree_generate(self.dp, self.dcfg,
+                                           state.draft_cache, state.t_next,
+                                           self.tree)
+            pend = None
+        else:
+            d, _, dc, pend = draft_generate(self.dp, self.dcfg,
+                                            state.draft_cache, state.t_next,
+                                            self.n_cand)
         state.drafts, state.draft_cache, state.draft_pendings = d, dc, pend
 
     def step(self, verify: BatchState, gen: BatchState,
@@ -151,16 +213,27 @@ class InterleavedPipeline:
         vstate = {"target_cache": verify.target_cache,
                   "t_next": verify.t_next, "drafts": verify.drafts}
         dstate = {"draft_cache": gen.draft_cache, "t_next": gen.t_next}
+        if self.tree is not None:
+            vstate["draft_cache"] = verify.draft_cache
         self._count("fused", vstate, dstate)
-        vout, dout = fused_verify_and_draft(self.tp, self.tcfg, self.dp,
-                                            self.dcfg, vstate, dstate,
-                                            self.n_cand)
+        if self.tree is not None:
+            vout, dout = fused_tree_verify_and_draft(
+                self.tp, self.tcfg, self.dp, self.dcfg, vstate, dstate,
+                self.tree)
+            # batch V's draft cache was compacted inside the fused round
+            verify.draft_cache = vout["draft_cache"]
+        else:
+            vout, dout = fused_verify_and_draft(self.tp, self.tcfg, self.dp,
+                                                self.dcfg, vstate, dstate,
+                                                self.n_cand)
+            # batch V: roll its draft cache back to the accepted prefix
+            self._count("rollback", verify.draft_cache,
+                        verify.draft_pendings)
+            verify.draft_cache = rollback_draft(self.dcfg,
+                                                verify.draft_cache,
+                                                verify.draft_pendings,
+                                                vout["n_emitted"])
         verify.target_cache = vout["target_cache"]
-        # batch V: roll its draft cache back to the accepted prefix
-        self._count("rollback", verify.draft_cache, verify.draft_pendings)
-        verify.draft_cache = rollback_draft(self.dcfg, verify.draft_cache,
-                                            verify.draft_pendings,
-                                            vout["n_emitted"])
         verify.t_next = vout["t_next"]
         verify.drafts, verify.draft_pendings = None, None
         gen.drafts = dout["drafts"]

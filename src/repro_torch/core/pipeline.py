@@ -98,18 +98,23 @@ class SpecOffloadEngine:
                           drafts=None, draft_pendings=None,
                           emitted=[(t0.cpu().numpy()[:, None], 1)])
 
-    def pipeline(self, n_cand: int) -> InterleavedPipeline:
-        """The (cached) dual-batch rotation pipeline for ``n_cand``."""
+    def pipeline(self, n_cand: int, tree=None) -> InterleavedPipeline:
+        """The (cached) dual-batch rotation pipeline for ``n_cand`` — or,
+        when ``tree`` (a branching tuple) is given, the tree-mode pipeline
+        with that speculation-tree shape."""
         assert self.tp is not None, "call load()/init_from_seed() first"
-        if self._pipe is None or self._pipe.n_cand != n_cand:
+        tree = tuple(tree) if tree is not None else None
+        if (self._pipe is None or self._pipe.n_cand != n_cand
+                or self._pipe.tree != tree):
             self._pipe = InterleavedPipeline(self.tp, self.tcfg, self.dp,
-                                             self.dcfg, n_cand)
+                                             self.dcfg, n_cand, tree=tree)
         return self._pipe
 
     def decode_round(self, verify: BatchState, gen: BatchState,
-                     n_cand: int, record: bool = True) -> RoundOutput:
+                     n_cand: int, record: bool = True,
+                     tree=None) -> RoundOutput:
         """One rotation round: verify ``verify``, draft for ``gen``."""
-        pipe = self.pipeline(n_cand)
+        pipe = self.pipeline(n_cand, tree=tree)
         pipe.warmup(verify)
         return pipe.step(verify, gen, record=record)
 

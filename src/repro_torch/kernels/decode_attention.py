@@ -4,7 +4,9 @@
 Replaces the TPU kernel ``repro/kernels/decode_attention.py::
 decode_attention``.  On CPU tensors it returns the plain version
 (:func:`repro_torch.kernels.ref.decode_attention_ref`); on CUDA tensors
-it launches the kernel or raises.  ``launches`` counts kernel launches.
+it launches the kernel or raises.  ``launches`` counts kernel launches and
+``route_launches`` those of each mask: ``causal``, ``window`` and
+``tree`` (a speculation tree's ``anc_bits``).
 The kernel is bound by bytes (see the source's note).
 """
 from __future__ import annotations
@@ -151,7 +153,11 @@ def decode_attention(q, k, v, lengths, *, scale=None, window=None,
             stream)
     _build.check(rc, "decode_attention")
     decode_attention.launches += 1
+    decode_attention.route_launches[
+        "tree" if anc_bits is not None
+        else "causal" if window is None else "window"] += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.route_launches = {"causal": 0, "window": 0, "tree": 0}

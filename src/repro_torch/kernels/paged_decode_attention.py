@@ -4,8 +4,10 @@ Replaces the TPU kernel ``repro/kernels/decode_attention.py::
 paged_decode_attention``.  On CPU tensors it returns the plain version
 (:func:`repro_torch.kernels.ref.paged_decode_attention_ref`); on CUDA
 tensors it launches the kernel or raises.  ``launches`` counts kernel
-launches.  The kernel is bound by bytes (see the source's note).  The
-grid, its split count and the merge workspace are those of
+launches and ``route_launches`` those of each mask: ``causal`` (a chain's
+verify) and ``tree`` (a speculation tree's ``anc_bits``).  The kernel is
+bound by bytes (see the source's note).  The grid, its split count and
+the merge workspace are those of
 :mod:`repro_torch.kernels.decode_attention`, whose kernel shares the
 body; q and the output go through their strides in the same way.
 """
@@ -107,7 +109,10 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
             stream)
     _build.check(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
+    paged_decode_attention.route_launches[
+        "causal" if anc_bits is None else "tree"] += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.route_launches = {"causal": 0, "tree": 0}

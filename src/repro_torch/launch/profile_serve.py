@@ -1,14 +1,16 @@
 """Where a serving round spends its time on the card.
 
     python -m repro_torch.launch.profile_serve [--arch mixtral-8x7b]
-        [--layers 4] [--contiguous] [--rounds 20] [--ttft 8]
+        [--layers 4] [--contiguous] [--tree 3,2] [--rounds 20] [--ttft 8]
 
 Builds a serving configuration of ``chip_smoke.py``'s serve phase
 (``--arch`` target — Mixtral-8x7B by default, or RWKV-6-7B or
 RecurrentGemma-2B — with ``--layers`` layers, 0 for the full depth, and
 its Mistral-7B-width draft (``configs.draft_for``) of as many layers, 2
 at full depth; bf16, weights from a seed, ``max_batch=4``, ``n_cand=4``,
-paged KV unless ``--contiguous``, which the recurrent targets need),
+paged KV unless ``--contiguous``, which the recurrent targets need;
+``--tree`` serves tree speculation of that branching with the draft made
+all-attention, as the JAX serving bench does),
 fills every slot with 512-token prompts, runs ``--warmup`` scheduler
 steps, then traces ``--rounds`` steady-state steps (no admissions) with
 ``torch.profiler``.  The wall time per round is taken over ``--rounds``
@@ -16,8 +18,11 @@ untraced steps first (the profiler slows the host); then it prints the
 device time per round over the traced steps, the device's idle share
 (one minus device time over untraced wall time), and the device time
 and launches per round by kernel and by group (the port's kernels,
-cuBLAS products, the rest).  ``--ttft N`` first serves N Poisson
-requests on the same engine as ``chip_smoke.py``'s serve runs do
+cuBLAS products, the rest); in tree mode also the device time of the
+plain masked attention that the draft's level feeds run (the
+``models.attention.TREE_PLAIN_RANGE`` ranges: on the card a tree round
+enters one per level feed and layer).  ``--ttft N`` first serves N
+Poisson requests on the same engine as ``chip_smoke.py``'s serve runs do
 (prompt 512, generation 32-64, 4 requests/s, seed 0) and prints their
 time to first token on the virtual clock.  ``--trace PATH`` also writes
 the Chrome trace.  Needs a CUDA card.
@@ -33,7 +38,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import draft_for, get_config
+from repro_torch.configs import ATTN, draft_for, get_config
+from repro_torch.models.attention import TREE_PLAIN_RANGE
 from repro_torch.params import init_params
 from repro_torch.serving.engine import (SchedulerConfig, ServingEngine,
                                         latency_percentiles)
@@ -60,6 +66,26 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _level_feed_ms(prof, rounds: int) -> tuple:
+    """(device ms, ranges) a round of the level-feed ranges: the kernels
+    launched inside them (the profiler's device-side copy of the range,
+    which spans the idle gaps too, left out)."""
+    total_us, n = 0.0, 0
+
+    def walk(evt):
+        nonlocal total_us
+        total_us += sum(k.duration for k in evt.kernels
+                        if k.name != TREE_PLAIN_RANGE)
+        for child in evt.cpu_children:
+            walk(child)
+    for evt in prof.events():
+        if (evt.name == TREE_PLAIN_RANGE
+                and evt.device_type == torch.autograd.DeviceType.CPU):
+            n += 1
+            walk(evt)
+    return total_us / 1e3 / rounds, n / rounds
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mixtral-8x7b")
@@ -67,6 +93,9 @@ def main(argv=None):
                     help="target layers (0: the configuration's depth)")
     ap.add_argument("--contiguous", action="store_true",
                     help="contiguous KV (paged=False) instead of paged")
+    ap.add_argument("--tree", default=None,
+                    help="speculation-tree branching, e.g. 3,2 (the draft "
+                    "is made all-attention)")
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--ttft", type=int, default=0,
@@ -79,9 +108,14 @@ def main(argv=None):
     if args.layers:
         tcfg = dataclasses.replace(tcfg, n_layers=args.layers)
     dcfg = draft_for(tcfg, args.layers or 2)
+    tree = None
+    if args.tree:
+        tree = tuple(int(k) for k in args.tree.split(","))
+        dcfg = dataclasses.replace(dcfg, layer_pattern=(ATTN,) * dcfg.n_layers)
     eng = ServingEngine(tcfg, dcfg, device="cuda",
                         config=SchedulerConfig(max_batch=4, n_cand=4,
-                                               paged=not args.contiguous))
+                                               paged=not args.contiguous,
+                                               spec_tree=tree))
     g = torch.Generator(device="cuda").manual_seed(0)
     eng.load(init_params(tcfg, g, "cuda"), init_params(dcfg, g, "cuda"))
     if args.ttft:
@@ -116,14 +150,16 @@ def main(argv=None):
             eng.run_step()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key != TREE_PLAIN_RANGE]
     dev_ms = {e.key: _device_us(e) / 1e3 / args.rounds for e in kernels}
     calls = {e.key: e.count / args.rounds for e in kernels}
     busy = sum(dev_ms.values())
     print(f"{torch.cuda.get_device_name(0)}: {tcfg.name} {tcfg.n_layers} "
           f"layers, draft {dcfg.n_layers} layers, "
-          f"{'contiguous' if args.contiguous else 'paged'}, {args.rounds} "
-          f"steady-state rounds")
+          f"{'contiguous' if args.contiguous else 'paged'}, "
+          + (f"tree {tree}" if tree else "chain n_cand 4")
+          + f", {args.rounds} steady-state rounds")
     print(f"wall {wall_ms:.3f} ms/round, device {busy:.3f} ms/round, "
           f"device idle share {1 - busy / wall_ms:.3f}")
     left = dict(dev_ms)
@@ -134,6 +170,10 @@ def main(argv=None):
         print(f"  {label:<32} {sum(hit.values()):9.3f} ms/round "
               f"({sum(hit.values()) / max(busy, 1e-9):.1%} of device time, "
               f"{sum(calls[k] for k in hit):.1f} launches/round)")
+    if tree:
+        ms, n = _level_feed_ms(prof, args.rounds)
+        print(f"  {TREE_PLAIN_RANGE:<32} {ms:9.3f} ms/round ({n:.1f} "
+              "ranges/round; its kernels are inside the groups above)")
     print("top kernels by device time:")
     for k, v in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {v:9.4f} ms/round  {k[:110]}")

@@ -1,7 +1,7 @@
 """Attention: GQA with RoPE, full/sliding-window variants, KV caches.
 
-Counterpart of ``repro/models/attention.py`` (the prefill and chain
-decode phases).  Layouts are the JAX package's: activations
+Counterpart of ``repro/models/attention.py`` (the prefill phase and the
+chain and tree decode phases).  Layouts are the JAX package's: activations
 ``(B, S, H, d)``, contiguous caches ``(B, n_slots, Hkv, d)``, the paged
 pool ``(NB, BS, Hkv, d)``.
 
@@ -13,9 +13,13 @@ paged-decode kernel and verify over a contiguous, non-ring cache the
 decode-attention kernel; on CPU tensors they run the plain paths the JAX
 package runs off the TPU (``attention_chunked``; ``paged_gather`` +
 ``attention_direct``; ``attention_direct``).  A CUDA tensor never
-reaches a plain version of a kernel.  The ring-buffer decode of
-sliding-window layers has no TPU kernel and stays plain PyTorch on both
-devices.
+reaches a plain version of a kernel.  A speculation tree's full buffer
+(``spec_tree`` with ``prev == 0``) goes to the verify kernels with its
+ancestor bitmasks; a tree level fed after ``prev > 0`` buffer rows takes
+the plain masked path on both devices, as in the JAX package (the
+kernels mask only the last m rows and cannot see a partial buffer).
+The ring-buffer decode of sliding-window layers has no TPU kernel and
+stays plain PyTorch on both devices.
 """
 from __future__ import annotations
 
@@ -56,6 +60,39 @@ def attention_mask(q_positions, kv_positions, window: int | None,
     if window is not None:
         ok = ok & (kp > qp - window)
     return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def _tree_decode_mask(base, tree_mask, n_kv: int) -> torch.Tensor:
+    """Additive (B, Sq, n_kv) mask for one tree-speculation decode step.
+
+    ``base`` (B,) is where the speculation buffer starts in the cache;
+    ``tree_mask`` (Sq, W) bool is the ancestor-or-self visibility of the
+    Sq fed nodes over the W buffer rows written so far.  Committed rows
+    (< base) stay fully visible, buffer rows [base, base+W) follow the
+    tree mask, and stale rows past the buffer are hidden.
+    """
+    w = tree_mask.shape[1]
+    kv_idx = torch.arange(n_kv, device=base.device)[None, :]
+    col = kv_idx - base.long()[:, None]                      # (B, n_kv)
+    allowed = tree_mask[:, col.clamp(0, w - 1)].permute(1, 0, 2)
+    ok = (col < 0)[:, None, :] | (((col >= 0) & (col < w))[:, None, :]
+                                  & allowed)
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+#: profiler range around a tree feed's plain masked attention (on the
+#: card only the draft's level feeds take it); ``launch/profile_serve.py``
+#: reads it
+TREE_PLAIN_RANGE = "tree feed attention (plain)"
+
+
+def _tree_attention_plain(q, k, v, base, tree_mask, scale):
+    """Attention of tree nodes over the whole cache under
+    :func:`_tree_decode_mask`, inside the :data:`TREE_PLAIN_RANGE`
+    profiler range."""
+    with torch.profiler.record_function(TREE_PLAIN_RANGE):
+        mask = _tree_decode_mask(base, tree_mask, k.shape[1])
+        return attention_direct(q, k, v, mask, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +306,7 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
                     head_dim: int, rope_theta: float, use_rope: bool = True,
                     window: int | None = None, cache: dict | None = None,
                     pos=None, phase: str = "prefill",
-                    block_tables=None) -> tuple:
+                    block_tables=None, spec_tree: dict | None = None) -> tuple:
     """One attention layer; returns (out, cache, saved).
 
     phase="prefill": x is the whole prompt at positions [0, S); a given
@@ -278,6 +315,12 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
     written in place and attended.  With ``block_tables`` the cache is a
     shared block pool (paged KV, full attention only).  ``saved`` holds
     the ring rows a decode overwrote, for :func:`restore_rejected_rows`.
+
+    ``spec_tree`` (decode only) marks x as speculation-tree nodes
+    (:func:`repro_torch.core.spec_decode.tree_spec`): cache slots stay
+    ``[pos, pos + Sq)`` but each node's RoPE position is ``pos - prev +
+    depth``, and visibility inside the buffer follows the ancestor mask.
+    It needs full attention (``window`` None).
     """
     b, sq, _ = x.shape
     scale = head_dim ** -0.5
@@ -287,6 +330,23 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
     if pos is None:
         pos = torch.zeros((b,), dtype=torch.int64, device=x.device)
     q_positions = pos.long()[:, None] + torch.arange(sq, device=x.device)
+    tree = spec_tree is not None and phase == "decode"
+    if tree:
+        if window is not None:
+            raise ValueError("tree speculation needs full attention: a "
+                             "sliding-window ring cannot hold a branched "
+                             "buffer")
+        t_prev = int(spec_tree["prev"])
+        # device constants of the descriptor (spec_decode.tree_spec)
+        t_depths, t_mask, t_anc = spec_tree["tensors"]
+        t_base = pos.long() - t_prev
+        # logical position = committed length + depth; the cache slot
+        # stays the sequential [pos, pos+Sq) buffer order
+        q_positions = t_base[:, None] + t_depths[None, :]
+    # the verify kernels take a whole tree buffer (with its ancestor
+    # bitmasks), never a level fed after part of the buffer
+    kernel_ok = x.is_cuda and (not tree or t_prev == 0)
+    anc_bits = t_anc if tree else None
     if use_rope:
         sin, cos = rope_table(q_positions, head_dim, rope_theta)
         q = apply_rope(q, sin, cos)
@@ -317,20 +377,24 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
     elif phase == "decode" and block_tables is not None:
         assert cache is not None and window is None
         paged_write(cache, k, v, block_tables, pos)
-        if x.is_cuda:
+        if kernel_ok:
             lengths = (pos + sq).to(torch.int32)
             # (B, S, H, d) q read and the output written through strides
             out = _pd.paged_decode_attention(
                 q.transpose(1, 2), cache["k"], cache["v"],
                 block_tables.to(torch.int32), lengths,
                 k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-                scale=scale)
+                scale=scale, anc_bits=anc_bits)
             out = out.transpose(1, 2).reshape(b, sq, -1)
         else:
             k_read, v_read = paged_gather(cache, block_tables, q.dtype)
-            kv_positions = torch.arange(k_read.shape[1], device=x.device)
-            mask = attention_mask(q_positions, kv_positions, None)
-            out = attention_direct(q, k_read, v_read, mask, scale)
+            if tree:
+                out = _tree_attention_plain(q, k_read, v_read, t_base, t_mask,
+                                            scale)
+            else:
+                kv_positions = torch.arange(k_read.shape[1], device=x.device)
+                mask = attention_mask(q_positions, kv_positions, None)
+                out = attention_direct(q, k_read, v_read, mask, scale)
     elif phase == "decode":
         assert cache is not None
         n_slots = cache["k"].shape[1]
@@ -365,15 +429,18 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
                 _write_cache(cache, k, v, pos, window if ring else None)
                 k_read = cache["k"].to(q.dtype)
                 v_read = cache["v"].to(q.dtype)
-            if x.is_cuda and not ring:
+            if kernel_ok and not ring:
                 # slot index = logical position: the kernel reads the
                 # (B, S, Hkv, d) cache and the (B, S, H, d) q, and writes
                 # the output, through transposed views
                 out = _da.decode_attention(
                     q.transpose(1, 2), k_read.transpose(1, 2),
                     v_read.transpose(1, 2), (pos + sq).to(torch.int32),
-                    scale=scale, window=window)
+                    scale=scale, window=window, anc_bits=anc_bits)
                 out = out.transpose(1, 2).reshape(b, sq, -1)
+            elif tree:
+                out = _tree_attention_plain(q, k_read, v_read, t_base, t_mask,
+                                            scale)
             else:
                 if ring:
                     kv_positions = ring_slot_positions(n_slots, pos + sq,

@@ -34,15 +34,19 @@ def prefill(params: dict, cfg: ModelConfig, tokens, cache: dict):
     return logits, cache
 
 
-def decode(params: dict, cfg: ModelConfig, cache: dict, tokens):
+def decode(params: dict, cfg: ModelConfig, cache: dict, tokens,
+           spec_tree: dict | None = None):
     """Decode/verify ``m`` new tokens (B, m) at positions cache['pos'].
 
     Writes the cache in place and returns (logits (B, m, V), cache,
     pendings); call :func:`commit` with the accepted counts to finalize.
+    ``spec_tree`` marks ``tokens`` as speculation-tree nodes (depth-based
+    positions and ancestor masking; see
+    :func:`repro_torch.core.spec_decode.tree_spec`).
     """
     x = _embed(params, cfg, tokens)
     h, cache, pendings = forward_decoder(params, cfg, x, phase="decode",
-                                         cache=cache)
+                                         cache=cache, spec_tree=spec_tree)
     return logits_from_hidden(params, cfg, h), cache, pendings
 
 

@@ -43,8 +43,9 @@ def _set_state(cache: dict | None, new_state: dict) -> None:
 
 def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
                 pos, phase: str, use_moe: bool = False,
-                block_tables=None):
-    """Returns (x, cache, pending)."""
+                block_tables=None, spec_tree: dict | None = None):
+    """Returns (x, cache, pending).  ``spec_tree`` reaches the attention
+    layers only (see :func:`apply_attention`)."""
     norm = lambda p, z: apply_norm(p, z, cfg.norm)
     if kind == RGLRU:
         state = (cache if cache is not None else
@@ -76,7 +77,8 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
         use_rope=cfg.use_rope, window=window, cache=cache, pos=pos,
-        phase=phase, block_tables=block_tables if kind == ATTN else None)
+        phase=phase, block_tables=block_tables if kind == ATTN else None,
+        spec_tree=spec_tree)
     x = x + out
     h = apply_norm(params["ln2"], x, cfg.norm)
     if use_moe:
@@ -221,9 +223,11 @@ def release_slot_paged(cache: dict, slot: int) -> dict:
 
 
 def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
-                    cache: dict | None = None):
+                    cache: dict | None = None,
+                    spec_tree: dict | None = None):
     """Run the decoder over embedded inputs x (B, S, D): a loop over
-    layers.  Returns (hidden, cache, pendings)."""
+    layers.  ``spec_tree`` (decode only) marks x as a speculation-tree
+    buffer.  Returns (hidden, cache, pendings)."""
     pos = cache["pos"] if (cache is not None and phase == "decode") else None
     block_tables = (cache.get("block_tables")
                     if (cache is not None and phase == "decode") else None)
@@ -233,7 +237,8 @@ def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
         x, _, pend = apply_layer(params["layers"][l], cfg, cfg.layer_kind(l),
                                  x, layer_cache, pos, phase,
                                  use_moe=cfg.layer_is_moe(l),
-                                 block_tables=block_tables)
+                                 block_tables=block_tables,
+                                 spec_tree=spec_tree)
         pendings.append(pend)
     return x, cache, pendings
 

@@ -1,8 +1,8 @@
 """Continuous-batching request scheduler on top of the SpecOffload engine.
 
 Counterpart of the core of ``repro/serving/engine.py``: paged or
-contiguous target KV, chain speculation, FIFO/SJF admission on a virtual
-clock.
+contiguous target KV, chain or tree speculation, FIFO/SJF admission on a
+virtual clock.
 
 * Each of the two interleaved half-batches is a fixed-shape
   :class:`BatchState` of ``max_batch`` slots, so the fused round runs at
@@ -40,6 +40,8 @@ import torch
 from repro_torch.configs import ATTN, ModelConfig, resolve_device
 from repro_torch.core.interleave import BatchState
 from repro_torch.core.pipeline import SpecOffloadEngine, required_cache_len
+from repro_torch.core.spec_decode import tree_n_nodes, tree_supported
+from repro_torch.kernels.decode_attention import max_rows
 from repro_torch.models.transformer import (admit_sequence_paged, init_cache,
                                             init_paged_cache,
                                             release_slot_paged)
@@ -75,9 +77,13 @@ class ServeRequest:
 @dataclass
 class SchedulerConfig:
     """Continuous-batching knobs the port supports (paged or contiguous
-    KV, chain speculation, virtual clock)."""
+    KV, chain or tree speculation, virtual clock)."""
     max_batch: int = 8            # slots per interleaved half (total 2x)
-    n_cand: int = 4               # draft candidates per round
+    n_cand: int = 4               # draft candidates per round (chain mode)
+    spec_tree: tuple | None = None  # speculation-tree branching per depth
+                                  # (e.g. (3, 2)); None keeps the linear
+                                  # chain of n_cand drafts.  Requires all-
+                                  # attention target AND draft models.
     eos_id: int = -1              # -1: never stop early
     admission: str = "fifo"       # "fifo" | "sjf" (shortest job first)
     length_bucket: int | None = None   # left-pad admitted prompts up to a
@@ -129,6 +135,26 @@ class ServingEngine:
         if self.config.admission not in ("fifo", "sjf"):
             raise ValueError(f"admission must be 'fifo' or 'sjf', got "
                              f"{self.config.admission!r}")
+        if self.config.spec_tree is not None:
+            self.config.spec_tree = tuple(self.config.spec_tree)
+            for name, cfg in (("target", self.target_cfg),
+                              ("draft", self.draft_cfg)):
+                if not tree_supported(cfg):
+                    raise ValueError(
+                        f"spec_tree requires an all-attention decoder-only "
+                        f"{name} model (layer_pattern="
+                        f"{cfg.layer_pattern!r})")
+            n_nodes = tree_n_nodes(self.config.spec_tree)  # the node cap
+            # the target verifies the whole buffer in one verify-kernel
+            # call (the draft feeds it a level at a time, the root alone)
+            tc = self.target_cfg
+            rows = (tc.n_heads // tc.n_kv_heads) * n_nodes
+            if rows > max_rows(tc.head_dim):
+                raise ValueError(
+                    f"spec_tree {self.config.spec_tree} has {n_nodes} "
+                    f"nodes: the verify kernels hold (Hq / Hkv) * n_nodes "
+                    f"= {rows} query rows, at most {max_rows(tc.head_dim)} "
+                    f"at head dim {tc.head_dim}")
         self.device = resolve_device(self.device)
         self.engine = SpecOffloadEngine(self.target_cfg, self.draft_cfg,
                                         self.device)
@@ -143,8 +169,8 @@ class ServingEngine:
         self._rounds = 0
         self._tokens_out = 0
         self._occ_sum = 0.0
-        self._accepted = 0            # accepted drafts over live slots
-        self._verified = 0            # live slot-rounds verified
+        # live slot-rounds verified, by accepted drafts (0..depth cap)
+        self._accept_hist = np.zeros(self._depth_cap() + 1, np.int64)
         self.round_s = []             # wall seconds of each fused round
         self._windows = []            # wall seconds of each sealed run()
         self._open_window_s = 0.0
@@ -182,12 +208,27 @@ class ServingEngine:
     def has_work(self) -> bool:
         return self.has_live() or bool(self._queue)
 
+    def _cand_equiv(self) -> int:
+        """Per-round uncommitted-token budget for cache sizing: tree mode
+        stages the whole flattened buffer (n_nodes rows, root included),
+        chain mode n_cand drafts + the root."""
+        if self.config.spec_tree is not None:
+            return tree_n_nodes(self.config.spec_tree) - 1
+        return self.config.n_cand
+
+    def _depth_cap(self) -> int:
+        """Max accepted draft tokens per verify round (the deepest
+        root-to-leaf path in tree mode, n_cand in chain mode)."""
+        if self.config.spec_tree is not None:
+            return len(self.config.spec_tree)
+        return self.config.n_cand
+
     def _required_len(self, req: ServeRequest) -> int:
         l = len(req.prompt)
         if self.config.length_bucket:
             b = self.config.length_bucket
             l = -(-l // b) * b
-        return required_cache_len(l, req.max_new_tokens, self.config.n_cand)
+        return required_cache_len(l, req.max_new_tokens, self._cand_equiv())
 
     def _required_blocks(self, req: ServeRequest) -> int:
         return -(-self._required_len(req) // self.config.block_size)
@@ -253,7 +294,7 @@ class ServingEngine:
         cfg = self.config
         alloc = self._allocs[h]
         need = required_cache_len(len(prompt), req.max_new_tokens,
-                                  cfg.n_cand)
+                                  self._cand_equiv())
         n_need = -(-need // cfg.block_size)
         keys = prefix_block_keys(prompt, cfg.block_size)
         shared = []
@@ -369,8 +410,7 @@ class ServingEngine:
             if slot.done:
                 continue
             req = slot.req
-            self._accepted += int(out.n_accept[idx])
-            self._verified += 1
+            self._accept_hist[int(out.n_accept[idx])] += 1
             for t in out.tokens[idx, :int(out.n_emitted[idx])]:
                 tok = int(t)
                 slot.emitted.append(tok)
@@ -403,7 +443,8 @@ class ServingEngine:
             t_wall = time.time()
             out = self.engine.decode_round(self._halves[v],
                                            self._halves[1 - v],
-                                           self.config.n_cand, record=False)
+                                           self.config.n_cand, record=False,
+                                           tree=self.config.spec_tree)
             self._now += time.time() - t_wall
             self.round_s.append(out.t1 - out.t0)
             self._rounds += 1
@@ -490,6 +531,7 @@ class ServingEngine:
         """Engine-level serving metrics."""
         pipe = self.engine._pipe
         rs = np.asarray(self.round_s, np.float64)
+        hist = self._accept_hist
         return {
             "rounds": self._rounds,
             "tokens_out": self._tokens_out,
@@ -500,11 +542,15 @@ class ServingEngine:
             else float("nan"),
             "round_s_p95": float(np.percentile(rs, 95)) if rs.size
             else float("nan"),
-            "acceptance": (self._accepted
-                           / max(1, self._verified * self.config.n_cand)),
+            "acceptance": (float(hist @ np.arange(hist.size))
+                           / max(1, hist.sum() * self._depth_cap())),
+            "accept_hist": hist.tolist(),
             "fused_compiles": 0 if pipe is None
             else pipe.trace_counts["fused"],
             "rejected": self.rejected_total,
+            "spec_mode": ("tree" if self.config.spec_tree is not None
+                          else "chain"),
+            "spec_tree": self.config.spec_tree,
             "kv": self.kv_stats(),
         }
 

@@ -192,3 +192,59 @@ def test_launcher_serves_on_cpu(capsys):
                 "--prompt-len", "6", "--rate", "5"])
     out = capsys.readouterr().out
     assert "served 3 requests" in out and "fused compiles=1" in out
+
+
+def _burst(vocab, mod):
+    """9 requests arriving at once: a shared 8-token prefix, mixed prompt
+    and generation lengths."""
+    rng = np.random.default_rng(9)
+    shared = rng.integers(0, vocab, 8).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, vocab, n)])
+               .astype(np.int32) for n in (5, 2, 5, 2, 5, 2, 5, 3, 4)]
+    gens = rng.integers(4, 12, len(prompts)).tolist()
+    return mod(prompts, gens, rate_rps=1e6, seed=3)
+
+
+BURST_CASES = {
+    "paged_eos": dict(eos_id=113),
+    "paged_eos_14_blocks": dict(eos_id=113, num_blocks=14),
+    "paged_sjf_14_blocks": dict(admission="sjf", num_blocks=14),
+    "contiguous_eos": dict(eos_id=113, paged=False),
+    "paged_eos_ncand3_bucket8": dict(eos_id=113, n_cand=3, length_bucket=8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BURST_CASES))
+def test_burst_matches_jax(models, case):
+    """Nine requests at once against the JAX engine, with early EOS
+    retirement, admission under block pressure (14 blocks a half), SJF,
+    the contiguous cache and a length bucket: the streams, the admission
+    order, ``kv_stats()`` and the ``stats()`` counters are equal."""
+    (jt, jd, jtp, jdp), (tt, td, ttp, tdp) = models
+    cfg = dict(dict(max_batch=2, n_cand=2, block_size=4), **BURST_CASES[case])
+    je = jserve.ServingEngine(jt, jd, config=jserve.SchedulerConfig(**cfg))
+    je.load(jtp, jdp)
+    te = tserve.ServingEngine(tt, td, config=tserve.SchedulerConfig(**cfg),
+                              device=CPU)
+    te.load(ttp, tdp)
+    jreqs = _burst(jt.vocab_size, j_poisson)
+    treqs = _burst(tt.vocab_size, poisson_requests)
+    for eng, reqs in ((je, jreqs), (te, treqs)):
+        for r in reqs:
+            assert eng.submit(r)
+        eng.run()
+    order = lambda reqs: [r.rid for r in sorted(reqs,
+                                                key=lambda r: r.admitted_s)]
+    assert order(treqs) == order(jreqs)
+    for jr, tr in zip(jreqs, treqs):
+        np.testing.assert_array_equal(tr.result, jr.result,
+                                      err_msg=f"rid {tr.rid} vs JAX")
+    if cfg.get("eos_id", -1) >= 0:
+        stopped = [r for r in treqs if len(r.result) < r.max_new_tokens]
+        assert stopped and all(r.result[-1] == cfg["eos_id"]
+                               for r in stopped)
+    assert te.kv_stats() == je.kv_stats()
+    ts, js = te.stats(), je.stats()
+    for k in ("rounds", "tokens_out", "fused_compiles", "rejected"):
+        assert ts[k] == js[k], k
+    assert ts["fused_compiles"] == 1
