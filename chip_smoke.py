@@ -11,14 +11,21 @@ on its own lines with its wall seconds:
    the kernels' build time (every ``csrc/*.cu``, one nvcc each, in
    parallel), and what ``-Xptxas -v`` said of the tensor-core kernels,
    the verify kernels and the recurrences' kernels (registers, static
-   shared memory, spills per instantiation);
+   shared memory, spills per instantiation); the host's MemTotal /
+   MemAvailable, RLIMIT_MEMLOCK and CPUs, the bare page-locked
+   host<->device copy rate of one 2.7 GiB buffer each way, a timed f32
+   CPU matmul (the H100 spec's ``h2d_bw`` / ``d2h_bw`` / ``host_flops``
+   in ``repro_torch/sim/hardware.py``), and ``repro_torch.launch.serve
+   --plan --env h100`` for Mixtral-8x7B / Mistral-7B at prompt 512, gen
+   64;
 2. every kernel against its plain PyTorch version on the card at the
    cases of tests/test_kernels.py, the serving paths' shapes and a
    stress shape each, plus the edges of the tensor-core kernels (flash
    at 100 tokens, windowed and bidirectional at head dims 64/128/256 and
    fed (B, S, H, d) views; ``moe_ffn`` at C 1, 7, 33 and 300 at Mixtral
-   widths, and at the tree verify's dispatch, C 40 in bf16 for 3e and
-   C 20 in f32 for 4e/4f) and of the split-KV verify kernels (the grid,
+   widths, at the tree verify's dispatch, C 40 in bf16 for 3e and
+   C 20 in f32 for 4e/4f, and at 3f's C 513 and C 2) and of the split-KV
+   verify kernels (``decode_attention`` also at 3f's B 2, m 1; the grid,
    n_split and CTA count printed for the serve and stress shapes;
    lengths 1, 6, 63, 64 and 65 in a 32768-token capacity, where nearly
    every split is empty;
@@ -57,7 +64,26 @@ on its own lines with its wall seconds:
    all-attention, 8 requests: one fused shape signature, every verify
    round through ``paged_decode_attention`` with ``anc_bits`` (those
    launches counted apart from the causal ones), and the histogram of
-   accepted path lengths;
+   accepted path lengths; and, run first, while the host's memory is
+   untouched: (f) Mixtral-8x7B at its full width and depth (32 layers,
+   86.5 GiB in bf16), drawn from seed 0 layer by layer into page-locked
+   host memory, B 2 prompts of 512 tokens prefilled and 8 greedy decode
+   + commit steps, every pass streamed through two device slots: per
+   pass its wall, link seconds and bytes (and GB/s beside phase 1's bare
+   rate), the compute stream's span over the layers (copy landed to
+   the layer's last kernel, host dispatch waits included) and the rest
+   of the wall as its idle share, peak device memory (held under
+   resident + 3 layers + KV + 2 GiB) and launches
+   (``flash_attention`` and ``moe_ffn`` 32 in the prefill,
+   ``decode_attention`` and ``moe_ffn`` 32 a step, no paged launch), and
+   the planner's per-layer stream time for the H100 spec beside the
+   measured one, and one more decode step under ``torch.profiler`` for
+   the device's own kernel time in a pass; (f-eq) the same tier at
+   Mixtral-8x7B widths and 4 layers (more than its 2 device slots): the
+   weights drawn layer by layer equal ``init_params``'s, the streamed
+   prefill and 8 greedy decode steps give the resident model's logits
+   bit for bit, and ``host_attention_direct`` over host KV agrees with
+   the plain attention on the card within 1e-6 (f32);
 4. lossless, f32, ``max_batch=2``, 6 requests with mid-flight
    admission, every stream equal to the port's own target-only greedy
    decode: Mixtral / Mistral widths (2 layers) paged and contiguous,
@@ -98,6 +124,12 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TOL_RGLRU, TOL_WKV6 = 1e-5, 2e-4      # tests/test_kernels.py:153,169-171
 TREE = (3, 2)                         # the served speculation tree
 DRAFT_NOISE = 0.05                    # 4e/4f: the draft's weight noise
+# 3f: Mixtral-8x7B streamed from host memory at its own depth (fixed here,
+# never chosen at run time), B 2 prompts of 512 tokens, 8 decode steps
+OFFLOAD_LAYERS, OFFLOAD_B, OFFLOAD_PROMPT, OFFLOAD_STEPS = 32, 2, 512, 8
+OFFLOAD_MAX_LEN = OFFLOAD_PROMPT + OFFLOAD_STEPS + 8   # + the traced step
+OFFLOAD_EQ_LAYERS = 4                 # 3f-eq: more layers than the 2 slots
+COPY_BYTES = int(2.7 * 2**30)         # phase 1's bare copy: one layer's size
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:297",
     "flash_attention": "src/repro/kernels/flash_attention.py:111",
@@ -186,6 +218,75 @@ def _report(name, case, dtype, max_err, ms, bound, plain_ms, lib_ms,
 def _tc_path(dt) -> str:
     """Which kernel of flash_attention / moe_ffn a dtype runs."""
     return "tensor-core bf16" if str(dt).endswith("bfloat16") else "exact f32"
+
+
+# ---------------------------------------------------------------------------
+# phase 1: the host beside the card
+
+
+def _meminfo() -> dict:
+    with open("/proc/meminfo") as f:
+        return {k: int(v.split()[0]) * 1024 for k, v in
+                (line.split(":", 1) for line in f)}
+
+
+def host_phase(torch) -> dict:
+    """Print the host's memory, lock limit and cores, the bare copy rate
+    over the link both ways (one ``COPY_BYTES`` page-locked buffer, CUDA
+    events), a timed f32 CPU matmul, and the planner's ``--plan`` for
+    the H100 spec.  Returns {"h2d": bytes/s, "d2h": bytes/s}."""
+    import resource
+
+    from repro_torch.core.offload import PinnedBuffer
+    mem = _meminfo()
+    soft, hard = resource.getrlimit(resource.RLIMIT_MEMLOCK)
+    lim = lambda x: "unlimited" if x == resource.RLIM_INFINITY else str(x)
+    print(f"  host: MemTotal {mem['MemTotal']} B "
+          f"({mem['MemTotal'] / 2**30:.2f} GiB), MemAvailable "
+          f"{mem['MemAvailable']} B ({mem['MemAvailable'] / 2**30:.2f} GiB), "
+          f"RLIMIT_MEMLOCK soft "
+          f"{lim(soft)} hard {lim(hard)}, {os.cpu_count()} CPUs; card "
+          f"total_memory {torch.cuda.get_device_properties(0).total_memory} B",
+          flush=True)
+    buf = PinnedBuffer(COPY_BYTES)
+    dev = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
+    rates = {}
+    for tier, dst, src in (("h2d", dev, buf.tensor), ("d2h", buf.tensor, dev)):
+        secs = []
+        for _ in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            dst.copy_(src, non_blocking=True)
+            ev[1].record()
+            ev[1].synchronize()
+            secs.append(ev[0].elapsed_time(ev[1]) / 1e3)
+        rates[tier] = COPY_BYTES / float(np.median(secs))
+        print(f"  bare {tier} copy of {COPY_BYTES} B (page-locked host): "
+              f"median {float(np.median(secs)):.4f}s of 5 = "
+              f"{rates[tier] / 1e9:.3f} GB/s (min {min(secs):.4f}s, max "
+              f"{max(secs):.4f}s)", flush=True)
+    del dev
+    buf.close()
+    n = 4096
+    a = torch.randn((n, n), generator=torch.Generator().manual_seed(0))
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        a @ a
+        secs.append(time.perf_counter() - t0)
+    print(f"  host f32 matmul {n}^3 on {torch.get_num_threads()} threads: "
+          f"best {min(secs):.4f}s of 3 = {2 * n**3 / min(secs) / 1e12:.4f} "
+          f"TFLOP/s", flush=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    plan = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--plan", "--env",
+         "h100", "--arch", "mixtral-8x7b", "--prompt-len", "512", "--gen",
+         "64"], env=env, capture_output=True, text=True, check=True)
+    print("  serve --plan --env h100 (mixtral-8x7b / mistral-7b, prompt 512, "
+          "gen 64):")
+    for line in plan.stdout.strip().splitlines():
+        print("    " + line, flush=True)
+    return rates
 
 
 # ---------------------------------------------------------------------------
@@ -455,6 +556,10 @@ def kernel_cases(bench) -> dict:
              14336, torch.bfloat16, weights=mix_w)
     moe_case("prefill c257 (serve path)", 8, 257, 4096, 14336, torch.bfloat16,
              weights=mix_w)
+    moe_case("offload prefill c513 (3f: B 2 x 512 tokens)", 8, 513, 4096,
+             14336, torch.bfloat16, weights=mix_w)
+    moe_case("offload decode c2 (3f: B 2, m 1)", 8, 2, 4096, 14336,
+             torch.bfloat16, weights=mix_w)
     for c in (1, 7, 33, 300):         # token tiles of 8, 8, 40, 2 x 152
         moe_case(f"edge c{c} d4096 f14336", 8, c, 4096, 14336,
                  torch.bfloat16, weights=mix_w)
@@ -552,6 +657,10 @@ def kernel_cases(bench) -> dict:
     decode_case("boundary tree anc_bits m4", 2, 4, 2, 4, 640, 64, [130, 66],
                 torch.bfloat16, anc=[1, 3, 5, 11])
     decode_case("verify b4 m1 (greedy)", 4, 32, 8, 1, 640, 128, main_lens,
+                torch.bfloat16)
+    decode_case(f"offload decode b2 m1 s{OFFLOAD_MAX_LEN} (3f)", 2, 32, 8, 1,
+                OFFLOAD_MAX_LEN, 128, [OFFLOAD_PROMPT + 1,
+                                       OFFLOAD_PROMPT + OFFLOAD_STEPS],
                 torch.bfloat16)
     decode_case("verify b4 m5 (B,S,H,d) q/out", 4, 32, 8, 5, 640, 128,
                 main_lens, torch.bfloat16, model_layout=True)
@@ -790,16 +899,258 @@ def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
     return launches
 
 
-def serve_phase() -> dict:
-    """Runs 3a-3e; returns {run label: launches}."""
+# ---------------------------------------------------------------------------
+# phase 3: the offload tier (target layers streamed from host memory)
+
+
+def _offload_tokens(cfg, torch):
+    rng = np.random.default_rng(0)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (OFFLOAD_B, OFFLOAD_PROMPT)),
+                           device="cuda")
+
+
+def offload_eq_run(label) -> None:
+    """Mixtral-8x7B at ``OFFLOAD_EQ_LAYERS`` layers: the weights drawn
+    layer by layer into host memory equal ``init_params``'s; the streamed
+    prefill and ``OFFLOAD_STEPS`` greedy decode + commit steps give the
+    resident model's logits bit for bit; ``host_attention_direct`` on
+    host KV agrees with the plain attention on the card."""
+    import torch
+
+    from repro_torch.configs import MIXTRAL_8X7B
+    from repro_torch.core.offload import (OffloadedModel,
+                                          host_attention_direct, tree_leaves)
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import attention_direct
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.params import init_params
+
+    t_run = time.perf_counter()
+    cfg = dataclasses.replace(MIXTRAL_8X7B, n_layers=OFFLOAD_EQ_LAYERS)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    om = OffloadedModel(cfg, params, "cuda")
+    drawn = OffloadedModel.from_seed(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    for a, b in zip(tree_leaves(om.layers_host),
+                    tree_leaves(drawn.layers_host)):
+        assert a.is_pinned() and b.is_pinned() and torch.equal(a, b), (
+            f"[{label}] layer-by-layer draw differs from init_params")
+    for a, b in zip(tree_leaves(drawn.params_resident),
+                    tree_leaves({k: v for k, v in params.items()
+                                 if k != "layers"})):
+        assert torch.equal(a, b), f"[{label}] resident weights differ"
+    drawn.close()
+    del drawn
+    toks = _offload_tokens(cfg, torch)
+    ca = init_cache(cfg, OFFLOAD_B, OFFLOAD_MAX_LEN, "cuda")
+    cb = init_cache(cfg, OFFLOAD_B, OFFLOAD_MAX_LEN, "cuda")
+    la, ca = M.prefill(params, cfg, toks, ca)
+    lb, cb = om.prefill(toks, cb)
+    assert torch.equal(la, lb), f"[{label}] streamed prefill logits differ"
+    tok = torch.argmax(la, -1)[:, None]
+    ones = torch.ones((OFFLOAD_B,), dtype=torch.int64, device="cuda")
+    streams = []
+    for step in range(OFFLOAD_STEPS):
+        la, ca = M.decode_step(params, cfg, ca, tok)
+        lb, cb, pend = om.decode(cb, tok)
+        cb = M.commit(cfg, cb, pend, ones, 1)
+        assert torch.equal(la, lb[:, 0]), (
+            f"[{label}] streamed decode logits differ at step {step}")
+        tok = torch.argmax(la, -1)[:, None]
+        assert torch.equal(tok, torch.argmax(lb[:, 0], -1)[:, None])
+        streams.append(tok[:, 0].tolist())
+    h2d = om.settle()["h2d"]
+    print(f"  [{label}] {cfg.name} {cfg.n_layers} layers {cfg.dtype}, 2 "
+          f"slots: layer-by-layer draw == init_params (bitwise, pinned); "
+          f"streamed "
+          f"prefill + {OFFLOAD_STEPS} decode steps == resident (logits "
+          f"bitwise, greedy tokens {streams}); h2d {h2d['bytes']:.0f} B "
+          f"= {1 + OFFLOAD_STEPS} passes x {om.streamed_bytes()} B",
+          flush=True)
+    assert h2d["bytes"] == (1 + OFFLOAD_STEPS) * om.streamed_bytes()
+    om.close()
+    del om, params, ca, cb
+    _free()
+    # attention over a host-resident KV cache at 3f's decode shape, f32
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((OFFLOAD_B, 1, 32, 128), generator=gen, device="cuda")
+    k = torch.randn((OFFLOAD_B, OFFLOAD_MAX_LEN, 8, 128), generator=gen,
+                    device="cuda")
+    v = torch.randn((OFFLOAD_B, OFFLOAD_MAX_LEN, 8, 128), generator=gen,
+                    device="cuda")
+    lens = torch.tensor([OFFLOAD_PROMPT + 1, OFFLOAD_PROMPT + OFFLOAD_STEPS],
+                        device="cuda")
+    kpos = torch.arange(OFFLOAD_MAX_LEN, device="cuda")
+    mask = torch.where(kpos[None, None, :] < lens[:, None, None], 0.0,
+                       float("-inf"))
+    scale = 128 ** -0.5
+    got = host_attention_direct(q, k.cpu(), v.cpu(), mask, scale)
+    want = attention_direct(q, k, v, mask, scale)
+    assert got.device == q.device
+    err = _check("host_attention_direct", "b2 m1 f32", got, want, "float32",
+                 1e-6)
+    print(f"  [{label}] host_attention_direct (KV on the host) vs plain "
+          f"attention on the card, B {OFFLOAD_B} m 1 Hq 32 Hkv 8 d 128 S "
+          f"{OFFLOAD_MAX_LEN} f32: max abs err {err:.2e} (tol 1e-6); run wall "
+          f"{time.perf_counter() - t_run:.1f}s", flush=True)
+
+
+def offload_run(label, rates) -> dict:
+    """Mixtral-8x7B at ``OFFLOAD_LAYERS`` layers, bf16, weights from seed
+    0 drawn layer by layer and parked in page-locked host memory; a
+    streamed prefill of ``OFFLOAD_B`` prompts and ``OFFLOAD_STEPS`` greedy
+    decode + commit steps, each pass's wall, link, compute, peak memory
+    and launches printed.  Returns the run's launches."""
+    import torch
+
+    from repro_torch.configs import MIXTRAL_8X7B
+    from repro_torch.core.offload import (OffloadedModel, tree_bytes,
+                                          tree_leaves)
+    from repro_torch.core.planner import layer_ffn_bytes
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.sim.hardware import H100
+
+    t_run = time.perf_counter()
+    cfg = dataclasses.replace(MIXTRAL_8X7B, n_layers=OFFLOAD_LAYERS)
+    print(f"  [{label}] before parking: MemAvailable "
+          f"{_meminfo()['MemAvailable'] / 2**30:.2f} GiB", flush=True)
+    t0 = time.perf_counter()
+    om = OffloadedModel.from_seed(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    park_s = time.perf_counter() - t0
+    leaves = tree_leaves(om.layers_host)
+    assert all(t.is_pinned() for t in leaves), "a parked layer is not pinned"
+    assert all(not t.is_cuda for t in leaves)
+    pinned = sum(f.numel() for f in om._flat)
+    d2h = om.transfers["d2h"]
+    print(f"  [{label}] {cfg.name} {cfg.n_layers} layers {cfg.dtype} drawn "
+          f"layer by layer and parked: {park_s:.2f}s wall, {pinned} B "
+          f"page-locked in {len(om._flat)} buffers "
+          f"({pinned / 2**30:.2f} GiB), d2h "
+          f"{d2h['bytes']:.0f} B in {d2h['seconds']:.3f}s of copies; "
+          f"MemAvailable now {_meminfo()['MemAvailable'] / 2**30:.2f} GiB",
+          flush=True)
+    _free()
+    toks = _offload_tokens(cfg, torch)
+    cache = init_cache(cfg, OFFLOAD_B, OFFLOAD_MAX_LEN, "cuda")
+    resident = tree_bytes(om.params_resident)
+    layer_b = max(f.numel() for f in om._flat)
+    limit = resident + 3 * layer_b + tree_bytes(cache) + 2 * 2**30
+    per_layer_pred = layer_ffn_bytes(cfg) / H100.h2d_bw
+    ones = torch.ones((OFFLOAD_B,), dtype=torch.int64, device="cuda")
+    om.settle()
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    passes, tok = [], None
+    for step in range(1 + OFFLOAD_STEPS):
+        link0 = dict(om.transfers.get("h2d", {"bytes": 0.0, "seconds": 0.0}))
+        busy0 = om.compute_seconds
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if step == 0:
+            lg, cache = om.prefill(toks, cache)
+        else:
+            lg, cache, pend = om.decode(cache, tok)
+            cache = M.commit(cfg, cache, pend, ones, 1)
+            lg = lg[:, 0]
+        tok = torch.argmax(lg, -1)[:, None]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        h2d = om.settle()["h2d"]
+        now = launch_counts()
+        n = {k: now[k] - before[k] for k in now}
+        before = now
+        link_b, link_s = (h2d["bytes"] - link0["bytes"],
+                          h2d["seconds"] - link0["seconds"])
+        peak = torch.cuda.max_memory_allocated()
+        passes.append({"wall": wall, "link_s": link_s,
+                       "busy": om.compute_seconds - busy0})
+        kind = "prefill" if step == 0 else f"decode {step}"
+        print(f"  [{label}] {kind:<9} wall {wall:.4f}s  link {link_s:.4f}s "
+              f"{link_b:.0f} B = {link_b / link_s / 1e9:.3f} GB/s (bare h2d "
+              f"{rates['h2d'] / 1e9:.3f})  compute span "
+              f"{passes[-1]['busy']:.4f}s (idle share "
+              f"{1 - passes[-1]['busy'] / wall:.3f})  peak "
+              f"{peak / 2**30:.3f} GiB  "
+              f"flash {n['flash_attention']} moe_ffn {n['moe_ffn']} "
+              f"decode_attention {n['decode_attention']} paged "
+              f"{n['paged_decode_attention']}", flush=True)
+        assert peak <= limit, (f"[{label}] peak device memory {peak} B over "
+                               f"{limit} B")
+        want = ({"flash_attention": cfg.n_layers, "moe_ffn": cfg.n_layers,
+                 "decode_attention": 0} if step == 0 else
+                {"flash_attention": 0, "moe_ffn": cfg.n_layers,
+                 "decode_attention": cfg.n_layers})
+        want["paged_decode_attention"] = 0
+        for name, count in want.items():
+            assert n[name] == count, (f"[{label}] {kind}: {name} launched "
+                                      f"{n[name]} times, not {count}")
+        assert bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
+    launches = launch_counts()
+    # one more decode step under the profiler: the device's own kernel
+    # time in a pass, apart from the compute span (which includes waits
+    # for the host) and from the copies
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        lg, cache, pend = om.decode(cache, tok)
+        cache = M.commit(cfg, cache, pend, ones, 1)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    om.settle()
+    dev = {"kernels": 0.0, "copies": 0.0}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            dev["copies" if e.key.startswith("Memcpy") else "kernels"] += us
+    dec = passes[1:]
+    dec_wall = sum(p["wall"] for p in dec) / len(dec)
+    print(f"  [{label}] traced decode step: wall {wall:.4f}s (profiler on), "
+          f"device kernels {dev['kernels'] / 1e6:.4f}s, device copies "
+          f"{dev['copies'] / 1e6:.4f}s; against the untraced decode "
+          f"steps' mean wall {dec_wall:.4f}s the card computes "
+          f"{dev['kernels'] / 1e6 / dec_wall:.4f} of a step (idle share "
+          f"{1 - dev['kernels'] / 1e6 / dec_wall:.4f})", flush=True)
+    assert dev["kernels"] > 0, f"[{label}] the profiler saw no kernel"
+    link_per_layer = sum(p["link_s"] for p in dec) / len(dec) / cfg.n_layers
+    print(f"  [{label}] per-layer stream: planner (H100 spec, "
+          f"t_ffn_stream / n_layers = {layer_ffn_bytes(cfg):.0f} B / "
+          f"{H100.h2d_bw / 1e9:.3f} GB/s) {per_layer_pred:.5f}s, measured "
+          f"{link_per_layer:.5f}s a layer ({om.streamed_bytes()} B a pass, "
+          f"mean of the decode passes); limit on peak memory {limit} B "
+          f"({limit / 2**30:.3f} GiB = resident {resident} + 3 layers "
+          f"{3 * layer_b} + KV {tree_bytes(cache)} + 2 GiB); launches "
+          f"{launches}; run wall {time.perf_counter() - t_run:.1f}s",
+          flush=True)
+    om.close()
+    del om, cache
+    _free()
+    return launches
+
+
+def serve_phase(rates) -> dict:
+    """Runs 3f, 3f-eq, then 3a-3e; returns {run label: launches}."""
     from repro_torch.configs import (MIXTRAL_8X7B, RECURRENTGEMMA_2B,
                                      RWKV6_7B, SWA, draft_for)
 
+    # 3f first: it page-locks 86.5 GiB of the host's memory, before any
+    # other run has touched the host
+    runs = {"3f": offload_run("3f", rates)}
+    offload_eq_run("3f-eq")
     mix = dataclasses.replace(MIXTRAL_8X7B, n_layers=4)
     mis = draft_for(mix, 4)
-    runs = {"3a": serve_run("3a", mix, mis, True, 12,
-                            ("paged_decode_attention", "flash_attention",
-                             "moe_ffn"))}
+    runs["3a"] = serve_run("3a", mix, mis, True, 12,
+                           ("paged_decode_attention", "flash_attention",
+                            "moe_ffn"))
     rw_draft = draft_for(RWKV6_7B, 2)
     runs["3b"] = serve_run("3b", RWKV6_7B, rw_draft, False, 8,
                            ("wkv6", "wkv6 serial", "wkv6 chunked",
@@ -1074,6 +1425,7 @@ def main() -> int:
               "B, spill stores/loads B): " + "; ".join(
                   f"<{a}>: {r}, {sm}, {ss}/{sl}"
                   for a, r, sm, ss, sl in _build.ptxas_usage(src, kern)))
+    rates = host_phase(torch)
 
     phases = {}
     t0 = time.perf_counter()
@@ -1082,7 +1434,7 @@ def main() -> int:
     phases["2"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     print("== 3. serve (bf16, weights from a seed)", flush=True)
-    runs = serve_phase()
+    runs = serve_phase(rates)
     phases["3"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     print("== 4. lossless (f32)", flush=True)

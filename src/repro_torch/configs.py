@@ -2,9 +2,11 @@
 
 A copy of the JAX package's ``repro.configs.base`` (the port imports
 nothing of that package): the frozen :class:`ModelConfig`, the layer
-kinds, and the configurations the serving paths run — the Mixtral 8x7B
+kinds, the parameter counts the planner, placement and simulator read,
+and the configurations the serving paths run — the Mixtral 8x7B
 target and the Mistral 7B draft, and the RecurrentGemma-2B and RWKV-6
-7B targets of the contiguous path.  ``reduced()`` gives the same
+7B targets of the contiguous path — plus Mixtral 8x22B, which the
+simulator's paper figures use.  ``reduced()`` gives the same
 smoke-size variants, so a test can build one config for both packages
 from the same fields.
 """
@@ -108,6 +110,79 @@ class ModelConfig:
         return self.n_experts > 0
 
     @property
+    def attention_free(self) -> bool:
+        return all(k in (RGLRU, RWKV) for k in self.layer_pattern)
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // max(self.n_kv_heads, 1)
+
+    # -- parameter counting (used by placement / planner / simulator) ----
+    def param_count(self) -> int:
+        """Total parameters (embedding + layers + head)."""
+        d, f = self.d_model, self.d_ff
+        emb = self.vocab_size * d
+        head = 0 if self.tie_embeddings else self.vocab_size * d
+        per_layer = 0
+        for i, kind in enumerate(self.layer_pattern):
+            moe_here = bool(self.is_moe and self.moe_pattern
+                            and self.moe_pattern[i])
+            per_layer += 2 * d  # two norms
+            if kind in (ATTN, SWA):
+                hd = self.head_dim
+                per_layer += d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                per_layer += self.n_heads * hd * d
+                per_layer += self._ffn_params(moe_here)
+            elif kind == RGLRU:
+                w = self.rnn_width
+                per_layer += 2 * d * w + w * d      # in (x2 branches) + out
+                per_layer += self.conv_width * w + w  # temporal conv
+                per_layer += 3 * w                   # a_param + gate biases
+                per_layer += 2 * w * w               # gates (dense here)
+                per_layer += self._ffn_params(False)
+            elif kind == RWKV:
+                per_layer += 5 * d * d              # r,k,v,g + out
+                per_layer += d * d                  # channel-mix receptance
+                per_layer += 2 * d * f              # channel mix up/down
+                per_layer += 140 * d                # mus, decay lora, u, ln_x
+        total = emb + head + self.n_groups * per_layer
+        if self.encoder_decoder:
+            hd = self.head_dim
+            enc_layer = (2 * d
+                         + d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                         + self.n_heads * hd * d + self._ffn_params())
+            cross = (d + d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                     + self.n_heads * hd * d)
+            total += self.n_encoder_layers * enc_layer + self.n_layers * cross
+        return total
+
+    def _ffn_params(self, moe: bool | None = None) -> int:
+        d, f = self.d_model, self.d_ff
+        dense = 3 * d * f if self.activation in ("swiglu", "geglu") else 2 * d * f
+        moe = self.is_moe if moe is None else moe
+        if moe:
+            return self.n_experts * dense + d * self.n_experts  # + router
+        return dense
+
+    @property
+    def n_moe_layers(self) -> int:
+        if not self.is_moe:
+            return 0
+        return self.n_groups * sum(bool(b) for b in self.moe_pattern)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k experts only)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        dense_ffn = 3 * d * f if self.activation in ("swiglu", "geglu") else 2 * d * f
+        inactive = self.n_moe_layers * (self.n_experts - self.top_k) * dense_ffn
+        return self.param_count() - inactive
+
+    def param_bytes(self, bytes_per_param: int = 2) -> int:
+        return self.param_count() * bytes_per_param
+
+    @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
@@ -160,6 +235,13 @@ MIXTRAL_8X7B = ModelConfig(
     source="arXiv:2401.04088",
 )
 
+MIXTRAL_8X22B = ModelConfig(
+    name="mixtral-8x22b", arch_type="moe", n_layers=56, d_model=6144,
+    n_heads=48, n_kv_heads=8, d_ff=16384, vocab_size=32768,
+    n_experts=8, top_k=2, rope_theta=1e6,
+    source="mistral.ai/news/mixtral-8x22b",
+)
+
 MISTRAL_7B = ModelConfig(
     name="mistral-7b", arch_type="dense", n_layers=32, d_model=4096,
     n_heads=32, n_kv_heads=8, d_ff=14336, vocab_size=32000,
@@ -200,8 +282,8 @@ RWKV6_7B = ModelConfig(
     source="arXiv:2404.05892",
 )
 
-CONFIGS = {c.name: c for c in (MIXTRAL_8X7B, MISTRAL_7B, RECURRENTGEMMA_2B,
-                               RWKV6_7B)}
+CONFIGS = {c.name: c for c in (MIXTRAL_8X7B, MIXTRAL_8X22B, MISTRAL_7B,
+                               RECURRENTGEMMA_2B, RWKV6_7B)}
 
 
 def get_config(name: str) -> ModelConfig:

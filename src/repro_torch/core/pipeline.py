@@ -1,8 +1,10 @@
-"""SpecOffloadEngine — the two-phase speculative engine (paper §3).
-
-Counterpart of ``repro/core/pipeline.py`` without placement and the
-planner: zig-zag microbatched prefill (§4.1.1) and the dual-batch
-rotation (§4.1.2).
+"""SpecOffloadEngine — the paper's full system (§3): offline placement
+(:func:`repro_torch.core.placement.plan_placement`), the ParaSpec
+planner (:meth:`SpecOffloadEngine.plan`), zig-zag microbatched prefill
+(§4.1.1) and the dual-batch rotation (§4.1.2).  Counterpart of
+``repro/core/pipeline.py``; placement and policy are decisions for the
+configured :class:`HardwareSpec`, the weights here stay resident (the
+streamed target is :class:`repro_torch.core.offload.OffloadedModel`).
 
 * :meth:`SpecOffloadEngine.prefill_batch` — prefill a prompt batch into
   a fresh :class:`BatchState` (first greedy token staged in ``t_next``).
@@ -21,9 +23,12 @@ import torch
 from repro_torch.configs import ModelConfig, resolve_device
 from repro_torch.core.interleave import (BatchState, InterleavedPipeline,
                                          RoundOutput)
+from repro_torch.core.placement import PlacementPlan, plan_placement
+from repro_torch.core.planner import ParaSpecPlanner, Policy, Workload
 from repro_torch.models import model as M
 from repro_torch.models.transformer import init_cache
 from repro_torch.params import init_params
+from repro_torch.sim.hardware import ENV1, HardwareSpec
 
 
 def required_cache_len(prompt_len: int, gen_len: int, n_cand: int) -> int:
@@ -38,13 +43,19 @@ class GenerationResult:
     tokens: np.ndarray            # (B, gen_len)
     rounds: int
     accept_counts: list
+    policy: Policy
+    placement: PlacementPlan
 
 
 class SpecOffloadEngine:
     def __init__(self, target_cfg: ModelConfig, draft_cfg: ModelConfig,
+                 hw: HardwareSpec = ENV1, policy: Policy | None = None,
                  device="cuda"):
         self.tcfg = target_cfg
         self.dcfg = draft_cfg
+        self.hw = hw
+        self.policy = policy
+        self.placement = plan_placement(target_cfg, draft_cfg, hw)
         self.device = resolve_device(device)
         self.tp = None
         self.dp = None
@@ -60,6 +71,18 @@ class SpecOffloadEngine:
         g = torch.Generator(device=self.device).manual_seed(seed)
         self.load(init_params(self.tcfg, g, self.device),
                   init_params(self.dcfg, g, self.device))
+
+    def plan(self, prompt_len: int, gen_len: int,
+             accept_prob: float = 0.7, occupancy: float = 1.0) -> Policy:
+        """The ParaSpec policy for this workload on ``hw`` (kept once
+        found; a policy given to the constructor wins)."""
+        if self.policy is not None:
+            return self.policy
+        planner = ParaSpecPlanner(self.tcfg, self.dcfg, self.hw)
+        rep = planner.search(Workload(prompt_len, gen_len, accept_prob,
+                                      occupancy))
+        self.policy = rep.policy
+        return self.policy
 
     # ------------------------------------------------------------------
     def _prefill_zigzag(self, params, cfg, tokens, bs_prefill: int,
@@ -143,17 +166,23 @@ class SpecOffloadEngine:
     def generate(self, prompts, gen_len: int, n_cand: int = 4,
                  max_len: int | None = None) -> GenerationResult:
         """prompts (B, L) int, split into the two interleaved batches;
-        rotate rounds until every sequence has ``gen_len`` tokens."""
+        rotate rounds until every sequence has ``gen_len`` tokens.  The
+        policy (``self.policy``, else half the batch everywhere and
+        ``n_cand``) sets the prefill microbatch and the candidates."""
         assert self.tp is not None, "call load()/init_from_seed() first"
         prompts = np.asarray(prompts)
         b, length = prompts.shape
-        max_len = max_len or required_cache_len(length, gen_len, n_cand)
+        pol = self.policy or Policy(bs_prefill=max(1, b // 2),
+                                    bs_decode=max(1, b // 2),
+                                    bs_draft=max(1, b // 2), n_cand=n_cand)
+        m = pol.n_cand
+        max_len = max_len or required_cache_len(length, gen_len, m)
         half = b // 2
-        states = [self.prefill_batch(bt, max_len, max(1, b // 2))
+        states = [self.prefill_batch(bt, max_len, pol.bs_prefill)
                   for bt in (prompts[:half], prompts[half:])]
-        s0, s1, rounds = self.pipeline(n_cand).run(states, gen_len)
+        s0, s1, rounds = self.pipeline(m).run(states, gen_len)
         out, accepts = self.finalize([s0, s1], gen_len)
-        return GenerationResult(out, rounds, accepts)
+        return GenerationResult(out, rounds, accepts, pol, self.placement)
 
 
 def _concat_caches(caches):

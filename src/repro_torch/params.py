@@ -123,28 +123,47 @@ def _init_layer(cfg: ModelConfig, kind: str, use_moe: bool, generator,
     return p
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> dict:
-    """Random parameters with the JAX package's distributions: truncated
-    normal with std ``d_in**-0.5`` for every matrix (experts included),
-    N(0, 0.02) embeddings, an f32 router, unit norm scales, and the
-    recurrent layers' own (:func:`_init_rglru`, :func:`_init_rwkv`).  Every draw
-    comes from ``generator``, which must live on ``device``.  (The draws
-    differ from ``jax.random``'s; hold the two packages against each
-    other with :func:`from_jax`.)"""
-    device = resolve_device(device)
+def init_layer(cfg: ModelConfig, layer: int, generator: torch.Generator,
+               device) -> dict:
+    """Layer ``layer``'s parameters, drawn as :func:`init_params` draws
+    them (it draws every layer in order, then the embedding)."""
+    return _init_layer(cfg, cfg.layer_kind(layer), cfg.layer_is_moe(layer),
+                       generator, device)
+
+
+def init_resident(cfg: ModelConfig, generator: torch.Generator,
+                  device) -> dict:
+    """The parameters outside the layer stack, ``embed`` and
+    ``final_norm``, drawn as :func:`init_params` draws them after the
+    layers."""
     dt = cfg.torch_dtype
-    layers = [_init_layer(cfg, cfg.layer_kind(l), cfg.layer_is_moe(l),
-                          generator, device) for l in range(cfg.n_layers)]
     embed = {"tok": (torch.randn((cfg.vocab_size, cfg.d_model),
                                  generator=generator, device=device)
                      * 0.02).to(dt)}
     if not cfg.tie_embeddings:
         embed["head"] = _dense(cfg.d_model, cfg.vocab_size, generator,
                                device, dt)
-    return {"embed": embed, "layers": layers,
+    return {"embed": embed,
             "final_norm": {"scale": torch.ones((cfg.d_model,), dtype=dt,
                                                device=device)}}
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda") -> dict:
+    """Random parameters with the JAX package's distributions: truncated
+    normal with std ``d_in**-0.5`` for every matrix (experts included),
+    N(0, 0.02) embeddings, an f32 router, unit norm scales, and the
+    recurrent layers' own (:func:`_init_rglru`, :func:`_init_rwkv`).  Every draw
+    comes from ``generator``, which must live on ``device``: the layers
+    in order (:func:`init_layer`), then the embedding
+    (:func:`init_resident`).  (The draws differ from ``jax.random``'s;
+    hold the two packages against each other with :func:`from_jax`.)"""
+    device = resolve_device(device)
+    layers = [init_layer(cfg, l, generator, device)
+              for l in range(cfg.n_layers)]
+    resident = init_resident(cfg, generator, device)
+    return {"embed": resident["embed"], "layers": layers,
+            "final_norm": resident["final_norm"]}
 
 
 def _to_torch(a, device) -> torch.Tensor:

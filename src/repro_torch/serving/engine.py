@@ -157,7 +157,7 @@ class ServingEngine:
                     f"at head dim {tc.head_dim}")
         self.device = resolve_device(self.device)
         self.engine = SpecOffloadEngine(self.target_cfg, self.draft_cfg,
-                                        self.device)
+                                        device=self.device)
         self._halves = None           # two BatchState of max_batch slots
         self._slots = None            # parallel host-side _Slot lists
         self._allocs = None           # per-half BlockAllocator
