@@ -83,7 +83,27 @@ on its own lines with its wall seconds:
    weights drawn layer by layer equal ``init_params``'s, the streamed
    prefill and 8 greedy decode steps give the resident model's logits
    bit for bit, and ``host_attention_direct`` over host KV agrees with
-   the plain attention on the card within 1e-6 (f32);
+   the plain attention on the card within 1e-6 (f32); then (g) the
+   asyncio front door at (a)'s widths on the real clock with QoS,
+   preemption, metrics, request timelines and a TTFT objective
+   (``hw=H100``): tenant "batch" (priority 1, 12 requests, prompt 512,
+   gen 64, all at t = 0) and tenant "interactive" (priority 0, 4
+   requests, prompt 512, gen 32, Poisson 4/s from t = 1 s), replayed
+   open loop at speed 1 through ``AsyncServingServer(max_queue=16)``:
+   per-tenant TTFT and end-to-end latency, preemptions, rejections, SLO
+   violations, flight-recorder triggers; every stream exactly
+   ``max_new_tokens`` and equal to the request's result, at least one
+   preemption, ``pipeline_traces_total{entry="fused"} == 1`` through the
+   registry, the metrics snapshot, Prometheus text and timelines valid;
+   (g-tr) (a)'s trace again with the span tracer fencing every device
+   span and entering ``record_function`` ranges: tok/s beside (a)'s,
+   steady rounds in ABBA windows against an untraced engine on the same
+   weights (the fences' cost on one host), the bubble report (``gpu_busy_frac``, ``mean_round_busy_frac``,
+   stall, idle, rounds), span seconds per track, the Chrome trace
+   validated, then 5 steady rounds timed and 5 under ``torch.profiler``
+   (the ranges ``target_verify/verify(fused)`` and ``rollback/rollback``
+   required): the device's kernel time over the rounds' wall beside the
+   report's busy fraction of the same rounds;
 4. lossless, f32, ``max_batch=2``, 6 requests with mid-flight
    admission, every stream equal to the port's own target-only greedy
    decode: Mixtral / Mistral widths (2 layers) paged and contiguous,
@@ -98,7 +118,16 @@ on its own lines with its wall seconds:
    logits and noise (the tokens must be equal), and a Leviathan check
    (vocabulary 8, fixed draft and target logits, 2^18 rows, drafts
    sampled from the draft): the first emitted token's frequencies must
-   lie within 5 standard errors of the target's softmax;
+   lie within 5 standard errors of the target's softmax; (h) lossless
+   preemption: the widths of (a), paged, ``max_batch=2``, QoS and
+   preemption on the virtual clock, 4 priority-1 requests, then after
+   round 3 of a ``run_step()`` drive 2 priority-0 requests: at least one
+   preemption, and every stream (the resumed ones too) equal to the
+   greedy decode; (i) recurrent drafts at the target's vocabulary
+   (RecurrentGemma-2B widths, 3 layers; RWKV-6-7B widths, 2 layers)
+   beside the 2-layer Mixtral target, paged and contiguous, 6 requests
+   each: every stream equal to the greedy decode, ``rglru_gated_scan``
+   or ``wkv6`` and the run's verify kernel launched while serving;
 5. the kernels as one JSON object; 6. the device as one JSON object.
 
 Any failure raises and exits non-zero; so does a machine with no card.
@@ -112,6 +141,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -145,6 +175,9 @@ PATH_RUN = {"paged_decode_attention": "3a", "flash_attention": "3a",
 # the wrapper whose launches a kernel reports, where the path calls
 # another entry of the kernel's source than the TPU kernel's counterpart
 PATH_ENTRY = {"rglru_scan": "rglru_gated_scan"}
+RUN_STATS: dict = {}                  # serve run label -> its stats()
+# 3g: the interactive tenant's TTFT objective (seconds)
+SLO_TTFT_INTERACTIVE = 0.25
 
 
 def _bound(n_bytes: float, n_ops: float, dtype: str):
@@ -804,12 +837,13 @@ def kernel_cases(bench) -> dict:
 # phase 3 / 4: serving
 
 
-def _engine(tcfg, dcfg, config, seed):
+def _engine(tcfg, dcfg, config, seed, hw=None):
     import torch
 
     from repro_torch.params import init_params
     from repro_torch.serving.engine import ServingEngine
-    eng = ServingEngine(tcfg, dcfg, config=config, device="cuda")
+    from repro_torch.sim.hardware import ENV1
+    eng = ServingEngine(tcfg, dcfg, hw or ENV1, config=config, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(seed)
     eng.load(init_params(tcfg, g, "cuda"), init_params(dcfg, g, "cuda"))
     return eng
@@ -894,6 +928,7 @@ def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
     n_prefills = len(reqs) + (0 if paged else 2)    # + the parked dummies
     print(f"  [{label}] {n_prefills} prefills, {st['rounds']} rounds; "
           f"run wall {time.perf_counter() - t_run:.1f}s", flush=True)
+    RUN_STATS[label] = st
     del eng, done
     _free()
     return launches
@@ -1179,7 +1214,269 @@ def serve_phase(rates) -> dict:
                            ("paged_decode_attention", "flash_attention",
                             "moe_ffn", "paged_decode_attention tree"),
                            spec_tree=TREE)
+    async_run("3g")
+    traced_run("3g-tr")
     return runs
+
+
+def _check_obs_exports(label, eng) -> None:
+    """The metrics snapshot, the Prometheus text and every request
+    timeline pass the port's validators; the registry reports one fused
+    shape."""
+    from repro_torch.obs.schema import (parse_prometheus_text,
+                                        validate_metrics_snapshot,
+                                        validate_request_timeline)
+    snap = eng.metrics()["metrics"]
+    probs = validate_metrics_snapshot(snap)
+    assert probs == [], f"[{label}] metrics snapshot: {probs}"
+    prom = parse_prometheus_text(eng.prometheus())
+    fused = prom["pipeline_traces_total"]["samples"][(("entry", "fused"),)]
+    assert fused == 1.0, f"[{label}] pipeline_traces_total fused={fused}"
+    for tl in eng.request_timelines():
+        probs = validate_request_timeline(tl)
+        assert probs == [], f"[{label}] timeline {tl.get('rid')}: {probs}"
+    print(f"  [{label}] metrics snapshot, Prometheus text "
+          f"({len(prom)} series) and {len(eng.request_timelines())} request "
+          'timelines valid; pipeline_traces_total{entry="fused"} = 1')
+
+
+def async_run(label) -> None:
+    """The asyncio front door at 3a's widths: tenant "batch" (priority 1,
+    12 requests, prompt 512, gen 64, all at t = 0) fills the 8 slots and
+    queues 4; tenant "interactive" (priority 0, 4 requests, prompt 512,
+    gen 32, Poisson 4/s from t = 1 s) arrives while every slot is live and
+    preempts.  Real clock, QoS, preemption, metrics, request timelines and
+    a TTFT objective for "interactive"; replayed open loop at speed 1."""
+    import asyncio
+
+    import torch
+
+    from repro_torch.configs import MIXTRAL_8X7B, draft_for
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.obs import SLO
+    from repro_torch.serving.engine import SchedulerConfig
+    from repro_torch.serving.server import AsyncServingServer
+    from repro_torch.serving.trace import replay_open_loop
+    from repro_torch.sim.hardware import H100
+
+    t_run = time.perf_counter()
+    mix = dataclasses.replace(MIXTRAL_8X7B, n_layers=4)
+    mis = draft_for(mix, 4)
+    config = SchedulerConfig(
+        max_batch=4, n_cand=4, clock="real", qos=True, preempt=True,
+        preempt_min_remaining=4,
+        tenant_weights={"batch": 1.0, "interactive": 2.0}, metrics=True,
+        request_timeline=True,
+        slos=(SLO("interactive_ttft_p95", "ttft_s", SLO_TTFT_INTERACTIVE,
+                  tenant="interactive"),))
+    eng = _engine(mix, mis, config, seed=0, hw=H100)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, mix.vocab_size, 512).astype(np.int32)
+               for _ in range(16)]
+    arrive = 1.0 + np.cumsum(rng.exponential(1.0 / 4.0, 4))
+    from repro_torch.serving.engine import ServeRequest
+    reqs = ([ServeRequest(i, prompts[i], 64, tenant="batch", priority=1)
+             for i in range(12)]
+            + [ServeRequest(12 + i, prompts[12 + i], 32,
+                            arrival_s=float(arrive[i]),
+                            tenant="interactive", priority=0)
+               for i in range(4)])
+
+    async def drive():
+        async with AsyncServingServer(eng, max_queue=16) as srv:
+            tokens, handles = await replay_open_loop(srv, reqs, speed=1.0)
+            return tokens, handles, srv.tenant_report()
+
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokens, handles, report = asyncio.run(drive())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    st = eng.stats()
+    print(f"  [{label}] {mix.name} {mix.n_layers} layers / draft "
+          f"{mis.n_layers} layers, paged, real clock, hw {eng.hw.name}: "
+          f"async-served {len(handles)} requests, {st['tokens_out']} tokens "
+          f"in {wall:.3f}s wall: {st['tok_per_s']:.2f} tok/s over "
+          f"{st['rounds']} rounds, occupancy {st['mean_occupancy']:.3f}, "
+          f"round p50={1e3 * st['round_s_p50']:.2f}ms "
+          f"p95={1e3 * st['round_s_p95']:.2f}ms")
+    for t, d in report.items():
+        print(f"  [{label}] tenant {t}: {d['requests']} requests, "
+              f"{d['tokens']} tokens, {d['preemptions']} preemptions; ttft "
+              f"p50={d['ttft_s']['p50']:.4f}s p95={d['ttft_s']['p95']:.4f}s;"
+              f" e2e p50={d['e2e_s']['p50']:.3f}s "
+              f"p95={d['e2e_s']['p95']:.3f}s")
+    slo = eng.slo_report()
+    print(f"  [{label}] preempted={st['preempted']} rejected={st['rejected']}"
+          f" slo_violations={st['slo_violations']} (objective ttft <= "
+          f"{SLO_TTFT_INTERACTIVE}s for interactive: "
+          f"{ {k: v['compliance'] for k, v in slo['compliance'].items()} })"
+          f" postmortems={st['postmortems']} (flight-recorder triggers by "
+          f"reason {dict(Counter(t['reason'] for t in eng.recorder.triggers))}"
+          "; no directory: none "
+          "written)")
+    print(f"  [{label}] peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
+          f"launches={launches}")
+    assert len(handles) == len(reqs), "a submission was rejected"
+    for h in handles:
+        assert h.result is not None and len(h.result) == h.max_new_tokens, (
+            f"[{label}] request {h.rid} ended with {h.result}")
+        assert tokens[h.rid] == h.result.tolist(), (
+            f"[{label}] request {h.rid}: streamed tokens != result")
+    assert st["preempted"] >= 1, f"[{label}] no preemption"
+    assert not eng.has_work()
+    _check_obs_exports(label, eng)
+    for name in ("paged_decode_attention", "flash_attention", "moe_ffn"):
+        assert launches[name] > 0, f"{name} was never launched in run {label}"
+    print(f"  [{label}] run wall {time.perf_counter() - t_run:.1f}s",
+          flush=True)
+    del eng
+    _free()
+
+
+def _track_totals(tracer) -> dict:
+    """Seconds of complete spans per track."""
+    from repro_torch.obs.trace import tracer_track_name
+    out: dict = {}
+    for ev in tracer.events:
+        if ev.get("ph") == "X":
+            t = tracer_track_name(tracer, ev["tid"])
+            out[t] = out.get(t, 0.0) + ev["dur"] * 1e-6
+    return out
+
+
+def traced_run(label, steady=5) -> None:
+    """3a's trace served closed loop with the span tracer fencing every
+    device span and entering ``record_function`` ranges; the bubble
+    report beside the untraced 3a; then ``steady`` full rounds timed and
+    ``steady`` more under ``torch.profiler``: the device's kernel time
+    over the rounds' wall beside the report's busy fraction of the
+    same rounds."""
+    import torch
+
+    from repro_torch.configs import MIXTRAL_8X7B, draft_for
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.profile_serve import _device_us
+    from repro_torch.obs.schema import validate_chrome_trace
+    from repro_torch.obs.trace import TRACKS, bubble_report
+    from repro_torch.serving.engine import SchedulerConfig, ServingEngine
+    from repro_torch.serving.trace import poisson_requests
+
+    t_run = time.perf_counter()
+    mix = dataclasses.replace(MIXTRAL_8X7B, n_layers=4)
+    mis = draft_for(mix, 4)
+    eng = _engine(mix, mis, SchedulerConfig(
+        max_batch=4, n_cand=4, trace=True, trace_fence=True,
+        trace_annotations=True), seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, mix.vocab_size, 512).astype(np.int32)
+               for _ in range(12)]
+    gens = rng.integers(32, 65, 12).tolist()
+    for r in poisson_requests(prompts, gens, rate_rps=4.0, seed=0):
+        assert eng.submit(r)
+    torch.cuda.synchronize()
+    reset_launches()
+    done = eng.run()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    st = eng.stats()
+    rep = bubble_report(eng.obs.tracer)
+    base = RUN_STATS["3a"]
+    print(f"  [{label}] traced (fence, record_function) 3a: served "
+          f"{len(done)} requests, {st['tokens_out']} tokens: "
+          f"{st['tok_per_s']:.2f} tok/s over {st['rounds']} rounds, round "
+          f"p50={1e3 * st['round_s_p50']:.2f}ms; untraced 3a in this call "
+          f"{base['tok_per_s']:.2f} tok/s, round p50="
+          f"{1e3 * base['round_s_p50']:.2f}ms (traced / untraced tok/s "
+          f"{st['tok_per_s'] / base['tok_per_s']:.4f})")
+    print(f"  [{label}] bubble report: gpu_busy_frac={rep['gpu_busy_frac']:.4f}"
+          f" mean_round_busy_frac={rep['mean_round_busy_frac']:.4f} "
+          f"stall_s={rep['stall_s']:.4f} idle_s={rep['idle_s']:.4f} "
+          f"rounds={rep['rounds']} (busy_s={rep['busy_s']:.4f}, "
+          f"wall_s={rep['wall_s']:.4f})")
+    print(f"  [{label}] span seconds per track: " + ", ".join(
+        f"{k}={v:.4f}" for k, v in sorted(_track_totals(
+            eng.obs.tracer).items())))
+    assert len(done) == 12 and st["fused_compiles"] == 1
+    for name in ("paged_decode_attention", "flash_attention", "moe_ffn"):
+        assert launches[name] > 0, f"{name} was never launched in run {label}"
+    trace = eng.chrome_trace()
+    probs = validate_chrome_trace(trace)
+    assert probs == [], f"[{label}] chrome trace: {probs[:5]}"
+    print(f"  [{label}] chrome trace valid ({len(trace['traceEvents'])} "
+          "events)")
+
+    # steady rounds: every slot live, nobody retires in the windows; an
+    # untraced engine on the same weights alternates with the traced one
+    # (ABBA) for the fences' cost on one host
+    plain = ServingEngine(mix, mis, config=SchedulerConfig(
+        max_batch=4, n_cand=4, max_len=eng._max_len), device="cuda")
+    plain.load(eng.engine.tp, eng.engine.dp)
+    for e in (eng, plain):
+        for r in poisson_requests(prompts[:8], 40, rate_rps=1e6, seed=0):
+            r.rid += 100
+            assert e.submit(r)
+        while not (e.has_live() and all(not s.done for half in e._slots
+                                        for s in half)):
+            e.run_step()
+        for _ in range(2):
+            e.run_step()
+    engines = {"untraced": plain, "traced": eng}
+    walls = {"untraced": [], "traced": []}
+    for name in ("untraced", "traced", "traced", "untraced") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steady):
+            engines[name].run_step()
+        torch.cuda.synchronize()
+        walls[name].append(1e3 * (time.perf_counter() - t0) / steady)
+    med = {k: float(np.median(w)) for k, w in walls.items()}
+    print(f"  [{label}] steady rounds, ABBA x2 of {steady} rounds: untraced "
+          f"{[round(w, 3) for w in walls['untraced']]} ms/round (median "
+          f"{med['untraced']:.3f}), traced and fenced "
+          f"{[round(w, 3) for w in walls['traced']]} (median "
+          f"{med['traced']:.3f}): traced / untraced "
+          f"{med['traced'] / med['untraced']:.4f}")
+    plain.run()
+    del plain
+    torch.cuda.synchronize()
+    r0 = len(bubble_report(eng.obs.tracer)["per_round"])
+    t0 = time.perf_counter()
+    for _ in range(steady):
+        eng.run_step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steady
+    per_round = bubble_report(eng.obs.tracer)["per_round"][r0:r0 + steady]
+    report_busy = sum(r["busy_frac"] for r in per_round) / len(per_round)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steady):
+            eng.run_step()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    ranges = {e.key for e in averages if e.key.split("/")[0] in TRACKS}
+    for want in ("target_verify/verify(fused)", "rollback/rollback"):
+        assert want in ranges, f"[{label}] no record_function range {want}"
+    kernels = [e for e in averages
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key.split("/")[0] not in TRACKS]
+    dev_ms = sum(_device_us(e) for e in kernels) / 1e3 / steady
+    print(f"  [{label}] record_function ranges: {sorted(ranges)}")
+    print(f"  [{label}] {steady} steady rounds: wall {wall_ms:.3f} ms/round "
+          f"(traced, fenced), device kernels {dev_ms:.3f} ms/round under "
+          f"the profiler: profiler busy share {dev_ms / wall_ms:.4f} "
+          f"(idle share {1 - dev_ms / wall_ms:.4f}) vs bubble report "
+          f"busy_frac {report_busy:.4f} over the same rounds")
+    eng.run()
+    print(f"  [{label}] run wall {time.perf_counter() - t_run:.1f}s",
+          flush=True)
+    del eng, done
+    _free()
 
 
 def _greedy_check(label, tp, tcfg, reqs) -> None:
@@ -1271,6 +1568,10 @@ def lossless_run(label, tcfg, dcfg, paged, must_launch, spec_tree=None,
     assert fused == 1, f"fused round ran at {fused} shape signatures"
     for name in serve_must_launch:
         assert served[name] > 0, f"[{label}] serving never launched {name}"
+    if serve_must_launch and spec_tree is None:
+        print(f"  [{label}] draft {dcfg.name} {dcfg.n_layers} layers "
+              f"{dcfg.layer_pattern}: {st['rounds']} rounds; serving "
+              f"launches { {k: n for k, n in served.items() if n} }")
     if spec_tree is not None:
         hist, depth = st["accept_hist"], len(spec_tree)
         print(f"  [{label}] tree {spec_tree}, draft = target + "
@@ -1361,6 +1662,61 @@ def sampled_run(label) -> None:
     assert z <= 5.0, f"[{label}] first token off the target by {z:.2f} SE"
 
 
+def preempt_run(label, tcfg, dcfg) -> None:
+    """Lossless preemption in f32: ``max_batch=2``, QoS and preemption on
+    the virtual clock; 4 priority-1 requests at t = 0, then, after round 3
+    of a ``run_step()`` drive, 2 priority-0 requests.  Every stream, the
+    preempted and resumed ones included, must equal the greedy decode."""
+    import torch
+
+    from repro_torch.core.pipeline import required_cache_len
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.serving.engine import SchedulerConfig, ServeRequest
+
+    t_run = time.perf_counter()
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, tcfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(40, 130, 6)]
+    low = [ServeRequest(i, prompts[i], int(g), priority=1)
+           for i, g in enumerate(rng.integers(24, 33, 4))]
+    high = [ServeRequest(4 + i, prompts[4 + i], int(g), priority=0)
+            for i, g in enumerate(rng.integers(8, 17, 2))]
+    max_len = max(required_cache_len(len(r.prompt), r.max_new_tokens, 4)
+                  for r in low + high)
+    eng = _engine(tcfg, dcfg, SchedulerConfig(max_batch=2, n_cand=4,
+                                              qos=True, preempt=True,
+                                              max_len=max_len), seed=1)
+    for r in low:
+        assert eng.submit(r)
+    reset_launches()
+    for _ in range(3):
+        eng.run_step()
+    assert all(not s.done for half in eng._slots for s in half)
+    for r in high:
+        assert eng.submit(r)
+    while eng.has_work():
+        eng.run_step()
+    torch.cuda.synchronize()
+    served = launch_counts()
+    st = eng.stats()
+    print(f"  [{label}] {tcfg.name} {tcfg.n_layers} layers, paged, QoS + "
+          f"preemption: {st['rounds']} rounds, preempted={st['preempted']} "
+          f"(requests {[r.rid for r in low if r.preemptions]} resumed with "
+          f"{[len(r.progress) for r in low if r.preemptions]} tokens of "
+          f"progress); serving launches "
+          f"{ {k: n for k, n in served.items() if n} }")
+    assert st["preempted"] >= 1, f"[{label}] no preemption"
+    assert st["fused_compiles"] == 1
+    assert max(r.finished_s for r in high) <= max(r.finished_s for r in low)
+    for name in ("paged_decode_attention", "flash_attention", "moe_ffn"):
+        assert served[name] > 0, f"[{label}] serving never launched {name}"
+    _greedy_check(label, eng.engine.tp, tcfg, low + high)
+    print(f"  [{label}] run wall {time.perf_counter() - t_run:.1f}s",
+          flush=True)
+    del eng
+    _free()
+
+
 def lossless_phase() -> None:
     from repro_torch.configs import (MIXTRAL_8X7B, RECURRENTGEMMA_2B,
                                      RWKV6_7B, draft_for)
@@ -1384,6 +1740,22 @@ def lossless_phase() -> None:
                                           "decode_attention", "moe_ffn"),
                  spec_tree=TREE, serve_must_launch=("decode_attention tree",))
     sampled_run("4g")
+    preempt_run("4h", mix, mis)
+    # 4i: recurrent drafts at the target's vocabulary, chain rounds
+    # rolled back through the state stacks
+    for name, draft, kernel in (
+            ("rg", dataclasses.replace(RECURRENTGEMMA_2B, n_layers=3,
+                                       vocab_size=mix.vocab_size,
+                                       dtype="float32"), "rglru_gated_scan"),
+            ("rwkv", dataclasses.replace(RWKV6_7B, n_layers=2,
+                                         vocab_size=mix.vocab_size,
+                                         dtype="float32"), "wkv6")):
+        for paged, verify in ((True, "paged_decode_attention"),
+                              (False, "decode_attention")):
+            lossless_run(f"4i-{name}-{'paged' if paged else 'contiguous'}",
+                         mix, draft, paged, ("flash_attention", "moe_ffn"),
+                         serve_must_launch=(kernel, verify,
+                                            "flash_attention", "moe_ffn"))
 
 
 # ---------------------------------------------------------------------------

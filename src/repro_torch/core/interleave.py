@@ -16,7 +16,9 @@ rollback).
 fused round has seen — the eager stand-in for the JAX package's compile
 count, so a shape-stable server keeps it at 1 (and a later CUDA-graph
 capture of the round stays possible).  Each round reads its tokens to
-the host once, and that is its only synchronisation.
+the host once, and that is its only synchronisation; a tracer that
+fences (``obs``, off by default) adds one at the end of each device
+span.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from repro_torch.core.spec_decode import (draft_generate,
                                           tree_n_nodes, tree_spec,
                                           tree_supported)
 from repro_torch.models import model as M
+from repro_torch.obs import NULL_OBS
 
 
 @dataclass
@@ -154,14 +157,16 @@ class InterleavedPipeline:
     stable sees ``trace_counts['fused'] == 1`` for its whole lifetime.
     ``tree`` (a branching tuple) selects tree mode, which needs
     all-attention decoder-only target and draft models; its rounds never
-    call the rollback entry.
+    call the rollback entry.  ``obs`` receives the warmup, verify, draft
+    and rollback spans.
     """
 
     def __init__(self, target_params, target_cfg, draft_params, draft_cfg,
-                 n_cand: int, tree=None):
+                 n_cand: int, tree=None, obs=None):
         self.tp, self.tcfg = target_params, target_cfg
         self.dp, self.dcfg = draft_params, draft_cfg
         self.n_cand = n_cand
+        self.obs = obs if obs is not None else NULL_OBS
         self.tree = tuple(tree) if tree is not None else None
         if self.tree is not None:
             for name, cfg in (("target", target_cfg), ("draft", draft_cfg)):
@@ -173,12 +178,28 @@ class InterleavedPipeline:
             tree_n_nodes(self.tree)          # validates shape and node cap
         self.trace_counts = {"fused": 0, "draft": 0, "rollback": 0}
         self._seen = {k: set() for k in self.trace_counts}
+        self._exported_traces = {k: 0 for k in self.trace_counts}
 
     def _count(self, entry: str, *trees) -> None:
         sig = _signature(*trees)
         if sig not in self._seen[entry]:
             self._seen[entry].add(sig)
             self.trace_counts[entry] += 1
+
+    def export_trace_counts(self, registry) -> None:
+        """Sync ``trace_counts`` into ``pipeline_traces_total{entry=...}``
+        counters (delta-based: safe to call repeatedly); a shape-stable
+        serving run reports ``entry="fused"`` == 1 through this path."""
+        ctr = registry.counter(
+            "pipeline_traces_total",
+            "jit (re)traces per pipeline entry point; fused must stay 1")
+        for entry, n in self.trace_counts.items():
+            delta = n - self._exported_traces[entry]
+            if delta:
+                ctr.inc(delta, entry=entry)
+                self._exported_traces[entry] = n
+            elif n == 0:
+                ctr.inc(0, entry=entry)   # materialize the zero series
 
     # ------------------------------------------------------------------
     def warmup(self, state: BatchState) -> None:
@@ -187,15 +208,18 @@ class InterleavedPipeline:
         if state.drafts is not None:
             return
         self._count("draft", state.draft_cache, state.t_next)
-        if self.tree is not None:
-            d, _, dc = draft_tree_generate(self.dp, self.dcfg,
-                                           state.draft_cache, state.t_next,
-                                           self.tree)
-            pend = None
-        else:
-            d, _, dc, pend = draft_generate(self.dp, self.dcfg,
-                                            state.draft_cache, state.t_next,
-                                            self.n_cand)
+        with self.obs.tracer.span("draft_generate", "warmup",
+                                  cat="device") as sp:
+            if self.tree is not None:
+                d, _, dc = draft_tree_generate(self.dp, self.dcfg,
+                                               state.draft_cache,
+                                               state.t_next, self.tree)
+                pend = None
+            else:
+                d, _, dc, pend = draft_generate(self.dp, self.dcfg,
+                                                state.draft_cache,
+                                                state.t_next, self.n_cand)
+            sp.fence(d)
         state.drafts, state.draft_cache, state.draft_pendings = d, dc, pend
 
     def step(self, verify: BatchState, gen: BatchState,
@@ -216,23 +240,34 @@ class InterleavedPipeline:
         if self.tree is not None:
             vstate["draft_cache"] = verify.draft_cache
         self._count("fused", vstate, dstate)
+        tr = self.obs.tracer
+        # the fused round does both phases: record it as anti-phase twins,
+        # a verify span plus a draft span mirrored over the same interval
+        # (bubble accounting unions the overlap)
+        with tr.span("target_verify", "verify(fused)", cat="device") as sp:
+            if self.tree is not None:
+                vout, dout = fused_tree_verify_and_draft(
+                    self.tp, self.tcfg, self.dp, self.dcfg, vstate, dstate,
+                    self.tree)
+            else:
+                vout, dout = fused_verify_and_draft(
+                    self.tp, self.tcfg, self.dp, self.dcfg, vstate, dstate,
+                    self.n_cand)
+            sp.fence((vout, dout))
+        if tr.enabled:
+            tr.complete("draft_generate", "draft(fused)", sp.t0, sp.t1,
+                        cat="device")
         if self.tree is not None:
-            vout, dout = fused_tree_verify_and_draft(
-                self.tp, self.tcfg, self.dp, self.dcfg, vstate, dstate,
-                self.tree)
             # batch V's draft cache was compacted inside the fused round
             verify.draft_cache = vout["draft_cache"]
         else:
-            vout, dout = fused_verify_and_draft(self.tp, self.tcfg, self.dp,
-                                                self.dcfg, vstate, dstate,
-                                                self.n_cand)
             # batch V: roll its draft cache back to the accepted prefix
             self._count("rollback", verify.draft_cache,
                         verify.draft_pendings)
-            verify.draft_cache = rollback_draft(self.dcfg,
-                                                verify.draft_cache,
-                                                verify.draft_pendings,
-                                                vout["n_emitted"])
+            with tr.span("rollback", "rollback", cat="device") as rb:
+                verify.draft_cache = rb.fence(rollback_draft(
+                    self.dcfg, verify.draft_cache, verify.draft_pendings,
+                    vout["n_emitted"]))
         verify.target_cache = vout["target_cache"]
         verify.t_next = vout["t_next"]
         verify.drafts, verify.draft_pendings = None, None

@@ -21,11 +21,13 @@ system on one card (the port of ``repro/core/offload.py``).
 * :func:`host_attention_direct` computes decode attention next to a
   host-resident KV cache: only q and the output cross the link.
 
-Transfers are accounted per tier ("h2d", "d2h") in a plain dict on the
-model (:func:`record_transfer`), the port's stand-in for the JAX
-package's ``transfer_*_total`` counters; link seconds come from CUDA
-events around the copies, read back by :meth:`OffloadedModel.settle`
-after a pass, so no pass waits on the host.
+Transfers are accounted per tier ("h2d", "d2h") by
+:func:`record_transfer` into the ``transfer_bytes_total`` /
+``transfer_seconds_total`` counters of the model's ``obs`` (and a span on
+the tier's trace track), as in the JAX package, and in the plain dict
+``OffloadedModel.transfers`` kept beside them (:func:`add_transfer`);
+link seconds come from CUDA events around the copies, read back by
+:meth:`OffloadedModel.settle` after a pass, so no pass waits on the host.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import torch
 from repro_torch.configs import ModelConfig, resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.attention import attention_direct
+from repro_torch.obs import NULL_OBS
 from repro_torch.params import init_layer, init_resident
 
 # byte alignment of each tensor inside a layer's host buffer and slot
@@ -145,14 +148,14 @@ def _host_buffer(nbytes: int, device) -> tuple:
     return torch.empty(nbytes, dtype=torch.uint8), None
 
 
-def put_host(tree, device="cuda", transfers: dict | None = None) -> tuple:
+def put_host(tree, device="cuda", account=None) -> tuple:
     """Copy a nested dict of tensors into one host buffer of the offload
     tier: page-locked beside a card, plain CPU memory on the CPU.
     Returns (flat uint8 buffer, the tree as views into it, the
     ``PinnedBuffer`` owning the memory or None).  A copy from the
     device is timed on its own (after the buffer is page-locked and the
-    work that made the tree is done) and, with ``transfers``, recorded
-    as a "d2h" transfer."""
+    work that made the tree is done) and, with ``account`` (called as
+    ``account(tier, nbytes, seconds)``), recorded as a "d2h" transfer."""
     entries, nbytes = _layout(tree)
     flat, owner = _host_buffer(nbytes, device)
     views = _views(flat, entries)
@@ -162,8 +165,8 @@ def put_host(tree, device="cuda", transfers: dict | None = None) -> tuple:
     t0 = time.perf_counter()
     for (_, t), (_, view) in zip(_leaves(tree), _leaves(views)):
         view.copy_(t)
-    if on_dev and transfers is not None:
-        record_transfer(transfers, "d2h", nbytes, time.perf_counter() - t0)
+    if on_dev and account is not None:
+        account("d2h", nbytes, time.perf_counter() - t0)
     return flat, views, owner
 
 
@@ -171,10 +174,35 @@ def put_device(tree, device="cuda"):
     return _map(lambda t: t.to(resolve_device(device)), tree)
 
 
-def record_transfer(transfers: dict, tier: str, nbytes: float,
-                    seconds: float) -> None:
-    """Account one tier transfer: ``tier`` names the link direction
-    ("h2d", "d2h"); bytes and seconds add up per tier."""
+def record_transfer(obs, tier: str, nbytes: float, seconds: float,
+                    what: str = "transfer"):
+    """Account one tier transfer in the metrics registry + trace.
+
+    ``tier`` names the link direction ("h2d", "d2h"); bytes and seconds
+    feed the ``transfer_bytes_total`` / ``transfer_seconds_total``
+    counters, and a completed span lands on the matching trace track.
+    """
+    if not obs.enabled:
+        return
+    obs.metrics.counter(
+        "transfer_bytes_total",
+        "bytes moved across the offload link per tier").inc(
+            float(nbytes), tier=tier)
+    obs.metrics.counter(
+        "transfer_seconds_total",
+        "wall seconds spent on offload-link transfers per tier").inc(
+            max(float(seconds), 0.0), tier=tier)
+    if obs.tracer.enabled:
+        t1 = time.perf_counter()
+        obs.tracer.complete(tier, what, t1 - seconds, t1,
+                            args={"bytes": float(nbytes)})
+
+
+def add_transfer(transfers: dict, tier: str, nbytes: float,
+                 seconds: float) -> None:
+    """Add one tier transfer to a plain per-tier dict
+    ``{tier: {"bytes", "seconds"}}`` (the tally kept beside the
+    counters, readable without a registry)."""
     acc = transfers.setdefault(tier, {"bytes": 0.0, "seconds": 0.0})
     acc["bytes"] += float(nbytes)
     acc["seconds"] += max(float(seconds), 0.0)
@@ -190,8 +218,9 @@ class OffloadedModel:
     draws each layer on the device and parks it before drawing the next.
     """
 
-    def __init__(self, cfg: ModelConfig, params: dict, device="cuda"):
-        self._setup(cfg, device)
+    def __init__(self, cfg: ModelConfig, params: dict, device="cuda",
+                 obs=None):
+        self._setup(cfg, device, obs)
         for layer in params["layers"]:
             self._park(layer)
         self.params_resident = put_device(
@@ -200,13 +229,13 @@ class OffloadedModel:
 
     @classmethod
     def from_seed(cls, cfg: ModelConfig, generator: torch.Generator,
-                  device="cuda") -> "OffloadedModel":
+                  device="cuda", obs=None) -> "OffloadedModel":
         """The weights ``init_params(cfg, generator, device)`` would draw,
         drawn layer by layer on ``device`` (where ``generator`` lives) and
         parked in host memory one at a time, so the device never holds
         more than one layer of them."""
         om = cls.__new__(cls)
-        om._setup(cfg, device)
+        om._setup(cfg, device, obs)
         for l in range(cfg.n_layers):
             om._park(init_layer(cfg, l, generator, om.device))
         om.params_resident = init_resident(cfg, generator, om.device)
@@ -215,10 +244,11 @@ class OffloadedModel:
 
     # -- parking -----------------------------------------------------------
 
-    def _setup(self, cfg: ModelConfig, device) -> None:
+    def _setup(self, cfg: ModelConfig, device, obs) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.on_card = self.device.type == "cuda"
+        self.obs = obs if obs is not None else NULL_OBS
         self.transfers: dict = {}
         # the compute stream's span per layer, from the point it may read
         # the layer (copy landed, layer l - 1 done) to the layer's last
@@ -234,8 +264,14 @@ class OffloadedModel:
         self._copy_stream = (torch.cuda.Stream(self.device) if self.on_card
                              else None)
 
+    def _account(self, tier: str, nbytes: float, seconds: float) -> None:
+        """One transfer into ``transfers`` and the ``obs`` counters."""
+        add_transfer(self.transfers, tier, nbytes, seconds)
+        record_transfer(self.obs, tier, nbytes, seconds,
+                        what="layer_stream" if tier == "h2d" else "park")
+
     def _park(self, layer: dict) -> None:
-        flat, views, owner = put_host(layer, self.device, self.transfers)
+        flat, views, owner = put_host(layer, self.device, self._account)
         self._flat.append(flat)
         self._entries.append(_layout(layer)[0])
         self.layers_host.append(views)
@@ -271,8 +307,7 @@ class OffloadedModel:
         if not self.on_card:
             t0 = time.perf_counter()
             dst.copy_(src)
-            record_transfer(self.transfers, "h2d", src.numel(),
-                            time.perf_counter() - t0)
+            self._account("h2d", src.numel(), time.perf_counter() - t0)
             return None
         start = torch.cuda.Event(enable_timing=True)
         done = torch.cuda.Event(enable_timing=True)
@@ -317,8 +352,7 @@ class OffloadedModel:
         spans to ``compute_seconds``.  Returns ``transfers``."""
         for tier, nbytes, start, done in self._pending:
             done.synchronize()
-            record_transfer(self.transfers, tier, nbytes,
-                            start.elapsed_time(done) / 1e3)
+            self._account(tier, nbytes, start.elapsed_time(done) / 1e3)
         for start, done in self._busy:
             done.synchronize()
             self.compute_seconds += start.elapsed_time(done) / 1e3

@@ -8,10 +8,15 @@ streamed target is :class:`repro_torch.core.offload.OffloadedModel`).
 
 * :meth:`SpecOffloadEngine.prefill_batch` — prefill a prompt batch into
   a fresh :class:`BatchState` (first greedy token staged in ``t_next``).
+* :meth:`SpecOffloadEngine.resume` — the state of a sequence resumed
+  after a preemption (its prompt prefilled, its emitted tokens decoded).
 * :meth:`SpecOffloadEngine.decode_round` — one rotation round.
 * :meth:`SpecOffloadEngine.finalize` — assemble the emission logs of the
   two interleaved batches into a dense ``(B, gen_len)`` array.
 * :meth:`SpecOffloadEngine.generate` — the three above in one call.
+
+``obs`` (:func:`repro_torch.obs.make_obs`) receives the prefill span
+and reaches the pipeline and the planner, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from repro_torch.core.placement import PlacementPlan, plan_placement
 from repro_torch.core.planner import ParaSpecPlanner, Policy, Workload
 from repro_torch.models import model as M
 from repro_torch.models.transformer import init_cache
+from repro_torch.obs import NULL_OBS
 from repro_torch.params import init_params
 from repro_torch.sim.hardware import ENV1, HardwareSpec
 
@@ -50,10 +56,11 @@ class GenerationResult:
 class SpecOffloadEngine:
     def __init__(self, target_cfg: ModelConfig, draft_cfg: ModelConfig,
                  hw: HardwareSpec = ENV1, policy: Policy | None = None,
-                 device="cuda"):
+                 device="cuda", obs=None):
         self.tcfg = target_cfg
         self.dcfg = draft_cfg
         self.hw = hw
+        self.obs = obs if obs is not None else NULL_OBS
         self.policy = policy
         self.placement = plan_placement(target_cfg, draft_cfg, hw)
         self.device = resolve_device(device)
@@ -78,7 +85,8 @@ class SpecOffloadEngine:
         found; a policy given to the constructor wins)."""
         if self.policy is not None:
             return self.policy
-        planner = ParaSpecPlanner(self.tcfg, self.dcfg, self.hw)
+        planner = ParaSpecPlanner(self.tcfg, self.dcfg, self.hw,
+                                  obs=self.obs)
         rep = planner.search(Workload(prompt_len, gen_len, accept_prob,
                                       occupancy))
         self.policy = rep.policy
@@ -112,11 +120,55 @@ class SpecOffloadEngine:
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
                                   device=self.device)
         bs_prefill = bs_prefill or max(1, prompts.shape[0])
-        lg, tc = self._prefill_zigzag(self.tp, self.tcfg, prompts,
-                                      bs_prefill, max_len)
-        _, dc = self._prefill_zigzag(self.dp, self.dcfg, prompts, bs_prefill,
-                                     max_len)
+        with self.obs.tracer.span("prefill", "zigzag_prefill",
+                                  cat="device") as sp:
+            lg, tc = self._prefill_zigzag(self.tp, self.tcfg, prompts,
+                                          bs_prefill, max_len)
+            _, dc = self._prefill_zigzag(self.dp, self.dcfg, prompts,
+                                         bs_prefill, max_len)
+            sp.fence((lg, tc, dc))
+            sp.set("batch", int(prompts.shape[0]))
+            sp.set("prompt_len", int(prompts.shape[1]))
         t0 = torch.argmax(lg, dim=-1)
+        return BatchState(target_cache=tc, draft_cache=dc, t_next=t0,
+                          drafts=None, draft_pendings=None,
+                          emitted=[(t0.cpu().numpy()[:, None], 1)])
+
+    def resume(self, prompt, progress, max_len: int,
+               chunk: int) -> BatchState:
+        """B=1 state of a sequence resumed after a preemption: ``prompt``
+        prefilled exactly as at its first admission, then the tokens it
+        had emitted (``progress``) fed back through decode steps of at
+        most ``chunk`` tokens (the verify width), each committed whole;
+        ``t_next`` is the target's greedy token after the last of them.
+
+        The JAX engine prefills prompt + progress in one pass instead.
+        Where the target's MoE prefill is capacity-bound (Mixtral's
+        capacity factor 2 over 8 experts), that pass routes other tokens
+        to their experts than the first admission's prefill and the
+        decode rounds did, and the resumed stream leaves the greedy one;
+        here the prompt keeps its own routing and the emitted tokens go
+        through the dropless decode path, as the rounds that emitted
+        them did."""
+        st = self.prefill_batch(np.asarray(prompt)[None, :], max_len)
+        toks = torch.as_tensor(np.asarray(progress)[None], dtype=torch.int64,
+                               device=self.device)
+        with self.obs.tracer.span("prefill", "resume_decode",
+                                  cat="device") as sp:
+            caches = []
+            for params, cfg, cache in ((self.tp, self.tcfg, st.target_cache),
+                                       (self.dp, self.dcfg, st.draft_cache)):
+                for i in range(0, toks.shape[1], chunk):
+                    part = toks[:, i:i + chunk]
+                    lg, cache, pend = M.decode(params, cfg, cache, part)
+                    n = part.shape[1]
+                    cache = M.commit(cfg, cache, pend, torch.full(
+                        (1,), n, dtype=torch.int64, device=self.device), n)
+                caches.append((cache, lg[:, -1]))
+            sp.fence(caches)
+            sp.set("progress", int(toks.shape[1]))
+        (tc, tlast), (dc, _) = caches
+        t0 = torch.argmax(tlast, dim=-1)
         return BatchState(target_cache=tc, draft_cache=dc, t_next=t0,
                           drafts=None, draft_pendings=None,
                           emitted=[(t0.cpu().numpy()[:, None], 1)])
@@ -130,7 +182,8 @@ class SpecOffloadEngine:
         if (self._pipe is None or self._pipe.n_cand != n_cand
                 or self._pipe.tree != tree):
             self._pipe = InterleavedPipeline(self.tp, self.tcfg, self.dp,
-                                             self.dcfg, n_cand, tree=tree)
+                                             self.dcfg, n_cand, tree=tree,
+                                             obs=self.obs)
         return self._pipe
 
     def decode_round(self, verify: BatchState, gen: BatchState,

@@ -18,9 +18,9 @@ decode = streamed FFN slab + draft params + draft KV.
 
 The planner is pure Python so it can run in the launcher before any
 device work, exactly as the paper's offline phase does.  It is the
-port's copy of ``repro/core/planner.py`` and gives the same floats; the
-JAX planner's trace spans and counters wait for the port's
-observability.
+port's copy of ``repro/core/planner.py`` and gives the same floats; with
+``obs`` it records the ``policy_search`` span, the ``replan`` /
+``replan_tree`` instants and ``planner_searches_total`` as JAX's does.
 
 Beyond the paper, :class:`Workload` carries an *effective occupancy* term
 (fraction of in-flight batch slots holding live requests).  Prefill and
@@ -39,6 +39,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.core.spec_decode import (expected_generated,
                                           expected_generated_tree,
                                           tree_layout, tree_n_nodes)
+from repro_torch.obs import NULL_OBS
 from repro_torch.sim.hardware import HardwareSpec
 
 @dataclass(frozen=True)
@@ -147,11 +148,12 @@ class ParaSpecPlanner:
     """Offline profiling model + online policy search."""
 
     def __init__(self, target: ModelConfig, draft: ModelConfig,
-                 hw: HardwareSpec, bytes_per_param: int = 2):
+                 hw: HardwareSpec, bytes_per_param: int = 2, obs=None):
         self.target = target
         self.draft = draft
         self.hw = hw
         self.bp = bytes_per_param
+        self.obs = obs if obs is not None else NULL_OBS
 
     # -- latency model -----------------------------------------------------
 
@@ -287,20 +289,38 @@ class ParaSpecPlanner:
                n_cand_grid=(1, 2, 4, 6, 8)) -> PlanReport:
         """Exhaustive grid search (the paper's space is small)."""
         best = None
-        for bp_ in bs_prefill_grid:
-            for bd in bs_decode_grid:
-                for bdr in bs_draft_grid:
-                    if bdr > bd:
-                        continue
-                    for m in n_cand_grid:
-                        rep = self.evaluate(Policy(bp_, bd, bdr, m), wl)
-                        if not rep.feasible:
+        with self.obs.tracer.span("planner", "policy_search") as sp:
+            for bp_ in bs_prefill_grid:
+                for bd in bs_decode_grid:
+                    for bdr in bs_draft_grid:
+                        if bdr > bd:
                             continue
-                        if best is None or rep.throughput > best.throughput:
-                            best = rep
+                        for m in n_cand_grid:
+                            rep = self.evaluate(Policy(bp_, bd, bdr, m), wl)
+                            if not rep.feasible:
+                                continue
+                            if (best is None
+                                    or rep.throughput > best.throughput):
+                                best = rep
+            if best is not None:
+                sp.set("policy", str(best.policy.astuple()))
+                sp.set("occupancy", wl.occupancy)
         if best is None:
             raise ValueError("no feasible policy — model too large for host+"
                              "accelerator memory")
+        if self.obs.enabled:
+            self.obs.tracer.instant(
+                "planner", "replan",
+                {"bs_prefill": best.policy.bs_prefill,
+                 "bs_decode": best.policy.bs_decode,
+                 "bs_draft": best.policy.bs_draft,
+                 "n_cand": best.policy.n_cand,
+                 "occupancy": wl.occupancy,
+                 "modeled_throughput": best.throughput})
+            self.obs.metrics.counter(
+                "planner_searches_total",
+                "ParaSpec policy searches (offline + online replans)"
+            ).inc(1)
         return best
 
     def search_spec(self, wl: Workload, tree_grid=None,
@@ -334,6 +354,12 @@ class ParaSpecPlanner:
                            len(tree), tree=tree), wl)
                 if rep.feasible and rep.throughput > best.throughput:
                     best = rep
+        if self.obs.enabled and best.policy.tree is not None:
+            self.obs.tracer.instant(
+                "planner", "replan_tree",
+                {"tree": str(best.policy.tree),
+                 "bs_draft": best.policy.bs_draft,
+                 "modeled_throughput": best.throughput})
         return best
 
 

@@ -25,10 +25,13 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from repro_torch.configs import ATTN, SWA, ModelConfig
+from repro_torch.configs import ATTN, RGLRU, SWA, ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models.attention import (paged_row_indices,
                                           restore_rejected_rows)
+from repro_torch.models.rglru import select_rglru_state
+from repro_torch.models.rwkv import select_rwkv_state
+from repro_torch.obs.metrics import acceptance_buckets
 
 # ---------------------------------------------------------------------------
 # the paper's acceptance model (Appendix A.1, Eqs. 10-12)
@@ -61,6 +64,53 @@ def expected_generated_paper_eq12(p: float, n_cand: int) -> float:
         return float(n_cand + 1)
     return float((n_cand * p ** (n_cand + 2)
                   - (n_cand + 1) * p ** (n_cand + 1) + 1) / (1 - p))
+
+
+def record_acceptance(metrics, n_accept, n_cand: int, live_mask=None,
+                      n_draft: int | None = None, mode: str = "chain"):
+    """Observe one verified round's per-sequence accepted-draft counts
+    into the registry (host-side: call with the host copy
+    ``RoundOutput.n_accept``, never with a device tensor).
+
+    ``live_mask`` drops slots holding retired or parked sequences.  The
+    histogram's integer buckets 0..n_cand make ``sum / (count * n_cand)``
+    the measured per-round acceptance (for trees ``n_cand`` is the tree
+    depth).  ``n_draft`` is the number of candidates verified per
+    sequence per round (chain: n_cand; tree: n_nodes - 1) and feeds
+    ``spec_tokens_accepted_total`` / ``spec_tokens_wasted_total``,
+    ``spec_verify_rounds_total`` and ``spec_accept_depth_total{depth=d}``
+    (rounds whose accepted path reached at least depth d).
+    """
+    if not metrics.enabled:
+        return
+    hist = metrics.histogram(
+        "spec_accepted_tokens",
+        "accepted draft tokens per sequence per verified round",
+        buckets=acceptance_buckets(n_cand))
+    arr = np.asarray(n_accept)
+    if live_mask is not None:
+        arr = arr[np.asarray(live_mask)]
+    for v in arr.tolist():
+        hist.observe(float(v))
+
+    n_draft = n_cand if n_draft is None else n_draft
+    accepted = metrics.counter(
+        "spec_tokens_accepted_total",
+        "draft candidate tokens accepted by target verification")
+    wasted = metrics.counter(
+        "spec_tokens_wasted_total",
+        "draft candidate tokens verified by the target but rejected")
+    rounds = metrics.counter(
+        "spec_verify_rounds_total",
+        "per-sequence verified speculation rounds")
+    depth_c = metrics.counter(
+        "spec_accept_depth_total",
+        "rounds whose accepted path reached at least this depth")
+    accepted.inc(float(arr.sum()), mode=mode)
+    wasted.inc(float((n_draft - arr).sum()), mode=mode)
+    rounds.inc(float(arr.size), mode=mode)
+    for d in range(1, n_cand + 1):
+        depth_c.inc(float((arr >= d).sum()), mode=mode, depth=str(d))
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +210,8 @@ def draft_generate(params, cfg: ModelConfig, cache, t_next, n_cand: int):
 def rollback_draft(cfg: ModelConfig, cache, step_pendings, n_keep):
     """Rewind the draft cache to keep only the first ``n_keep`` (B,) of the
     ``len(step_pendings)`` single-token steps of :func:`draft_generate`
-    (ring rows restored in place, step by step in feed order)."""
+    (ring rows restored in place, step by step in feed order; a
+    recurrent layer set in place to its state after ``n_keep`` steps)."""
     m = len(step_pendings)
     nk = n_keep.long()
     pos0 = cache["pos"] - m
@@ -168,15 +219,25 @@ def rollback_draft(cfg: ModelConfig, cache, step_pendings, n_keep):
         kind = cfg.layer_kind(l)
         if kind == ATTN:
             continue            # full cache: stale rows beyond pos are hidden
-        if kind != SWA:
-            raise NotImplementedError(f"rollback of {kind!r} layers is not "
-                                      "ported yet")
-        for i, pend in enumerate(step_pendings):
-            saved = pend[l]["saved"]
-            if not saved:
-                continue
-            keep_i = (i < nk).long()
-            restore_rejected_rows(cache["layers"][l], saved, pos0 + i, keep_i)
+        if kind == SWA:
+            for i, pend in enumerate(step_pendings):
+                saved = pend[l]["saved"]
+                if not saved:
+                    continue
+                keep_i = (i < nk).long()
+                restore_rejected_rows(cache["layers"][l], saved, pos0 + i,
+                                      keep_i)
+            continue
+        # recurrent: step i's stack holds [state before i, state after i];
+        # the sequence [before step 0, after step 0, ..., after step m-1]
+        # is (B, m+1, ...) per state leaf, read per row at n_keep
+        stacks = [pend[l]["stack"] for pend in step_pendings]
+        seq = {key: torch.cat([stacks[0][key][:, :1]]
+                              + [st[key][:, 1:2] for st in stacks], dim=1)
+               for key in stacks[0]}
+        sel = (select_rglru_state if kind == RGLRU else select_rwkv_state)
+        for key, val in sel(seq, nk).items():
+            cache["layers"][l][key].copy_(val)
     return {"layers": cache["layers"], "pos": pos0 + nk}
 
 

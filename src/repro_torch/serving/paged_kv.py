@@ -1,9 +1,8 @@
 """Host-side block bookkeeping for the paged KV cache substrate.
 
-A copy of the JAX package's ``repro/serving/paged_kv.py`` (numpy only)
-without its metrics hooks.  The device side
-(``repro_torch.models.transformer.init_paged_cache`` and the paged
-decode kernel) only sees a ``(num_blocks, block_size, ...)``
+A copy of the JAX package's ``repro/serving/paged_kv.py`` (numpy only).
+The device side (``repro_torch.models.transformer.init_paged_cache`` and
+the paged decode kernel) only sees a ``(num_blocks, block_size, ...)``
 pool and per-slot ``(B, max_blocks)`` int32 block tables.  This module
 owns the *policy*: which physical block backs which logical block of
 which sequence.
@@ -63,10 +62,14 @@ class BlockAllocator:
     since cached blocks are evicted on demand.
     """
 
-    def __init__(self, num_blocks: int, name: str = "kv"):
+    def __init__(self, num_blocks: int, obs=None, name: str = "kv"):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is reserved)")
-        self.name = name
+        if obs is None:
+            from repro_torch.obs import NULL_OBS
+            obs = NULL_OBS
+        self.obs = obs
+        self.name = name                  # label for metrics/trace events
         self.num_blocks = num_blocks
         self._free = list(range(num_blocks - 1, 0, -1))   # pop() -> low ids
         self._ref: dict[int, int] = {}
@@ -109,6 +112,13 @@ class BlockAllocator:
                 del self._by_key[key]
                 del self._key_of[bid]
                 self.evictions += 1
+                if self.obs.enabled:
+                    self.obs.metrics.counter(
+                        "kv_prefix_evictions_total",
+                        "cached prefix blocks evicted under allocation "
+                        "pressure").inc(1, alloc=self.name)
+                    self.obs.tracer.instant(
+                        "kv", "evict", {"alloc": self.name, "block": bid})
                 self._free.append(bid)
             bid = self._free.pop()
             self._ref[bid] = 1
@@ -148,8 +158,28 @@ class BlockAllocator:
             self._ref[bid] = 1
         self.prefix_hits += 1
         self.granted_total += 1
+        if self.obs.enabled:
+            self.obs.metrics.counter(
+                "kv_prefix_hits_total",
+                "admissions served from prefix-cached blocks").inc(
+                    1, alloc=self.name)
         self._note_usage()
         return bid
+
+    def export_gauges(self, registry):
+        """Publish the allocator's occupancy picture as labeled gauges
+        (free / used / cached block counts + peak and grant counters)."""
+        g = registry.gauge("kv_blocks",
+                           "paged-KV pool blocks by state per allocator")
+        g.set(len(self._free), alloc=self.name, state="free")
+        g.set(self.used, alloc=self.name, state="used")
+        g.set(self.cached, alloc=self.name, state="cached")
+        registry.gauge("kv_blocks_peak_used",
+                       "high-water mark of live blocks").set(
+                           self.peak_used, alloc=self.name)
+        registry.gauge("kv_blocks_granted_total",
+                       "blocks ever granted (incl. prefix reuse)").set(
+                           self.granted_total, alloc=self.name)
 
     def register(self, bid: int, key: bytes):
         """Publish a freshly written full-prompt block under its chain

@@ -46,7 +46,10 @@ def test_importing_every_module_loads_no_jax():
     assert {"repro_torch.kernels.decode_attention",
             "repro_torch.kernels.rglru_scan", "repro_torch.kernels.wkv6",
             "repro_torch.models.rglru",
-            "repro_torch.models.rwkv"} <= set(_modules())
+            "repro_torch.models.rwkv", "repro_torch.obs.metrics",
+            "repro_torch.obs.trace", "repro_torch.obs.request_trace",
+            "repro_torch.obs.slo", "repro_torch.obs.schema",
+            "repro_torch.serving.server"} <= set(_modules())
 
 
 def _imports(path):

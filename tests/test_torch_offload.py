@@ -135,12 +135,23 @@ def test_transfers_count_the_streamed_bytes_per_pass():
 
 
 def test_record_transfer_adds_per_tier():
-    d = {}
-    TO.record_transfer(d, "h2d", 10, 0.5)
-    TO.record_transfer(d, "h2d", 5, -1.0)       # negative seconds clip to 0
-    TO.record_transfer(d, "d2h", 3, 0.25)
+    from repro_torch.obs import NULL_OBS, make_obs
+    obs, d = make_obs(trace=True), {}
+    for tier, nbytes, seconds in (("h2d", 10, 0.5), ("h2d", 5, -1.0),
+                                  ("d2h", 3, 0.25)):
+        TO.record_transfer(obs, tier, nbytes, seconds)  # -1 s clips to 0
+        TO.record_transfer(NULL_OBS, tier, nbytes, seconds)   # a no-op
+        TO.add_transfer(d, tier, nbytes, seconds)
     assert d == {"h2d": {"bytes": 15.0, "seconds": 0.5},
                  "d2h": {"bytes": 3.0, "seconds": 0.25}}
+    snap = obs.metrics.snapshot()["counters"]
+    assert snap["transfer_bytes_total"] == {'{tier="d2h"}': 3.0,
+                                            '{tier="h2d"}': 15.0}
+    assert snap["transfer_seconds_total"] == {'{tier="d2h"}': 0.25,
+                                              '{tier="h2d"}': 0.5}
+    spans = [e for e in obs.tracer.to_chrome_trace()["traceEvents"]
+             if e["ph"] == "X"]
+    assert [e["args"]["bytes"] for e in spans] == [10.0, 5.0, 3.0]
 
 
 def test_streamed_layers_are_read_once_in_order():

@@ -260,3 +260,111 @@ def test_contiguous_serving_matches_jax_and_greedy(name):
     kv = te.kv_stats()
     assert kv["paged"] is False
     assert kv["peak_kv_bytes"] == je.kv_stats()["peak_kv_bytes"]
+
+
+# ---------------------------------------------------------------------------
+# recurrent drafts: the chain round's rollback of RG-LRU and RWKV layers
+
+
+@pytest.fixture(scope="module", params=["recurrentgemma", "rwkv6"])
+def recurrent_draft(request):
+    """A Mixtral smoke target with a recurrent draft of the target's
+    vocabulary (RecurrentGemma: one RG-LRU, RG-LRU, SWA group; RWKV-6: 2
+    layers), JAX weights and their port."""
+    jc0, tc0 = FAMILIES[request.param]
+    jt, tt = J_MIXTRAL.reduced(d_model=64), MIXTRAL_8X7B.reduced(d_model=64)
+    n = len(jc0.layer_pattern) if request.param == "recurrentgemma" else 2
+    jd = jc0.reduced(d_model=32, n_layers=n, vocab=jt.vocab_size)
+    td = tc0.reduced(d_model=32, n_layers=n, vocab=tt.vocab_size)
+    k1, k2 = jax.random.split(jax.random.PRNGKey(11))
+    jtp, jdp = JM.init_params(jt, k1), JM.init_params(jd, k2)
+    conv = lambda p, c: from_jax(jax.tree.map(np.asarray, p), c, CPU)
+    return (jt, jd, jtp, jdp), (tt, td, conv(jtp, tt), conv(jdp, td))
+
+
+def test_rollback_draft_matches_jax_at_every_n_keep(recurrent_draft):
+    """``draft_generate`` then ``rollback_draft`` keeping n_keep in
+    1..m+1 steps per row (every value across the rows of two calls):
+    position and every recurrent and ring state equal JAX's.  Before the
+    repair the port raised NotImplementedError for these layers."""
+    from repro.core import spec_decode as JS
+    from repro_torch.core import spec_decode as TS
+    (_, jd, _, jdp), (_, td, _, tdp) = recurrent_draft
+    m, b, length = 3, 4, 10
+    prompts = np.random.default_rng(12).integers(
+        0, td.vocab_size, (b, length)).astype(np.int32)
+    jl, jc0 = JM.prefill(jdp, jd, jnp.asarray(prompts),
+                         JT.init_cache(jd, b, 32))
+    for keep in ([1, 2, 3, 4], [4, 3, 2, 1]):
+        jc = jc0
+        tl, tc = TM.prefill(tdp, td, torch.from_numpy(prompts).long(),
+                            TT.init_cache(td, b, 32, CPU))
+        t_next = np.array(jnp.argmax(jl, -1))
+        np.testing.assert_array_equal(torch.argmax(tl, -1).numpy(), t_next)
+        jdr, _, jc, jpend = JS.draft_generate(jdp, jd, jc,
+                                              jnp.asarray(t_next), m)
+        tdr, _, tc, tpend = TS.draft_generate(
+            tdp, td, tc, torch.from_numpy(t_next).long(), m)
+        np.testing.assert_array_equal(tdr.numpy(), np.asarray(jdr))
+        nk = np.asarray(keep, np.int32)
+        jc = JS.rollback_draft(jd, jc, jpend, jnp.asarray(nk))
+        tc = TS.rollback_draft(td, tc, tpend, torch.from_numpy(nk).long())
+        np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+        pat = len(td.layer_pattern)
+        for l in range(td.n_layers):
+            if td.layer_kind(l) in (RGLRU, RWKV):
+                for key, val in tc["layers"][l].items():
+                    _close(val, np.asarray(
+                        jc["layers"][l % pat][key])[l // pat], atol=1e-5)
+
+
+def test_recurrent_draft_generate_matches_jax(recurrent_draft):
+    (jt, jd, jtp, jdp), (tt, td, ttp, tdp) = recurrent_draft
+    from repro.core.pipeline import SpecOffloadEngine as JEngine
+    prompts = np.random.default_rng(13).integers(
+        0, tt.vocab_size, (4, 9)).astype(np.int32)
+    je = JEngine(jt, jd)
+    je.load(jtp, jdp)
+    want = je.generate(jnp.asarray(prompts), gen_len=6, n_cand=3)
+    te = SpecOffloadEngine(tt, td, device=CPU)
+    te.load(ttp, tdp)
+    got = te.generate(prompts, gen_len=6, n_cand=3)
+    assert got.tokens.shape == (4, 6)
+    np.testing.assert_array_equal(got.tokens, np.asarray(want.tokens))
+    assert got.rounds == want.rounds
+    for r in range(4):
+        np.testing.assert_array_equal(got.tokens[r],
+                                      _greedy(ttp, tt, prompts[r], 6))
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+def test_recurrent_draft_serving_matches_jax_and_greedy(recurrent_draft,
+                                                        paged):
+    """The ServingEngine stream with a recurrent draft, paged and
+    contiguous, on a trace with mid-flight admission: equal to the JAX
+    engine's streams and to the port's own greedy decode."""
+    (jt, jd, jtp, jdp), (tt, td, ttp, tdp) = recurrent_draft
+    cfg = dict(max_batch=2, n_cand=2, paged=paged, block_size=4)
+    je = jserve.ServingEngine(jt, jd, config=jserve.SchedulerConfig(**cfg))
+    je.load(jtp, jdp)
+    jreqs = _trace(jt.vocab_size, j_poisson)
+    for r in jreqs:
+        je.submit(r)
+    je.run()
+    te = tserve.ServingEngine(tt, td, config=tserve.SchedulerConfig(**cfg),
+                              device=CPU)
+    te.load(ttp, tdp)
+    treqs = _trace(tt.vocab_size, poisson_requests)
+    for r in treqs:
+        assert te.submit(r)
+    done = te.run()
+    assert len(done) == len(treqs)
+    assert any(r.queue_s > 0 for r in treqs), "no mid-flight admission"
+    counts = te.engine.pipeline(2).trace_counts
+    assert counts["fused"] == 1 and counts["rollback"] == 1
+    for jr, tr in zip(jreqs, treqs):
+        np.testing.assert_array_equal(tr.result, jr.result,
+                                      err_msg=f"rid {tr.rid} vs JAX")
+        np.testing.assert_array_equal(
+            tr.result, _greedy(ttp, tt, tr.prompt, tr.max_new_tokens),
+            err_msg=f"rid {tr.rid} vs greedy")

@@ -194,6 +194,21 @@ def test_launcher_serves_on_cpu(capsys):
     assert "served 3 requests" in out and "fused compiles=1" in out
 
 
+def test_launcher_serves_async_with_timelines_on_cpu(capsys):
+    """``--async --timelines``: the two-tenant open-loop replay through
+    the asyncio front door, per-tenant TTFT lines, the timeline digest
+    and the SLO compliance lines."""
+    from repro_torch.launch import serve
+    serve.main(["--device", "cpu", "--async", "--timelines", "--requests",
+                "5", "--gen", "6", "--prompt-len", "10", "--rate", "3",
+                "--slo-ttft", "30"])
+    out = capsys.readouterr().out
+    assert "async-served 5 requests" in out and "fused compiles=1" in out
+    assert "drained=True" in out
+    assert "tenant acme:" in out and "tenant beta:" in out
+    assert "timelines: 5 reqs" in out and "slo ttft/" in out
+
+
 def _burst(vocab, mod):
     """9 requests arriving at once: a shared 8-token prefix, mixed prompt
     and generation lengths."""
