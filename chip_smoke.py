@@ -11,7 +11,8 @@ on its own lines with its wall seconds:
    the kernels' build time (every ``csrc/*.cu``, one nvcc each, in
    parallel), and what ``-Xptxas -v`` said of the tensor-core kernels,
    the verify kernels and the recurrences' kernels (registers, static
-   shared memory, spills per instantiation); the host's MemTotal /
+   shared memory, spills per instantiation; the head dim 240
+   instantiations again on a line of their own); the host's MemTotal /
    MemAvailable, RLIMIT_MEMLOCK and CPUs, the bare page-locked
    host<->device copy rate of one 2.7 GiB buffer each way, a timed f32
    CPU matmul (the H100 spec's ``h2d_bw`` / ``d2h_bw`` / ``host_flops``
@@ -21,8 +22,8 @@ on its own lines with its wall seconds:
 2. every kernel against its plain PyTorch version on the card at the
    cases of tests/test_kernels.py, the serving paths' shapes and a
    stress shape each, plus the edges of the tensor-core kernels (flash
-   at 100 tokens, windowed and bidirectional at head dims 64/128/256 and
-   fed (B, S, H, d) views; ``moe_ffn`` at C 1, 7, 33 and 300 at Mixtral
+   at 100 tokens, windowed and bidirectional at head dims 64/128/240/256
+   and fed (B, S, H, d) views; ``moe_ffn`` at C 1, 7, 33 and 300 at Mixtral
    widths, at the tree verify's dispatch, C 40 in bf16 for 3e and
    C 20 in f32 for 4e/4f, and at 3f's C 513 and C 2) and of the split-KV
    verify kernels (``decode_attention`` also at 3f's B 2, m 1; the grid,
@@ -128,7 +129,35 @@ on its own lines with its wall seconds:
    beside the 2-layer Mixtral target, paged and contiguous, 6 requests
    each: every stream equal to the greedy decode, ``rglru_gated_scan``
    or ``wkv6`` and the run's verify kernel launched while serving;
+   (j) the other families in f32: Gemma-3-12B's widths at one group (6
+   layers) with prompts of 1280, paged and contiguous (``decode_attention``
+   at head dim 240), StarCoder2-7B and Phi-3.5-MoE widths at 2 layers,
+   every stream equal to the greedy decode; and Whisper-base, whose
+   ``decode_step`` tokens must equal a prefill recomputed at every step;
 5. the kernels as one JSON object; 6. the device as one JSON object.
+
+The families' cases of phase 2: flash at head dim 240 (Gemma-3-12B's 16
+/ 8 heads: 256-wide tiles, zero columns past 240) causal at s512 in bf16
+and f32, windowed 1024 at s1280 and global at s1280, beside d 256 at
+s512; Whisper's bidirectional encoder attention (B 4, T 1500, d 64) and
+its cross attention (Sq 1 and 5 over Skv 1500; f32 for 4j); paged and
+contiguous verify at head dim 240 (B 4, Hq 16, Hkv 8, m 5, ~560 and
+~1300 tokens; bf16, f32 and an int8 pool; a tree; a tile boundary), at
+StarCoder2's 36 / 4 (45 rows) and Llama-3-405B's 128 / 8 heads (80
+rows), and Llama-3-405B under tree (3, 2), 160 rows in two row groups
+(bitwise equal twice); ``moe_ffn`` at Phi-3.5-MoE (E 16, F 6400) and
+Llama-4 Maverick (E 128, D 5120, F 8192) widths at verify C 20 and at a
+512-token prompt's prefill capacity.  Phase 3 ends with (h) Gemma-3-12B
+at full width and depth (48 layers, 25.3 GB in bf16) beside a 2-layer
+Mistral-7B-width draft, paged chain, 8 requests with prompts of 512 and
+1280 in turn (the 1024-token window binds, the rings wrap), every target
+flash and paged verify launch at head dim 240; (i) Chameleon-34B,
+Phi-3-medium-14B, StarCoder2-7B, Llama-3-405B, Phi-3.5-MoE and Llama-4
+Maverick at their published widths, each cut to 2 layers (Llama-4: one
+dense + MoE group), 4 requests each of prompt 512 and gen 32; (j)
+Whisper-base at full size, B 4 frame embeddings: the encoder alone,
+a prefill of 4 tokens and 32 greedy ``decode_step``s, with their walls
+and launches.
 
 Any failure raises and exits non-zero; so does a machine with no card.
 """
@@ -357,24 +386,26 @@ def kernel_cases(bench) -> dict:
 
     # -- flash attention ---------------------------------------------------
     def flash_case(label, b, hq, hkv, sq, d, causal, window, dt,
-                   model_layout=False):
+                   model_layout=False, skv=None):
         """With ``model_layout`` q/k/v are made (B, S, H, d), as the model
-        keeps them, and handed over as transposed views."""
+        keeps them, and handed over as transposed views; ``skv`` keys
+        (default Sq) as in cross attention."""
         dname = str(dt).split(".")[1]
+        skv = sq if skv is None else skv
         if model_layout:
-            q, k, v = (rn(b, sq, h, d, dt=dt).transpose(1, 2)
-                       for h in (hq, hkv, hkv))
+            q, k, v = (rn(b, s_, h, d, dt=dt).transpose(1, 2)
+                       for h, s_ in ((hq, sq), (hkv, skv), (hkv, skv)))
         else:
-            q, k, v = rn(b, hq, sq, d, dt=dt), rn(b, hkv, sq, d, dt=dt), \
-                rn(b, hkv, sq, d, dt=dt)
+            q, k, v = rn(b, hq, sq, d, dt=dt), rn(b, hkv, skv, d, dt=dt), \
+                rn(b, hkv, skv, d, dt=dt)
         kw = dict(causal=causal, window=window)
         got = fa.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         err = _check("flash_attention", label, got, want, dname)
         qp = np.arange(sq)[:, None]
-        kp = np.arange(sq)[None, :]
-        okm = np.ones((sq, sq), bool)
+        kp = np.arange(skv)[None, :]
+        okm = np.ones((sq, skv), bool)
         if causal:
             okm &= kp <= qp
         if window is not None:
@@ -413,18 +444,45 @@ def kernel_cases(bench) -> dict:
                    True, 2048, dt)
     flash_case("d256 mqa s512 w2048 (B,S,H,d) views", 1, 10, 1, 512, 256,
                True, 2048, torch.bfloat16, model_layout=True)
-    for d in (64, 128, 256):          # the tensor-core kernel's edges
+    for d in (64, 128, 240, 256):     # the tensor-core kernel's edges
         for causal, window in ((True, None), (True, 40), (False, None)):
             flash_case(f"edge s100 d{d} c{int(causal)} w{window}", 1, 4, 2,
                        100, d, causal, window, torch.bfloat16,
                        model_layout=window is not None)
+    # Gemma-3-12B (16 / 8 heads of 240: 256-wide tiles, zero columns past
+    # 240): 3h's prefill of 512 and 1280 tokens, global and window 1024;
+    # f32 for 4j
+    for dt in (torch.float32, torch.bfloat16):
+        flash_case("gemma3 d240 s512 (3h prefill)", 1, 16, 8, 512, 240, True,
+                   None, dt, model_layout=True)
+        flash_case("gemma3 d240 s1280 w1024 (3h SWA prefill)", 1, 16, 8,
+                   1280, 240, True, 1024, dt, model_layout=True)
+    flash_case("gemma3 d240 s1280 global (3h prefill)", 1, 16, 8, 1280, 240,
+               True, None, torch.bfloat16, model_layout=True)
+    flash_case("d256 s512 beside d240 (same tiles)", 1, 16, 8, 512, 256,
+               True, None, torch.bfloat16, model_layout=True)
+    # Whisper-base (3j): the encoder's bidirectional attention at T 1500,
+    # and the decoder's cross attention over it (Sq 1 and 5 != Skv)
+    flash_case("whisper encoder b4 T1500 d64 bidir (3j)", 4, 8, 8, 1500, 64,
+               False, None, torch.bfloat16, model_layout=True)
+    for sq in (1, 5):
+        flash_case(f"whisper cross b4 sq{sq} skv1500 d64 (3j)", 4, 8, 8, sq,
+                   64, False, None, torch.bfloat16, model_layout=True,
+                   skv=1500)
+    flash_case("whisper cross b2 sq1 skv1500 d64 f32 (4j)", 2, 8, 8, 1, 64,
+               False, None, torch.float32, model_layout=True, skv=1500)
 
     # -- paged decode attention --------------------------------------------
-    def split_note(name, b, hkv, capacity):
-        """The split-KV grid the wrapper launches for these shapes."""
-        ns = da.n_split(b, hkv, capacity)
-        print(f"  {name:<23} grid (B {b}, Hkv {hkv}, n_split {ns}) = "
-              f"{b * hkv * ns} CTAs for capacity {capacity}", flush=True)
+    def split_note(name, b, hkv, capacity, rows=None, d=128):
+        """The split-KV grid the wrapper launches for these shapes (with
+        ``rows`` = g * m, its row groups at head dim ``d`` too)."""
+        groups, per = da.row_groups(rows or 1, d)
+        ns = da.n_split(b, hkv * groups, capacity)
+        grp = (f", {groups} row groups of {per} of the {rows} rows"
+               if rows else "")
+        print(f"  {name:<23} grid (B {b}, Hkv {hkv}{grp}, n_split {ns}) = "
+              f"{b * hkv * groups * ns} CTAs for capacity {capacity}",
+              flush=True)
 
     def q_tensor(b, hq, m, d, dt, model_layout):
         """With ``model_layout`` q is made (B, m, Hq, d), as the model
@@ -546,13 +604,49 @@ def kernel_cases(bench) -> dict:
                        main_lens, dt, anc=tree_bits(br), capacity=640)
             paged_case(f"tree {br} m{m} boundary in last m", 4, 32, 8, m,
                        16, 128, bnd, dt, anc=tree_bits(br), capacity=640)
+    # Gemma-3-12B's 8 global layers (3h, 4j): head dim 240 on the 256-wide
+    # tile, at ~560 and ~1300 tokens (prompts of 512 and 1280)
+    gemma_lens = {"~560": main_lens, "~1300": rng.integers(1290, 1340, 4)}
+    split_note("paged_decode_attention", 4, 8, 1360, rows=10, d=240)
+    for tag, lens in gemma_lens.items():
+        for dt, quant in ((torch.float32, False), (torch.bfloat16, False),
+                          (torch.bfloat16, True)):
+            paged_case(f"gemma3 d240 verify b4 m5 {tag} tokens"
+                       + (" int8" if quant else ""), 4, 16, 8, 5, 16, 240,
+                       lens, dt, quant=quant, capacity=1360,
+                       model_layout=True)
+    paged_case("gemma3 d240 tree (3, 2) m10 boundary in last m", 4, 16, 8,
+               10, 16, 240, TREE_CASES[0][2], torch.bfloat16,
+               anc=tree_bits((3, 2)), capacity=1360)
+    paged_case("gemma3 d240 boundary in last m5 f32", 2, 16, 8, 5, 16, 240,
+               [130, 66], torch.float32, capacity=640)
+    # 3i's widths at m 5, d 128: StarCoder2 (36 / 4 heads: 45 rows),
+    # Llama-3-405B (128 / 8: 80 rows) and its tree (3, 2) at m 10: 160
+    # rows, two row groups of 80 reading the same KV tiles
+    paged_case("starcoder2 hq36 hkv4 m5 (45 rows)", 4, 36, 4, 5, 16, 128,
+               main_lens, torch.bfloat16, capacity=640, model_layout=True)
+    paged_case("llama3-405b hq128 hkv8 m5 (80 rows)", 4, 128, 8, 5, 16, 128,
+               main_lens, torch.bfloat16, capacity=640, model_layout=True)
+    split_note("paged_decode_attention", 4, 8, 640, rows=160)
+    for dt in (torch.float32, torch.bfloat16):
+        paged_case("llama3-405b tree (3, 2) m10 (160 rows)", 4, 128, 8, 10,
+                   16, 128, main_lens, dt, anc=tree_bits((3, 2)),
+                   capacity=640, model_layout=True)
+    paged_case("llama3-405b tree (3, 2) m10 (160 rows) boundary", 4, 128, 8,
+               10, 16, 128, TREE_CASES[0][2], torch.bfloat16,
+               anc=tree_bits((3, 2)), capacity=640, repeat=True)
     torch.cuda.empty_cache()
 
     # -- MoE FFN -------------------------------------------------------------
     def moe_weights(e, d, f, dt):
-        return ((rn(e, d, f) * d ** -0.5).to(dt),
-                (rn(e, d, f) * d ** -0.5).to(dt),
-                (rn(e, f, d) * f ** -0.5).to(dt))
+        """Drawn an expert at a time: no f32 copy of a whole stack (21.5
+        GB at Llama-4's) is made."""
+        def stack(rows, cols):
+            w = torch.empty((e, rows, cols), dtype=dt, device=dev)
+            for i in range(e):
+                w[i] = (rn(rows, cols) * rows ** -0.5).to(dt)
+            return w
+        return stack(d, f), stack(d, f), stack(f, d)
 
     def moe_case(label, e, c, d, f, dt, activation="swiglu", weights=None):
         dname = str(dt).split(".")[1]
@@ -597,6 +691,24 @@ def kernel_cases(bench) -> dict:
         moe_case(f"edge c{c} d4096 f14336", 8, c, 4096, 14336,
                  torch.bfloat16, weights=mix_w)
     del mix_w
+    torch.cuda.empty_cache()
+    # 3i's MoE families at verify (B 4 x m 5 = C 20, dropless: every
+    # expert's buffer is C rows, so the call reads every expert's weights)
+    # and at the prefill of a 512-token prompt (capacity int(512 * top_k *
+    # 2 / E) + 1, models/moe.py): Phi-3.5-MoE (E 16, F 6400, top-2) and
+    # Llama-4 Maverick (E 128, D 5120, F 8192, top-1: 32.2 GB of weights)
+    from repro_torch.configs import LLAMA4_MAVERICK, PHI35_MOE
+    for cfgm in (PHI35_MOE, LLAMA4_MAVERICK):
+        e, d, f = cfgm.n_experts, cfgm.d_model, cfgm.d_ff
+        c_pre = int(512 * cfgm.top_k * cfgm.capacity_factor / e) + 1
+        w = moe_weights(e, d, f, torch.bfloat16)
+        for c, tag in ((20, "verify"), (c_pre, "prefill")):
+            moe_case(f"{cfgm.name.split('-')[0]} e{e} d{d} f{f} {tag} c{c} "
+                     "(3i)", e, c, d, f, torch.bfloat16, weights=w)
+        del w
+        torch.cuda.empty_cache()
+    moe_case("phi3.5 e16 d4096 f6400 verify c10 f32 (4j)", 16, 10, 4096,
+             6400, torch.float32)
     torch.cuda.empty_cache()
 
     # -- contiguous decode attention ----------------------------------------
@@ -705,6 +817,22 @@ def kernel_cases(bench) -> dict:
                         128, main_lens, dt, anc=tree_bits(br))
             decode_case(f"tree {br} m{m} boundary in last m", 4, 32, 8, m,
                         640, 128, bnd, dt, anc=tree_bits(br))
+    # Gemma-3-12B's global layers on the contiguous path (4j paged=False)
+    for tag, lens in gemma_lens.items():
+        for dt in (torch.float32, torch.bfloat16):
+            decode_case(f"gemma3 d240 verify b4 m5 s1360 {tag} tokens", 4, 16,
+                        8, 5, 1360, 240, lens, dt, model_layout=True)
+    decode_case("gemma3 d240 m1 (greedy decode)", 4, 16, 8, 1, 1360, 240,
+                gemma_lens["~1300"], torch.float32)
+    decode_case("gemma3 d240 tree (3, 2) m10 boundary in last m", 4, 16, 8,
+                10, 640, 240, TREE_CASES[0][2], torch.bfloat16,
+                anc=tree_bits((3, 2)))
+    # 160 rows (Llama-3-405B under tree (3, 2)): two row groups
+    decode_case("llama3-405b tree (3, 2) m10 (160 rows)", 4, 128, 8, 10,
+                640, 128, main_lens, torch.bfloat16, anc=tree_bits((3, 2)),
+                repeat=True)
+    decode_case("whisper d64 m1 g1 (3j decode)", 4, 8, 8, 1, 448, 64,
+                [5, 20, 36, 36], torch.bfloat16)
     torch.cuda.empty_cache()
 
     # -- RG-LRU scan ----------------------------------------------------------
@@ -858,8 +986,10 @@ def _free() -> None:
 
 
 def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
-              must_not_launch=(), spec_tree=None) -> dict:
-    """Serve ``n_requests`` Poisson requests (prompt 512, gen 32-64) with
+              must_not_launch=(), spec_tree=None, prompt_lens=(512,),
+              gen=(32, 64)) -> dict:
+    """Serve ``n_requests`` Poisson requests (prompts of ``prompt_lens``
+    tokens in turn, gen drawn from the ``gen`` range, ends included) with
     ``max_batch=4``, ``n_cand=4`` (or tree speculation of ``spec_tree``);
     every kernel's launches are counted from 0 over the run.  Returns
     {kernel: launches}."""
@@ -870,13 +1000,15 @@ def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
     from repro_torch.serving.trace import poisson_requests
 
     t_run = time.perf_counter()
+    _free()           # an earlier run's engine left in a reference cycle
     eng = _engine(tcfg, dcfg, SchedulerConfig(max_batch=4, n_cand=4,
                                               paged=paged,
                                               spec_tree=spec_tree), seed=0)
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, tcfg.vocab_size, 512).astype(np.int32)
-               for _ in range(n_requests)]
-    gens = rng.integers(32, 65, n_requests).tolist()
+    prompts = [rng.integers(0, tcfg.vocab_size,
+                            prompt_lens[i % len(prompt_lens)]).astype(np.int32)
+               for i in range(n_requests)]
+    gens = rng.integers(gen[0], gen[1] + 1, n_requests).tolist()
     reqs = poisson_requests(prompts, gens, rate_rps=4.0, seed=0)
     for r in reqs:
         assert eng.submit(r), f"request {r.rid} rejected"
@@ -1173,7 +1305,8 @@ def offload_run(label, rates) -> dict:
 
 
 def serve_phase(rates) -> dict:
-    """Runs 3f, 3f-eq, then 3a-3e; returns {run label: launches}."""
+    """Runs 3f, 3f-eq, 3a-3e, 3g, 3g-tr, then the families' 3h-3j;
+    returns {run label: launches}."""
     from repro_torch.configs import (MIXTRAL_8X7B, RECURRENTGEMMA_2B,
                                      RWKV6_7B, SWA, draft_for)
 
@@ -1216,7 +1349,150 @@ def serve_phase(rates) -> dict:
                            spec_tree=TREE)
     async_run("3g")
     traced_run("3g-tr")
+    runs["3h"] = gemma_run("3h")
+    family_runs()
+    whisper_run("3j")
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the other model families
+
+
+def gemma_run(label) -> dict:
+    """Gemma-3-12B at full width and depth (48 layers: 40 sliding-window
+    layers of window 1024 and 8 global ones, 16 / 8 heads of 240, F
+    15360, vocabulary 262144), bf16, weights from a seed, beside a
+    2-layer Mistral-7B-width draft: 8 Poisson requests, prompts of 512
+    and 1280 in turn (the window binds, and the rings wrap in prefill and
+    in verify), paged chain.  Every flash launch of the target and every
+    paged verify launch is at head dim 240."""
+    from repro_torch.configs import ATTN, GEMMA3_12B, draft_for
+    tcfg, dcfg = GEMMA3_12B, draft_for(GEMMA3_12B, 2)
+    n = 8
+    launches = serve_run(label, tcfg, dcfg, True, n,
+                         ("paged_decode_attention", "flash_attention"),
+                         ("moe_ffn", "decode_attention"),
+                         prompt_lens=(512, 1280))
+    rounds = RUN_STATS[label]["rounds"]
+    n_attn = sum(tcfg.layer_kind(l) == ATTN for l in range(tcfg.n_layers))
+    # one flash launch per attention layer per prefill: the target's 48
+    # at head dim 240, the draft's 2 at 128
+    assert launches["flash_attention"] == (tcfg.n_layers + dcfg.n_layers) * n
+    # every verify round: one launch per global layer (the draft has none)
+    paged = launches["paged_decode_attention"]
+    assert paged == n_attn * rounds, (paged, rounds)
+    print(f"  [{label}] head dim 240: flash {tcfg.n_layers * n} launches "
+          f"(target prefill; {dcfg.n_layers * n} more for the draft at 128), "
+          f"paged_decode_attention {paged} launches = {n_attn} global "
+          f"layers x {rounds} verify rounds", flush=True)
+    return launches
+
+
+# 3i: each other decoder-only family at its published widths, its depth
+# cut to 2 layers (Llama-4 Maverick: one (dense, MoE) group)
+FAMILIES = ("chameleon-34b", "phi3-medium-14b", "starcoder2-7b",
+            "llama3-405b", "phi3.5-moe-42b-a6.6b",
+            "llama4-maverick-400b-a17b")
+
+
+def family_runs() -> None:
+    from repro_torch.configs import draft_for, get_config
+    for name in FAMILIES:
+        full = get_config(name)
+        tcfg = dataclasses.replace(full, n_layers=2)
+        print(f"  [3i] {name}: D {tcfg.d_model}, {tcfg.n_heads} / "
+              f"{tcfg.n_kv_heads} heads of {tcfg.head_dim}, F {tcfg.d_ff}, "
+              f"vocabulary {tcfg.vocab_size}"
+              + (f", {tcfg.n_experts} experts top-{tcfg.top_k}"
+                 if tcfg.is_moe else "")
+              + f"; depth cut to 2 of {full.n_layers} layers "
+              f"({tcfg.param_count() / 1e9:.2f} G parameters)", flush=True)
+        moe = ("moe_ffn",) if tcfg.is_moe else ()
+        serve_run(f"3i-{name}", tcfg, draft_for(tcfg, 2), True, 4,
+                  ("paged_decode_attention", "flash_attention") + moe,
+                  () if moe else ("moe_ffn",), gen=(32, 32))
+
+
+WHISPER_B, WHISPER_PROMPT, WHISPER_STEPS = 4, 4, 32
+WHISPER_MAX_LEN = 448                 # the decoder's design maximum
+
+
+def whisper_run(label) -> None:
+    """Whisper-base at full width and depth (6 + 6 layers, d 512,
+    encoder_len 1500), bf16, weights from a seed: ``WHISPER_B`` stub
+    frame embeddings, the encoder alone (timed), a prefill of
+    ``WHISPER_PROMPT`` tokens with the frames, then ``WHISPER_STEPS``
+    greedy ``decode_step``s reading the cross K/V from the cache."""
+    import torch
+
+    from repro_torch.configs import WHISPER_BASE
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.models.encdec import apply_encoder
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.params import init_params
+
+    t_run = time.perf_counter()
+    cfg = WHISPER_BASE
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, g, "cuda")
+    frames = torch.randn((WHISPER_B, cfg.encoder_len, cfg.d_model),
+                         generator=g, device="cuda").to(cfg.torch_dtype)
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (WHISPER_B, WHISPER_PROMPT)),
+                             device="cuda")
+    apply_encoder(params["encoder"], cfg, frames)          # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    enc = apply_encoder(params["encoder"], cfg, frames)
+    torch.cuda.synchronize()
+    enc_wall = time.perf_counter() - t0
+    n_enc = launch_counts()["flash_attention"]
+    assert n_enc == cfg.n_encoder_layers, n_enc
+    assert enc.shape == frames.shape and bool(torch.isfinite(enc).all())
+    cache = init_cache(cfg, WHISPER_B, WHISPER_MAX_LEN, "cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    lg, cache = M.prefill(params, cfg, prompt, cache, encoder_frames=frames)
+    torch.cuda.synchronize()
+    pre_wall = time.perf_counter() - t0
+    pre = launch_counts()
+    # encoder, decoder self attention and cross attention: one each a layer
+    assert pre["flash_attention"] == cfg.n_encoder_layers + 2 * cfg.n_layers
+    assert all(bool(c["ck"].abs().sum() > 0) for c in cache["layers"])
+    reset_launches()
+    toks = []
+    t0 = time.perf_counter()
+    for _ in range(WHISPER_STEPS):
+        tok = torch.argmax(lg, -1)
+        toks.append(tok)
+        lg, cache = M.decode_step(params, cfg, cache, tok[:, None])
+    torch.cuda.synchronize()
+    step_wall = (time.perf_counter() - t0) / WHISPER_STEPS
+    dec = launch_counts()
+    assert dec["flash_attention"] == cfg.n_layers * WHISPER_STEPS   # cross
+    assert dec["decode_attention"] == cfg.n_layers * WHISPER_STEPS  # self
+    assert bool(torch.isfinite(lg).all())
+    assert cache["pos"].tolist() == [WHISPER_PROMPT + WHISPER_STEPS] * \
+        WHISPER_B
+    toks = torch.stack(toks, 1)
+    assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    print(f"  [{label}] {cfg.name} {cfg.n_encoder_layers} + {cfg.n_layers} "
+          f"layers {cfg.dtype}, B {WHISPER_B} x {cfg.encoder_len} frames: "
+          f"encoder {enc_wall:.4f}s wall ({n_enc} flash launches, "
+          f"bidirectional, T {cfg.encoder_len} d {cfg.head_dim}); prefill of "
+          f"{WHISPER_PROMPT} tokens {pre_wall:.4f}s ({pre['flash_attention']} "
+          f"flash launches); {WHISPER_STEPS} decode steps "
+          f"{1e3 * step_wall:.3f} ms a step (flash {dec['flash_attention']} "
+          f"cross-attention launches, decode_attention "
+          f"{dec['decode_attention']}); tokens of row 0 "
+          f"{toks[0, :8].tolist()}...; run wall "
+          f"{time.perf_counter() - t_run:.1f}s", flush=True)
+    del params, cache, frames, enc
+    _free()
 
 
 def _check_obs_exports(label, eng) -> None:
@@ -1475,7 +1751,7 @@ def traced_run(label, steady=5) -> None:
     eng.run()
     print(f"  [{label}] run wall {time.perf_counter() - t_run:.1f}s",
           flush=True)
-    del eng, done
+    del eng, engines, done
     _free()
 
 
@@ -1528,8 +1804,9 @@ def _noisy_copy(params, scale: float, gen):
 
 
 def lossless_run(label, tcfg, dcfg, paged, must_launch, spec_tree=None,
-                 serve_must_launch=()) -> None:
-    """Serve 6 requests with mid-flight admission and hold every stream
+                 serve_must_launch=(), prompt_range=(40, 130)) -> None:
+    """Serve 6 requests (prompt lengths drawn from ``prompt_range``, its
+    end excluded) with mid-flight admission and hold every stream
     against the greedy decode.  With ``spec_tree`` the draft is the
     target's configuration with its weights plus ``DRAFT_NOISE``, and
     the rounds must accept part of the path as well as all of it."""
@@ -1552,7 +1829,7 @@ def lossless_run(label, tcfg, dcfg, paged, must_launch, spec_tree=None,
         eng.load(tp, _noisy_copy(tp, DRAFT_NOISE, g))
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, tcfg.vocab_size, int(n)).astype(np.int32)
-               for n in rng.integers(40, 130, 6)]
+               for n in rng.integers(*prompt_range, 6)]
     gens = rng.integers(16, 33, 6).tolist()
     reqs = poisson_requests(prompts, gens, rate_rps=20.0, seed=1)
     for r in reqs:
@@ -1756,9 +2033,113 @@ def lossless_phase() -> None:
                          mix, draft, paged, ("flash_attention", "moe_ffn"),
                          serve_must_launch=(kernel, verify,
                                             "flash_attention", "moe_ffn"))
+    family_lossless()
+
+
+def family_lossless() -> None:
+    """4j: Gemma-3-12B's widths cut to one group (6 layers: 5 SWA + 1
+    global, head dim 240) with prompts of 1280, paged and contiguous;
+    StarCoder2-7B and Phi-3.5-MoE widths at 2 layers; then Whisper-base's
+    incremental decode against recomputing a prefill at every step."""
+    from repro_torch.configs import (GEMMA3_12B, PHI35_MOE, STARCODER2_7B,
+                                     draft_for)
+    f32 = lambda c, n: dataclasses.replace(c, n_layers=n, dtype="float32")
+    gemma = f32(GEMMA3_12B, 6)
+    for paged, verify in ((True, "paged_decode_attention"),
+                          (False, "decode_attention")):
+        lossless_run(f"4j-gemma3-{'paged' if paged else 'contiguous'}",
+                     gemma, draft_for(gemma, 2), paged,
+                     ("flash_attention", "decode_attention"),
+                     serve_must_launch=(verify, "flash_attention"),
+                     prompt_range=(1280, 1281))
+    sc = f32(STARCODER2_7B, 2)
+    lossless_run("4j-starcoder2", sc, draft_for(sc, 2), True,
+                 ("flash_attention", "decode_attention"),
+                 serve_must_launch=("paged_decode_attention",))
+    phi = f32(PHI35_MOE, 2)
+    lossless_run("4j-phi3.5-moe", phi, draft_for(phi, 2), True,
+                 ("flash_attention", "decode_attention", "moe_ffn"),
+                 serve_must_launch=("paged_decode_attention", "moe_ffn"))
+    whisper_lossless("4j-whisper")
+
+
+def whisper_lossless(label, steps: int = 8) -> None:
+    """Whisper-base in f32: the greedy stream of ``decode_step`` (cross
+    K/V read from the cache, self attention through ``decode_attention``)
+    equals the stream from recomputing a whole prefill (encoder
+    included) over prompt + the tokens so far at every step."""
+    import torch
+
+    from repro_torch.configs import WHISPER_BASE
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.params import init_params
+
+    t_run = time.perf_counter()
+    cfg = dataclasses.replace(WHISPER_BASE, dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    params = init_params(cfg, g, "cuda")
+    b = 2
+    frames = torch.randn((b, cfg.encoder_len, cfg.d_model), generator=g,
+                         device="cuda")
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (b, WHISPER_PROMPT)), device="cuda")
+    cache = init_cache(cfg, b, WHISPER_MAX_LEN, "cuda")
+    lg, cache = M.prefill(params, cfg, prompt, cache, encoder_frames=frames)
+    seq, gaps = prompt, []
+    for step in range(steps):
+        tok = torch.argmax(lg, -1)
+        fresh = init_cache(cfg, b, WHISPER_MAX_LEN, "cuda")
+        lg_full, _ = M.prefill(params, cfg, seq, fresh,
+                               encoder_frames=frames)
+        top2 = torch.topk(lg_full, 2, -1).values
+        gaps.append(float((top2[:, 0] - top2[:, 1]).min()))
+        assert torch.equal(tok, torch.argmax(lg_full, -1)), (
+            f"[{label}] step {step}: decode_step token {tok.tolist()} != "
+            f"recomputed prefill {torch.argmax(lg_full, -1).tolist()} "
+            f"(top-2 gap {gaps[-1]:.3e})")
+        seq = torch.cat([seq, tok[:, None]], 1)
+        lg, cache = M.decode_step(params, cfg, cache, tok[:, None])
+    print(f"  [{label}] {cfg.name} f32, B {b}: {steps} greedy decode_step "
+          f"tokens == recomputed prefill at every step "
+          f"({seq[:, WHISPER_PROMPT:].tolist()}, min top-2 gap "
+          f"{min(gaps):.3e}); run wall {time.perf_counter() - t_run:.1f}s",
+          flush=True)
+    del params, cache, frames
+    _free()
 
 
 # ---------------------------------------------------------------------------
+
+
+def ptxas_report(_build) -> None:
+    """What ``-Xptxas -v`` said of the tensor-core, verify and recurrence
+    kernels, and of every head dim 240 instantiation apart (beside the d
+    256 verify tile with the most n-tiles)."""
+    d240 = []
+    for src, kern in (("moe_ffn", "moe_wgmma_kernel"),
+                      ("flash_attention", "flash_fwd_wgmma_kernel"),
+                      ("flash_attention", "flash_fwd_kernel"),
+                      ("paged_decode_attention", "paged_decode_mma_kernel"),
+                      ("paged_decode_attention", "paged_decode_kernel"),
+                      ("decode_attention", "decode_mma_kernel"),
+                      ("decode_attention", "decode_kernel"),
+                      ("wkv6", "wkv6_kernel"),
+                      ("wkv6", "wkv6_chunked_kernel"),
+                      ("rglru_scan", "rglru_serial_kernel"),
+                      ("rglru_scan", "rglru_parallel_kernel")):
+        usage = _build.ptxas_usage(src, kern)
+        print(f"  ptxas -v {kern} (<template args>: registers, static smem "
+              "B, spill stores/loads B): " + "; ".join(
+                  f"<{a}>: {r}, {sm}, {ss}/{sl}"
+                  for a, r, sm, ss, sl in usage))
+        d240 += [f"{kern}<{a}> {r} regs, spills {ss}/{sl} B"
+                 for a, r, sm, ss, sl in usage if "240" in a.split(",")]
+        if kern == "decode_mma_kernel":
+            d240 += [f"(beside {kern}<{a}> {r} regs, spills {ss}/{sl} B)"
+                     for a, r, sm, ss, sl in usage if a == "256,10"]
+    assert any("flash_fwd_wgmma_kernel<240>" in x for x in d240), d240
+    print("  head dim 240 instantiations: " + "; ".join(d240), flush=True)
 
 
 def main() -> int:
@@ -1784,19 +2165,7 @@ def main() -> int:
           f"(nvcc seconds per source: "
           + ", ".join(f"{k}={v:.2f}" for k, v in per_source.items()) + ")",
           flush=True)
-    for src, kern in (("moe_ffn", "moe_wgmma_kernel"),
-                      ("flash_attention", "flash_fwd_wgmma_kernel"),
-                      ("paged_decode_attention", "paged_decode_mma_kernel"),
-                      ("paged_decode_attention", "paged_decode_kernel"),
-                      ("decode_attention", "decode_mma_kernel"),
-                      ("wkv6", "wkv6_kernel"),
-                      ("wkv6", "wkv6_chunked_kernel"),
-                      ("rglru_scan", "rglru_serial_kernel"),
-                      ("rglru_scan", "rglru_parallel_kernel")):
-        print(f"  ptxas -v {kern} (<template args>: registers, static smem "
-              "B, spill stores/loads B): " + "; ".join(
-                  f"<{a}>: {r}, {sm}, {ss}/{sl}"
-                  for a, r, sm, ss, sl in _build.ptxas_usage(src, kern)))
+    ptxas_report(_build)
     rates = host_phase(torch)
 
     phases = {}

@@ -1,14 +1,15 @@
 """Model configuration for the PyTorch port.
 
-A copy of the JAX package's ``repro.configs.base`` (the port imports
-nothing of that package): the frozen :class:`ModelConfig`, the layer
-kinds, the parameter counts the planner, placement and simulator read,
-and the configurations the serving paths run — the Mixtral 8x7B
-target and the Mistral 7B draft, and the RecurrentGemma-2B and RWKV-6
-7B targets of the contiguous path — plus Mixtral 8x22B, which the
-simulator's paper figures use.  ``reduced()`` gives the same
-smoke-size variants, so a test can build one config for both packages
-from the same fields.
+A copy of the JAX package's ``repro.configs`` (the port imports nothing
+of that package): the frozen :class:`ModelConfig`, the layer kinds, the
+parameter counts the planner, placement and simulator read, and every
+configuration the JAX package registers -- the ten assigned
+architectures (``ARCHS``, the ``--arch`` ids) and the SpecOffload
+paper's own models (``PAPER_MODELS``: the Mixtral 8x7B / 8x22B targets
+and the Mistral 7B draft) -- field for field, with their ``source``
+strings and the JAX configs' departures from the model cards (listed
+beside each).  ``reduced()`` gives the same smoke-size variants, so a
+test can build one config for both packages from the same fields.
 """
 from __future__ import annotations
 
@@ -282,15 +283,126 @@ RWKV6_7B = ModelConfig(
     source="arXiv:2404.05892",
 )
 
-CONFIGS = {c.name: c for c in (MIXTRAL_8X7B, MIXTRAL_8X22B, MISTRAL_7B,
-                               RECURRENTGEMMA_2B, RWKV6_7B)}
+# The rest of the assigned pool, as the JAX package configures each
+# (``src/repro/configs/<name>.py``).  Where that departs from the model
+# card, the port copies it and says so beside the config.
+
+CHAMELEON_34B = ModelConfig(
+    name="chameleon-34b", arch_type="vlm",
+    n_layers=48, d_model=8192, n_heads=64, n_kv_heads=8,
+    d_ff=22016, vocab_size=65536,
+    layer_pattern=(ATTN,), rope_theta=10_000.0,
+    supports_long_context=False,
+    source="arXiv:2405.09818",
+)
+# Images arrive as VQ tokens of the same vocabulary (the tokenizer is the
+# stubbed frontend).  No QK-norm: the model uses one, the JAX config keeps
+# the plain pre-norm GQA block.
+
+GEMMA3_12B = ModelConfig(
+    name="gemma3-12b", arch_type="dense",
+    n_layers=48, d_model=3840, n_heads=16, n_kv_heads=8,
+    d_ff=15360, vocab_size=262144,
+    layer_pattern=(SWA, SWA, SWA, SWA, SWA, ATTN), sliding_window=1024,
+    rope_theta=1_000_000.0,
+    supports_long_context=True,
+    source="hf:google/gemma-3-1b-pt",
+)
+# Head dim 3840 // 16 = 240 where the model card has 256, and no QK-norm:
+# both as in the JAX config.
+
+LLAMA3_405B = ModelConfig(
+    name="llama3-405b", arch_type="dense",
+    n_layers=126, d_model=16384, n_heads=128, n_kv_heads=8,
+    d_ff=53248, vocab_size=128256,
+    layer_pattern=(ATTN,), rope_theta=500_000.0,
+    optimizer="adafactor", offload_carries=True,
+    source="arXiv:2407.21783",
+)
+
+LLAMA4_MAVERICK = ModelConfig(
+    name="llama4-maverick-400b-a17b", arch_type="moe",
+    n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8,
+    d_ff=8192, vocab_size=202048,
+    n_experts=128, top_k=1,
+    layer_pattern=(ATTN, ATTN), moe_pattern=(False, True),
+    rope_theta=500_000.0,
+    optimizer="adafactor", offload_carries=True,
+    source="hf:meta-llama/Llama-4-Scout-17B-16E",
+)
+# MoE layers interleave 1:1 with dense ones (24 + 24 of 48), 128 experts
+# top-1; image patches arrive as tokens (frontend stubbed).
+
+PHI35_MOE = ModelConfig(
+    name="phi3.5-moe-42b-a6.6b", arch_type="moe",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=6400, vocab_size=32064,
+    n_experts=16, top_k=2,
+    layer_pattern=(ATTN,), rope_theta=10_000.0,
+    source="hf:microsoft/Phi-3.5-MoE-instruct",
+)
+
+PHI3_MEDIUM = ModelConfig(
+    name="phi3-medium-14b", arch_type="dense",
+    n_layers=40, d_model=5120, n_heads=40, n_kv_heads=10,
+    d_ff=17920, vocab_size=100352,
+    layer_pattern=(ATTN,), rope_theta=10_000.0,
+    source="arXiv:2404.14219",
+)
+
+STARCODER2_7B = ModelConfig(
+    name="starcoder2-7b", arch_type="dense",
+    n_layers=32, d_model=4608, n_heads=36, n_kv_heads=4,
+    d_ff=18432, vocab_size=49152,
+    layer_pattern=(ATTN,), rope_theta=1_000_000.0,
+    activation="gelu", norm="layernorm",
+    source="arXiv:2402.19173",
+)
+# Global attention where the released model has a 4096-token window, as
+# in the JAX config; LayerNorm and a GELU MLP as in the model card.
+
+WHISPER_BASE = ModelConfig(
+    name="whisper-base", arch_type="audio",
+    n_layers=6, d_model=512, n_heads=8, n_kv_heads=8,
+    d_ff=2048, vocab_size=51865,
+    layer_pattern=(ATTN,),
+    use_rope=False, norm="layernorm", activation="gelu",
+    tie_embeddings=True,
+    encoder_decoder=True, n_encoder_layers=6, encoder_len=1500,
+    supports_long_context=False,
+    source="arXiv:2212.04356",
+)
+# The encoder takes precomputed (B, 1500, 512) frame embeddings (the
+# mel + conv frontend is stubbed) plus sinusoids.  The decoder gets no
+# position signal at all: no RoPE and nothing added in its place, as in
+# the JAX package.
+
+# The assigned pool (``--arch`` ids) and the paper's own models.
+ARCHS = {
+    "chameleon-34b": CHAMELEON_34B,
+    "phi3.5-moe-42b-a6.6b": PHI35_MOE,
+    "phi3-medium-14b": PHI3_MEDIUM,
+    "recurrentgemma-2b": RECURRENTGEMMA_2B,
+    "llama3-405b": LLAMA3_405B,
+    "whisper-base": WHISPER_BASE,
+    "llama4-maverick-400b-a17b": LLAMA4_MAVERICK,
+    "gemma3-12b": GEMMA3_12B,
+    "rwkv6-7b": RWKV6_7B,
+    "starcoder2-7b": STARCODER2_7B,
+}
+PAPER_MODELS = {
+    "mixtral-8x7b": MIXTRAL_8X7B,
+    "mixtral-8x22b": MIXTRAL_8X22B,
+    "mistral-7b": MISTRAL_7B,
+}
+ALL_CONFIGS = {**ARCHS, **PAPER_MODELS}
 
 
 def get_config(name: str) -> ModelConfig:
-    if name not in CONFIGS:
-        raise KeyError(f"unknown arch {name!r}; the port has "
-                       f"{sorted(CONFIGS)}")
-    return CONFIGS[name]
+    try:
+        return ALL_CONFIGS[name]
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ALL_CONFIGS)}")
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -67,6 +67,8 @@ def tree_leaves(tree) -> list:
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
     return fn(tree)
 
 
@@ -212,7 +214,8 @@ class OffloadedModel:
     """A model whose layers stream from host memory per pass.
 
     ``layers_host`` holds the layers at rest (host tensors);
-    ``params_resident`` the embedding and final norm on the device.
+    ``params_resident`` the embedding, the final norm and an
+    encoder-decoder config's encoder on the device.
     Build it from a params dict (``init_params`` or ``from_jax`` weights)
     or, for a target larger than the card, with :meth:`from_seed`, which
     draws each layer on the device and parks it before drawing the next.
@@ -329,9 +332,13 @@ class OffloadedModel:
         p["layers"] = layers
         return p
 
-    def prefill(self, tokens, cache):
+    def prefill(self, tokens, cache, encoder_frames=None):
+        """As ``M.prefill``; an encoder-decoder config's encoder (resident)
+        runs over ``encoder_frames`` (the JAX package's ``prefill`` takes
+        the frames and drops them)."""
         layers = self.stream_layers()
-        out = M.prefill(self._assemble(layers), self.cfg, tokens, cache)
+        out = M.prefill(self._assemble(layers), self.cfg, tokens, cache,
+                        encoder_frames=encoder_frames)
         layers.finish()
         return out
 

@@ -68,10 +68,18 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // partial (acc, m, l) per query row.  A CTA whose chunk is empty reads no
 // KV and leaves the partial (m = -1e30, l = 0).
 //
+// Row groups: one CTA holds at most group_rows query rows (the wrapper's
+// kernels/decode_attention.py::row_groups: the smem and n-tile capacity of
+// the bodies below, max_rows there).  Where g*m is larger -- Llama-3-405B's
+// 16 query heads a KV head under a 10-node tree, 160 rows -- the rows are
+// dealt out to n_groups CTAs, the grid's y axis being (head, group), and
+// every group reads the same KV tiles (the second read mostly hits L2).
+// Each group is a merge unit of its own.
+//
 // Merge: in one launch.  Every CTA writes its partial to the wrapper's
-// f32 workspace and takes a ticket from an int32 counter per (b, h); the
-// CTA that draws the last ticket merges the n_split partials of that
-// (b, h) in split order 0, 1, ... (so the result has the same bits
+// f32 workspace and takes a ticket from an int32 counter per (b, h, row
+// group); the CTA that draws the last ticket merges the n_split partials
+// of that unit in split order 0, 1, ... (so the result has the same bits
 // whichever CTA finishes last; no float atomics), writes the output and
 // sets the counter back to 0 for the next call.  A partial with l = 0 is
 // empty and skipped.  A split can hold no visible key for some row (its
@@ -128,10 +136,49 @@ struct DecodeArgs {
   const int* anc;
   float* part_acc;        // (B, Hkv, n_split, g*m, d), n_split > 1 only
   float2* part_ml;        // (B, Hkv, n_split, g*m): (m, l)
-  int* counters;          // (B * Hkv), zero between calls
+  int* counters;          // (B * Hkv * n_groups), zero between calls
   int n_q_heads, n_kv_heads, m, n_split, window;
+  // row groups: the g*m query rows of a KV head are dealt out to n_groups
+  // CTAs of at most group_rows rows each (group rg holds rows [rg *
+  // group_rows, min((rg + 1) * group_rows, g*m)))
+  int n_groups, group_rows;
   float scale;
 };
+
+// The most query rows one CTA holds at head dim d (the wrapper's
+// max_rows): 16 n-tiles of the mma body below (10 at d > 128), and what
+// the CUDA-core body's shared memory (decode_smem_floats) fits in 227 KB.
+__host__ __device__ constexpr int max_group_rows(int d) {
+  return (d > 128 ? 80 : 128)
+                 < (232448 / 4 - kDecodeTile * (2 * d + 1))
+                       / (2 * d + kDecodeTile + 3)
+             ? (d > 128 ? 80 : 128)
+             : (232448 / 4 - kDecodeTile * (2 * d + 1))
+                   / (2 * d + kDecodeTile + 3);
+}
+
+// Whether n_groups groups of group_rows rows cover the g*m rows, each
+// group non-empty and within one CTA's capacity.
+inline bool row_groups_valid(int hq, int hkv, int m, int d, int n_groups,
+                             int group_rows) {
+  const int total = (hq / hkv) * m;
+  return n_groups >= 1 && group_rows >= 1 && group_rows <= max_group_rows(d)
+         && n_groups * group_rows >= total
+         && (n_groups - 1) * group_rows < total;
+}
+
+// The rows [r0, r0 + rows) of the g*m query rows that row group rg holds.
+struct RowGroup {
+  int r0, rows;
+};
+
+__device__ __forceinline__ RowGroup row_group(const DecodeArgs& a, int rg) {
+  const int total = (a.n_q_heads / a.n_kv_heads) * a.m;
+  RowGroup g;
+  g.r0 = rg * a.group_rows;
+  g.rows = min(a.group_rows, total - g.r0);
+  return g;
+}
 
 // The keys [k_begin, k_end) of split `split`: the nt whole kKeyTile
 // tiles that hold [first, kv_end) dealt out in order, split s taking
@@ -197,16 +244,20 @@ template <typename QT, int D>
 __device__ __forceinline__ void split_epilogue(const DecodeArgs& a,
                                                float* acc, float* m_s,
                                                float* l_s, float* scratch,
-                                               int b, int h, int split,
-                                               bool empty, int nthreads) {
+                                               int b, int h, RowGroup grp,
+                                               int split, bool empty,
+                                               int nthreads) {
   __shared__ int last;
   constexpr int kV = D / 4;                 // float4 units of a row
+  static_assert(D % 4 == 0, "float4 rows");
   const int tid = threadIdx.x;
-  const int rows = (a.n_q_heads / a.n_kv_heads) * a.m;
+  const int rows = grp.rows;
   QT* out = static_cast<QT*>(a.out);
   if (a.n_split > 1) {
-    const size_t bh = static_cast<size_t>(b) * a.n_kv_heads + h;
-    const size_t base = (bh * a.n_split + split) * rows;
+    // the merge unit (b, h, row group); its partials group_rows apart
+    const size_t bh = (static_cast<size_t>(b) * a.n_kv_heads + h)
+                      * a.n_groups + grp.r0 / a.group_rows;
+    const size_t base = (bh * a.n_split + split) * a.group_rows;
     for (int r = tid; r < rows; r += nthreads)
       a.part_ml[base + r] = make_float2(m_s[r], l_s[r]);
     if (!empty) {
@@ -223,7 +274,7 @@ __device__ __forceinline__ void split_epilogue(const DecodeArgs& a,
 
     float2* ml = reinterpret_cast<float2*>(scratch);   // chunk x rows
     float* resc = scratch + 2 * kMergeChunk * rows;    // rows
-    const size_t first = bh * a.n_split * rows;
+    const size_t first = bh * a.n_split * a.group_rows;
     for (int i = tid; i < rows * kV; i += nthreads)
       reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int r = tid; r < rows; r += nthreads) {
@@ -234,7 +285,8 @@ __device__ __forceinline__ void split_epilogue(const DecodeArgs& a,
       const int ns = min(kMergeChunk, a.n_split - s0);
       __syncthreads();                     // the last pass is done
       for (int i = tid; i < ns * rows; i += nthreads)
-        ml[i] = __ldcg(a.part_ml + first + s0 * rows + i);
+        ml[i] = __ldcg(a.part_ml + first + (s0 + i / rows) * a.group_rows
+                       + i % rows);
       __syncthreads();
       // per row: the new running max, the old sum's factor, and each
       // split's weight (0 for an empty split, whose acc was not written)
@@ -265,7 +317,8 @@ __device__ __forceinline__ void split_epilogue(const DecodeArgs& a,
         for (int s = 0; s < kMergeChunk; ++s)
           if (s < ns && ml[s * rows + r].x != 0.f)
             v[s] = __ldcg(reinterpret_cast<const float4*>(
-                              a.part_acc + (first + (s0 + s) * rows) * D)
+                              a.part_acc
+                              + (first + (s0 + s) * a.group_rows) * D)
                           + i);
 #pragma unroll
         for (int s = 0; s < kMergeChunk; ++s) {
@@ -283,7 +336,7 @@ __device__ __forceinline__ void split_epilogue(const DecodeArgs& a,
   }
   for (int i = tid; i < rows * D; i += nthreads) {
     const int r = i / D, c = i % D;
-    out[q_row_off(a, b, h, r, true) + c] =
+    out[q_row_off(a, b, h, grp.r0 + r, true) + c] =
         from_f<QT>(acc[i] / fmaxf(l_s[r], 1e-30f));
   }
 }
@@ -302,13 +355,14 @@ __host__ __device__ constexpr size_t decode_smem_floats(int rows) {
 template <typename QT, typename KT, int D, typename RowFn>
 __device__ __forceinline__ void decode_core_body(
     const DecodeArgs& a, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, int b, int h, int split, int len,
-    int kv_end, RowFn row_of) {
+    const float* __restrict__ v_scale, int b, int h, int rg, int split,
+    int len, int kv_end, RowFn row_of) {
   static_assert(kDecodeTile == 32, "one KV row per lane in the softmax");
   static_assert(kKeyTile % kDecodeTile == 0, "splits hold whole tiles");
   static_assert(D % 8 == 0, "8-element vector loads");
   constexpr int kThreads = kDecodeThreads, kTile = kDecodeTile;
-  const int m = a.m, rows = (a.n_q_heads / a.n_kv_heads) * m;
+  const RowGroup grp = row_group(a, rg);
+  const int m = a.m, rows = grp.rows, r0 = grp.r0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const QT* q = static_cast<const QT*>(a.q);
   const SplitRange sr = split_range(len, kv_end, m, a.window, a.n_split,
@@ -326,7 +380,7 @@ __device__ __forceinline__ void decode_core_body(
 
   for (int i = tid; i < rows * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    qs[i] = to_f(q[q_row_off(a, b, h, r, false) + c]);
+    qs[i] = to_f(q[q_row_off(a, b, h, r0 + r, false) + c]);
     acc[i] = 0.f;
   }
   for (int r = tid; r < rows; r += kThreads) {
@@ -363,7 +417,7 @@ __device__ __forceinline__ void decode_core_body(
 
     // scores: one (row, key) pair per thread and step
     for (int i = tid; i < rows * kTile; i += kThreads) {
-      const int r = i / kTile, kk = i % kTile, mi = r % m;
+      const int r = i / kTile, kk = i % kTile, mi = (r0 + r) % m;
       const float* qr = qs + r * D;
       const float* kr = ks + kk * (D + 1);
       float s = 0.f;
@@ -412,7 +466,7 @@ __device__ __forceinline__ void decode_core_body(
     __syncthreads();
   }
   __syncthreads();                   // qs is free: the merge's scratch
-  split_epilogue<QT, D>(a, acc, m_run, l_run, qs, b, h, split,
+  split_epilogue<QT, D>(a, acc, m_run, l_run, qs, b, h, grp, split,
                         sr.k_begin >= sr.k_end, kThreads);
 }
 
@@ -467,15 +521,24 @@ __device__ __forceinline__ int swz(int row, int chunk, int cols) {
   return row * cols + ((chunk ^ (row & 7)) << 3);
 }
 
-// NTC: the query n-tiles (8 rows each) the CTA computes, g*m rounded up
-// to 1, 2, 4, 8 or 16 (10 at d 256, whose max_rows is 76): the n-tile
-// loops of the P V product run to NTC with no test, so their products
-// interleave; the padded columns are computed and never written.
+// NTC: the query n-tiles (8 rows each) the CTA computes, its rows
+// rounded up to 1, 2, 4, 8 or 16 (10 at d > 128, whose CTAs hold at most
+// 76 rows at d 256 and 80 at d 240): the n-tile loops of the P V product
+// run to NTC with no test, so their products interleave; the padded
+// columns are computed and never written.
+//
+// kDT: the shared-memory tile's width, the head dim rounded up to 64 (8
+// swizzled 16-byte chunks a row).  At d 240 (Gemma-3) the tile is 256
+// wide and its last 16 columns are zeros written into the ring, never
+// read from device memory: the S product runs d / 16 = 15 k-steps over
+// the real columns, the P V product writes 16 m-tiles and the zero ones
+// are dropped when the accumulators go to shared memory.
 template <int D, int NTC>
 struct MmaCfg {
   static constexpr int kWarps = 8;
   static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kMT = D / 16;                  // head-dim m-tiles
+  static constexpr int kDT = (D + 63) / 64 * 64;
+  static constexpr int kMT = kDT / 16;                // head-dim m-tiles
   // S phase: warp w owns n-tiles w and w + 8
   static constexpr int kNTS = (NTC + kWarps - 1) / kWarps;
   // P V phase: warp w owns m-tiles w % kMTB + 8 u (u < kMTW) and, where
@@ -485,13 +548,13 @@ struct MmaCfg {
   static constexpr int kWPM = kWarps / kMTB;
   static constexpr int kNTO = (NTC + kWPM - 1) / kWPM;
   static constexpr int kRowsP = 8 * kNTO * kWPM;      // P rows held
-  static constexpr int kStageElems = 2 * kKeyTile * D;  // K then V
+  static constexpr int kStageElems = 2 * kKeyTile * kDT;  // K then V
   static constexpr int kSmem = kDecodeStages * kStageElems * 2  // ring
                                + kRowsP * kKeyTile * 2          // P
                                + 3 * kRowsP * 4;                // corr, m, l
   // two CTAs an SM where registers (128 a thread) and shared memory allow
   static constexpr int kMinBlocks = D <= 128 && kNTS * kMTW * kNTO < 8 ? 2 : 1;
-  static_assert(D % 64 == 0, "8 chunks a row for the swizzle");
+  static_assert(D % 16 == 0, "whole k16 steps of the S product");
 };
 
 // The n-tile capacity the dispatch picks for g*m query rows.
@@ -502,12 +565,15 @@ __host__ __device__ constexpr int n_tile_cap(int rows, int d) {
 
 template <int D, int NTC, typename RowFn>
 __device__ __forceinline__ void decode_mma_body(const DecodeArgs& a, int b,
-                                                int h, int split, int len,
-                                                int kv_end, RowFn row_of) {
+                                                int h, int rg, int split,
+                                                int len, int kv_end,
+                                                RowFn row_of) {
   using C = MmaCfg<D, NTC>;
-  constexpr int kW = C::kWarps, kT = C::kThreads, kCh = D / 8;
+  constexpr int kW = C::kWarps, kT = C::kThreads, kDT = C::kDT;
+  constexpr int kCh = kDT / 8, kChR = D / 8;    // chunks: tile, stored row
   constexpr int NTW = C::kNTS;
-  const int m = a.m, rows = (a.n_q_heads / a.n_kv_heads) * m;
+  const RowGroup grp = row_group(a, rg);
+  const int m = a.m, rows = grp.rows, r0 = grp.r0;
   const int n_nt = (rows + 7) / 8;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane >> 2, tq = lane & 3;
@@ -535,7 +601,8 @@ __device__ __forceinline__ void decode_mma_body(const DecodeArgs& a, int b,
   for (int j = 0; j < NTW; ++j) {
     const int nt = warp + j * kW, rq = nt * 8 + gq;
     const bool ok = nt < n_nt && rq < rows;
-    const __nv_bfloat16* qr = q + (ok ? q_row_off(a, b, h, rq, false) : 0);
+    const __nv_bfloat16* qr = q + (ok ? q_row_off(a, b, h, r0 + rq, false)
+                                      : 0);
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
       const int c = ks * 16 + 2 * tq;
@@ -546,7 +613,7 @@ __device__ __forceinline__ void decode_mma_body(const DecodeArgs& a, int b,
     for (int e = 0; e < 2; ++e) {
       m_run[j][e] = REPRO_NEG_INF;
       l_run[j][e] = 0.f;
-      bits[j][e] = has_anc ? a.anc[(nt * 8 + 2 * tq + e) % m] : 0;
+      bits[j][e] = has_anc ? a.anc[(r0 + nt * 8 + 2 * tq + e) % m] : 0;
     }
   }
   float o[C::kMTW][C::kNTO][4];
@@ -557,15 +624,16 @@ __device__ __forceinline__ void decode_mma_body(const DecodeArgs& a, int b,
       o[u][i][0] = o[u][i][1] = o[u][i][2] = o[u][i][3] = 0.f;
 
   // K/V tile t (64 rows from k_begin + 64 t) into ring stage `st`; rows
-  // past k_end are zero (their P is 0, and 0 * garbage could be NaN)
+  // past k_end are zero (their P is 0, and 0 * garbage could be NaN), and
+  // so are the columns past d in a tile rounded up to kDT
   auto load_tile = [&](int t, int st) {
     __nv_bfloat16* kd = ring + st * C::kStageElems;
-    __nv_bfloat16* vd = kd + kKeyTile * D;
+    __nv_bfloat16* vd = kd + kKeyTile * kDT;
     const int k0 = sr.k_begin + t * kKeyTile;
     for (int i = tid; i < kKeyTile * kCh; i += kT) {
       const int r = i / kCh, c = i % kCh, pos = k0 + r;
-      const int off = swz(r, c, D);
-      if (pos < sr.k_end) {
+      const int off = swz(r, c, kDT);
+      if (pos < sr.k_end && c < kChR) {
         const KVRow<__nv_bfloat16> kvr = row_of(pos);
         cp_async16(kd + off, kvr.k + c * 8);
         cp_async16(vd + off, kvr.v + c * 8);
@@ -588,7 +656,7 @@ __device__ __forceinline__ void decode_mma_body(const DecodeArgs& a, int b,
       load_tile(t + kDecodeStages - 1, (t + kDecodeStages - 1) % kDecodeStages);
     cp_async_commit();
     const __nv_bfloat16* kt = ring + (t % kDecodeStages) * C::kStageElems;
-    const __nv_bfloat16* vt = kt + kKeyTile * D;
+    const __nv_bfloat16* vt = kt + kKeyTile * kDT;
     const int k0 = sr.k_begin + t * kKeyTile;
     // every key of the tile visible to every query row
     const bool full =
@@ -610,7 +678,8 @@ __device__ __forceinline__ void decode_mma_body(const DecodeArgs& a, int b,
 #pragma unroll
         for (int mt = 0; mt < 4; ++mt) {
           uint32_t af[4];
-          ldsm_x4(af, kt + swz(mt * 16 + (lane & 15), ks * 2 + (lane >> 4), D));
+          ldsm_x4(af, kt + swz(mt * 16 + (lane & 15), ks * 2 + (lane >> 4),
+                               kDT));
           mma_bf16(s[mt], af, qf[j][ks][0], qf[j][ks][1]);
         }
       }
@@ -623,7 +692,7 @@ __device__ __forceinline__ void decode_mma_body(const DecodeArgs& a, int b,
       } else {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int mi = (nt * 8 + 2 * tq + e) % m;
+          const int mi = (r0 + nt * 8 + 2 * tq + e) % m;
 #pragma unroll
           for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
@@ -686,7 +755,8 @@ __device__ __forceinline__ void decode_mma_body(const DecodeArgs& a, int b,
 #pragma unroll
       for (int u = 0; u < C::kMTW; ++u)
         ldsm_x4_t(af[u], vt + swz(kk * 16 + (lane & 7) + ((lane >> 4) << 3),
-                                  (mt0 + 8 * u) * 2 + ((lane >> 3) & 1), D));
+                                  (mt0 + 8 * u) * 2 + ((lane >> 3) & 1),
+                                  kDT));
 #pragma unroll
       for (int i = 0; i < C::kNTO; ++i)
         ldsm_x2(bf[i][0], bf[i][1],
@@ -711,7 +781,7 @@ __device__ __forceinline__ void decode_mma_body(const DecodeArgs& a, int b,
       for (int e = 0; e < 4; ++e) {
         const int r = (nt0 + C::kWPM * i) * 8 + 2 * tq + (e & 1);
         const int c = (mt0 + 8 * u) * 16 + gq + 8 * (e >> 1);
-        if (r < rows) acc[r * D + c] = o[u][i][e];
+        if (r < rows && c < D) acc[r * D + c] = o[u][i][e];
       }
 #pragma unroll
   for (int j = 0; j < NTW; ++j) {
@@ -729,7 +799,7 @@ __device__ __forceinline__ void decode_mma_body(const DecodeArgs& a, int b,
   // P is free: the merge's scratch ((2 * kMergeChunk + 1) * rows floats
   // of kRowsP * 32)
   split_epilogue<__nv_bfloat16, D>(a, acc, m_s, l_s,
-                                   reinterpret_cast<float*>(p_s), b, h,
+                                   reinterpret_cast<float*>(p_s), b, h, grp,
                                    split, n_tiles == 0, kT);
 }
 

@@ -15,10 +15,10 @@
 // compute-bound.
 //
 // Design: the split-KV body of common.cuh, shared with the paged kernel
-// (see its note): a (B, Hkv, n_split) grid, each CTA one chunk of whole
-// 64-key tiles of [first, min(len, S)) -- from the window's first key
-// when there is a window -- and the last CTA of a (sequence, head)
-// merging the partials in split order.  The TPU grid pads the cache to a
+// (see its note): a (B, Hkv x row groups, n_split) grid, each CTA one
+// chunk of whole 64-key tiles of [first, min(len, S)) -- from the
+// window's first key when there is a window -- and the last CTA of a
+// (sequence, head, row group) merging the partials in split order.  The TPU grid pads the cache to a
 // block multiple and visits every block; here only the tiles below
 // min(len, S) are read.  bf16 runs the tensor-core body (mma.sync,
 // 3-stage cp.async ring), f32 the exact CUDA-core body.  The cache is read
@@ -54,8 +54,10 @@ __device__ __forceinline__ auto contig_rows(const ContigKV<T>& kv, int b,
 template <int D>
 __global__ void __launch_bounds__(kDecodeThreads) decode_kernel(
     DecodeArgs a, ContigKV<float> kv) {
-  const int b = blockIdx.x, h = blockIdx.y, len = a.lengths[b];
-  decode_core_body<float, float, D>(a, nullptr, nullptr, b, h, blockIdx.z,
+  const int b = blockIdx.x, h = blockIdx.y / a.n_groups,
+            rg = blockIdx.y % a.n_groups, len = a.lengths[b];
+  decode_core_body<float, float, D>(a, nullptr, nullptr, b, h, rg,
+                                    blockIdx.z,
                                     len, min(len, kv.n_slots),
                                     contig_rows(kv, b, h));
 }
@@ -64,22 +66,22 @@ template <int D, int NTC>
 __global__ void __launch_bounds__(MmaCfg<D, NTC>::kThreads,
                                   MmaCfg<D, NTC>::kMinBlocks)
     decode_mma_kernel(DecodeArgs a, ContigKV<__nv_bfloat16> kv) {
-  const int b = blockIdx.x, h = blockIdx.y, len = a.lengths[b];
-  decode_mma_body<D, NTC>(a, b, h, blockIdx.z, len, min(len, kv.n_slots),
+  const int b = blockIdx.x, h = blockIdx.y / a.n_groups,
+            rg = blockIdx.y % a.n_groups, len = a.lengths[b];
+  decode_mma_body<D, NTC>(a, b, h, rg, blockIdx.z, len, min(len, kv.n_slots),
                           contig_rows(kv, b, h));
 }
 
 template <int D>
 int launch_f32(const DecodeArgs& a, const ContigKV<float>& kv, int batch,
                cudaStream_t stream) {
-  const int rows = (a.n_q_heads / a.n_kv_heads) * a.m;
-  const size_t smem = decode_smem_floats<D>(rows) * sizeof(float);
+  const size_t smem = decode_smem_floats<D>(a.group_rows) * sizeof(float);
   auto kern = decode_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3(batch, a.n_kv_heads, a.n_split), kDecodeThreads, smem,
+  kern<<<dim3(batch, a.n_kv_heads * a.n_groups, a.n_split), kDecodeThreads, smem,
          stream>>>(a, kv);
   return static_cast<int>(cudaGetLastError());
 }
@@ -92,7 +94,7 @@ int launch_mma(const DecodeArgs& a, const ContigKV<__nv_bfloat16>& kv,
   static unsigned smem_set = 0;
   cudaError_t err = set_smem_once(kern, C::kSmem, &smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3(batch, a.n_kv_heads, a.n_split), C::kThreads, C::kSmem,
+  kern<<<dim3(batch, a.n_kv_heads * a.n_groups, a.n_split), C::kThreads, C::kSmem,
          stream>>>(a, kv);
   return static_cast<int>(cudaGetLastError());
 }
@@ -114,27 +116,28 @@ int dispatch_mma(int rows, const DecodeArgs& a, const ContigKV<__nv_bfloat16>& k
 
 // strides: the (batch, head, token) element strides of q, of out, then the
 // (batch, head, slot) strides that k and v share (their last dimension is
-// contiguous).  part_acc / part_ml / counters: the merge workspace, as for
-// paged_decode_attention.  window <= 0 means no sliding window; anc may be
-// null.
+// contiguous).  n_groups / group_rows, part_acc / part_ml / counters: the
+// row groups and the merge workspace, as for paged_decode_attention.
+// window <= 0 means no sliding window; anc may be null.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* lengths, const void* anc,
                                 void* out, void* part_acc, void* part_ml,
                                 void* counters, const long long* strides,
                                 int batch, int hq, int hkv, int m, int d,
-                                int n_slots, int n_split, float scale,
-                                int window, int dtype, void* stream) {
+                                int n_slots, int n_split, int n_groups,
+                                int group_rows, float scale, int window,
+                                int dtype, void* stream) {
   using namespace repro;
   if (hq % hkv != 0 || n_split < 1
+      || !row_groups_valid(hq, hkv, m, d, n_groups, group_rows)
       || (n_split > 1 && (part_acc == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   DecodeArgs a{q, out, strides[0], strides[1], strides[2], strides[3],
                strides[4], strides[5], static_cast<const int*>(lengths),
                static_cast<const int*>(anc), static_cast<float*>(part_acc),
                static_cast<float2*>(part_ml), static_cast<int*>(counters),
-               hq, hkv, m, n_split, window, scale};
+               hq, hkv, m, n_split, window, n_groups, group_rows, scale};
   auto st = static_cast<cudaStream_t>(stream);
-  const int rows = (hq / hkv) * m;
   if (dtype == kF32) {
     const ContigKV<float> kv{static_cast<const float*>(k),
                              static_cast<const float*>(v), strides[6],
@@ -142,22 +145,21 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
     switch (d) {
       case 64: return launch_f32<64>(a, kv, batch, st);
       case 128: return launch_f32<128>(a, kv, batch, st);
+      case 240: return launch_f32<240>(a, kv, batch, st);
       case 256: return launch_f32<256>(a, kv, batch, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  if (dtype != kBF16 || rows > 128)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
   const ContigKV<__nv_bfloat16> kv{static_cast<const __nv_bfloat16*>(k),
                                    static_cast<const __nv_bfloat16*>(v),
                                    strides[6], strides[7], strides[8],
                                    n_slots};
   switch (d) {
-    case 64: return dispatch_mma<64>(rows, a, kv, batch, st);
-    case 128: return dispatch_mma<128>(rows, a, kv, batch, st);
-    case 256:
-      if (rows > 80) return static_cast<int>(cudaErrorInvalidValue);
-      return dispatch_mma<256>(rows, a, kv, batch, st);
+    case 64: return dispatch_mma<64>(group_rows, a, kv, batch, st);
+    case 128: return dispatch_mma<128>(group_rows, a, kv, batch, st);
+    case 240: return dispatch_mma<240>(group_rows, a, kv, batch, st);
+    case 256: return dispatch_mma<256>(group_rows, a, kv, batch, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -39,14 +39,17 @@
 //   thread 255, so there is nothing for setmaxnreg to move (ptxas holds
 //   the whole kernel to the launch bound, and 128 registers, which two
 //   CTAs an SM would need, cannot hold the n256 product).
-//   Shared memory: 80 KB (d 64), 160 KB (d 128 and 256).
+//   d = 240 (Gemma-3): the d = 256 configuration on 256-wide tiles whose
+//   last 16 columns TMA fills with zeros (FlashCfg's note): no padded
+//   copy of q, k or v is made.
+//   Shared memory: 80 KB (d 64), 160 KB (d 128, 240 and 256).
 //
 // f32 (the lossless path): the exact CUDA-core kernel, no TF32 (which
 // would break token-exact equality with the greedy decode).  One CTA of
 // 256 threads per (b * Hq + hq, BQ-row query tile) walks the same 64-row
 // KV tiles from f32 shared-memory tiles, each thread a (BQ/16) x 4 block
 // of scores and a (BQ/16) x (d/16) block of the output in registers; BQ =
-// 32 at d = 256 (169 KB of shared memory), 64 otherwise.  It takes
+// 32 at d = 240 and 256 (162 and 169 KB of shared memory), 64 otherwise.  It takes
 // contiguous (B, H, S, d) tensors.
 #include "common.cuh"
 #include "hopper.cuh"
@@ -58,16 +61,23 @@ using namespace repro;
 // ---------------------------------------------------------------------------
 // bf16: wgmma fed by TMA
 
+// kDT: the shared-memory tiles' width, the head dim rounded up to 64.  At
+// d 240 (Gemma-3) the tiles are 256 wide: the tensor maps have the real
+// width, so the TMA box of columns 192-255 reads zeros past column 240,
+// S = Q K^T runs d / 16 = 15 k-steps, O += P V runs 256 wide over zero V
+// columns, and the epilogue writes the first d columns.
 template <int D>
 struct FlashCfg {
-  static constexpr int kNWG = D > 128 ? 1 : 2;       // consumer warpgroups
+  static constexpr int kDT = (D + 63) / 64 * 64;
+  static constexpr int kNWG = kDT > 128 ? 1 : 2;     // consumer warpgroups
   static constexpr int kBQ = 64 * kNWG;
-  static constexpr int kBKV = D > 128 ? 64 : 128;
+  static constexpr int kBKV = kDT > 128 ? 64 : 128;
   static constexpr int kThreads = 128 * (kNWG + 1);
-  static constexpr int kDB = D / 64;                  // 64-wide column blocks
+  static constexpr int kDB = kDT / 64;                // 64-wide column blocks
   static constexpr int kQBytes = kNWG * kDB * 64 * 128;
   static constexpr int kKVBytes = kDB * kBKV * 128;   // one of K, V
   static constexpr int kSmem = kQBytes + 4 * kKVBytes + 1024 + 64;
+  static_assert(D % 16 == 0, "whole k16 steps of Q K^T");
 };
 
 struct QKVMap {
@@ -112,16 +122,16 @@ __device__ __forceinline__ void consume(
     int sq, int skv, int k_first, int n_tiles, float scale_log2, int causal,
     int window) {
   using C = FlashCfg<D>;
-  constexpr int kBKV = C::kBKV, kDB = C::kDB;
+  constexpr int kBKV = C::kBKV, kDB = C::kDB, kDT = C::kDT;
   auto k_tile = [&](int s) { return k_base + 2 * s * C::kKVBytes; };
   auto v_tile = [&](int s) { return v_base + 2 * s * C::kKVBytes; };
   const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
   const int row_lo = q0 + w * 64;                     // this warpgroup's rows
   const int row0 = row_lo + warp * 16 + lane / 4;     // + 8 for the second
 
-  float o[D / 2];
+  float o[kDT / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kDT / 2; ++i) o[i] = 0.f;
   float m_run[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l_run[2] = {0.f, 0.f};
   const uint64_t dq = sw128_desc(qs + w * kDB * 8192, 16, 1024);
   bar_wait(bar_q, 0);
@@ -183,7 +193,7 @@ __device__ __forceinline__ void consume(
       l_run[h] += sc[i];
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
+    for (int i = 0; i < kDT / 2; ++i) o[i] *= corr[(i / 2) % 2];
 
     // O += P V: P rounded to bf16 as the register A operand (its fragment
     // is the S accumulator's), V N-major, 64-column blocks kBKV * 128 B apart
@@ -195,7 +205,7 @@ __device__ __forceinline__ void consume(
                              pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
                              pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
                              pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
-      Wgmma<D>::template rs<1>(o, a, dv + kk * (2048 >> 4));
+      Wgmma<kDT>::template rs<1>(o, a, dv + kk * (2048 >> 4));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -211,11 +221,11 @@ __device__ __forceinline__ void consume(
     l_run[h] = 1.f / fmaxf(l_run[h], 1e-30f);
   }
 #pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
+  for (int i = 0; i < kDT / 2; i += 2) {
     const int h = (i / 2) % 2;
     const int qpos = row0 + 8 * h;
-    if (qpos < sq) {
-      const int col = 8 * (i / 4) + 2 * (lane % 4);
+    const int col = 8 * (i / 4) + 2 * (lane % 4);
+    if (qpos < sq && col < D) {
       *reinterpret_cast<__nv_bfloat162*>(ob + qpos * oss + col) =
           __floats2bfloat162_rn(o[i] * l_run[h], o[i + 1] * l_run[h]);
     }
@@ -534,7 +544,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (dtype != kF32 && dtype != kBF16)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
-    REPRO_FLASH_D(64) REPRO_FLASH_D(128) REPRO_FLASH_D(256)
+    REPRO_FLASH_D(64) REPRO_FLASH_D(128) REPRO_FLASH_D(240)
+    REPRO_FLASH_D(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

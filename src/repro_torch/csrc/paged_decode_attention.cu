@@ -16,9 +16,10 @@
 //
 // Design: the split-KV body of common.cuh (see its note).  The TPU grid
 // walks every logical block of the table in order (decode_attention.py:
-// 281); here a (B, Hkv, n_split) grid cuts each sequence's ceil(len / 64)
-// key tiles into n_split chunks, one CTA each, and the last CTA of a
-// (sequence, head) merges the partials in split order.  Each row's
+// 281); here a (B, Hkv x row groups, n_split) grid cuts each sequence's
+// ceil(len / 64) key tiles into n_split chunks, one CTA each, and the
+// last CTA of a (sequence, head, row group) merges the partials in split
+// order.  Each row's
 // physical block is looked up in the table (entries <= 0 resolve to block
 // 0) as its 16-byte chunks are queued.  bf16 pools run the tensor-core
 // body (mma.sync, 3-stage cp.async ring); f32 and int8 pools run the
@@ -31,8 +32,6 @@
 namespace {
 
 using namespace repro;
-
-constexpr int kMaxRows = 128;      // g * m query rows per CTA
 
 template <typename KT>
 struct PagedKV {
@@ -62,8 +61,10 @@ __device__ __forceinline__ auto paged_rows(const PagedKV<KT>& kv, int b,
 template <typename QT, typename KT, int D>
 __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(
     DecodeArgs a, PagedKV<KT> kv) {
-  const int b = blockIdx.x, h = blockIdx.y, len = a.lengths[b];
-  decode_core_body<QT, KT, D>(a, kv.k_scale, kv.v_scale, b, h, blockIdx.z,
+  const int b = blockIdx.x, h = blockIdx.y / a.n_groups,
+            rg = blockIdx.y % a.n_groups, len = a.lengths[b];
+  decode_core_body<QT, KT, D>(a, kv.k_scale, kv.v_scale, b, h, rg,
+                              blockIdx.z,
                               len, len,
                               paged_rows(kv, b, h, a.n_kv_heads, D));
 }
@@ -72,22 +73,22 @@ template <int D, int NTC>
 __global__ void __launch_bounds__(MmaCfg<D, NTC>::kThreads,
                                   MmaCfg<D, NTC>::kMinBlocks)
     paged_decode_mma_kernel(DecodeArgs a, PagedKV<__nv_bfloat16> kv) {
-  const int b = blockIdx.x, h = blockIdx.y, len = a.lengths[b];
-  decode_mma_body<D, NTC>(a, b, h, blockIdx.z, len, len,
+  const int b = blockIdx.x, h = blockIdx.y / a.n_groups,
+            rg = blockIdx.y % a.n_groups, len = a.lengths[b];
+  decode_mma_body<D, NTC>(a, b, h, rg, blockIdx.z, len, len,
                           paged_rows(kv, b, h, a.n_kv_heads, D));
 }
 
 template <typename QT, typename KT, int D>
 int launch_core(const DecodeArgs& a, const PagedKV<KT>& kv, int batch,
                 cudaStream_t stream) {
-  const int rows = (a.n_q_heads / a.n_kv_heads) * a.m;
-  const size_t smem = decode_smem_floats<D>(rows) * sizeof(float);
+  const size_t smem = decode_smem_floats<D>(a.group_rows) * sizeof(float);
   auto kern = paged_decode_kernel<QT, KT, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3(batch, a.n_kv_heads, a.n_split), kDecodeThreads, smem,
+  kern<<<dim3(batch, a.n_kv_heads * a.n_groups, a.n_split), kDecodeThreads, smem,
          stream>>>(a, kv);
   return static_cast<int>(cudaGetLastError());
 }
@@ -100,7 +101,7 @@ int launch_mma(const DecodeArgs& a, const PagedKV<__nv_bfloat16>& kv,
   static unsigned smem_set = 0;
   cudaError_t err = set_smem_once(kern, C::kSmem, &smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3(batch, a.n_kv_heads, a.n_split), C::kThreads, C::kSmem,
+  kern<<<dim3(batch, a.n_kv_heads * a.n_groups, a.n_split), C::kThreads, C::kSmem,
          stream>>>(a, kv);
   return static_cast<int>(cudaGetLastError());
 }
@@ -121,15 +122,14 @@ int dispatch_mma(int rows, const DecodeArgs& a, const PagedKV<__nv_bfloat16>& kv
 template <typename QT, typename KT>
 int dispatch_d(int d, const DecodeArgs& a, const PagedKV<KT>& kv, int batch,
                cudaStream_t stream) {
-  const int rows = (a.n_q_heads / a.n_kv_heads) * a.m;
+  const int rows = a.group_rows;           // the most rows a CTA holds
   if constexpr (std::is_same<QT, __nv_bfloat16>::value
                 && std::is_same<KT, __nv_bfloat16>::value) {
     switch (d) {
       case 64: return dispatch_mma<64>(rows, a, kv, batch, stream);
       case 128: return dispatch_mma<128>(rows, a, kv, batch, stream);
-      case 256:
-        if (rows > 80) return static_cast<int>(cudaErrorInvalidValue);
-        return dispatch_mma<256>(rows, a, kv, batch, stream);
+      case 240: return dispatch_mma<240>(rows, a, kv, batch, stream);
+      case 256: return dispatch_mma<256>(rows, a, kv, batch, stream);
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -137,6 +137,7 @@ int dispatch_d(int d, const DecodeArgs& a, const PagedKV<KT>& kv, int batch,
     switch (d) {
       case 64: return launch_core<QT, KT, 64>(a, kv, batch, stream);
       case 128: return launch_core<QT, KT, 128>(a, kv, batch, stream);
+      case 240: return launch_core<QT, KT, 240>(a, kv, batch, stream);
       case 256: return launch_core<QT, KT, 256>(a, kv, batch, stream);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -146,25 +147,29 @@ int dispatch_d(int d, const DecodeArgs& a, const PagedKV<KT>& kv, int batch,
 }  // namespace
 
 // strides: the (batch, head, token) element strides of q, then of out.
-// part_acc / part_ml: the f32 merge workspace, (B, Hkv, n_split, g*m, d)
-// and (B, Hkv, n_split, g*m, 2), null when n_split is 1; counters: B*Hkv
-// int32, zero before the call and zero after it.
+// n_groups / group_rows: the row groups of each KV head's g*m query rows
+// (DecodeArgs).  part_acc / part_ml: the f32 merge workspace, (B, Hkv,
+// n_groups, n_split, group_rows, d) and (..., group_rows, 2), null when
+// n_split is 1; counters: B*Hkv*n_groups int32, zero before the call and
+// zero after it.
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,
     const void* lengths, const void* anc, void* out, void* part_acc,
     void* part_ml, void* counters, const long long* strides, int batch,
     int hq, int hkv, int m, int d, int block_size, int max_blocks,
-    int n_split, float scale, int q_dtype, int kv_dtype, void* stream) {
+    int n_split, int n_groups, int group_rows, float scale, int q_dtype,
+    int kv_dtype, void* stream) {
   using namespace repro;
-  if (hq % hkv != 0 || (hq / hkv) * m > kMaxRows || n_split < 1
+  if (hq % hkv != 0 || n_split < 1
+      || !row_groups_valid(hq, hkv, m, d, n_groups, group_rows)
       || (n_split > 1 && (part_acc == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   DecodeArgs a{q, out, strides[0], strides[1], strides[2], strides[3],
                strides[4], strides[5], static_cast<const int*>(lengths),
                static_cast<const int*>(anc), static_cast<float*>(part_acc),
                static_cast<float2*>(part_ml), static_cast<int*>(counters),
-               hq, hkv, m, n_split, 0, scale};
+               hq, hkv, m, n_split, 0, n_groups, group_rows, scale};
   auto st = static_cast<cudaStream_t>(stream);
 #define REPRO_PAGED(QT, KT)                                                  \
   return dispatch_d<QT, KT>(                                                 \

@@ -17,9 +17,9 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float]
+_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 240, 256)
 _SMEM_FLOATS = 232_448 // 4          # a CTA's shared memory on Hopper
 _TILE = 32                           # kDecodeTile in common.cuh
 KEY_TILE = 64                        # kKeyTile in common.cuh: split unit
@@ -30,7 +30,8 @@ _COUNTERS: dict = {}                 # (device, stream) -> int32 zeros
 
 
 def n_split(batch: int, n_kv_heads: int, capacity: int) -> int:
-    """Key splits per (sequence, KV head) of the verify kernels' grid.
+    """Key splits per (sequence, KV head) of the verify kernels' grid
+    (the wrappers count each row group of a head as a head here).
 
     A function of shapes only: ``capacity`` is the most keys a sequence
     can hold (``max_blocks * block_size`` paged, ``n_slots`` contiguous).
@@ -50,7 +51,8 @@ def split_workspace(b: int, hkv: int, splits: int, rows: int, d: int,
     ``torch.empty``, and int32 counters, one per (sequence, KV head),
     allocated zeroed once per device and stream (calls on one stream run
     in order, so they may share them) and kept at zero by the kernel;
-    (None, None, None) for one split."""
+    (None, None, None) for one split.  The wrappers count each row group
+    of a head as a head of its own, with ``rows`` the group's."""
     if splits == 1:
         return None, None, None
     part_acc = torch.empty((b, hkv, splits, rows, d), dtype=torch.float32,
@@ -81,10 +83,26 @@ def token_strides(t, name: str) -> list:
 
 
 def max_rows(d: int) -> int:
-    """The most query rows (g * m) one CTA of the verify-attention body
-    holds at head dim ``d`` (``decode_smem_floats`` in common.cuh), at
-    most 128."""
-    return min(128, (_SMEM_FLOATS - _TILE * (2 * d + 1)) // (2 * d + _TILE + 3))
+    """The most query rows one CTA of the verify-attention body holds at
+    head dim ``d`` (``max_group_rows`` in common.cuh): what the CUDA-core
+    body's shared memory fits (``decode_smem_floats``), and at most 16
+    n-tiles of 8 rows in the tensor-core body (10 at d > 128).  128 at d
+    64 and 128, 80 at d 240 (the memory would fit 82), 76 at d 256."""
+    return min(128 if d <= 128 else 80,
+               (_SMEM_FLOATS - _TILE * (2 * d + 1)) // (2 * d + _TILE + 3))
+
+
+def row_groups(rows: int, d: int) -> tuple:
+    """(n_groups, group_rows): the g * m query rows of a KV head dealt out
+    to as few CTAs as ``max_rows(d)`` allows, in groups of equal size
+    (the last one shorter): group i holds rows [i * group_rows,
+    min((i + 1) * group_rows, rows)).  Every CTA of a group reads the
+    same KV tiles; one group is the path of every served shape but a
+    large tree on many query heads (Llama-3-405B under tree (3, 2):
+    16 x 10 = 160 rows, 2 groups of 80)."""
+    n = -(-rows // max_rows(d))
+    per = -(-rows // n)
+    return -(-rows // per), per
 
 
 def decode_attention(q, k, v, lengths, *, scale=None, window=None,
@@ -122,8 +140,6 @@ def decode_attention(q, k, v, lengths, *, scale=None, window=None,
                                         window=window, anc_mask=anc)
 
     _build.require(d in HEAD_DIMS, f"head dim must be one of {HEAD_DIMS}")
-    _build.require((hq // hkv) * m <= max_rows(d),
-                   f"g * m must be <= {max_rows(d)} at head dim {d}")
     _build.require(lengths.dtype == torch.int32, "lengths must be int32")
     if anc_bits is not None:
         _build.require(anc_bits.dtype == torch.int32, "anc_bits must be int32")
@@ -139,15 +155,16 @@ def decode_attention(q, k, v, lengths, *, scale=None, window=None,
     strides = (ctypes.c_int64 * 9)(*(token_strides(q, "q")
                                      + token_strides(out, "out")
                                      + list(k.stride()[:3])))
-    splits = n_split(b, hkv, k.shape[2])
+    groups, per = row_groups((hq // hkv) * m, d)
+    splits = n_split(b, hkv * groups, k.shape[2])
     fn = _build.bind("decode_attention", "decode_attention", _ARGS)
     stream = _build.stream_ptr(q)
-    part_acc, part_ml, cnt = split_workspace(b, hkv, splits, (hq // hkv) * m,
-                                             d, q.device, stream)
+    part_acc, part_ml, cnt = split_workspace(b, hkv * groups, splits, per, d,
+                                             q.device, stream)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             _build.ptr(anc_bits), out.data_ptr(), _build.ptr(part_acc),
             _build.ptr(part_ml), _build.ptr(cnt), ctypes.addressof(strides),
-            b, hq, hkv, m, d, k.shape[2], splits,
+            b, hq, hkv, m, d, k.shape[2], splits, groups, per,
             float(d ** -0.5 if scale is None else scale),
             0 if window is None else int(window), _build.DTYPE_CODE[q.dtype],
             stream)

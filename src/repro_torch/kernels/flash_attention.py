@@ -23,7 +23,7 @@ from repro_torch.kernels import _build, ref
 
 _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
          + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 240, 256)   # 240: the 256-wide tiles, zero-filled
 
 
 def _strides(t) -> list:

@@ -6,8 +6,8 @@ paged_decode_attention``.  On CPU tensors it returns the plain version
 tensors it launches the kernel or raises.  ``launches`` counts kernel
 launches and ``route_launches`` those of each mask: ``causal`` (a chain's
 verify) and ``tree`` (a speculation tree's ``anc_bits``).  The kernel is
-bound by bytes (see the source's note).  The grid, its split count and
-the merge workspace are those of
+bound by bytes (see the source's note).  The grid, its split count,
+its row groups and the merge workspace are those of
 :mod:`repro_torch.kernels.decode_attention`, whose kernel shares the
 body; q and the output go through their strides in the same way.
 """
@@ -18,13 +18,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.decode_attention import (max_rows, n_split,
+from repro_torch.kernels.decode_attention import (HEAD_DIMS, n_split,
+                                                  row_groups,
                                                   split_workspace,
                                                   token_strides)
 
-_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_float]
+_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [ctypes.c_float]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-HEAD_DIMS = (64, 128, 256)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
@@ -74,8 +74,6 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
             v_scale=v_scale, scale=scale, anc_bits=anc_bits)
 
     _build.require(d in HEAD_DIMS, f"head dim must be one of {HEAD_DIMS}")
-    _build.require((hq // hkv) * m <= max_rows(d),
-                   f"g * m must be <= {max_rows(d)} at head dim {d}")
     _build.require(block_tables.dtype == torch.int32
                    and lengths.dtype == torch.int32,
                    "block_tables and lengths must be int32")
@@ -92,18 +90,19 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     strides = (ctypes.c_int64 * 6)(*(token_strides(q, "q")
                                      + token_strides(out, "out")))
     mbs = block_tables.shape[1]
-    splits = n_split(b, hkv, mbs * bs)
+    groups, per = row_groups((hq // hkv) * m, d)
+    splits = n_split(b, hkv * groups, mbs * bs)
     fn = _build.bind("paged_decode_attention", "paged_decode_attention",
                      _ARGS)
     stream = _build.stream_ptr(q)
-    part_acc, part_ml, cnt = split_workspace(b, hkv, splits, (hq // hkv) * m,
-                                             d, q.device, stream)
+    part_acc, part_ml, cnt = split_workspace(b, hkv * groups, splits, per, d,
+                                             q.device, stream)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             _build.ptr(k_scale), _build.ptr(v_scale),
             block_tables.data_ptr(), lengths.data_ptr(),
             _build.ptr(anc_bits), out.data_ptr(), _build.ptr(part_acc),
             _build.ptr(part_ml), _build.ptr(cnt), ctypes.addressof(strides),
-            b, hq, hkv, m, d, bs, mbs, splits,
+            b, hq, hkv, m, d, bs, mbs, splits, groups, per,
             float(d ** -0.5 if scale is None else scale),
             _build.DTYPE_CODE[q.dtype], _build.DTYPE_CODE[k_pool.dtype],
             stream)

@@ -1,17 +1,19 @@
 """Attention: GQA with RoPE, full/sliding-window variants, KV caches.
 
-Counterpart of ``repro/models/attention.py`` (the prefill phase and the
-chain and tree decode phases).  Layouts are the JAX package's: activations
+Counterpart of ``repro/models/attention.py`` (the prefill phase, the
+chain and tree decode phases, and the Whisper decoder's cross
+attention).  Layouts are the JAX package's: activations
 ``(B, S, H, d)``, contiguous caches ``(B, n_slots, Hkv, d)``, the paged
 pool ``(NB, BS, Hkv, d)``.
 
 KV caches are updated **in place**: every write helper mutates the
 cache tensors it is given and returns the same dict.
 
-On CUDA tensors prefill runs the flash-attention kernel, paged verify the
-paged-decode kernel and verify over a contiguous, non-ring cache the
-decode-attention kernel; on CPU tensors they run the plain paths the JAX
-package runs off the TPU (``attention_chunked``; ``paged_gather`` +
+On CUDA tensors prefill and cross attention run the flash-attention
+kernel, paged verify the paged-decode kernel and verify over a
+contiguous, non-ring cache the decode-attention kernel; on CPU tensors
+they run the plain paths the JAX package runs off the TPU
+(``attention_chunked``; ``attention_direct``; ``paged_gather`` +
 ``attention_direct``; ``attention_direct``).  A CUDA tensor never
 reaches a plain version of a kernel.  A speculation tree's full buffer
 (``spec_tree`` with ``prev == 0``) goes to the verify kernels with its
@@ -151,6 +153,18 @@ def attention_chunked(q, k, v, q_positions, kv_positions, scale: float,
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq * d).to(q.dtype)
+
+
+def flash_bshd(q, k, v, scale: float, causal: bool,
+               window: int | None = None) -> torch.Tensor:
+    """The ``flash_attention`` kernel over the model's (B, S, H, d) q and
+    k/v, handed over as transposed views (the kernel reads them, and
+    writes the output, through their strides).  Returns (B, Sq, Hq*d)."""
+    b, sq, hq, d = q.shape
+    out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), scale=scale, causal=causal,
+                              window=window)
+    return out.transpose(1, 2).reshape(b, sq, hq * d)
 
 
 # ---------------------------------------------------------------------------
@@ -354,11 +368,8 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
 
     saved = {}
     if phase == "prefill":
-        if x.is_cuda:                    # (B, S, H, d) read through strides
-            out = _fa.flash_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                scale=scale, causal=True, window=window)
-            out = out.transpose(1, 2).reshape(b, sq, n_heads * head_dim)
+        if x.is_cuda:
+            out = flash_bshd(q, k, v, scale, causal=True, window=window)
         else:
             qp = q_positions[0]
             out = attention_chunked(q, k, v, qp, qp, scale, window=window)
@@ -452,3 +463,35 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
     else:
         raise ValueError(phase)
     return out @ params["wo"], cache, saved
+
+
+# ---------------------------------------------------------------------------
+# cross attention (the Whisper decoder)
+
+
+def precompute_cross_kv(params: dict, enc_out, *, n_kv_heads: int,
+                        head_dim: int) -> dict:
+    """K/V of the encoder states (B, T, D): ``{"ck", "cv"}`` (B, T, Hkv, d)."""
+    b, s, _ = enc_out.shape
+    k = (enc_out @ params["wk"]).reshape(b, s, n_kv_heads, head_dim)
+    v = (enc_out @ params["wv"]).reshape(b, s, n_kv_heads, head_dim)
+    return {"ck": k, "cv": v}
+
+
+def apply_cross_attention(params: dict, x, cross_kv: dict, *, n_heads: int,
+                          head_dim: int) -> torch.Tensor:
+    """x (B, Sq, D) attends, unmasked, over every encoder row of
+    ``cross_kv``: on CUDA tensors through the flash kernel with
+    ``causal=False`` (Sq = the prompt in prefill, the m new tokens in
+    decode, over Skv = T), on CPU tensors through ``attention_direct``
+    with a zero mask, as the JAX package computes it."""
+    b, sq, _ = x.shape
+    scale = head_dim ** -0.5
+    q = (x @ params["wq"]).reshape(b, sq, n_heads, head_dim)
+    k, v = cross_kv["ck"].to(q.dtype), cross_kv["cv"].to(q.dtype)
+    if x.is_cuda:
+        out = flash_bshd(q, k, v, scale, causal=False)
+    else:
+        mask = torch.zeros((sq, k.shape[1]), device=x.device)
+        out = attention_direct(q, k, v, mask, scale)
+    return out @ params["wo"]

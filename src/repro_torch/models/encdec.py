@@ -1,0 +1,44 @@
+"""Whisper-style encoder stack (arXiv:2212.04356).
+
+Counterpart of ``repro/models/encdec.py::apply_encoder``.  The modality
+frontend (mel spectrogram + conv feature extractor) is a stub: the
+caller hands over frame embeddings (B, T, D).  This is the transformer
+that consumes them: sinusoidal positions, then per layer a LayerNorm,
+bidirectional self-attention and a GELU MLP, each as a residual, and a
+final norm.  The JAX package stacks the layers for a ``lax.scan``; here
+``params["layers"]`` is a list, one dict a layer (``ln1``, ``attn``,
+``ln2``, ``mlp``).  On CUDA tensors the attention is the flash kernel
+with ``causal=False`` (T 1500, head dim 64 at Whisper-base); on CPU
+tensors the plain ``attention_chunked``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.models.attention import attention_chunked, flash_bshd
+from repro_torch.models.layers import (apply_mlp, apply_norm,
+                                       sinusoidal_positions)
+
+
+def apply_encoder(params: dict, cfg: ModelConfig, frames) -> torch.Tensor:
+    """frames (B, T, D) stub embeddings -> encoder states (B, T, D)."""
+    b, t, d = frames.shape
+    x = frames + sinusoidal_positions(t, d, frames.device).to(frames.dtype)
+    scale = cfg.head_dim ** -0.5
+    positions = torch.arange(t, device=frames.device)
+    for layer in params["layers"]:
+        h = apply_norm(layer["ln1"], x, cfg.norm)
+        attn = layer["attn"]
+        q = (h @ attn["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
+        k = (h @ attn["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+        v = (h @ attn["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+        if x.is_cuda:
+            out = flash_bshd(q, k, v, scale, causal=False)
+        else:
+            out = attention_chunked(q, k, v, positions, positions, scale,
+                                    causal=False)
+        x = x + out @ attn["wo"]
+        x = x + apply_mlp(layer["mlp"], apply_norm(layer["ln2"], x, cfg.norm),
+                          cfg.activation)
+    return apply_norm(params["final_norm"], x, cfg.norm)

@@ -1,4 +1,4 @@
-"""Basic building blocks: norms, RoPE, MLPs, embeddings.
+"""Basic building blocks: norms, RoPE, MLPs, embeddings, sinusoids.
 
 Counterpart of ``repro/models/layers.py`` without the sharding hints.
 Weight matrices are stored ``(in_features, out_features)`` so the
@@ -68,3 +68,13 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     if w is None:
         w = params["tok"].T
     return (x @ w).float()
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Classic sinusoid table (the Whisper encoder's positions), (n, d)
+    f32: sin of the ``d // 2`` angles, then their cos."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10_000.0, device=device),
+                            2 * dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)

@@ -1,10 +1,11 @@
 """Decoder stack: per-layer apply, cache plumbing, phase dispatch.
 
 Counterpart of ``repro/models/transformer.py`` for ATTN, SWA, RG-LRU and
-RWKV-6 layers.  The JAX package stacks parameters and caches over layer
-groups for a ``lax.scan``; here both are plain lists with one entry per
-layer (layer ``l`` has kind ``cfg.layer_kind(l)``), and the forward pass
-is a Python loop.
+RWKV-6 layers, MoE layers at any ``moe_pattern`` position, and the
+cross attention of encoder-decoder configs.  The JAX package stacks
+parameters and caches over layer groups for a ``lax.scan``; here both
+are plain lists with one entry per layer (layer ``l`` has kind
+``cfg.layer_kind(l)``), and the forward pass is a Python loop.
 
 Caches are dicts ``{"layers": [per-layer dict], "pos": (B,) int64}``
 (plus ``"block_tables"`` (B, MBS) int32 for a paged serving cache), and
@@ -26,9 +27,11 @@ from repro_torch.configs import (ATTN, RGLRU, RWKV, SWA, ModelConfig,
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv as rwkv_lib
-from repro_torch.models.attention import (apply_attention, init_kv_cache,
-                                          init_paged_kv_pool,
-                                          paged_row_indices, quantize_rows,
+from repro_torch.models.attention import (apply_attention,
+                                          apply_cross_attention,
+                                          init_kv_cache, init_paged_kv_pool,
+                                          paged_row_indices,
+                                          precompute_cross_kv, quantize_rows,
                                           restore_rejected_rows)
 from repro_torch.models.layers import (apply_mlp, apply_norm,
                                        unembed)
@@ -43,9 +46,14 @@ def _set_state(cache: dict | None, new_state: dict) -> None:
 
 def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
                 pos, phase: str, use_moe: bool = False,
-                block_tables=None, spec_tree: dict | None = None):
+                block_tables=None, spec_tree: dict | None = None,
+                enc_out=None):
     """Returns (x, cache, pending).  ``spec_tree`` reaches the attention
-    layers only (see :func:`apply_attention`)."""
+    layers only (see :func:`apply_attention`).  An encoder-decoder
+    attention layer (``xattn`` in ``params``) attends over the encoder
+    after its self-attention: prefill computes the cross K/V from
+    ``enc_out`` and stores them in the cache's ``ck`` / ``cv`` (in
+    place), decode reads them from there."""
     norm = lambda p, z: apply_norm(p, z, cfg.norm)
     if kind == RGLRU:
         state = (cache if cache is not None else
@@ -80,6 +88,20 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
         phase=phase, block_tables=block_tables if kind == ATTN else None,
         spec_tree=spec_tree)
     x = x + out
+    if "xattn" in params:
+        if phase == "prefill" or cache is None or "ck" not in cache:
+            cross = precompute_cross_kv(params["xattn"], enc_out,
+                                        n_kv_heads=cfg.n_kv_heads,
+                                        head_dim=cfg.head_dim)
+            if cache is not None and "ck" in cache:
+                cache["ck"].copy_(cross["ck"])
+                cache["cv"].copy_(cross["cv"])
+        else:
+            cross = {"ck": cache["ck"], "cv": cache["cv"]}
+        x = x + apply_cross_attention(params["xattn"],
+                                      norm(params["ln_x"], x), cross,
+                                      n_heads=cfg.n_heads,
+                                      head_dim=cfg.head_dim)
     h = apply_norm(params["ln2"], x, cfg.norm)
     if use_moe:
         # decode steps are few-token: dropless dispatch keeps speculative
@@ -102,10 +124,17 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      device) -> dict:
+    """One layer's cache; an encoder-decoder ATTN layer also holds the
+    cross K/V ``ck`` / ``cv`` (B, encoder_len, Hkv, d)."""
     if kind == ATTN:
-        return init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
-                             cfg.torch_dtype, device,
-                             quant=cfg.kv_cache_dtype == "int8")
+        c = init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
+                          cfg.torch_dtype, device,
+                          quant=cfg.kv_cache_dtype == "int8")
+        if cfg.encoder_decoder:
+            shape = (batch, cfg.encoder_len, cfg.n_kv_heads, cfg.head_dim)
+            c["ck"] = torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+            c["cv"] = torch.zeros_like(c["ck"])
+        return c
     if kind == SWA:
         return init_kv_cache(batch, min(cfg.sliding_window, max_len),
                              cfg.n_kv_heads, cfg.head_dim, cfg.torch_dtype,
@@ -137,7 +166,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
     ``(num_blocks, block_size, Hkv, d)`` pool addressed through the
     ``block_tables`` rows (0 = the reserved scratch block); SWA layers
     keep per-slot rings.  ``kv_quant`` overrides ``cfg.kv_cache_dtype``
-    for the pools."""
+    for the pools.  Encoder-decoder configs raise, as in the JAX
+    package."""
+    if cfg.encoder_decoder:
+        raise ValueError("paged KV serving supports decoder-only models")
     device = resolve_device(device)
     quant = (cfg.kv_cache_dtype == "int8") if kv_quant is None else kv_quant
     layers = []
@@ -224,10 +256,11 @@ def release_slot_paged(cache: dict, slot: int) -> dict:
 
 def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
                     cache: dict | None = None,
-                    spec_tree: dict | None = None):
+                    spec_tree: dict | None = None, enc_out=None):
     """Run the decoder over embedded inputs x (B, S, D): a loop over
     layers.  ``spec_tree`` (decode only) marks x as a speculation-tree
-    buffer.  Returns (hidden, cache, pendings)."""
+    buffer; ``enc_out`` is the encoder output of an encoder-decoder
+    config (read in prefill).  Returns (hidden, cache, pendings)."""
     pos = cache["pos"] if (cache is not None and phase == "decode") else None
     block_tables = (cache.get("block_tables")
                     if (cache is not None and phase == "decode") else None)
@@ -238,7 +271,7 @@ def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
                                  x, layer_cache, pos, phase,
                                  use_moe=cfg.layer_is_moe(l),
                                  block_tables=block_tables,
-                                 spec_tree=spec_tree)
+                                 spec_tree=spec_tree, enc_out=enc_out)
         pendings.append(pend)
     return x, cache, pendings
 

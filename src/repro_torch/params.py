@@ -6,6 +6,10 @@ The port's parameters are plain dicts of tensors::
      "layers": [per-layer dict, one per layer],
      "final_norm": {"scale": (D,)}}
 
+(a LayerNorm config adds ``"bias"`` beside each ``"scale"``; an
+encoder-decoder config adds ``"encoder"`` and, in each attention layer,
+the cross attention ``xattn`` and its norm ``ln_x``)
+
 with each attention layer ``{"ln1": {"scale"}, "ln2": {"scale"},
 "attn": {"wq", "wk", "wv", "wo"}, "ffn": {...}}``; a dense FFN holds
 ``w_gate``/``w_up`` (D, F) and ``w_down`` (F, D), an MoE FFN ``router``
@@ -87,24 +91,49 @@ def _init_rwkv(cfg: ModelConfig, generator, device) -> tuple:
     return tmix, cmix
 
 
+def _norm(cfg: ModelConfig, device) -> dict:
+    """Unit scale, and a zero bias for LayerNorm (``init_norm``)."""
+    p = {"scale": torch.ones((cfg.d_model,), dtype=cfg.torch_dtype,
+                             device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=cfg.torch_dtype,
+                                device=device)
+    return p
+
+
+def _attention(cfg: ModelConfig, generator, device) -> dict:
+    dt, d, hd = cfg.torch_dtype, cfg.d_model, cfg.head_dim
+    return {"wq": _dense(d, cfg.n_heads * hd, generator, device, dt),
+            "wk": _dense(d, cfg.n_kv_heads * hd, generator, device, dt),
+            "wv": _dense(d, cfg.n_kv_heads * hd, generator, device, dt),
+            "wo": _dense(cfg.n_heads * hd, d, generator, device, dt)}
+
+
+def _mlp(cfg: ModelConfig, generator, device) -> dict:
+    dt, d, f = cfg.torch_dtype, cfg.d_model, cfg.d_ff
+    p = {"w_up": _dense(d, f, generator, device, dt),
+         "w_down": _dense(f, d, generator, device, dt)}
+    if cfg.activation in ("swiglu", "geglu"):
+        p["w_gate"] = _dense(d, f, generator, device, dt)
+    return p
+
+
 def _init_layer(cfg: ModelConfig, kind: str, use_moe: bool, generator,
                 device) -> dict:
-    dt, d, f, hd = cfg.torch_dtype, cfg.d_model, cfg.d_ff, cfg.head_dim
-    ones = lambda: {"scale": torch.ones((d,), dtype=dt, device=device)}
-    p = {"ln1": ones(), "ln2": ones()}
+    dt, d, f = cfg.torch_dtype, cfg.d_model, cfg.d_ff
+    p = {"ln1": _norm(cfg, device), "ln2": _norm(cfg, device)}
     if kind == RWKV:
         p["tmix"], p["cmix"] = _init_rwkv(cfg, generator, device)
         return p
     if kind == RGLRU:
         p["rec"] = _init_rglru(cfg, generator, device)
     else:
-        p["attn"] = {
-            "wq": _dense(d, cfg.n_heads * hd, generator, device, dt),
-            "wk": _dense(d, cfg.n_kv_heads * hd, generator, device, dt),
-            "wv": _dense(d, cfg.n_kv_heads * hd, generator, device, dt),
-            "wo": _dense(cfg.n_heads * hd, d, generator, device, dt)}
-    gated = cfg.activation in ("swiglu", "geglu")
+        p["attn"] = _attention(cfg, generator, device)
+        if cfg.encoder_decoder:
+            p["xattn"] = _attention(cfg, generator, device)
+            p["ln_x"] = _norm(cfg, device)
     if use_moe:
+        gated = cfg.activation in ("swiglu", "geglu")
         e = cfg.n_experts
         ffn = {"router": _dense(d, e, generator, device, torch.float32),
                "w_up": _trunc_normal((e, d, f), d ** -0.5, generator, device,
@@ -115,10 +144,7 @@ def _init_layer(cfg: ModelConfig, kind: str, use_moe: bool, generator,
             ffn["w_gate"] = _trunc_normal((e, d, f), d ** -0.5, generator,
                                           device, dt)
     else:
-        ffn = {"w_up": _dense(d, f, generator, device, dt),
-               "w_down": _dense(f, d, generator, device, dt)}
-        if gated:
-            ffn["w_gate"] = _dense(d, f, generator, device, dt)
+        ffn = _mlp(cfg, generator, device)
     p["ffn"] = ffn
     return p
 
@@ -133,9 +159,10 @@ def init_layer(cfg: ModelConfig, layer: int, generator: torch.Generator,
 
 def init_resident(cfg: ModelConfig, generator: torch.Generator,
                   device) -> dict:
-    """The parameters outside the layer stack, ``embed`` and
-    ``final_norm``, drawn as :func:`init_params` draws them after the
-    layers."""
+    """The parameters outside the decoder's layer stack, ``embed``,
+    ``final_norm`` and an encoder-decoder config's ``encoder``
+    (``{"layers": [per layer {ln1, attn, ln2, mlp}], "final_norm"}``),
+    drawn as :func:`init_params` draws them after the layers."""
     dt = cfg.torch_dtype
     embed = {"tok": (torch.randn((cfg.vocab_size, cfg.d_model),
                                  generator=generator, device=device)
@@ -143,9 +170,16 @@ def init_resident(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         embed["head"] = _dense(cfg.d_model, cfg.vocab_size, generator,
                                device, dt)
-    return {"embed": embed,
-            "final_norm": {"scale": torch.ones((cfg.d_model,), dtype=dt,
-                                               device=device)}}
+    out = {"embed": embed, "final_norm": _norm(cfg, device)}
+    if cfg.encoder_decoder:
+        out["encoder"] = {
+            "layers": [{"ln1": _norm(cfg, device),
+                        "attn": _attention(cfg, generator, device),
+                        "ln2": _norm(cfg, device),
+                        "mlp": _mlp(cfg, generator, device)}
+                       for _ in range(cfg.n_encoder_layers)],
+            "final_norm": _norm(cfg, device)}
+    return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -162,8 +196,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     layers = [init_layer(cfg, l, generator, device)
               for l in range(cfg.n_layers)]
     resident = init_resident(cfg, generator, device)
-    return {"embed": resident["embed"], "layers": layers,
-            "final_norm": resident["final_norm"]}
+    return {"embed": resident.pop("embed"), "layers": layers, **resident}
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -187,7 +220,9 @@ def from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     The JAX ``layers`` entry is a tuple with one dict per
     ``layer_pattern`` position whose leaves are stacked over layer groups
     on a leading axis; layer ``l`` is group ``l // P``, position
-    ``l % P`` for a pattern of length P.
+    ``l % P`` for a pattern of length P.  An encoder-decoder config's
+    ``encoder["layers"]`` leaves are stacked over the encoder layers on
+    a leading axis (``jax.vmap``); they become a list, one dict a layer.
     """
     device = resolve_device(device)
     pat = len(cfg.layer_pattern)
@@ -198,7 +233,16 @@ def from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
         if "rec" in layer:
             rec = layer["rec"]
             rec["w_a"], rec["w_i"] = rec["w_a"].float(), rec["w_i"].float()
-    return {"embed": _map(lambda a: _to_torch(a, device), tree["embed"]),
-            "layers": layers,
+    out = {"embed": _map(lambda a: _to_torch(a, device), tree["embed"]),
+           "layers": layers,
+           "final_norm": _map(lambda a: _to_torch(a, device),
+                              tree["final_norm"])}
+    if cfg.encoder_decoder:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "layers": [_map(lambda a, i=i: _to_torch(np.asarray(a)[i],
+                                                     device), enc["layers"])
+                       for i in range(cfg.n_encoder_layers)],
             "final_norm": _map(lambda a: _to_torch(a, device),
-                               tree["final_norm"])}
+                               enc["final_norm"])}
+    return out

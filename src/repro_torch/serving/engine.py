@@ -60,7 +60,6 @@ from repro_torch.core.planner import (ParaSpecPlanner, Policy, Workload,
                                       kv_bytes_per_token)
 from repro_torch.core.spec_decode import (record_acceptance, tree_n_nodes,
                                           tree_supported)
-from repro_torch.kernels.decode_attention import max_rows
 from repro_torch.models.transformer import (admit_sequence_paged, init_cache,
                                             init_paged_cache,
                                             release_slot_paged)
@@ -240,17 +239,7 @@ class ServingEngine:
                         f"spec_tree requires an all-attention decoder-only "
                         f"{name} model (layer_pattern="
                         f"{mcfg.layer_pattern!r})")
-            n_nodes = tree_n_nodes(cfg.spec_tree)  # validates the node cap
-            # the target verifies the whole buffer in one verify-kernel
-            # call (the draft feeds it a level at a time, the root alone)
-            tc = self.target_cfg
-            rows = (tc.n_heads // tc.n_kv_heads) * n_nodes
-            if rows > max_rows(tc.head_dim):
-                raise ValueError(
-                    f"spec_tree {cfg.spec_tree} has {n_nodes} "
-                    f"nodes: the verify kernels hold (Hq / Hkv) * n_nodes "
-                    f"= {rows} query rows, at most {max_rows(tc.head_dim)} "
-                    f"at head dim {tc.head_dim}")
+            tree_n_nodes(cfg.spec_tree)            # validates the node cap
         self.device = resolve_device(self.device)
         self.obs = make_obs(trace=cfg.trace, metrics=cfg.metrics,
                             fence=cfg.trace_fence,

@@ -408,6 +408,59 @@ def test_paged_wrapper_grid_ignores_lengths(monkeypatch, lengths):
     assert strides == [5 * 32 * 128, 128, 32 * 128] * 2
 
 
+@pytest.mark.parametrize("rows,d", [
+    (1, 64), (20, 128), (128, 128), (129, 128), (160, 128), (248, 128),
+    (10, 240), (80, 240), (81, 240), (160, 240), (76, 256), (124, 256),
+    (1000, 64),
+])
+def test_row_groups_cover_every_row_once(rows, d):
+    """The wrapper's row groups (host arithmetic): as few CTAs as one
+    CTA's capacity allows, each group non-empty and within it, every one
+    of the g * m rows in exactly one group (group i holds rows [i * per,
+    min((i + 1) * per, rows)), as row_group in common.cuh)."""
+    groups, per = da.row_groups(rows, d)
+    assert groups == -(-rows // da.max_rows(d))
+    assert 1 <= per <= da.max_rows(d)
+    held = [r for i in range(groups)
+            for r in range(i * per, min((i + 1) * per, rows))]
+    assert sorted(held) == list(range(rows))
+    assert all(min((i + 1) * per, rows) > i * per for i in range(groups))
+
+
+def test_max_rows_matches_the_kernels_capacity():
+    """max_group_rows in common.cuh: 128 at d 64 and 128, 80 at d 240
+    (ten n-tiles; the CUDA-core body's shared memory would fit 82), 76 at
+    d 256 (its shared memory)."""
+    assert [da.max_rows(d) for d in (64, 128, 240, 256)] == [128, 128, 80, 76]
+    smem = lambda d: (232_448 // 4 - 32 * (2 * d + 1)) // (2 * d + 35)
+    assert smem(240) == 82 and smem(256) == 76
+
+
+@pytest.mark.parametrize("wrapper", ["paged", "contiguous"])
+def test_wrappers_pass_row_groups_past_one_cta(monkeypatch, wrapper):
+    """Llama-3-405B's verify under tree (3, 2): 128 / 8 query heads x 10
+    nodes = 160 rows go to two row groups of 80, the grid counts each
+    group as a head for its splits, and the workspace has a unit per
+    (head, group)."""
+    q = torch.zeros(2, 10, 128, 128, dtype=torch.bfloat16).transpose(1, 2)
+    lengths = torch.tensor([300, 600], dtype=torch.int32)
+    anc = torch.ones(10, dtype=torch.int32)
+    if wrapper == "paged":
+        calls = _fake_launch(monkeypatch, pd, 12, 6)
+        pool = torch.zeros(81, 16, 8, 128, dtype=torch.bfloat16)
+        bt = torch.arange(1, 81, dtype=torch.int32).reshape(2, 40)
+        pd.paged_decode_attention(q, pool, pool, bt, lengths, anc_bits=anc)
+        at, cap = 20, 40 * 16
+    else:
+        calls = _fake_launch(monkeypatch, da, 9, 9)
+        k = torch.zeros(2, 640, 8, 128, dtype=torch.bfloat16).transpose(1, 2)
+        da.decode_attention(q, k, k, lengths, anc_bits=anc)
+        at, cap = 16, 640
+    args, _ = calls[-1]
+    ns = da.n_split(2, 8 * 2, cap)
+    assert args[at:at + 3] == (ns, 2, 80)     # n_split, groups, group rows
+
+
 def test_one_split_needs_no_workspace():
     assert da.split_workspace(2, 8, 1, 20, 128, "cpu") == (None, None, None)
     acc, ml, cnt = da.split_workspace(2, 8, 3, 20, 128, "cpu")

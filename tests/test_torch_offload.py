@@ -221,3 +221,35 @@ def test_host_attention_matches_jax(sq):
     assert got.shape == (2, sq, 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
+
+
+def test_streamed_prefill_runs_the_encoder_like_the_resident_model():
+    """Whisper-base reduced with 3 decoder layers (more than the 2
+    slots): ``OffloadedModel.prefill(tokens, cache, encoder_frames)``
+    runs the resident encoder and stores each layer's cross K/V, bit for
+    bit as ``M.prefill`` does, and the decode steps after it agree too.
+    (The JAX package's ``OffloadedModel.prefill`` takes the frames and
+    drops them; the port passes them on.)"""
+    from repro_torch.configs import get_config
+    tcfg = get_config("whisper-base").reduced(d_model=64, n_layers=3)
+    tp = init_params(tcfg, torch.Generator().manual_seed(0), CPU)
+    tom = TO.OffloadedModel(tcfg, tp, CPU)
+    assert "encoder" in tom.params_resident
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, tcfg.vocab_size, (B, L)))
+    frames = torch.as_tensor(rng.standard_normal(
+        (B, tcfg.encoder_len, tcfg.d_model)).astype(np.float32))
+    ca = TT.init_cache(tcfg, B, MAX_LEN, CPU)
+    cb = TT.init_cache(tcfg, B, MAX_LEN, CPU)
+    la, ca = TM.prefill(tp, tcfg, toks, ca, encoder_frames=frames)
+    lb, cb = tom.prefill(toks, cb, encoder_frames=frames)
+    assert torch.equal(la, lb)
+    for a, b in zip(ca["layers"], cb["layers"]):
+        assert torch.equal(a["ck"], b["ck"]) and torch.equal(a["cv"], b["cv"])
+    ones = torch.ones((B,), dtype=torch.int64)
+    for _ in range(STEPS):
+        tok = torch.argmax(la, -1)[:, None]
+        la, ca = TM.decode_step(tp, tcfg, ca, tok)
+        lb, cb, pend = tom.decode(cb, tok)
+        cb = TM.commit(tcfg, cb, pend, ones, 1)
+        assert torch.equal(la, lb[:, 0])

@@ -25,7 +25,8 @@ from repro.launch import serve as j_serve  # noqa: E402
 from repro.sim import baselines as JB  # noqa: E402
 from repro.sim import hardware as JH  # noqa: E402
 from repro.sim import simulator as JSIM  # noqa: E402
-from repro_torch.configs import CONFIGS, MISTRAL_7B, MIXTRAL_8X7B  # noqa: E402
+from repro_torch.configs import (ALL_CONFIGS, MISTRAL_7B,  # noqa: E402
+                                 MIXTRAL_8X7B)
 from repro_torch.core import placement as TP  # noqa: E402
 from repro_torch.core import planner as TPL  # noqa: E402
 from repro_torch.core.pipeline import SpecOffloadEngine  # noqa: E402
@@ -44,7 +45,7 @@ PAIRS = {"8x7b": ("mixtral-8x7b", "mistral-7b"),
 def _pair(name):
     """(jax target, jax draft, torch target, torch draft)."""
     t, d = PAIRS[name]
-    return j_get_config(t), j_get_config(d), CONFIGS[t], CONFIGS[d]
+    return j_get_config(t), j_get_config(d), ALL_CONFIGS[t], ALL_CONFIGS[d]
 
 
 def _same(a, b):
@@ -72,9 +73,9 @@ def _workloads(mod):
 # configs
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("name", sorted(ALL_CONFIGS))
 def test_config_param_counts_match_jax(name):
-    tc, jc = CONFIGS[name], j_get_config(name)
+    tc, jc = ALL_CONFIGS[name], j_get_config(name)
     for cfg in ((tc, jc), (tc.reduced(d_model=64), jc.reduced(d_model=64))):
         t, j = cfg
         assert t.param_count() == j.param_count()
@@ -89,7 +90,7 @@ def test_config_param_counts_match_jax(name):
 
 
 def test_mixtral_8x22b_matches_jax_field_for_field():
-    t = dataclasses.asdict(CONFIGS["mixtral-8x22b"])
+    t = dataclasses.asdict(ALL_CONFIGS["mixtral-8x22b"])
     j = dataclasses.asdict(j_get_config("mixtral-8x22b"))
     assert t == {k: j[k] for k in t}
 
@@ -249,7 +250,7 @@ def test_simulator_matches_jax(pair, env):
 def test_baselines_match_jax(name, env):
     assert list(TB.BASELINES) == list(JB.BASELINES)
     for tname in ("mixtral-8x7b", "mixtral-8x22b", "mistral-7b"):
-        tc, jc = CONFIGS[tname], j_get_config(tname)
+        tc, jc = ALL_CONFIGS[tname], j_get_config(tname)
         for args in ((512, 64), (128, 32)):
             _same(TB.BASELINES[name](tc, TH.ENVS[env], *args),
                   JB.BASELINES[name](jc, JH.ENVS[env], *args))
@@ -338,12 +339,27 @@ def _run_main(main, argv, monkeypatch=None):
     ["--plan", "--env", "env1"],
     ["--plan", "--env", "env2", "--prompt-len", "512", "--gen", "64"],
     ["--plan", "--env", "env1", "--arch", "mixtral-8x22b"],
-])
+] + [["--plan", "--env", ("env1", "env2")[i % 2], "--arch", name]
+     for i, name in enumerate(sorted(set(ALL_CONFIGS)
+                                     - {"mixtral-8x7b", "mixtral-8x22b"}))])
 def test_serve_plan_prints_what_the_jax_launcher_prints(argv, monkeypatch):
-    got = _run_main(t_serve.main, argv)
-    want = _run_main(j_serve.main, argv, monkeypatch)
+    """Every configuration: the same policy, throughput and placement
+    lines, or, for the two targets no policy fits into the paper's host
+    and accelerator memory (Llama-3-405B, Llama-4 Maverick), the same
+    error."""
+    def outcome(*args):
+        try:
+            return _run_main(*args)
+        except ValueError as e:
+            return f"ValueError: {e}"
+    got = outcome(t_serve.main, argv)
+    want = outcome(j_serve.main, argv, monkeypatch)
     assert got == want
-    assert got.startswith("policy (bs_prefill, bs_decode, bs_draft, n_cand)")
+    if argv[-1] in ("llama3-405b", "llama4-maverick-400b-a17b"):
+        assert got.startswith("ValueError: no feasible policy")
+    else:
+        assert got.startswith(
+            "policy (bs_prefill, bs_decode, bs_draft, n_cand)")
 
 
 def test_serve_plan_h100_runs_before_any_device_work(monkeypatch):

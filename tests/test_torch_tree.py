@@ -561,28 +561,29 @@ def test_tree_pipeline_and_engine_reject_an_swa_draft(models):
                              config=tserve.SchedulerConfig(spec_tree=(2,) * 5))
 
 
-@pytest.mark.parametrize("group,head_dim,branching,ok", [
-    (2, 16, (2, 2, 2, 2), True),      # 62 rows
-    (8, 16, (3, 2), True),            # 80 rows
-    (8, 16, (2, 2, 2, 2), False),     # 248 rows > 128
-    (4, 256, (3, 2), True),           # 40 rows
-    (4, 256, (2, 2, 2, 2), False),    # 124 rows > 76 at head dim 256
+@pytest.mark.parametrize("group,head_dim,branching,n_groups", [
+    (2, 16, (2, 2, 2, 2), 1),         # 62 rows
+    (8, 16, (3, 2), 1),               # 80 rows
+    (8, 16, (2, 2, 2, 2), 2),         # 248 rows > 128: 2 groups of 124
+    (4, 256, (3, 2), 1),              # 40 rows
+    (4, 256, (2, 2, 2, 2), 2),        # 124 rows > 76 at head dim 256
 ])
 def test_engine_checks_the_verify_kernels_row_limit(models, group, head_dim,
-                                                    branching, ok):
+                                                    branching, n_groups):
     """The target verifies the whole tree buffer in one verify-kernel
-    call, which holds (Hq / Hkv) * n_nodes query rows in one CTA."""
+    call, (Hq / Hkv) * n_nodes query rows.  Past one CTA's capacity the
+    kernels deal the rows out to row groups, so the engine takes every
+    tree the node cap allows, as the JAX engine does."""
+    from repro_torch.kernels.decode_attention import max_rows, row_groups
     (_, _, _, _), (tt, td, _, _) = models
     tgt = dataclasses.replace(tt, n_heads=8, n_kv_heads=8 // group,
                               head_dim=head_dim)
-    make = lambda: tserve.ServingEngine(
-        tgt, td, device=CPU,
-        config=tserve.SchedulerConfig(max_batch=1, spec_tree=branching))
-    if ok:
-        make()
-    else:
-        with pytest.raises(ValueError, match="query rows"):
-            make()
+    tserve.ServingEngine(tgt, td, device=CPU,
+                         config=tserve.SchedulerConfig(max_batch=1,
+                                                       spec_tree=branching))
+    rows = group * TS.tree_n_nodes(branching)
+    groups, per = row_groups(rows, head_dim)
+    assert groups == n_groups and per <= max_rows(head_dim)
 
 
 def _trace(vocab, mod, rate_rps):
