@@ -134,7 +134,32 @@ on its own lines with its wall seconds:
    at head dim 240), StarCoder2-7B and Phi-3.5-MoE widths at 2 layers,
    every stream equal to the greedy decode; and Whisper-base, whose
    ``decode_step`` tokens must equal a prefill recomputed at every step;
-5. the kernels as one JSON object; 6. the device as one JSON object.
+5. training, the launches of each run read around it: (t) Gemma-3-12B
+   at its published widths, depth cut to one group (6 layers: 5 of
+   window 1024 + 1 global, head dim 240), bf16, ``remat`` as in its
+   config, AdamW at lr 3e-4, 5 steps of ``train_loop`` over
+   ``make_lm_batches`` at B 2 x S 4096: per step loss, gradient norm and
+   wall, tokens/s after the first step, peak memory, launches a step (6
+   forward + 6 recomputed ``flash_attention``, 6 ``flash_attention_bwd``,
+   required exactly), finite losses and norms, no plain attention, then
+   one more step under ``torch.profiler``: the device's kernel time by
+   group (``launch/profile_serve.py``'s: the backward and forward flash
+   kernels, cuBLAS, the rest) and its idle share against the untraced
+   steps' wall;
+   (t-eq) the same widths in f32, B 1 x 1281 tokens: loss and every
+   gradient leaf on the card against the same step on the CPU (plain
+   versions, same weights); (t-w) Whisper-base whole (6 + 6 layers, B 4
+   x 1500 frames, 448 tokens), 3 steps: bidirectional, causal and cross
+   attention through the backward kernel; (t-l) ``python -m
+   repro_torch.launch.train`` at its defaults, which must print
+   ``LEARNED``.  Phase 2 also holds the forward's log-sum-exp against
+   the plain one in every flash case and the backward kernel against
+   ``flash_attention_bwd_ref`` (Gemma-3 S 4096 window and global, the
+   f32 5t-eq shapes, Mistral widths, Whisper's encoder, decoder and cross
+   attention, head dim 32, partial tiles at S 100, Sq != Skv), the
+   library yardstick being the backward of
+   ``scaled_dot_product_attention``;
+6. the kernels as one JSON object; 7. the device as one JSON object.
 
 The families' cases of phase 2: flash at head dim 240 (Gemma-3-12B's 16
 / 8 heads: 256-wide tiles, zero columns past 240) causal at s512 in bf16
@@ -196,6 +221,9 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:129",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:49",
     "wkv6": "src/repro/kernels/wkv6.py:57",
+    # no pallas_call: the custom VJP's backward rule of the JAX flash
+    # attention, which the training path runs
+    "flash_attention_bwd": "src/repro/models/attention.py:231",
 }
 # the serving run whose launches each kernel reports (its path)
 PATH_RUN = {"paged_decode_attention": "3a", "flash_attention": "3a",
@@ -399,10 +427,13 @@ def kernel_cases(bench) -> dict:
             q, k, v = rn(b, hq, sq, d, dt=dt), rn(b, hkv, skv, d, dt=dt), \
                 rn(b, hkv, skv, d, dt=dt)
         kw = dict(causal=causal, window=window)
-        got = fa.flash_attention(q, k, v, **kw)
-        want = ref.flash_attention_ref(q, k, v, **kw)
+        got, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        want, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True,
+                                                 **kw)
         torch.cuda.synchronize()
         err = _check("flash_attention", label, got, want, dname)
+        # the log-sum-exp the backward reads, f32 whatever the inputs
+        _check("flash_attention lse", label, lse, want_lse, "float32")
         qp = np.arange(sq)[:, None]
         kp = np.arange(skv)[None, :]
         okm = np.ones((sq, skv), bool)
@@ -471,6 +502,11 @@ def kernel_cases(bench) -> dict:
                    skv=1500)
     flash_case("whisper cross b2 sq1 skv1500 d64 f32 (4j)", 2, 8, 8, 1, 64,
                False, None, torch.float32, model_layout=True, skv=1500)
+    # head dim 32: the training launcher's reduced Gemma-3 (5t-l), f32
+    for dt in (torch.float32, torch.bfloat16):
+        flash_case("launcher d32 b8 hq4 hkv2 s64 w64 (5t-l)", 8, 4, 2, 64, 32,
+                   True, 64, dt, model_layout=True)
+    main["flash_attention_bwd"] = flash_bwd_cases(bench, rn)
 
     # -- paged decode attention --------------------------------------------
     def split_note(name, b, hkv, capacity, rows=None, d=128):
@@ -958,6 +994,109 @@ def kernel_cases(bench) -> dict:
               False, "model")
     wkv6_case("model decay decode b4 h64 s1", 4, 64, 1, 64, False, "model")
     torch.cuda.empty_cache()
+    return main
+
+
+def flash_bwd_cases(bench, rn):
+    """The flash backward kernel against ``flash_attention_bwd_ref`` on the
+    same q, k, v, output, log-sum-exp (the plain forward's) and output
+    gradient: Gemma-3-12B's training shapes (5t: B 2, S 4096, d 240, 16 /
+    8 heads, window 1024 and global; 5t-eq's f32 S 1281), Mistral widths
+    at d 128, Whisper's encoder (bidirectional T 1500) and its cross
+    attention (Sq 448 over 1500; 5t-w), the launcher's d 32 (5t-l), and
+    partial tiles at S 100.  Each line gives the worst of dq / dk / dv
+    against the tolerance (``TOL``, elementwise abs + rel), the kernel's
+    ms, its bound (5 products of 2 Sq Skv_live d per (b, q head); q, k,
+    v, o, dO, lse read and dq, dk, dv written), the plain version's ms and
+    the library yardstick: the backward alone of
+    ``scaled_dot_product_attention`` under the same mask (K / V repeated
+    to the query heads).  The first Gemma case is made twice and its
+    outputs must be bitwise equal.  Returns the main case's numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ref
+
+    def case(label, b, hq, hkv, sq, d, causal, window, dt, skv=None,
+             twice=False):
+        dname = str(dt).split(".")[1]
+        skv = sq if skv is None else skv
+        q, k, v = (rn(b, s_, h, d, dt=dt).transpose(1, 2)
+                   for h, s_ in ((hq, sq), (hkv, skv), (hkv, skv)))
+        dout = rn(b, sq, hq, d, dt=dt).transpose(1, 2)
+        kw = dict(causal=causal, window=window)
+        out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        out = out.transpose(1, 2).contiguous().transpose(1, 2)
+        got = fb.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        err = max(_check("flash_attention_bwd", f"{label} {n}", g, w, dname)
+                  for n, g, w in zip(("dq", "dk", "dv"), got, want))
+        if twice:
+            again = fb.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(got, again)), (
+                f"flash_attention_bwd {label}: two calls differ")
+        qp = np.arange(sq)[:, None]
+        kp = np.arange(skv)[None, :]
+        okm = np.ones((sq, skv), bool)
+        if causal:
+            okm &= kp <= qp
+        if window is not None:
+            okm &= kp > qp - window
+        pairs = int(okm.sum())
+        bound = _bound(_nbytes(q, k, v, out, dout, lse, *got),
+                       10.0 * b * hq * d * pairs, dname)
+        g = hq // hkv
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in
+                      (q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)))
+        mask = (None if (causal and window is None) or not (causal or window)
+                else torch.as_tensor(okm, device="cuda"))
+        lib_out = F.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=mask,
+            is_causal=bool(causal and window is None))
+        lib = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dout,
+                                          retain_graph=True)
+        r = (err, bench.ms(lambda: fb.flash_attention_bwd(
+                 q, k, v, out, lse, dout, **kw)), bound,
+             bench.ms(lambda: ref.flash_attention_bwd_ref(
+                 q, k, v, out, lse, dout, **kw)), bench.ms(lib))
+        _report("flash_attention_bwd", label, dname, *r,
+                path=_tc_path(dt) + (", bitwise equal twice" if twice
+                                     else ""))
+        del ql, kl, vl, lib_out
+        return r
+
+    bf16 = torch.bfloat16
+    main = case("gemma3 d240 b2 s4096 w1024 (5t SWA)", 2, 16, 8, 4096, 240,
+                True, 1024, bf16, twice=True)
+    case("gemma3 d240 b2 s4096 global (5t)", 2, 16, 8, 4096, 240, True, None,
+         bf16)
+    case("gemma3 d240 b1 s1281 w1024 f32 (5t-eq)", 1, 16, 8, 1281, 240, True,
+         1024, torch.float32)
+    case("gemma3 d240 b1 s1281 global f32 (5t-eq)", 1, 16, 8, 1281, 240,
+         True, None, torch.float32)
+    case("mistral d128 b1 32/8 s4096", 1, 32, 8, 4096, 128, True, None, bf16)
+    case("whisper encoder b4 T1500 d64 bidir (5t-w)", 4, 8, 8, 1500, 64,
+         False, None, bf16)
+    case("whisper cross b4 sq448 skv1500 d64 (5t-w)", 4, 8, 8, 448, 64, False,
+         None, bf16, skv=1500)
+    case("whisper decoder b4 s448 d64 causal (5t-w)", 4, 8, 8, 448, 64, True,
+         None, bf16)
+    for dt in (torch.float32, bf16):
+        case("launcher d32 b8 hq4 hkv2 s64 w64 (5t-l)", 8, 4, 2, 64, 32, True,
+             64, dt)
+    for d in (32, 64, 128, 240, 256):        # partial tiles
+        for causal, window in ((True, None), (True, 40), (False, None)):
+            case(f"edge s100 d{d} c{int(causal)} w{window}", 1, 4, 2, 100, d,
+                 causal, window, bf16)
+    case("edge s100 d64 c1 wNone f32", 1, 4, 2, 100, 64, True, None,
+         torch.float32)
+    case("edge sq100 skv70 d128 bidir f32", 1, 4, 2, 100, 128, False, None,
+         torch.float32, skv=70)
+    case("edge sq70 skv100 d128 c1 (Sq < Skv)", 1, 4, 2, 70, 128, True, None,
+         bf16, skv=100)
     return main
 
 
@@ -2110,6 +2249,258 @@ def whisper_lossless(label, steps: int = 8) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: training
+
+# 5t: Gemma-3-12B at its published widths, depth cut to one group (5
+# sliding-window layers + 1 global: 3.34 G parameters, ~40 GB with
+# AdamW's state), B 2 x S 4096 (the assigned train_4k length, so the
+# 1024-token window binds); 5t-eq: the same widths in f32, B 1, S 1281
+# (longer than the window; loss_fn's chunk is the largest divisor of S - 1
+# up to 256, so S - 1 = 1280 gives chunks of 256, where 1279, a prime,
+# would give 1279 chunks of one token)
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 6, 2, 4096, 5, 3e-4
+TRAIN_EQ_S = 1281
+TRAIN_EQ_TOL = (1e-5, 1e-4)     # loss relative; worst leaf / its max |g|
+WHISPER_TRAIN_S, WHISPER_TRAIN_STEPS = 448, 3
+
+
+class _PlainAttentionCounter:
+    """Counts calls of the plain attention functions (the model's
+    ``attention_direct`` / ``attention_chunked`` and the flash plain
+    versions) while it is entered: the training runs on the card must
+    make none."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        from repro_torch.models import attention, encdec
+        self.calls = Counter()
+        self.saved = []
+        for mod, name in ((attention, "attention_direct"),
+                          (attention, "attention_chunked"),
+                          (encdec, "attention_chunked"),
+                          (ref, "flash_attention_ref"),
+                          (ref, "flash_attention_bwd_ref")):
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def counted(*a, _fn=fn, _name=name, **k):
+                self.calls[_name] += 1
+                return _fn(*a, **k)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _profiled_step(label, cfg, params, opt_state, data, step_wall):
+    """One more train step under ``torch.profiler``: the device's kernel
+    time by group (``launch/profile_serve.py``'s groups, copies apart),
+    against ``step_wall`` (the untraced steps' mean) as the idle share."""
+    import re
+
+    import torch
+
+    from repro_torch.launch.profile_serve import GROUPS
+    from repro_torch.training import make_train_step
+    step = make_train_step(cfg, lr=TRAIN_LR)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    batch = next(data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    groups = Counter()
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        name = ("copies" if e.key.startswith("Mem") else
+                next(g for g, pat in GROUPS if re.search(pat, e.key)))
+        groups[name] += us / 1e3
+    busy = sum(groups.values())
+    print(f"  [{label}] profiled step: wall {wall:.3f}s (profiler on), "
+          f"device {busy:.1f} ms (" + ", ".join(
+              f"{g} {ms:.1f}" for g, ms in groups.most_common())
+          + f"); against the untraced steps' mean wall {step_wall:.3f}s "
+          f"the card computes {busy / 1e3 / step_wall:.3f} of a step "
+          f"(idle share {1 - busy / 1e3 / step_wall:.3f})", flush=True)
+    assert groups["flash_attention_bwd kernels"] > 0, (
+        f"[{label}] the profiler saw no backward kernel")
+
+
+def _train_run(label, cfg, data, steps, n_tokens, profile=False):
+    """``train_loop`` over ``steps`` batches of ``data`` from seeded
+    weights, AdamW at ``TRAIN_LR``: per step its loss, gradient norm and
+    wall (each step ends in a read of its loss), tokens/s after the first
+    step, peak device memory and launches a step.  Losses and gradient
+    norms must be finite and no plain attention may run.  With
+    ``profile``, one more step under the profiler
+    (:func:`_profiled_step`)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.params import init_params
+    from repro_torch.training import make_optimizer, train_loop
+    from repro_torch.tree import tree_leaves
+
+    t_run = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, g, "cuda")
+    opt_init, _ = make_optimizer(cfg.optimizer)
+    opt_state = opt_init(params, cfg)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    torch.cuda.synchronize()
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with _PlainAttentionCounter() as plain:
+        params, opt_state, log = train_loop(cfg, params, opt_state, data,
+                                            steps, lr=TRAIN_LR, log_every=1)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert not plain.calls, f"[{label}] plain attention ran: {plain.calls}"
+    walls = np.diff([0.0] + [row["elapsed_s"] for row in log])
+    for row, wall in zip(log, walls):
+        assert np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"]), row
+        print(f"  [{label}] step {row['step']}: loss {row['loss']:.4f} "
+              f"grad norm {row['grad_norm']:.4f} wall {wall:.3f}s", flush=True)
+    tok_s = n_tokens * (steps - 1) / float(walls[1:].sum())
+    print(f"  [{label}] {cfg.name} {cfg.n_layers} layers {cfg.dtype}, "
+          f"{n_params / 1e9:.3f} G parameters, {n_tokens} tokens a step: "
+          f"{tok_s:.1f} tokens/s after the first step, peak memory "
+          f"{peak:.2f} GiB, launches a step: flash_attention "
+          f"{launches['flash_attention'] / steps:g}, flash_attention_bwd "
+          f"{launches['flash_attention_bwd'] / steps:g}; run wall "
+          f"{time.perf_counter() - t_run:.1f}s", flush=True)
+    if profile:
+        _profiled_step(label, cfg, params, opt_state, data,
+                       float(walls[1:].mean()))
+    del params, opt_state
+    _free()
+    return launches, log
+
+
+def train_phase() -> dict:
+    """5t, 5t-eq, 5t-w, 5t-l; returns 5t's launches."""
+    import torch
+
+    from repro_torch.configs import GEMMA3_12B, WHISPER_BASE
+    from repro_torch.data.pipeline import make_lm_batches
+
+    # 5t: one step's forward runs 6 flash launches, remat's recompute of
+    # the group 6 more, and the backward 6 flash_attention_bwd launches
+    cfg = dataclasses.replace(GEMMA3_12B, n_layers=TRAIN_LAYERS)
+    assert cfg.remat and cfg.dtype == "bfloat16" and cfg.n_groups == 1
+    data = make_lm_batches(TRAIN_B, TRAIN_S, cfg.vocab_size, seed=0)
+    launches, _ = _train_run("5t", cfg, data, TRAIN_STEPS,
+                             TRAIN_B * TRAIN_S, profile=True)
+    per = 2 * cfg.n_layers
+    assert launches["flash_attention"] == per * TRAIN_STEPS, launches
+    assert launches["flash_attention_bwd"] == cfg.n_layers * TRAIN_STEPS, \
+        launches
+
+    train_eq_run("5t-eq")
+
+    # 5t-w: the encoder (6 bidirectional layers, not rematerialised, as in
+    # JAX), the decoder's 6 groups each a checkpoint (self + cross)
+    wcfg = WHISPER_BASE
+    rng = np.random.default_rng(0)
+    lm = make_lm_batches(4, WHISPER_TRAIN_S, wcfg.vocab_size, seed=0)
+    wdata = ({"tokens": next(lm)["tokens"],
+              "encoder_frames": rng.standard_normal(
+                  (4, wcfg.encoder_len, wcfg.d_model)).astype(np.float32)}
+             for _ in range(WHISPER_TRAIN_STEPS))
+    wl, _ = _train_run("5t-w", wcfg, wdata, WHISPER_TRAIN_STEPS,
+                       4 * WHISPER_TRAIN_S)
+    n_enc, n_dec = wcfg.n_encoder_layers, 2 * wcfg.n_layers
+    assert wl["flash_attention"] == WHISPER_TRAIN_STEPS * (
+        n_enc + n_dec * (2 if wcfg.remat else 1)), wl
+    assert wl["flash_attention_bwd"] == WHISPER_TRAIN_STEPS * (
+        n_enc + n_dec), wl
+
+    # 5t-l: the launcher at its defaults (reduced Gemma-3, f32, head dim 32)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    lines = out.stdout.strip().splitlines()
+    print("  [5t-l] python -m repro_torch.launch.train (defaults): "
+          + " | ".join(lines[-3:])
+          + f"; wall {time.perf_counter() - t0:.1f}s", flush=True)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert lines and "LEARNED" in lines[-1], out.stdout[-2000:]
+    torch.cuda.synchronize()
+    return launches
+
+
+def train_eq_run(label) -> None:
+    """The same train step's loss and gradients on the card (kernels)
+    and on the CPU (plain versions) from the same f32 weights: Gemma-3-12B
+    widths, 6 layers, B 1 x ``TRAIN_EQ_S`` tokens (longer than the
+    window).  Held to ``TRAIN_EQ_TOL``: the loss's relative error, and for
+    every gradient leaf its largest error over the leaf's largest
+    magnitude."""
+    import torch
+
+    from repro_torch.configs import GEMMA3_12B
+    from repro_torch.data.pipeline import make_lm_batches
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.params import init_params
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_map
+
+    t_run = time.perf_counter()
+    cfg = dataclasses.replace(GEMMA3_12B, n_layers=TRAIN_LAYERS,
+                              dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    params = init_params(cfg, g, "cuda")
+    cpu_params = tree_map(lambda t: t.to("cpu"), params)
+    tokens = next(make_lm_batches(1, TRAIN_EQ_S, cfg.vocab_size, seed=1))[
+        "tokens"]
+    res = {}
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        leaves = tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        reset_launches()
+        t0 = time.perf_counter()
+        loss = M.loss_fn(p, cfg, {"tokens": torch.as_tensor(
+            tokens, device=dev).long()})
+        grads = torch.autograd.grad(loss, leaves)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = launch_counts()
+        res[dev] = (float(loss.detach()), grads, time.perf_counter() - t0)
+    loss_err = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    worst, worst_at = 0.0, None
+    paths = list(tree_flatten(params))
+    for path, gc_, gh in zip(paths, res["cuda"][1], res["cpu"][1]):
+        err = float((gc_.to("cpu") - gh).abs().max()) / max(
+            float(gh.abs().max()), 1e-30)
+        if err > worst:
+            worst, worst_at = err, path
+    print(f"  [{label}] {cfg.name} {cfg.n_layers} layers f32, B 1 x "
+          f"{TRAIN_EQ_S}: loss card {res['cuda'][0]:.6f} / CPU "
+          f"{res['cpu'][0]:.6f} (relative error {loss_err:.2e}, tolerance "
+          f"{TRAIN_EQ_TOL[0]}); worst gradient leaf {worst_at}: max error / "
+          f"max |g| = {worst:.2e} (tolerance {TRAIN_EQ_TOL[1]}); card step "
+          f"{res['cuda'][2]:.2f}s (flash {n['flash_attention']}, bwd "
+          f"{n['flash_attention_bwd']} launches), CPU step "
+          f"{res['cpu'][2]:.2f}s; run wall {time.perf_counter() - t_run:.1f}s",
+          flush=True)
+    assert loss_err <= TRAIN_EQ_TOL[0] and worst <= TRAIN_EQ_TOL[1]
+    assert n["flash_attention_bwd"] == cfg.n_layers
+    del params, cpu_params, res
+    _free()
 
 
 def ptxas_report(_build) -> None:
@@ -2120,6 +2511,10 @@ def ptxas_report(_build) -> None:
     for src, kern in (("moe_ffn", "moe_wgmma_kernel"),
                       ("flash_attention", "flash_fwd_wgmma_kernel"),
                       ("flash_attention", "flash_fwd_kernel"),
+                      ("flash_attention_bwd", "bwd_dkdv_mma_kernel"),
+                      ("flash_attention_bwd", "bwd_dq_mma_kernel"),
+                      ("flash_attention_bwd", "bwd_dkdv_f32_kernel"),
+                      ("flash_attention_bwd", "bwd_dq_f32_kernel"),
                       ("paged_decode_attention", "paged_decode_mma_kernel"),
                       ("paged_decode_attention", "paged_decode_kernel"),
                       ("decode_attention", "decode_mma_kernel"),
@@ -2181,6 +2576,10 @@ def main() -> int:
     print("== 4. lossless (f32)", flush=True)
     lossless_phase()
     phases["4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    print("== 5. training", flush=True)
+    train_launches = train_phase()
+    phases["5"] = time.perf_counter() - t0
     print("  phase wall seconds: " + ", ".join(
         f"{k}={v:.1f}" for k, v in phases.items())
         + f", total {time.perf_counter() - t_all:.1f}")
@@ -2195,7 +2594,16 @@ def main() -> int:
                         "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": lib_ms})
-    print("== 5. kernels")
+    err, ms, (bound_ms, bound_by), plain_ms, lib_ms = main_cases[
+        "flash_attention_bwd"]
+    kernels.append({"name": "flash_attention_bwd", "route": "cuda",
+                    "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                    "replaces": REPLACES["flash_attention_bwd"],
+                    "launches": train_launches["flash_attention_bwd"],
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": lib_ms})
+    print("== 6. kernels")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

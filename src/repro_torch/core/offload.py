@@ -41,6 +41,7 @@ from repro_torch.models import model as M
 from repro_torch.models.attention import attention_direct
 from repro_torch.obs import NULL_OBS
 from repro_torch.params import init_layer, init_resident
+from repro_torch.tree import tree_leaves, tree_map
 
 # byte alignment of each tensor inside a layer's host buffer and slot
 # (the kernels need 16; 256 keeps every view as aligned as the caching
@@ -58,18 +59,6 @@ def _leaves(tree, prefix=()):
             yield from _leaves(v, prefix + (i,))
     else:
         yield prefix, tree
-
-
-def tree_leaves(tree) -> list:
-    return [t for _, t in _leaves(tree)]
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
 
 
 def tree_bytes(tree) -> int:
@@ -173,7 +162,7 @@ def put_host(tree, device="cuda", account=None) -> tuple:
 
 
 def put_device(tree, device="cuda"):
-    return _map(lambda t: t.to(resolve_device(device)), tree)
+    return tree_map(lambda t: t.to(resolve_device(device)), tree)
 
 
 def record_transfer(obs, tier: str, nbytes: float, seconds: float,

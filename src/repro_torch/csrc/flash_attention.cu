@@ -41,8 +41,16 @@
 //   CTAs an SM would need, cannot hold the n256 product).
 //   d = 240 (Gemma-3): the d = 256 configuration on 256-wide tiles whose
 //   last 16 columns TMA fills with zeros (FlashCfg's note): no padded
-//   copy of q, k or v is made.
-//   Shared memory: 80 KB (d 64), 160 KB (d 128, 240 and 256).
+//   copy of q, k or v is made.  d = 32 (the reduced configs the training
+//   launcher runs) takes the d = 64 configuration the same way: 64-wide
+//   tiles whose last 32 columns TMA fills with zeros.
+//   Shared memory: 80 KB (d 32, 64), 160 KB (d 128, 240 and 256).
+//
+// Training: given an lse pointer, both bodies also write each query row's
+// log-sum-exp, m + log(max(l, 1e-30)) in natural units as the JAX
+// package's _flash_forward forms it (src/repro/models/attention.py:191-193),
+// which the backward kernel (flash_attention_bwd.cu) reads to recompute P.
+// Serving passes null and writes nothing more.
 //
 // f32 (the lossless path): the exact CUDA-core kernel, no TF32 (which
 // would break token-exact equality with the greedy decode).  One CTA of
@@ -118,9 +126,9 @@ template <int D>
 __device__ __forceinline__ void consume(
     const uint8_t* qs, const uint8_t* k_base, const uint8_t* v_base,
     uint64_t* bar_q, uint64_t* full, uint64_t* empty, int w,
-    __nv_bfloat16* __restrict__ out, int64_t out_off, int64_t oss, int q0,
-    int sq, int skv, int k_first, int n_tiles, float scale_log2, int causal,
-    int window) {
+    __nv_bfloat16* __restrict__ out, int64_t out_off, int64_t oss,
+    float* __restrict__ lse, int q0, int sq, int skv, int k_first,
+    int n_tiles, float scale_log2, int causal, int window) {
   using C = FlashCfg<D>;
   constexpr int kBKV = C::kBKV, kDB = C::kDB, kDT = C::kDT;
   auto k_tile = [&](int s) { return k_base + 2 * s * C::kKVBytes; };
@@ -218,6 +226,11 @@ __device__ __forceinline__ void consume(
   for (int h = 0; h < 2; ++h) {
     l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
     l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+    // the row's log-sum-exp, natural units (m_run is in log2 units)
+    const int qpos = row0 + 8 * h;
+    if (lse != nullptr && lane % 4 == 0 && qpos < sq)
+      lse[qpos] = m_run[h] * 0.6931471805599453f +
+                  logf(fmaxf(l_run[h], 1e-30f));
     l_run[h] = 1.f / fmaxf(l_run[h], 1e-30f);
   }
 #pragma unroll
@@ -239,7 +252,8 @@ __global__ void __launch_bounds__(FlashCfg<D>::kThreads, 1)
                            const __grid_constant__ CUtensorMap map_v,
                            int q_hf, int k_hf, int v_hf,
                            __nv_bfloat16* __restrict__ out, int64_t osb,
-                           int64_t osh, int64_t oss, int n_q_heads,
+                           int64_t osh, int64_t oss,
+                           float* __restrict__ lse, int n_q_heads,
                            int n_kv_heads, int sq, int skv, float scale_log2,
                            int causal, int window) {
   using C = FlashCfg<D>;
@@ -304,14 +318,15 @@ __global__ void __launch_bounds__(FlashCfg<D>::kThreads, 1)
   } else {                                            // consumers
     if constexpr (C::kNWG == 2) setmaxnreg_inc<240>();
     consume<D>(qs, k_tile(0), v_tile(0), bar_q, full, empty, wg - 1, out,
-               b * osb + hq * osh, oss, q0, sq, skv, k_first, n_tiles,
-               scale_log2, causal, window);
+               b * osb + hq * osh, oss,
+               lse == nullptr ? nullptr : lse + static_cast<int64_t>(bh) * sq,
+               q0, sq, skv, k_first, n_tiles, scale_log2, causal, window);
   }
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                const int64_t* st, int batch, int hq, int hkv, int sq,
+                float* lse, const int64_t* st, int batch, int hq, int hkv, int sq,
                 int skv, float scale, int causal, int window,
                 cudaStream_t stream) {
   using C = FlashCfg<D>;
@@ -330,8 +345,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(batch * hq, (sq + C::kBQ - 1) / C::kBQ);
   kern<<<grid, C::kThreads, C::kSmem, stream>>>(
       mq.map, mk.map, mv.map, mq.heads_first, mk.heads_first, mv.heads_first,
-      static_cast<__nv_bfloat16*>(out), st[9], st[10], st[11], hq, hkv, sq,
-      skv, scale * 1.4426950408889634f, causal, window);
+      static_cast<__nv_bfloat16*>(out), st[9], st[10], st[11], lse, hq, hkv,
+      sq, skv, scale * 1.4426950408889634f, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -372,8 +387,8 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int n_q_heads, int n_kv_heads, int sq, int skv,
-    float scale, int causal, int window) {
+    T* __restrict__ out, float* __restrict__ lse, int n_q_heads,
+    int n_kv_heads, int sq, int skv, float scale, int causal, int window) {
   constexpr int NC = D / 16;       // output columns per thread
   constexpr int kBQ = query_tile<D>();
   constexpr int RQ = kBQ / 16;     // query rows per thread
@@ -494,6 +509,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   for (int i = 0; i < RQ; ++i) {
     const int qpos = q0 + ty * RQ + i;
     if (qpos >= sq) continue;
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<size_t>(bh) * sq + qpos] =
+          m_i[i] + logf(fmaxf(l_i[i], 1e-30f));
     const float inv = 1.f / fmaxf(l_i[i], 1e-30f);
     T* o = out + (static_cast<size_t>(bh) * sq + qpos) * D;
 #pragma unroll
@@ -503,7 +521,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int batch, int hq, int hkv, int sq, int skv, float scale,
+               float* lse, int batch, int hq, int hkv, int sq, int skv, float scale,
                int causal, int window, cudaStream_t stream) {
   using T = float;
   const size_t smem = smem_floats<D>() * sizeof(float);
@@ -515,7 +533,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(batch * hq, (sq + kBQ - 1) / kBQ);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), hq, hkv, sq, skv,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, hq, hkv, sq, skv,
       scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -525,9 +543,11 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 // q/k/v/out (B, H, S, d).  f32: contiguous; bf16: any strides with a
 // contiguous last dim, given in `strides` as (b, h, s) element strides of
 // q, k, v and out, each a multiple of 8 with 16-byte-aligned bases.
-// window <= 0 means no sliding window.
+// window <= 0 means no sliding window.  lse, when not null, receives each
+// query row's log-sum-exp (B, Hq, Sq) f32 (contiguous) for the backward.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, const int64_t* strides, int batch,
+                               void* out, void* lse, const int64_t* strides,
+                               int batch,
                                int hq, int hkv, int sq, int skv, int d,
                                float scale, int causal, int window, int dtype,
                                void* stream) {
@@ -537,14 +557,15 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
 #define REPRO_FLASH_D(D)                                                     \
   case D:                                                                    \
     return dtype == kF32                                                     \
-               ? launch_f32<D>(q, k, v, out, batch, hq, hkv, sq, skv, scale, \
-                               causal, window, st)                           \
-               : launch_bf16<D>(q, k, v, out, strides, batch, hq, hkv, sq,   \
-                                skv, scale, causal, window, st);
+               ? launch_f32<D>(q, k, v, out, lse_f, batch, hq, hkv, sq, skv, \
+                               scale, causal, window, st)                    \
+               : launch_bf16<D>(q, k, v, out, lse_f, strides, batch, hq, hkv,\
+                                sq, skv, scale, causal, window, st);
   if (dtype != kF32 && dtype != kBF16)
     return static_cast<int>(cudaErrorInvalidValue);
+  float* lse_f = static_cast<float*>(lse);
   switch (d) {
-    REPRO_FLASH_D(64) REPRO_FLASH_D(128) REPRO_FLASH_D(240)
+    REPRO_FLASH_D(32) REPRO_FLASH_D(64) REPRO_FLASH_D(128) REPRO_FLASH_D(240)
     REPRO_FLASH_D(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -8,14 +8,17 @@ on CPU tensors.  Each wrapper function counts its kernel launches in its
 def wrappers() -> tuple:
     """The kernel wrapper functions: the paged path's three, then the
     contiguous path's, then the RG-LRU's fused entry (the model's call
-    of the ``rglru_scan`` kernel source)."""
+    of the ``rglru_scan`` kernel source), then the training path's flash
+    backward."""
     from repro_torch.kernels import (decode_attention as da,
-                                     flash_attention as fa, moe_ffn as mf,
+                                     flash_attention as fa,
+                                     flash_attention_bwd as fb,
+                                     moe_ffn as mf,
                                      paged_decode_attention as pd,
                                      rglru_scan as rg, wkv6 as wk)
     return (pd.paged_decode_attention, fa.flash_attention, mf.moe_ffn,
             da.decode_attention, rg.rglru_scan, wk.wkv6,
-            rg.rglru_gated_scan)
+            rg.rglru_gated_scan, fb.flash_attention_bwd)
 
 
 def launch_counts() -> dict:

@@ -4,7 +4,10 @@ Replaces the TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention``.  On CPU tensors it returns the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); on CUDA tensors
 it launches the kernel or raises.  ``launches`` counts kernel launches.
-The kernel is bound by operations (see the source's note).
+The kernel is bound by operations (see the source's note).  With
+``return_lse`` the kernel also writes each query row's log-sum-exp,
+which the backward kernel (:mod:`repro_torch.kernels.flash_attention_bwd`)
+reads.
 
 bf16 runs the tensor-core kernel, which reads q/k/v and writes the
 output through their strides: any layout with a contiguous last dim
@@ -21,9 +24,10 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
+_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
          + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-HEAD_DIMS = (64, 128, 240, 256)   # 240: the 256-wide tiles, zero-filled
+# 240 and 32: the 256- and 64-wide tiles, zero-filled past d
+HEAD_DIMS = (32, 64, 128, 240, 256)
 
 
 def _strides(t) -> list:
@@ -36,8 +40,10 @@ def _strides(t) -> list:
     return out
 
 
-def flash_attention(q, k, v, *, scale=None, causal=True, window=None):
-    """q (B, Hq, Sq, d); k/v (B, Hkv, Skv, d) -> (B, Hq, Sq, d).
+def flash_attention(q, k, v, *, scale=None, causal=True, window=None,
+                    return_lse=False):
+    """q (B, Hq, Sq, d); k/v (B, Hkv, Skv, d) -> (B, Hq, Sq, d), and with
+    ``return_lse`` also the log-sum-exp (B, Hq, Sq) f32.
 
     Query and key positions both start at 0; ``causal`` masks keys after
     the query, ``window`` keys at or before ``q_pos - window``.  The
@@ -55,12 +61,14 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None):
     _build.require(window is None or window > 0, "window must be positive")
     if not _build.use_kernel(q, k, v):
         return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
-                                       window=window)
+                                       window=window, return_lse=return_lse)
 
     _build.require(d in HEAD_DIMS, f"head dim must be one of {HEAD_DIMS}")
     if q.dtype == torch.float32:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         _build.require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte "
                        "aligned")
@@ -68,13 +76,13 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None):
                                       + _strides(out)))
     fn = _build.bind("flash_attention", "flash_attention", _ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            ctypes.addressof(strides), b, hq, hkv, sq, skv, d,
+            _build.ptr(lse), ctypes.addressof(strides), b, hq, hkv, sq, skv, d,
             float(d ** -0.5 if scale is None else scale), int(causal),
             0 if window is None else int(window),
             _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

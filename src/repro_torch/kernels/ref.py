@@ -15,13 +15,12 @@ NEG_INF = -1e30
 RGLRU_C, RGLRU_EPS = 8.0, 1e-6       # repro/models/rglru.py's _C, _EPS
 
 
-def flash_attention_ref(q, k, v, *, scale=None, causal=True, window=None):
-    """q (B,Hq,Sq,d), k/v (B,Hkv,Skv,d) -> (B,Hq,Sq,d)."""
+def _flash_scores(q, k, scale, causal, window):
+    """Masked f32 scores (B, Hkv, g, Sq, Skv) of the flash functions,
+    masked entries at NEG_INF (as the JAX package adds its mask)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    g = hq // hkv
-    scale = d ** -0.5 if scale is None else scale
-    qg = q.reshape(b, hkv, g, sq, d).float()
+    qg = q.reshape(b, hkv, hq // hkv, sq, d).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
     qp = torch.arange(sq, device=q.device)[:, None]
     kp = torch.arange(skv, device=q.device)[None, :]
@@ -30,10 +29,55 @@ def flash_attention_ref(q, k, v, *, scale=None, causal=True, window=None):
         ok &= kp <= qp
     if window is not None:
         ok &= kp > qp - window
-    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    return torch.where(ok, s, torch.full_like(s, NEG_INF))
+
+
+def flash_attention_ref(q, k, v, *, scale=None, causal=True, window=None,
+                        return_lse=False):
+    """q (B,Hq,Sq,d), k/v (B,Hkv,Skv,d) -> (B,Hq,Sq,d); with
+    ``return_lse`` also the rows' log-sum-exp (B,Hq,Sq) f32, ``m +
+    log(max(l, 1e-30))`` as the JAX package's ``_flash_forward`` forms
+    it."""
+    b, hq, sq, d = q.shape
+    scale = d ** -0.5 if scale is None else scale
+    s = _flash_scores(q, k, scale, causal, window)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return o.reshape(b, hq, sq, d).to(q.dtype)
+    out = o.reshape(b, hq, sq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    m = s.amax(-1)
+    l = torch.exp(s - m[..., None]).sum(-1)
+    lse = m + torch.log(torch.clamp_min(l, 1e-30))
+    return out, lse.reshape(b, hq, sq)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, scale=None,
+                            causal=True, window=None):
+    """The flash backward from the saved log-sum-exp, step for step the
+    JAX package's ``_flash_bwd_rule`` (``repro/models/attention.py:231``):
+    ``D = rowsum(dO * O)`` (O in its own dtype, cast to f32), ``P =
+    exp(S - lse)``, ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P (dP - D)
+    scale``, ``dQ = dS K``, ``dK = dS^T Q``, all in f32, dK and dV summed
+    over the g query heads of each KV head.  q/out/dout (B,Hq,Sq,d), k/v
+    (B,Hkv,Skv,d), lse (B,Hq,Sq) f32.  Returns (dq, dk, dv) in the
+    inputs' dtypes."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    grp = lambda t: t.reshape(b, hkv, g, sq, d).float()
+    qg, do, og = grp(q), grp(dout), grp(out)
+    delta = (do * og).sum(-1)                                  # (b,h,g,q)
+    s = _flash_scores(q, k, scale, causal, window)
+    p = torch.exp(s - lse.reshape(b, hkv, g, sq)[..., None].float())
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, do)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", do, v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float())
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg)
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def anc_mask_from_bits(anc_bits, m: int):

@@ -22,6 +22,13 @@ the plain masked path on both devices, as in the JAX package (the
 kernels mask only the last m rows and cannot see a partial buffer).
 The ring-buffer decode of sliding-window layers has no TPU kernel and
 stays plain PyTorch on both devices.
+
+Training (``phase="train"``, no cache) and any attention call whose
+inputs need a gradient go through :class:`FlashAttentionFn`: the
+forward kernel with its log-sum-exp, then the backward kernel
+(``flash_attention_bwd``), the counterpart of the JAX package's custom
+VJP (``_attention_flash``); on CPU tensors the same Function runs the
+two plain versions.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fb
 from repro_torch.kernels import paged_decode_attention as _pd
 from repro_torch.kernels.ref import NEG_INF, gather_paged_kv_ref
 from repro_torch.models.layers import apply_rope, rope_table
@@ -155,15 +163,55 @@ def attention_chunked(q, k, v, q_positions, kv_positions, scale: float,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq * d).to(q.dtype)
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a hand-written backward: the counterpart of
+    the JAX package's ``_attention_flash`` custom VJP
+    (``repro/models/attention.py:206-272``).  Takes and returns (B, H, S,
+    d) tensors (the model's (B, S, H, d) ones as transposed views).  The
+    forward runs ``flash_attention`` with ``return_lse`` and saves q, k,
+    v, the output and the log-sum-exp; the backward runs
+    ``flash_attention_bwd`` on them.  On CUDA tensors both are kernels,
+    on CPU tensors both wrappers return their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window):
+        out, lse = _fa.flash_attention(q, k, v, scale=scale, causal=causal,
+                                       window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (scale, causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        scale, causal, window = ctx.mask
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = _fb.flash_attention_bwd(q, k, v, out, lse, dout,
+                                             scale=scale, causal=causal,
+                                             window=window)
+        return dq, dk, dv, None, None, None
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a call on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_bshd(q, k, v, scale: float, causal: bool,
                window: int | None = None) -> torch.Tensor:
     """The ``flash_attention`` kernel over the model's (B, S, H, d) q and
     k/v, handed over as transposed views (the kernel reads them, and
-    writes the output, through their strides).  Returns (B, Sq, Hq*d)."""
+    writes the output, through their strides), through
+    :class:`FlashAttentionFn` when a gradient is needed.  Returns (B, Sq,
+    Hq*d)."""
     b, sq, hq, d = q.shape
-    out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), scale=scale, causal=causal,
-                              window=window)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if needs_grad(q, k, v):
+        out = FlashAttentionFn.apply(qt, kt, vt, scale, causal, window)
+    else:
+        out = _fa.flash_attention(qt, kt, vt, scale=scale, causal=causal,
+                                  window=window)
     return out.transpose(1, 2).reshape(b, sq, hq * d)
 
 
@@ -324,7 +372,9 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
     """One attention layer; returns (out, cache, saved).
 
     phase="prefill": x is the whole prompt at positions [0, S); a given
-    ``cache`` is filled in place.  phase="decode": x holds Sq new tokens
+    ``cache`` is filled in place.  phase="train": the same attention
+    with no cache, through :class:`FlashAttentionFn` on both devices.
+    phase="decode": x holds Sq new tokens
     at logical positions [pos, pos+Sq) (``pos`` (B,)); the cache is
     written in place and attended.  With ``block_tables`` the cache is a
     shared block pool (paged KV, full attention only).  ``saved`` holds
@@ -367,7 +417,9 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
         k = apply_rope(k, sin, cos)
 
     saved = {}
-    if phase == "prefill":
+    if phase == "train":
+        out = flash_bshd(q, k, v, scale, causal=True, window=window)
+    elif phase == "prefill":
         if x.is_cuda:
             out = flash_bshd(q, k, v, scale, causal=True, window=window)
         else:
@@ -481,15 +533,16 @@ def precompute_cross_kv(params: dict, enc_out, *, n_kv_heads: int,
 def apply_cross_attention(params: dict, x, cross_kv: dict, *, n_heads: int,
                           head_dim: int) -> torch.Tensor:
     """x (B, Sq, D) attends, unmasked, over every encoder row of
-    ``cross_kv``: on CUDA tensors through the flash kernel with
-    ``causal=False`` (Sq = the prompt in prefill, the m new tokens in
-    decode, over Skv = T), on CPU tensors through ``attention_direct``
-    with a zero mask, as the JAX package computes it."""
+    ``cross_kv``: on CUDA tensors, and wherever a gradient is needed,
+    through the flash kernel with ``causal=False`` (Sq = the prompt in
+    prefill or training, the m new tokens in decode, over Skv = T), on
+    CPU tensors without a gradient through ``attention_direct`` with a
+    zero mask, as the JAX package computes it."""
     b, sq, _ = x.shape
     scale = head_dim ** -0.5
     q = (x @ params["wq"]).reshape(b, sq, n_heads, head_dim)
     k, v = cross_kv["ck"].to(q.dtype), cross_kv["cv"].to(q.dtype)
-    if x.is_cuda:
+    if x.is_cuda or needs_grad(q, k, v):
         out = flash_bshd(q, k, v, scale, causal=False)
     else:
         mask = torch.zeros((sq, k.shape[1]), device=x.device)

@@ -8,15 +8,18 @@ bidirectional self-attention and a GELU MLP, each as a residual, and a
 final norm.  The JAX package stacks the layers for a ``lax.scan``; here
 ``params["layers"]`` is a list, one dict a layer (``ln1``, ``attn``,
 ``ln2``, ``mlp``).  On CUDA tensors the attention is the flash kernel
-with ``causal=False`` (T 1500, head dim 64 at Whisper-base); on CPU
-tensors the plain ``attention_chunked``.
+with ``causal=False`` (T 1500, head dim 64 at Whisper-base), and in
+training its backward kernel through ``FlashAttentionFn`` (the plain
+versions on CPU tensors); on CPU tensors without a gradient the plain
+``attention_chunked``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models.attention import attention_chunked, flash_bshd
+from repro_torch.models.attention import (attention_chunked, flash_bshd,
+                                         needs_grad)
 from repro_torch.models.layers import (apply_mlp, apply_norm,
                                        sinusoidal_positions)
 
@@ -33,7 +36,7 @@ def apply_encoder(params: dict, cfg: ModelConfig, frames) -> torch.Tensor:
         q = (h @ attn["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
         k = (h @ attn["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
         v = (h @ attn["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-        if x.is_cuda:
+        if x.is_cuda or needs_grad(q, k, v):
             out = flash_bshd(q, k, v, scale, causal=False)
         else:
             out = attention_chunked(q, k, v, positions, positions, scale,

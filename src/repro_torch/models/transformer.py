@@ -12,15 +12,20 @@ Caches are dicts ``{"layers": [per-layer dict], "pos": (B,) int64}``
 are updated **in place**: KV rows are written into the cache tensors,
 and a recurrent layer's new state is copied into its state tensors.
 
-Phases: ``prefill`` (the whole prompt, fills the cache) and ``decode``
+Phases: ``prefill`` (the whole prompt, fills the cache), ``decode``
 (Sq new tokens per sequence at positions ``cache["pos"]``; writes are
 eager and the returned pendings carry what :func:`commit_cache` needs to
 undo the writes of rejected tokens: saved ring rows, recurrent state
-stacks).
+stacks) and ``train`` (no cache; the layers run in groups of the
+pattern, each group under ``torch.utils.checkpoint`` when ``cfg.remat``,
+as the JAX package's scan body runs under ``jax.checkpoint``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import (ATTN, RGLRU, RWKV, SWA, ModelConfig,
                                  resolve_device)
@@ -253,6 +258,87 @@ def release_slot_paged(cache: dict, slot: int) -> dict:
 # ---------------------------------------------------------------------------
 # forward
 
+#: the ROADMAP item that brings the backward kernels training still lacks
+BACKWARD_ITEM = "ROADMAP.md section 1 item 12 (backward kernels)"
+
+
+def check_trainable(cfg: ModelConfig, device) -> None:
+    """Raise ``NotImplementedError`` where training ``cfg`` on ``device``
+    would run a kernel that has no backward yet: on the card, MoE layers
+    (``moe_ffn``), RG-LRU layers (``rglru_gated_scan``) and RWKV-6
+    layers (``wkv6``).  On the CPU every family trains through the plain
+    versions."""
+    if torch.device(device).type != "cuda":
+        return
+    missing = [name for name, needed in (
+        ("moe_ffn", cfg.is_moe), ("rglru_gated_scan",
+                                  RGLRU in cfg.layer_pattern),
+        ("wkv6", RWKV in cfg.layer_pattern)) if needed]
+    if missing:
+        raise NotImplementedError(
+            f"training {cfg.name} on the card needs the backward of "
+            f"{', '.join(missing)}, which is not written yet: "
+            f"{BACKWARD_ITEM}")
+
+
+def _sqrt_factor(n: int, threshold: int = 8) -> int:
+    """Outer superblock count for sqrt-remat (1 = disabled): the largest
+    divisor of ``n`` up to its square root, as the JAX package picks it."""
+    if n < threshold:
+        return 1
+    return next(k for k in range(math.isqrt(n), 0, -1) if n % k == 0)
+
+
+def _train_group(params: dict, cfg: ModelConfig, group: int, x, enc_out):
+    """The layers of pattern group ``group`` over x, phase ``train``."""
+    p = len(cfg.layer_pattern)
+    for l in range(group * p, (group + 1) * p):
+        x, _, _ = apply_layer(params["layers"][l], cfg, cfg.layer_kind(l), x,
+                              None, None, "train",
+                              use_moe=cfg.layer_is_moe(l), enc_out=enc_out)
+    return x
+
+
+def _forward_train(params: dict, cfg: ModelConfig, x, enc_out):
+    """The cache-less training forward (``repro/models/transformer.py:
+    520-560``): one group of the pattern at a time.  With ``cfg.remat``
+    each group is a checkpoint (only its input is kept; the backward
+    recomputes it); with ``cfg.offload_carries`` too, those inputs (the
+    group carries) are kept in page-locked host memory
+    (``save_on_cpu``), the counterpart of the JAX policy that offloads
+    ``group_carry`` to ``pinned_host``; otherwise past 8 groups
+    sqrt-remat checkpoints superblocks of ``n_groups / n_outer`` groups
+    around the group checkpoints, so n_outer + n_inner carries live at
+    once instead of n_groups."""
+    ckpt = lambda fn, z: checkpoint(fn, z, use_reentrant=False,
+                                    preserve_rng_state=False)
+    group = lambda g: (lambda z: _train_group(params, cfg, g, z, enc_out))
+    n = cfg.n_groups
+    if not cfg.remat:
+        for g in range(n):
+            x = group(g)(x)
+        return x
+    if cfg.offload_carries:
+        with torch.autograd.graph.save_on_cpu(pin_memory=x.is_cuda):
+            for g in range(n):
+                x = ckpt(group(g), x)
+        return x
+    n_outer = _sqrt_factor(n)
+    n_inner = n // n_outer
+
+    def superblock(o):
+        def run(z):
+            for g in range(o * n_inner, (o + 1) * n_inner):
+                z = ckpt(group(g), z)
+            return z
+        return run
+
+    if n_outer == 1:
+        return superblock(0)(x)
+    for o in range(n_outer):
+        x = ckpt(superblock(o), x)
+    return x
+
 
 def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
                     cache: dict | None = None,
@@ -260,7 +346,13 @@ def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
     """Run the decoder over embedded inputs x (B, S, D): a loop over
     layers.  ``spec_tree`` (decode only) marks x as a speculation-tree
     buffer; ``enc_out`` is the encoder output of an encoder-decoder
-    config (read in prefill).  Returns (hidden, cache, pendings)."""
+    config (read in prefill and training).  Returns (hidden, cache,
+    pendings); phase ``train`` takes no cache and returns (hidden, None,
+    [])."""
+    if phase == "train":
+        assert cache is None, "the training forward takes no cache"
+        check_trainable(cfg, x.device)
+        return _forward_train(params, cfg, x, enc_out), None, []
     pos = cache["pos"] if (cache is not None and phase == "decode") else None
     block_tables = (cache.get("block_tables")
                     if (cache is not None and phase == "decode") else None)

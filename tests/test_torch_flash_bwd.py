@@ -1,0 +1,181 @@
+"""The flash backward's plain version and its autograd plumbing against
+the JAX package: ``flash_attention_ref``'s log-sum-exp against
+``_flash_forward``'s, ``flash_attention_bwd_ref`` against ``jax.vjp`` of
+``attention_chunked`` (whose custom VJP is ``_flash_bwd_rule``), over
+causal, sliding-window and bidirectional masks, GQA (g 2), Sq != Skv and
+lengths that are no multiple of the KV chunk; ``FlashAttentionFn`` on
+CPU tensors against autograd of the materialised plain attention; and
+the attention layer's train phase against JAX's.  Inputs are drawn with
+numpy from a seed; f32, atol 1e-5 (rtol 1e-5)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.models import attention as jattn  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as fb  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+
+TOL = 1e-5
+
+# (b, hq, hkv, sq, skv, d, causal, window, kv_chunk)
+CASES = {
+    "causal": (2, 4, 4, 40, 40, 16, True, None, 16),
+    "window": (1, 4, 2, 40, 40, 16, True, 8, 16),
+    "bidirectional": (2, 2, 2, 33, 33, 16, False, None, 16),
+    "gqa-g2": (1, 4, 2, 48, 48, 32, True, None, 16),
+    "sq-ne-skv": (2, 4, 2, 24, 40, 16, False, None, 16),
+    "ragged-37": (1, 2, 1, 37, 37, 16, True, 12, 16),
+}
+
+
+def _inputs(case, seed=0):
+    b, hq, hkv, sq, skv, d, causal, window, chunk = CASES[case]
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    dout = rng.standard_normal((b, sq, hq * d)).astype(np.float32)
+    return q, k, v, dout
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want),
+                               rtol=TOL, atol=TOL)
+
+
+def _heads_first(x):
+    """(B, S, H, d) numpy -> (B, H, S, d) torch view."""
+    return torch.from_numpy(x).transpose(1, 2)
+
+
+def _jax_fn(case):
+    b, hq, hkv, sq, skv, d, causal, window, chunk = CASES[case]
+    qp = jnp.arange(sq, dtype=jnp.int32)
+    kp = jnp.arange(skv, dtype=jnp.int32)
+    return lambda q, k, v: jattn.attention_chunked(
+        q, k, v, qp, kp, d ** -0.5, window=window, causal=causal,
+        kv_chunk=chunk)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_lse_matches_jax_flash_forward(case):
+    b, hq, hkv, sq, skv, d, causal, window, chunk = CASES[case]
+    q, k, v, _ = _inputs(case)
+    out_j, lse_j = jattn._flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.arange(sq, dtype=jnp.int32), jnp.arange(skv, dtype=jnp.int32),
+        d ** -0.5, window, causal, chunk)
+    out, lse = ref.flash_attention_ref(_heads_first(q), _heads_first(k),
+                                       _heads_first(v), causal=causal,
+                                       window=window, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, sq)
+    _close(lse, np.asarray(lse_j).reshape(b, hq, sq))
+    _close(out.transpose(1, 2).reshape(b, sq, hq * d), out_j)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bwd_ref_matches_jax_custom_vjp(case):
+    b, hq, hkv, sq, skv, d, causal, window, chunk = CASES[case]
+    q, k, v, dout = _inputs(case, seed=1)
+    out_j, vjp = jax.vjp(_jax_fn(case), jnp.asarray(q), jnp.asarray(k),
+                         jnp.asarray(v))
+    dq_j, dk_j, dv_j = vjp(jnp.asarray(dout))
+    tq, tk, tv = _heads_first(q), _heads_first(k), _heads_first(v)
+    out, lse = ref.flash_attention_ref(tq, tk, tv, causal=causal,
+                                       window=window, return_lse=True)
+    do = torch.from_numpy(dout).reshape(b, sq, hq, d).transpose(1, 2)
+    # the wrapper on CPU tensors is the plain version
+    before = fb.flash_attention_bwd.launches
+    dq, dk, dv = fb.flash_attention_bwd(tq, tk, tv, out, lse, do,
+                                        causal=causal, window=window)
+    assert fb.flash_attention_bwd.launches == before
+    for got, want in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
+        _close(got.transpose(1, 2), want)
+
+
+def _plain_attention(q, k, v, causal, window):
+    """Materialised softmax attention, (B, H, S, d) in and out."""
+    g = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    s = q @ k.transpose(-1, -2) * q.shape[-1] ** -0.5
+    qp = torch.arange(q.shape[2])[:, None]
+    kp = torch.arange(k.shape[2])[None, :]
+    ok = torch.ones_like(s, dtype=torch.bool)
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None:
+        ok = ok & (kp > qp - window)
+    return torch.softmax(s.masked_fill(~ok, float("-inf")), -1) @ v
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flash_function_matches_autograd_of_plain_attention(case):
+    b, hq, hkv, sq, skv, d, causal, window, chunk = CASES[case]
+    q, k, v, dout = _inputs(case, seed=2)
+    do = torch.from_numpy(dout).reshape(b, sq, hq, d).transpose(1, 2)
+    grads = []
+    for fn in (lambda *t: tattn.FlashAttentionFn.apply(*t, d ** -0.5, causal,
+                                                        window),
+               lambda *t: _plain_attention(*t, causal, window)):
+        leaves = [_heads_first(x).clone().requires_grad_(True)
+                  for x in (q, k, v)]
+        out = fn(*leaves)
+        grads.append((out.detach(), *torch.autograd.grad(out, leaves, do)))
+    for got, want in zip(*grads):
+        _close(got, want.numpy())
+
+
+def test_flash_bshd_takes_the_function_only_under_grad(monkeypatch):
+    """``flash_bshd`` goes through ``FlashAttentionFn`` when autograd
+    records the call and straight to the forward wrapper otherwise."""
+    q, k, v, _ = _inputs("gqa-g2")
+    applied = []
+    real = tattn.FlashAttentionFn.apply
+    monkeypatch.setattr(tattn.FlashAttentionFn, "apply",
+                        lambda *a: applied.append(1) or real(*a))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tattn.flash_bshd(tq, tk, tv, 0.25, causal=True)
+    assert applied == []
+    tattn.flash_bshd(tq.requires_grad_(True), tk, tv, 0.25, causal=True)
+    assert applied == [1]
+    with torch.no_grad():
+        tattn.flash_bshd(tq, tk, tv, 0.25, causal=True)
+    assert applied == [1]
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_train_phase_attention_matches_jax(window):
+    """The attention layer's train phase (projections, RoPE, the flash
+    Function) and its weight gradients against JAX's apply_attention
+    (train phase, kv_chunk 128) under ``jax.grad``."""
+    rng = np.random.default_rng(3)
+    b, s, dm, hq, hkv, d = 2, 20, 32, 4, 2, 8
+    x = rng.standard_normal((b, s, dm)).astype(np.float32)
+    w = {n: (rng.standard_normal(shape) * dm ** -0.5).astype(np.float32)
+         for n, shape in (("wq", (dm, hq * d)), ("wk", (dm, hkv * d)),
+                          ("wv", (dm, hkv * d)), ("wo", (hq * d, dm)))}
+    dy = rng.standard_normal((b, s, dm)).astype(np.float32)
+    kw = dict(n_heads=hq, n_kv_heads=hkv, head_dim=d, rope_theta=10000.0,
+              window=window, phase="train")
+
+    def jloss(p, xx):
+        out, _, _ = jattn.apply_attention(p, xx, **kw)
+        return jnp.sum(out * dy)
+
+    jg, jgx = jax.grad(jloss, argnums=(0, 1))(
+        {k_: jnp.asarray(v_) for k_, v_ in w.items()}, jnp.asarray(x))
+    tw = {k_: torch.from_numpy(v_).requires_grad_(True) for k_, v_ in
+          w.items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    out, _, _ = tattn.apply_attention(tw, tx, **kw)
+    grads = torch.autograd.grad((out * torch.from_numpy(dy)).sum(),
+                                [tx] + list(tw.values()))
+    _close(grads[0], jgx)
+    for name, g in zip(tw, grads[1:]):
+        _close(g, jg[name])

@@ -16,6 +16,7 @@ import repro_torch  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as fb  # noqa: E402
 from repro_torch.kernels import moe_ffn as mf  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as pd  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
@@ -49,7 +50,12 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.models.rwkv", "repro_torch.obs.metrics",
             "repro_torch.obs.trace", "repro_torch.obs.request_trace",
             "repro_torch.obs.slo", "repro_torch.obs.schema",
-            "repro_torch.serving.server"} <= set(_modules())
+            "repro_torch.serving.server",
+            "repro_torch.kernels.flash_attention_bwd",
+            "repro_torch.training.optimizer",
+            "repro_torch.training.train_loop",
+            "repro_torch.training.checkpoint", "repro_torch.data.pipeline",
+            "repro_torch.launch.train", "repro_torch.tree"} <= set(_modules())
 
 
 def _imports(path):
@@ -79,6 +85,11 @@ WRAPPER_CALLS = {
     "flash": (fa, "flash_attention_ref", lambda: fa.flash_attention(
         torch.zeros(1, 4, 8, 64), torch.zeros(1, 2, 8, 64),
         torch.zeros(1, 2, 8, 64))),
+    "flash_bwd": (fb, "flash_attention_bwd_ref",
+                  lambda: fb.flash_attention_bwd(
+                      torch.zeros(1, 4, 8, 64), torch.zeros(1, 2, 8, 64),
+                      torch.zeros(1, 2, 8, 64), torch.zeros(1, 4, 8, 64),
+                      torch.zeros(1, 4, 8), torch.zeros(1, 4, 8, 64))),
     "moe": (mf, "moe_ffn_ref", lambda: mf.moe_ffn(
         torch.zeros(2, 3, 8), torch.zeros(2, 8, 4), torch.zeros(2, 8, 4),
         torch.zeros(2, 4, 8))),

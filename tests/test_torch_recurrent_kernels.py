@@ -442,9 +442,13 @@ def test_profile_groups_name_every_kernel_of_its_source():
     own = {"paged_decode_attention": "paged_decode_attention kernel",
            "decode_attention": "decode_attention kernel",
            "flash_attention": "flash_attention kernel",
+           "flash_attention_bwd": "flash_attention_bwd kernels",
            "moe_ffn": "moe_ffn kernels", "rglru_scan": "rglru_scan kernels",
            "wkv6": "wkv6 kernels"}
-    seen = 0
+    # two kernels a source; the flash backward's five (the row sums D,
+    # then dK/dV and dQ, each on the tensor cores and in exact f32)
+    n_kernels = dict.fromkeys(own, 2) | {"flash_attention_bwd": 5}
+    seen = dict.fromkeys(own, 0)
     for path in sorted(glob.glob(os.path.join(_build.CSRC, "*.cu"))):
         src = os.path.basename(path)[:-3]
         for name in pattern.findall(open(path).read()):
@@ -452,5 +456,5 @@ def test_profile_groups_name_every_kernel_of_its_source():
             group = next(label for label, pat in GROUPS
                          if re.search(pat, shown))
             assert group == own[src], (name, group)
-            seen += 1
-    assert seen == 2 * len(own)
+            seen[src] += 1
+    assert seen == n_kernels
