@@ -192,6 +192,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1010,8 +1011,12 @@ def flash_bwd_cases(bench, rn):
     v, o, dO, lse read and dq, dk, dv written), the plain version's ms and
     the library yardstick: the backward alone of
     ``scaled_dot_product_attention`` under the same mask (K / V repeated
-    to the query heads).  The first Gemma case is made twice and its
-    outputs must be bitwise equal.  Returns the main case's numbers."""
+    to the query heads).  The Gemma window case and the Mistral case are
+    made twice and their outputs must be bitwise equal.  The edges of the
+    bf16 kernels' tiles at d 128 and 240: Sq and Skv of 63, 65 and 129
+    under a causal mask (Sq < Skv and Sq > Skv among them), a window of 23
+    (under a tile, no multiple of 16), Sq > Skv bidirectional, g 1 and g
+    8.  Returns the main case's numbers."""
     import torch
     import torch.nn.functional as F
 
@@ -1077,7 +1082,8 @@ def flash_bwd_cases(bench, rn):
          1024, torch.float32)
     case("gemma3 d240 b1 s1281 global f32 (5t-eq)", 1, 16, 8, 1281, 240,
          True, None, torch.float32)
-    case("mistral d128 b1 32/8 s4096", 1, 32, 8, 4096, 128, True, None, bf16)
+    case("mistral d128 b1 32/8 s4096", 1, 32, 8, 4096, 128, True, None, bf16,
+         twice=True)
     case("whisper encoder b4 T1500 d64 bidir (5t-w)", 4, 8, 8, 1500, 64,
          False, None, bf16)
     case("whisper cross b4 sq448 skv1500 d64 (5t-w)", 4, 8, 8, 448, 64, False,
@@ -1097,6 +1103,15 @@ def flash_bwd_cases(bench, rn):
          torch.float32, skv=70)
     case("edge sq70 skv100 d128 c1 (Sq < Skv)", 1, 4, 2, 70, 128, True, None,
          bf16, skv=100)
+    for d in (128, 240):        # the edges of the wgmma kernels' tiles
+        for sq, skv in ((63, 63), (65, 65), (129, 129), (65, 129), (129, 65)):
+            case(f"edge sq{sq} skv{skv} d{d} c1", 1, 4, 2, sq, d, True, None,
+                 bf16, skv=skv)
+        case(f"edge s129 d{d} c1 w23", 1, 4, 2, 129, d, True, 23, bf16)
+        case(f"edge sq129 skv65 d{d} bidir", 1, 4, 2, 129, d, False, None,
+             bf16, skv=65)
+        case(f"edge s200 d{d} g1 c1", 1, 4, 4, 200, d, True, None, bf16)
+        case(f"edge s200 d{d} g8 c1 w23", 1, 8, 1, 200, d, True, 23, bf16)
     return main
 
 
@@ -2506,13 +2521,15 @@ def train_eq_run(label) -> None:
 def ptxas_report(_build) -> None:
     """What ``-Xptxas -v`` said of the tensor-core, verify and recurrence
     kernels, and of every head dim 240 instantiation apart (beside the d
-    256 verify tile with the most n-tiles)."""
+    256 verify tile with the most n-tiles).  The flash backward's wgmma
+    kernels must exist at head dims 32, 64, 128, 240 and 256 and spill
+    nothing."""
     d240 = []
     for src, kern in (("moe_ffn", "moe_wgmma_kernel"),
                       ("flash_attention", "flash_fwd_wgmma_kernel"),
                       ("flash_attention", "flash_fwd_kernel"),
-                      ("flash_attention_bwd", "bwd_dkdv_mma_kernel"),
-                      ("flash_attention_bwd", "bwd_dq_mma_kernel"),
+                      ("flash_attention_bwd", "bwd_dkdv_wgmma_kernel"),
+                      ("flash_attention_bwd", "bwd_dq_wgmma_kernel"),
                       ("flash_attention_bwd", "bwd_dkdv_f32_kernel"),
                       ("flash_attention_bwd", "bwd_dq_f32_kernel"),
                       ("paged_decode_attention", "paged_decode_mma_kernel"),
@@ -2533,6 +2550,17 @@ def ptxas_report(_build) -> None:
         if kern == "decode_mma_kernel":
             d240 += [f"(beside {kern}<{a}> {r} regs, spills {ss}/{sl} B)"
                      for a, r, sm, ss, sl in usage if a == "256,10"]
+        if kern in ("bwd_dkdv_wgmma_kernel", "bwd_dq_wgmma_kernel"):
+            # the backward's bf16 route: every head dim, nothing spilled
+            assert sorted(int(a) for a, *_ in usage) == [32, 64, 128, 240,
+                                                         256], usage
+            assert all(ss == sl == 0 for a, r, sm, ss, sl in usage), usage
+    # ... and no wgmma serialised, no warpgroup fence or wait injected
+    log = _build._lib_path("flash_attention_bwd").with_suffix(".log")
+    notes = re.findall(r"\((C75(?:17|19|20))\)", log.read_text())
+    print(f"  ptxas wgmma notes in flash_attention_bwd: {len(notes)} "
+          f"{sorted(set(notes))}")
+    assert not notes, notes
     assert any("flash_fwd_wgmma_kernel<240>" in x for x in d240), d240
     print("  head dim 240 instantiations: " + "; ".join(d240), flush=True)
 

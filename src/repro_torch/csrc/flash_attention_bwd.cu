@@ -20,54 +20,88 @@
 // written once: at Gemma-3's S 4096, d 240 the causal half does ~1000
 // operations a byte, far past the bf16 ridge (~295).
 //
-// Design (simple and deterministic; no atomics, so the bits do not depend
-// on the order CTAs finish in).  Three launches on the caller's stream:
-// 1. delta: one warp a query row, D = rowsum(dO * O) in f32.
-// 2. dK/dV: one CTA per (b, KV head, KV tile of BKV rows).  Its K and V
-//    tiles stay in shared memory; it walks the g query heads of its KV
-//    head and, for each, every Q tile that the masks leave live (from the
-//    causal diagonal to the window's last query), Q / dO tiles and their
-//    lse / D through a 2-stage cp.async ring.  Per Q tile:
-//      S^T = K Q^T and dP^T = V dO^T (BKV x 64, full head-dim contraction),
-//      P^T and dS^T in f32 registers, rounded to bf16 into shared memory;
-//      dV += P^T dO and dK += dS^T Q into f32 registers dealt out over the
-//      8 warps (64 a thread at every head dim).
-// 3. dQ: one CTA per (b, q head, Q tile of 64 rows): Q, dO, lse and D
-//    stay in shared memory, K / V tiles of 64 rows of the live range
-//    stream through a 2-stage ring, S = Q K^T and dP = dO V^T give dS
-//    (bf16 into shared memory), dQ += dS K in registers.
-// Tiles the causal or window mask empties are never visited: at S 4096
-// with window 1024 about a quarter of the (Q tile, KV tile) pairs live.
+// Deterministic, no atomics: dK / dV of a KV tile are summed over the g
+// query heads inside one CTA, and dQ comes from a kernel of its own, so
+// the bits never depend on the order in which CTAs finish (the training
+// step's bitwise-equal-twice check relies on it).  The price is that the
+// dQ kernel recomputes S and dP: 7 products where the bound counts 5, so
+// this design's own floor is 1.4x the bound.  (f32 atomics on a dQ
+// accumulator would save the two products and lose the determinism.)
 //
-// bf16: tensor cores, mma.sync m16n8k16 with f32 accumulators, operands
-// from XOR-swizzled shared memory by ldmatrix (.trans where the
-// contraction runs down the rows: dO and Q in phase 2 of kernel 2, K in
-// phase 2 of kernel 3).  BKV is 64 at head dims up to 128 and 32 at
-// 240 / 256, so that K, V, the Q / dO ring and P, dS fit the 227 KB one
-// block may use (115 KB at d 128, 172 KB at d 256); kernel 3 holds 200 KB
-// at d 256.  Head dims 240 and 32 run on tiles 256 and 64 wide whose
-// columns past d are zero (never loaded), as in the forward.
-// exp2 with log2(e) folded into the scale and the lse.
+// bf16 design: wgmma fed by TMA, warp-specialised, as the forward.
+// Three launches on the caller's stream:
+// 1. rows: one warp a query row, D = rowsum(dO * O) in f32, written with
+//    lse * log2(e) into a packed workspace, [b, h][64-row chunk][lse, D]
+//    (chunks padded to 128 rows, zeros past Sq), so that one bulk copy of
+//    512 bytes brings a Q tile's 64 pairs.
+// 2. dK / dV: one CTA per (b, KV head, KV tile), low key tiles first
+//    (under a causal mask they walk the most query tiles).  A producer
+//    warpgroup, one thread of which issues TMA loads: K and V once, then
+//    (Q, dO, rows) tiles of 64 queries, for each of the g heads every
+//    tile the masks leave live, through a ring of full / empty mbarriers
+//    (2-4 stages).  Two consumer warpgroups; setmaxnreg moves registers
+//    from the producer (24) to them (240).  Every product is a wgmma:
+//    S^T = K Q^T and dP^T = V dO^T with both operands K-major as stored
+//    (ss), dV += P^T dO and dK += dS^T Q with dO and Q read MN-major.
+//    d <= 128: 128 key rows, a warpgroup per 64 keys; P^T and dS^T go
+//      from the S^T / dP^T accumulators straight into the register A
+//      operand of dV / dK (rs), as the forward's P V: no shared memory
+//      round trip.  A consumer thread holds dK + dV (128 f32 at d 128)
+//      and S^T + dP^T (64).
+//    d 240 / 256: 64 key rows.  The warpgroups split S^T / dP^T by query
+//      columns (32 each), write P^T and dS^T in bf16 to shared memory
+//      (16 KB, 128-byte swizzle), meet at a named barrier, and each
+//      accumulates half of the 256 head-dim columns of both dV and dK
+//      from shared memory (ss); a consumer thread holds 128 + 32 f32.
+//      K + V 64 KB, a 2-stage ring 130 KB.
+// 3. dQ: one CTA per (b, q head, 128 query rows), high query tiles first
+//    (the causal tail), the same producer and two consumer warpgroups of
+//    64 query rows.  Q, dO and the rows are loaded once; K / V tiles of
+//    the live range come through the ring.  S = Q K^T and dP = dO V^T
+//    (ss), dS from the accumulators into the A registers of dQ += dS K
+//    (rs, K read MN-major).  d <= 128: 128-row KV tiles, a consumer
+//    thread holds dQ + S + dP = 192 f32 at d 128; d 240 / 256: 32-row KV
+//    tiles in a 3-stage ring (Q, dO 128 KB + ring 96 KB), 128 + 32 f32:
+//    two warpgroups on one K / V tile halve the L2 traffic a product
+//    that one warpgroup on 64-row tiles needed.
+// Tiles the causal or window mask empties are never loaded; a warpgroup
+// skips a tile that holds no visible pair of its own; only tiles that
+// cross the diagonal, the window edge or the lengths run the per-element
+// mask, in a copy of the P / dS code of their own (the whole tiles' copy
+// has no mask at all).  exp2 (ex2.approx, one MUFU instruction) with
+// log2(e) folded into the scale and the lse.  Head dims 240 and 32 run on
+// tiles 256 and 64 wide whose columns past d TMA fills with zeros, as in
+// the forward: no padded copy.
+//
+// What keeps ptxas from serialising the wgmmas or injecting warpgroup
+// fences and waits between them (its C7520 / C7519 / C7517 notes, which
+// chip_smoke.py phase 1 requires absent from this source's report): every
+// branch around wgmma code tests a value made warp-uniform by a shuffle
+// (warp_uniform), the first k16 step of S / dP overwrites its accumulator
+// (scale-d 0) instead of a zeroing the compiler would schedule between
+// the fence and the wgmma, and the A fragments are complete before the
+// fence.
 //
 // f32 (exact, CUDA cores, no TF32): the same three launches with 32 x 32
 // tiles in f32 shared memory (rows padded to d + 1 floats), each thread 4
-// scores of a tile and 4 x ceil(d / 32) accumulators; expf as in JAX.
+// scores of a tile and 4 x ceil(d / 32) accumulators; expf as in JAX; the
+// row sums D in a plain (B, Hq, Sq) layout.
 //
 // Inputs and outputs are read and written through (b, h, s) element
 // strides with a contiguous last dim (the model hands over (B, S, H, d)
 // tensors as transposed views); bf16 needs strides that are multiples of
 // 8 elements and 16-byte-aligned bases (the wrapper checks both).
-//
-// Making it fast (TMA, wgmma, warp specialisation, overlapping the two
-// phases) is later work.
+#include <type_traits>
+
 #include "common.cuh"
+#include "flash_tma.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using namespace repro;
 
-constexpr int kT = 256;            // threads a CTA, every kernel
+constexpr int kT = 256;            // threads of the rows and f32 kernels
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdArgs {
@@ -77,7 +111,8 @@ struct BwdArgs {
   const void* o;
   const void* dout;
   const float* lse;                // (B, Hq, Sq) contiguous
-  float* delta;                    // (B, Hq, Sq) contiguous, written by 1.
+  float* delta;                    // written by 1.: f32 (B, Hq, Sq); bf16
+                                   // the packed rows (row_chunks)
   void* dq;
   void* dk;
   void* dv;
@@ -123,316 +158,623 @@ __device__ __forceinline__ bool whole_tile(const BwdArgs& a, int q0, int nq,
          (a.window <= 0 || k0 > q0 + nq - 1 - a.window);
 }
 
+// some (query, key) pair of the tile may be visible (false: none is)
+__device__ __forceinline__ bool live_tile(const BwdArgs& a, int q0, int nq,
+                                          int k0, int nk) {
+  return q0 < a.sq && k0 < a.skv && (!a.causal || k0 <= q0 + nq - 1) &&
+         (a.window <= 0 || q0 < k0 + nk - 1 + a.window);
+}
+
+// 64-row chunks of a head's packed rows (lse * log2 e, D): Sq rounded up
+// to 128, so that the dQ kernel's 128-row tiles read whole chunks
+__host__ __device__ __forceinline__ int row_chunks(int sq) {
+  return 2 * ((sq + 127) / 128);
+}
+
 // ---------------------------------------------------------------------------
-// 1. delta = rowsum(dO * O), one warp a row
+// 1. D = rowsum(dO * O), one warp a row.  f32: delta[b, h, i].  bf16: the
+// packed rows, lse * log2 e beside D, every slot of every chunk written
+// (zeros past Sq).
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kT) bwd_delta_kernel(BwdArgs a, int rows) {
+  constexpr bool kPacked = sizeof(T) == 2;
   const int row = blockIdx.x * (kT / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const int bh = row / a.sq, i = row % a.sq;
+  const int per = kPacked ? row_chunks(a.sq) * 64 : a.sq;
+  const int bh = row / per, i = row % per;
   const int b = bh / a.hq, h = bh % a.hq;
-  const T* o = static_cast<const T*>(a.o) + row_off(a, kO, b, h, i);
-  const T* d = static_cast<const T*>(a.dout) + row_off(a, kDO, b, h, i);
   float s = 0.f;
-  for (int c = lane; c < D; c += 32) s += to_f(d[c]) * to_f(o[c]);
+  if (i < a.sq) {
+    const T* o = static_cast<const T*>(a.o) + row_off(a, kO, b, h, i);
+    const T* d = static_cast<const T*>(a.dout) + row_off(a, kDO, b, h, i);
+    for (int c = lane; c < D; c += 32) s += to_f(d[c]) * to_f(o[c]);
+  }
 #pragma unroll
   for (int x = 16; x > 0; x >>= 1) s += __shfl_xor_sync(0xffffffffu, s, x);
-  if (lane == 0) a.delta[row] = s;
+  if (lane != 0) return;
+  if constexpr (kPacked) {
+    float* r = a.delta + (static_cast<int64_t>(bh) * (per / 64) + i / 64) * 128 +
+               i % 64;
+    r[0] = i < a.sq ? a.lse[static_cast<int64_t>(bh) * a.sq + i] * kLog2e
+                    : 0.f;
+    r[64] = s;
+  } else {
+    a.delta[row] = s;
+  }
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync
+// bf16: wgmma fed by TMA
 
 template <int D>
-struct BwdCfg {
-  static constexpr int kDT = (D + 63) / 64 * 64;   // tile width
-  static constexpr int kCh = kDT / 8;              // 16-byte chunks a row
-  static constexpr int kChD = D / 8;               // of them loaded
-  static constexpr int kBQ = 64;                   // query rows a tile
-  static constexpr int kBKV = kDT > 128 ? 32 : 64; // kernel 2's key rows
-  static constexpr int kBKVQ = 64;                 // kernel 3's key rows
-  static_assert(D % 16 == 0, "whole k16 steps");
-  // kernel 2: K, V, a ring of 2 x (Q, dO), P^T, dS^T (bf16), 2 x (lse, D)
+struct WgCfg {
+  static constexpr int kDT = (D + 63) / 64 * 64;      // tile width
+  static constexpr int kDB = kDT / 64;                // 64-wide column blocks
+  static constexpr bool kWide = kDT > 128;            // d 240 / 256
+  static constexpr int kBKV = kWide ? 64 : 128;       // keys: a dK/dV CTA
+  static constexpr int kBKVQ = kWide ? 32 : 128;      // keys: a dQ ring tile
+  static constexpr int kThreads = 384;                // producer + 2 consumers
+  static constexpr int kQTile = 64 * kDT * 2;         // bytes: 64 rows of Q or dO
+  static constexpr int kKVTile = kBKV * kDT * 2;      // bytes: K or V
+  static constexpr int kKVTileQ = kBKVQ * kDT * 2;    // the same in the dQ ring
+  static constexpr int kRows = 512;                   // a chunk of packed rows
+  static constexpr int kAvail = 232448 - 1024 - 256;  // less alignment, barriers
+  // dK / dV: K, V, (wide) P^T and dS^T, a ring of (Q, dO, rows)
+  static constexpr int kPS = kWide ? 2 * 64 * 64 * 2 : 0;
+  static constexpr int kStageKV = 2 * kQTile + 1024;
+  static constexpr int kFitKV = (kAvail - 2 * kKVTile - kPS) / kStageKV;
+  static constexpr int kStagesKV = kFitKV > 4 ? 4 : kFitKV;
   static constexpr int kSmemKV =
-      (2 * kBKV * kDT + 4 * kBQ * kDT + 2 * kBKV * kBQ) * 2 + 4 * kBQ * 4;
-  // kernel 3: Q, dO, a ring of 2 x (K, V), dS (bf16), lse, D
-  static constexpr int kSmemQ =
-      (2 * kBQ * kDT + 4 * kBKVQ * kDT + kBQ * kBKVQ) * 2 + 2 * kBQ * 4;
+      2 * kKVTile + kPS + kStagesKV * kStageKV + 1024 + 256;
+  // dQ: Q, dO and rows of its 128 queries, a ring of (K, V)
+  static constexpr int kFixedQ = 2 * 2 * kQTile + 1024;
+  static constexpr int kFitQ = (kAvail - kFixedQ) / (2 * kKVTileQ);
+  static constexpr int kStagesQ = kFitQ > 4 ? 4 : kFitQ;
+  static constexpr int kSmemQ = kFixedQ + kStagesQ * 2 * kKVTileQ + 1024 + 256;
+  static_assert(D % 16 == 0, "whole k16 steps");
+  static_assert(kStagesKV >= 2 && kStagesQ >= 2, "two stages fit");
 };
 
-// rows [r0, r0 + n) of tensor t, head h, into a rows x kDT swizzled tile:
-// cp.async for the d real columns of rows < limit, zeros elsewhere
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const BwdArgs& a,
-                                          const void* src, int t, int b, int h,
-                                          int r0, int n, int limit) {
-  using C = BwdCfg<D>;
-  const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(src);
-  for (int i = threadIdx.x; i < n * C::kCh; i += kT) {
-    const int r = i / C::kCh, c = i % C::kCh;
-    __nv_bfloat16* p = dst + swz(r, c, C::kDT);
-    if (r0 + r < limit && c < C::kChD)
-      cp_async16(p, base + row_off(a, t, b, h, r0 + r) + c * 8);
-    else
-      *reinterpret_cast<uint4*>(p) = make_uint4(0, 0, 0, 0);
-  }
+struct Maps {
+  CUtensorMap q, k, v, dout;       // boxes of 64 (q, dout) / kBKV (k, v) rows
+  CUtensorMap kq, vq;              // k, v in boxes of kBKVQ rows
+  int q_hf, k_hf, v_hf, do_hf;     // heads_first of each
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-// lse (times log2 e) and D of query rows [q0, q0 + kBQ) of head bh
-__device__ __forceinline__ void load_rows(float* lse_s, float* dl_s,
-                                          const BwdArgs& a, int bh, int q0,
-                                          int n) {
-  for (int r = threadIdx.x; r < n; r += kT) {
-    const bool ok = q0 + r < a.sq;
-    const int64_t i = static_cast<int64_t>(bh) * a.sq + q0 + r;
-    lse_s[r] = ok ? a.lse[i] * kLog2e : 0.f;
-    dl_s[r] = ok ? a.delta[i] : 0.f;
-  }
+// k16 step kk of a K-major operand tile of `rows` rows: 32 bytes along
+// the swizzled row, 64-wide column blocks rows * 128 bytes apart
+__device__ __forceinline__ uint64_t kstep(uint64_t desc, int kk, int rows) {
+  return desc + (kk / 4) * (rows * 128 >> 4) + (kk % 4) * 2;
 }
 
-// acc[j] (+)= A (16 rows at a_rows, k = ksteps * 16, row-major [m][k]
-// tile of a_cols) x B for n-tiles nt0 .. nt0 + NJ - 1, B read [n][k]
-// (b_trans false: n rows, k along the row) or [k][n] (b_trans true)
-template <int NJ, bool BTrans>
-__device__ __forceinline__ void mma_rows(float (&acc)[NJ][4],
-                                         const __nv_bfloat16* at, int a_cols,
-                                         int a_row0, const __nv_bfloat16* bt,
-                                         int b_cols, int nt0, int ksteps) {
-  const int lane = threadIdx.x % 32;
-  for (int ks = 0; ks < ksteps; ++ks) {
-    uint32_t af[4];
-    ldsm_x4(af, at + swz(a_row0 + (lane & 15), ks * 2 + (lane >> 4), a_cols));
-#pragma unroll
-    for (int j = 0; j < NJ; j += 2) {
-      uint32_t bf[4];
-      const int nt = nt0 + j;
-      if constexpr (BTrans)
-        ldsm_x4_t(bf, bt + swz(ks * 16 + (lane & 15), nt + (lane >> 4),
-                               b_cols));
-      else
-        ldsm_x4(bf, bt + swz(nt * 8 + (lane & 7) + ((lane >> 4) << 3),
-                             ks * 2 + ((lane >> 3) & 1), b_cols));
-      mma_bf16(acc[j], af, bf[0], bf[1]);
-      mma_bf16(acc[j + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-template <int NJ>
-__device__ __forceinline__ void zero(float (&acc)[NJ][4]) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-}
-
-// write a warp's (16 x 8 NJ) f32 block, rows row0 + ... of tensor t
-template <int D, int NJ>
-__device__ __forceinline__ void store_rows(const BwdArgs& a, void* dst, int t,
-                                           int b, int h, int row0, int limit,
-                                           int nt0, const float (&acc)[NJ][4]) {
-  const int lane = threadIdx.x % 32, gq = lane >> 2, tq = lane & 3;
+// Thread's share of a warpgroup's 64 x (2 NA) f32 accumulator, rows
+// row0 + warp * 16 + lane / 4 (+ 8), columns col0 + 8 (i / 4) + 2 (lane %
+// 4) (+ 1), rounded to bf16 into rows < limit and columns < D of tensor
+// t, head h.
+template <int D, int NA>
+__device__ __forceinline__ void store_acc(const BwdArgs& a, void* dst, int t,
+                                          int b, int h, int row0, int limit,
+                                          int col0, const float (&acc)[NA]) {
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
   __nv_bfloat16* base = static_cast<__nv_bfloat16*>(dst);
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = row0 + gq + 8 * hf, c = (nt0 + j) * 8 + 2 * tq;
-      if (r < limit && c < D)
-        *reinterpret_cast<__nv_bfloat162*>(base + row_off(a, t, b, h, r) + c) =
-            __floats2bfloat162_rn(acc[j][2 * hf], acc[j][2 * hf + 1]);
-    }
+  for (int i = 0; i < NA; i += 2) {
+    const int r = row0 + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
+    const int c = col0 + 8 * (i / 4) + 2 * (lane % 4);
+    if (r < limit && c < D)
+      *reinterpret_cast<__nv_bfloat162*>(base + row_off(a, t, b, h, r) + c) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
 }
 
-// 2. dK / dV
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.f;
+}
+
+// 2^x, one MUFU instruction (relative error ~2^-22; P is rounded to bf16
+// before its products anyway)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// b as the compiler can see it: the same in every lane of the warp (a
+// warpgroup's tile tests are; wgmma code in a branch the compiler takes for
+// divergent gets serialised)
+__device__ __forceinline__ bool warp_uniform(bool b) {
+  return __shfl_sync(0xffffffffu, static_cast<int>(b), 0) != 0;
+}
+
+// P and dS of a thread's accumulator pair (i, i + 1) at query positions
+// (qi, qi + di) x key positions (kj, kj + dj); lse2 / dl are the rows'
+// lse * log2 e and D.  kMask: the tile crosses a mask edge, and masked
+// pairs give 0.
+template <bool kMask>
+__device__ __forceinline__ void p_ds(const BwdArgs& a, float sl2,
+                                     const float* s, const float* dp,
+                                     int qi, int di, int kj, int dj,
+                                     const float* lse2, const float* dl,
+                                     uint32_t* p_out, uint32_t* ds_out) {
+  float p[2], ds[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    p[e] = ex2(s[e] * sl2 - lse2[e]);
+    if (kMask && !visible(a, qi + e * di, kj + e * dj)) p[e] = 0.f;
+    ds[e] = p[e] * (dp[e] - dl[e]) * a.scale;
+  }
+  *p_out = pack_bf16(p[0], p[1]);
+  *ds_out = pack_bf16(ds[0], ds[1]);
+}
+
+// f(std::false_type) on tiles every pair of which is visible, else
+// f(std::true_type): the per-element mask compiled out of whole tiles
+template <typename F>
+__device__ __forceinline__ void masked_or_whole(bool whole, F&& f) {
+  if (warp_uniform(whole))
+    f(std::false_type{});
+  else
+    f(std::true_type{});
+}
+
+// 2. dK / dV.  Consumers of d <= 128: warpgroup w owns keys k0 + 64 w ...
+// + 63; per live Q tile S^T, dP^T (64 x 64) from shared memory, then P^T,
+// dS^T in registers as the A operand of dV / dK (64 x kDT).
 template <int D>
-__global__ void __launch_bounds__(kT, 1) bwd_dkdv_mma_kernel(BwdArgs a) {
-  using C = BwdCfg<D>;
-  constexpr int kDT = C::kDT, kBQ = C::kBQ, kBKV = C::kBKV;
-  constexpr int kMT = kBKV / 16;              // key m-tiles: 4 or 2
-  constexpr int kWN = 8 / kMT;                // warps along n
-  constexpr int kNJ1 = (kBQ / 8) / kWN;       // phase 1 n-tiles a warp
-  constexpr int kNJ2 = (kDT / 8) / kWN;       // phase 2 n-tiles a warp
-  static_assert(kNJ1 % 2 == 0 && kNJ2 % 2 == 0, "n-tile pairs");
-  const int b = blockIdx.y / a.hkv, hk = blockIdx.y % a.hkv;
-  const int g = a.hq / a.hkv;
-  const int k0 = blockIdx.x * kBKV;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int mt = warp % kMT, wn = warp / kMT;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kBKV * kDT;
-  __nv_bfloat16* ring = vs + kBKV * kDT;      // [stage][Q, dO][kBQ][kDT]
-  __nv_bfloat16* pts = ring + 4 * kBQ * kDT;  // P^T [kBKV][kBQ]
-  __nv_bfloat16* dsts = pts + kBKV * kBQ;     // dS^T
-  float* rows_s = reinterpret_cast<float*>(dsts + kBKV * kBQ);  // [st][lse, D]
-
-  int q_lo, q_hi;
-  q_range(a, k0, kBKV, &q_lo, &q_hi);
-  const int t_lo = q_lo / kBQ;
-  const int n_qt = q_hi > q_lo ? (q_hi + kBQ - 1) / kBQ - t_lo : 0;
-  const int n_it = g * n_qt;
-
-  float dk[kNJ2][4], dv[kNJ2][4];
+__device__ __forceinline__ void dkdv_narrow(
+    const BwdArgs& a, const uint8_t* ks, const uint8_t* vs,
+    const uint8_t* ring, uint64_t* bar_kv, uint64_t* full, uint64_t* empty,
+    int b, int hk, int k0, int t_lo, int n_qt, int n_it) {
+  using C = WgCfg<D>;
+  constexpr int kDT = C::kDT, kBKV = C::kBKV, kS = C::kStagesKV;
+  const int w = threadIdx.x / 128 - 1;
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int kw0 = k0 + 64 * w;
+  const int krow = kw0 + warp * 16 + lane / 4;          // + 8: odd pairs
+  const float sl2 = a.scale * kLog2e;
+  float dk[kDT / 2], dv[kDT / 2];
   zero(dk);
   zero(dv);
-  const float sl2 = a.scale * kLog2e;
+  const uint64_t ka = sw128_desc(ks + w * 64 * 128, 16, 1024);
+  const uint64_t va = sw128_desc(vs + w * 64 * 128, 16, 1024);
+  if (n_it > 0) bar_wait(bar_kv, 0);
 
-  auto issue = [&](int it, int st) {
-    const int h = hk * g + it / n_qt, q0 = (t_lo + it % n_qt) * kBQ;
-    __nv_bfloat16* qd = ring + st * 2 * kBQ * kDT;
-    load_tile<D>(qd, a, a.q, kQ, b, h, q0, kBQ, a.sq);
-    load_tile<D>(qd + kBQ * kDT, a, a.dout, kDO, b, h, q0, kBQ, a.sq);
-    load_rows(rows_s + st * 2 * kBQ, rows_s + st * 2 * kBQ + kBQ, a,
-              b * a.hq + h, q0, kBQ);
-  };
-
-  if (n_it > 0) {
-    load_tile<D>(ks, a, a.k, kK, b, hk, k0, kBKV, a.skv);
-    load_tile<D>(vs, a, a.v, kV, b, hk, k0, kBKV, a.skv);
-    issue(0, 0);
-  }
-  cp_async_commit();
   for (int it = 0; it < n_it; ++it) {
-    cp_async_wait<0>();
-    __syncthreads();                   // tile it landed; tile it - 1 consumed
-    if (it + 1 < n_it) issue(it + 1, (it + 1) % 2);
-    cp_async_commit();
-    const int st = it % 2;
-    const __nv_bfloat16* qt = ring + st * 2 * kBQ * kDT;
-    const __nv_bfloat16* dot = qt + kBQ * kDT;
-    const float* lse_s = rows_s + st * 2 * kBQ;
-    const float* dl_s = lse_s + kBQ;
-    const int q0 = (t_lo + it % n_qt) * kBQ;
-
-    // phase 1: S^T = K Q^T, dP^T = V dO^T for key m-tile mt, query
-    // n-tiles wn * kNJ1 ...
-    float s[kNJ1][4], dp[kNJ1][4];
-    zero(s);
-    zero(dp);
-    mma_rows<kNJ1, false>(s, ks, kDT, mt * 16, qt, kDT, wn * kNJ1, D / 16);
-    mma_rows<kNJ1, false>(dp, vs, kDT, mt * 16, dot, kDT, wn * kNJ1, D / 16);
-    const bool whole = whole_tile(a, q0, kBQ, k0, kBKV);
+    const int s = it % kS;
+    const int q0 = (t_lo + it % n_qt) * 64;
+    const uint8_t* qs = ring + s * C::kStageKV;
+    const uint8_t* dos = qs + C::kQTile;
+    const float* lse2 = reinterpret_cast<const float*>(dos + C::kQTile);
+    const float* dl = lse2 + 64;
+    bar_wait(&full[s], (it / kS) & 1);
+    if (warp_uniform(live_tile(a, q0, 64, kw0, 64))) {
+      float st[32], dpt[32];                 // the first k16 step sets them
+      const uint64_t bq = sw128_desc(qs, 16, 1024);
+      const uint64_t bdo = sw128_desc(dos, 16, 1024);
+      wgmma_fence();
+      Wgmma<64>::template ss<0, 0, 0>(st, ka, bq);
+      Wgmma<64>::template ss<0, 0, 0>(dpt, va, bdo);
 #pragma unroll
-    for (int j = 0; j < kNJ1; ++j)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int r = mt * 16 + gq + 8 * hf;             // key row
-        const int c = (wn * kNJ1 + j) * 8 + 2 * tq;      // query column
-        float p[2], ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool ok = whole || visible(a, q0 + c + e, k0 + r);
-          p[e] = ok ? exp2f(s[j][2 * hf + e] * sl2 - lse_s[c + e]) : 0.f;
-          ds[e] = p[e] * (dp[j][2 * hf + e] - dl_s[c + e]) * a.scale;
-        }
-        const int off = swz(r, c >> 3, kBQ) + (c & 7);
-        *reinterpret_cast<__nv_bfloat162*>(pts + off) =
-            __floats2bfloat162_rn(p[0], p[1]);
-        *reinterpret_cast<__nv_bfloat162*>(dsts + off) =
-            __floats2bfloat162_rn(ds[0], ds[1]);
+      for (int kk = 1; kk < D / 16; ++kk) {
+        Wgmma<64>::template ss<0, 0>(st, kstep(ka, kk, kBKV), kstep(bq, kk, 64));
+        Wgmma<64>::template ss<0, 0>(dpt, kstep(va, kk, kBKV),
+                                     kstep(bdo, kk, 64));
       }
-    __syncthreads();                   // P^T, dS^T of this tile
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(st);
+      reg_fence(dpt);
 
-    // phase 2: dV += P^T dO, dK += dS^T Q (contraction over the query rows)
-    mma_rows<kNJ2, true>(dv, pts, kBQ, mt * 16, dot, kDT, wn * kNJ2,
-                         kBQ / 16);
-    mma_rows<kNJ2, true>(dk, dsts, kBQ, mt * 16, qt, kDT, wn * kNJ2,
-                         kBQ / 16);
+      // accumulator i: key krow + 8 ((i / 2) % 2), query q0 + c + i % 2
+      uint32_t pa[4][4], da[4][4];     // A fragments of the 4 k16 steps
+      masked_or_whole(whole_tile(a, q0, 64, kw0, 64), [&](auto mask) {
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int c = 8 * (i / 4) + 2 * (lane % 4);
+          p_ds<decltype(mask)::value>(
+              a, sl2, st + i, dpt + i, q0 + c, 1, krow + 8 * ((i / 2) % 2), 0,
+              lse2 + c, dl + c, &pa[i / 8][(i / 2) % 4],
+              &da[i / 8][(i / 2) % 4]);
+        }
+      });
+
+      // dV += P^T dO, dK += dS^T Q: dO and Q MN-major as stored, 64-wide
+      // column blocks 8 KB apart, a k16 step 16 rows
+      const uint64_t mdo = sw128_desc(dos, 64 * 128, 1024);
+      const uint64_t mq = sw128_desc(qs, 64 * 128, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        Wgmma<kDT>::template rs<1>(dv, pa[kk], mdo + kk * (2048 >> 4));
+        Wgmma<kDT>::template rs<1>(dk, da[kk], mq + kk * (2048 >> 4));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dv);
+      reg_fence(dk);
+    }
+    bar_arrive(&empty[s]);
   }
-  cp_async_wait<0>();
-  store_rows<D, kNJ2>(a, a.dv, kDV, b, hk, k0 + mt * 16, a.skv, wn * kNJ2, dv);
-  store_rows<D, kNJ2>(a, a.dk, kDK, b, hk, k0 + mt * 16, a.skv, wn * kNJ2, dk);
+  store_acc<D>(a, a.dv, kDV, b, hk, kw0, a.skv, 0, dv);
+  store_acc<D>(a, a.dk, kDK, b, hk, kw0, a.skv, 0, dk);
 }
 
-// 3. dQ
+// Consumers of d 240 / 256: 64 keys; warpgroup w computes S^T, dP^T for
+// queries 32 w ... + 31 of the tile, both write P^T, dS^T to shared memory,
+// and w accumulates head-dim columns 128 w ... + 127 of dV and dK.
 template <int D>
-__global__ void __launch_bounds__(kT, 1) bwd_dq_mma_kernel(BwdArgs a) {
-  using C = BwdCfg<D>;
-  constexpr int kDT = C::kDT, kBQ = C::kBQ, kBKV = C::kBKVQ;
-  constexpr int kNJ1 = (kBKV / 8) / 2;        // 4 m-tiles x 2 warps along n
-  constexpr int kNJ2 = (kDT / 8) / 2;
-  const int bh = blockIdx.y, b = bh / a.hq, h = bh % a.hq;
-  const int hk = h / (a.hq / a.hkv);
-  const int q0 = blockIdx.x * kBQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int mt = warp % 4, wn = warp / 4;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + kBQ * kDT;
-  __nv_bfloat16* ring = dos + kBQ * kDT;      // [stage][K, V][kBKV][kDT]
-  __nv_bfloat16* dss = ring + 4 * kBKV * kDT; // dS [kBQ][kBKV]
-  float* lse_s = reinterpret_cast<float*>(dss + kBQ * kBKV);
-  float* dl_s = lse_s + kBQ;
-
-  int kv_lo, kv_hi;
-  kv_range(a, q0, kBQ, &kv_lo, &kv_hi);
-  const int k_first = (kv_lo / kBKV) * kBKV;
-  const int n_it = kv_hi > k_first ? (kv_hi - k_first + kBKV - 1) / kBKV : 0;
-
-  float dq[kNJ2][4];
-  zero(dq);
+__device__ __forceinline__ void dkdv_wide(
+    const BwdArgs& a, const uint8_t* ks, const uint8_t* vs, uint8_t* ps,
+    const uint8_t* ring, uint64_t* bar_kv, uint64_t* full, uint64_t* empty,
+    int b, int hk, int k0, int t_lo, int n_qt, int n_it) {
+  using C = WgCfg<D>;
+  constexpr int kS = C::kStagesKV;
+  const int w = threadIdx.x / 128 - 1;
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int kl = warp * 16 + lane / 4;                  // key row in the tile
   const float sl2 = a.scale * kLog2e;
+  uint8_t* pts = ps;                                    // P^T [64 keys][64 q]
+  uint8_t* dsts = ps + 64 * 128;                        // dS^T
+  float dk[64], dv[64];
+  zero(dk);
+  zero(dv);
+  const uint64_t ka = sw128_desc(ks, 16, 1024);
+  const uint64_t va = sw128_desc(vs, 16, 1024);
+  if (n_it > 0) bar_wait(bar_kv, 0);
 
-  auto issue = [&](int it, int st) {
-    __nv_bfloat16* kd = ring + st * 2 * kBKV * kDT;
-    const int k0 = k_first + it * kBKV;
-    load_tile<D>(kd, a, a.k, kK, b, hk, k0, kBKV, a.skv);
-    load_tile<D>(kd + kBKV * kDT, a, a.v, kV, b, hk, k0, kBKV, a.skv);
-  };
-
-  if (n_it > 0) {
-    load_tile<D>(qs, a, a.q, kQ, b, h, q0, kBQ, a.sq);
-    load_tile<D>(dos, a, a.dout, kDO, b, h, q0, kBQ, a.sq);
-    load_rows(lse_s, dl_s, a, bh, q0, kBQ);
-    issue(0, 0);
-  }
-  cp_async_commit();
   for (int it = 0; it < n_it; ++it) {
-    cp_async_wait<0>();
-    __syncthreads();
-    if (it + 1 < n_it) issue(it + 1, (it + 1) % 2);
-    cp_async_commit();
-    const __nv_bfloat16* kt = ring + (it % 2) * 2 * kBKV * kDT;
-    const __nv_bfloat16* vt = kt + kBKV * kDT;
-    const int k0 = k_first + it * kBKV;
-
-    // phase 1: S = Q K^T, dP = dO V^T for query m-tile mt
-    float s[kNJ1][4], dp[kNJ1][4];
-    zero(s);
-    zero(dp);
-    mma_rows<kNJ1, false>(s, qs, kDT, mt * 16, kt, kDT, wn * kNJ1, D / 16);
-    mma_rows<kNJ1, false>(dp, dos, kDT, mt * 16, vt, kDT, wn * kNJ1, D / 16);
-    const bool whole = whole_tile(a, q0, kBQ, k0, kBKV);
+    const int s = it % kS;
+    const int q0 = (t_lo + it % n_qt) * 64;
+    const uint8_t* qs = ring + s * C::kStageKV;
+    const uint8_t* dos = qs + C::kQTile;
+    const float* lse2 = reinterpret_cast<const float*>(dos + C::kQTile);
+    const float* dl = lse2 + 64;
+    bar_wait(&full[s], (it / kS) & 1);
+    if (warp_uniform(live_tile(a, q0, 64, k0, 64))) {   // both warpgroups alike
+      float st[16], dpt[16];                 // the first k16 step sets them
+      // B: rows 32 w ... of each 64-row column block (8 KB apart)
+      const uint64_t bq = sw128_desc(qs + w * 32 * 128, 16, 1024);
+      const uint64_t bdo = sw128_desc(dos + w * 32 * 128, 16, 1024);
+      wgmma_fence();
+      Wgmma<32>::template ss<0, 0, 0>(st, ka, bq);
+      Wgmma<32>::template ss<0, 0, 0>(dpt, va, bdo);
 #pragma unroll
-    for (int j = 0; j < kNJ1; ++j)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int r = mt * 16 + gq + 8 * hf;             // query row
-        const int c = (wn * kNJ1 + j) * 8 + 2 * tq;      // key column
-        float ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool ok = whole || visible(a, q0 + r, k0 + c + e);
-          const float p = ok ? exp2f(s[j][2 * hf + e] * sl2 - lse_s[r]) : 0.f;
-          ds[e] = p * (dp[j][2 * hf + e] - dl_s[r]) * a.scale;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(dss + swz(r, c >> 3, kBKV) +
-                                           (c & 7)) =
-            __floats2bfloat162_rn(ds[0], ds[1]);
+      for (int kk = 1; kk < D / 16; ++kk) {
+        Wgmma<32>::template ss<0, 0>(st, kstep(ka, kk, 64), kstep(bq, kk, 64));
+        Wgmma<32>::template ss<0, 0>(dpt, kstep(va, kk, 64), kstep(bdo, kk, 64));
       }
-    __syncthreads();
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(st);
+      reg_fence(dpt);
 
-    // phase 2: dQ += dS K (contraction over the keys)
-    mma_rows<kNJ2, true>(dq, dss, kBKV, mt * 16, kt, kDT, wn * kNJ2,
-                         kBKV / 16);
+      uint32_t pa[8], da[8];
+      masked_or_whole(whole_tile(a, q0, 64, k0, 64), [&](auto mask) {
+#pragma unroll
+        for (int i = 0; i < 16; i += 2) {
+          const int c = 32 * w + 8 * (i / 4) + 2 * (lane % 4);
+          p_ds<decltype(mask)::value>(
+              a, sl2, st + i, dpt + i, q0 + c, 1, k0 + kl + 8 * ((i / 2) % 2),
+              0, lse2 + c, dl + c, &pa[i / 2], &da[i / 2]);
+        }
+      });
+      named_bar_sync(1, 256);        // the last tile's P^T, dS^T read by both
+#pragma unroll
+      for (int i = 0; i < 16; i += 2) {
+        const int r = kl + 8 * ((i / 2) % 2);
+        const int c = 32 * w + 8 * (i / 4) + 2 * (lane % 4);
+        const int off = r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
+        *reinterpret_cast<uint32_t*>(pts + off) = pa[i / 2];
+        *reinterpret_cast<uint32_t*>(dsts + off) = da[i / 2];
+      }
+      fence_proxy_async();
+      named_bar_sync(1, 256);        // both halves written
+
+      // dV[:, 128 w ...] += P^T dO[:, 128 w ...], dK likewise with dS^T, Q:
+      // A K-major from shared memory, B MN-major column blocks 2 w, 2 w + 1
+      const uint64_t pa_d = sw128_desc(pts, 16, 1024);
+      const uint64_t da_d = sw128_desc(dsts, 16, 1024);
+      const uint64_t mdo = sw128_desc(dos + 2 * w * 64 * 128, 64 * 128, 1024);
+      const uint64_t mq = sw128_desc(qs + 2 * w * 64 * 128, 64 * 128, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        Wgmma<128>::template ss<0, 1>(dv, pa_d + 2 * kk, mdo + kk * (2048 >> 4));
+        Wgmma<128>::template ss<0, 1>(dk, da_d + 2 * kk, mq + kk * (2048 >> 4));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dv);
+      reg_fence(dk);
+    }
+    bar_arrive(&empty[s]);
   }
-  cp_async_wait<0>();
-  store_rows<D, kNJ2>(a, a.dq, kDQ, b, h, q0 + mt * 16, a.sq, wn * kNJ2, dq);
+  store_acc<D>(a, a.dv, kDV, b, hk, k0, a.skv, 128 * w, dv);
+  store_acc<D>(a, a.dk, kDK, b, hk, k0, a.skv, 128 * w, dk);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WgCfg<D>::kThreads, 1)
+    bwd_dkdv_wgmma_kernel(const __grid_constant__ Maps m,
+                          const __grid_constant__ BwdArgs a) {
+  using C = WgCfg<D>;
+  constexpr int kBKV = C::kBKV, kS = C::kStagesKV;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + C::kKVTile;
+  uint8_t* ps = vs + C::kKVTile;                 // wide: P^T, dS^T
+  uint8_t* ring = ps + C::kPS;                   // [stage][Q, dO, rows]
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(ring + kS * C::kStageKV);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + kS;
+
+  const int b = blockIdx.x / a.hkv, hk = blockIdx.x % a.hkv;
+  const int g = a.hq / a.hkv;
+  const int k0 = blockIdx.y * kBKV;              // low key tiles first
+  int q_lo, q_hi;
+  q_range(a, k0, kBKV, &q_lo, &q_hi);
+  const int t_lo = q_lo / 64;
+  const int n_qt = q_hi > q_lo ? (q_hi + 63) / 64 - t_lo : 0;
+  const int n_it = g * n_qt;
+
+  if (threadIdx.x == 0) {
+    bar_init(bar_kv, 1);
+    for (int s = 0; s < kS; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 256);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {                       // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && n_it > 0) {
+      prefetch_map(&m.q);
+      prefetch_map(&m.k);
+      prefetch_map(&m.v);
+      prefetch_map(&m.dout);
+      bar_expect_tx(bar_kv, 2 * C::kKVTile);
+      for (int db = 0; db < C::kDB; ++db) {
+        tma_rows(ks + db * kBKV * 128, &m.k, m.k_hf, bar_kv, db * 64, k0, hk, b);
+        tma_rows(vs + db * kBKV * 128, &m.v, m.v_hf, bar_kv, db * 64, k0, hk, b);
+      }
+      const int chunks = row_chunks(a.sq);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kS;
+        const int h = hk * g + it / n_qt, t = t_lo + it % n_qt;
+        uint8_t* st = ring + s * C::kStageKV;
+        bar_wait(&empty[s], ((it / kS) & 1) ^ 1);
+        bar_expect_tx(&full[s], 2 * C::kQTile + C::kRows);
+        for (int db = 0; db < C::kDB; ++db) {
+          tma_rows(st + db * 64 * 128, &m.q, m.q_hf, &full[s], db * 64, t * 64,
+                   h, b);
+          tma_rows(st + C::kQTile + db * 64 * 128, &m.dout, m.do_hf, &full[s],
+                   db * 64, t * 64, h, b);
+        }
+        bulk_load(st + 2 * C::kQTile,
+                  a.delta + (static_cast<int64_t>(b * a.hq + h) * chunks + t) * 128,
+                  C::kRows, &full[s]);
+      }
+    }
+  } else {                                       // consumers
+    setmaxnreg_inc<240>();
+    if constexpr (C::kWide)
+      dkdv_wide<D>(a, ks, vs, ps, ring, bar_kv, full, empty, b, hk, k0, t_lo,
+                   n_qt, n_it);
+    else
+      dkdv_narrow<D>(a, ks, vs, ring, bar_kv, full, empty, b, hk, k0, t_lo,
+                     n_qt, n_it);
+  }
+}
+
+// Consumer warpgroup w (0, 1) of the dQ kernel: query rows q0 + 64 w ...
+// + 63 against the K / V tiles of the ring.
+template <int D>
+__device__ __forceinline__ void dq_consume(
+    const BwdArgs& a, const uint8_t* qs, const uint8_t* dos,
+    const uint8_t* rows, const uint8_t* ring, uint64_t* bar_q,
+    uint64_t* full, uint64_t* empty, int b, int h, int q0, int k_first,
+    int n_tiles) {
+  using C = WgCfg<D>;
+  constexpr int kDT = C::kDT, kBKV = C::kBKVQ, kS = C::kStagesQ;
+  const int w = threadIdx.x / 128 - 1;
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int qw0 = q0 + 64 * w;
+  const int ql = warp * 16 + lane / 4;                  // + 8: odd pairs
+  const float sl2 = a.scale * kLog2e;
+  float dq[kDT / 2];
+  zero(dq);
+  const uint64_t aq = sw128_desc(qs + w * C::kQTile, 16, 1024);
+  const uint64_t ado = sw128_desc(dos + w * C::kQTile, 16, 1024);
+  float lse2[2], dl[2];
+  if (n_tiles > 0) {
+    bar_wait(bar_q, 0);
+    const float* rw = reinterpret_cast<const float*>(rows + w * C::kRows);
+    for (int hh = 0; hh < 2; ++hh) {
+      lse2[hh] = rw[ql + 8 * hh];
+      dl[hh] = rw[64 + ql + 8 * hh];
+    }
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kS, k0 = k_first + t * kBKV;
+    const uint8_t* kt = ring + s * 2 * C::kKVTileQ;
+    const uint8_t* vt = kt + C::kKVTileQ;
+    bar_wait(&full[s], (t / kS) & 1);
+    if (warp_uniform(live_tile(a, qw0, 64, k0, kBKV))) {
+      float sc[kBKV / 2], dp[kBKV / 2];      // the first k16 step sets them
+      const uint64_t bk = sw128_desc(kt, 16, 1024);
+      const uint64_t bv = sw128_desc(vt, 16, 1024);
+      wgmma_fence();
+      Wgmma<kBKV>::template ss<0, 0, 0>(sc, aq, bk);
+      Wgmma<kBKV>::template ss<0, 0, 0>(dp, ado, bv);
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        Wgmma<kBKV>::template ss<0, 0>(sc, kstep(aq, kk, 64), kstep(bk, kk, kBKV));
+        Wgmma<kBKV>::template ss<0, 0>(dp, kstep(ado, kk, 64),
+                                       kstep(bv, kk, kBKV));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(sc);
+      reg_fence(dp);
+
+      // accumulator i: query qw0 + ql + 8 ((i / 2) % 2), key k0 + c + i % 2
+      uint32_t pa, da[kBKV / 16][4];   // dS: A fragments of the k16 steps
+      masked_or_whole(whole_tile(a, qw0, 64, k0, kBKV), [&](auto mask) {
+#pragma unroll
+        for (int i = 0; i < kBKV / 2; i += 2) {
+          const int hh = (i / 2) % 2;
+          const int c = 8 * (i / 4) + 2 * (lane % 4);
+          const float l2[2] = {lse2[hh], lse2[hh]}, d2[2] = {dl[hh], dl[hh]};
+          p_ds<decltype(mask)::value>(a, sl2, sc + i, dp + i,
+                                      qw0 + ql + 8 * hh, 0, k0 + c, 1, l2, d2,
+                                      &pa, &da[i / 8][(i / 2) % 4]);
+        }
+      });
+
+      // dQ += dS K: K MN-major as stored, 64-wide column blocks kBKV * 128
+      // bytes apart, a k16 step 16 rows
+      const uint64_t mk = sw128_desc(kt, kBKV * 128, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBKV / 16; ++kk)
+        Wgmma<kDT>::template rs<1>(dq, da[kk], mk + kk * (2048 >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dq);
+    }
+    bar_arrive(&empty[s]);
+  }
+  store_acc<D>(a, a.dq, kDQ, b, h, qw0, a.sq, 0, dq);
+}
+
+// 3. dQ: 128 query rows a CTA, consumer warpgroup w owns rows q0 + 64 w
+// ... + 63; kBKVQ-row K / V tiles (128 at d <= 128, 32 at d 240 / 256) come
+// through the ring.
+template <int D>
+__global__ void __launch_bounds__(WgCfg<D>::kThreads, 1)
+    bwd_dq_wgmma_kernel(const __grid_constant__ Maps m,
+                        const __grid_constant__ BwdArgs a) {
+  using C = WgCfg<D>;
+  constexpr int kBKV = C::kBKVQ, kS = C::kStagesQ;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);             // [w][64][kDT]
+  uint8_t* dos = qs + 2 * C::kQTile;
+  uint8_t* rows = dos + 2 * C::kQTile;           // [w][lse, D] (1 KB)
+  uint8_t* ring = rows + 1024;                   // [stage][K, V]
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(ring + kS * 2 * C::kKVTileQ);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + kS;
+
+  const int bh = blockIdx.x, b = bh / a.hq, h = bh % a.hq;
+  const int hk = h / (a.hq / a.hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 128;  // causal tail first
+  int kv_lo, kv_hi;
+  kv_range(a, q0, 128, &kv_lo, &kv_hi);
+  const int k_first = (kv_lo / kBKV) * kBKV;
+  const int n_tiles =
+      kv_hi > k_first ? (kv_hi - k_first + kBKV - 1) / kBKV : 0;
+
+  if (threadIdx.x == 0) {
+    bar_init(bar_q, 1);
+    for (int s = 0; s < kS; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 256);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {                       // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      prefetch_map(&m.q);
+      prefetch_map(&m.kq);
+      prefetch_map(&m.vq);
+      prefetch_map(&m.dout);
+      bar_expect_tx(bar_q, 2 * (2 * C::kQTile + C::kRows));
+      const int chunks = row_chunks(a.sq);
+      for (int w = 0; w < 2; ++w) {
+        const int r0 = q0 + 64 * w;
+        for (int db = 0; db < C::kDB; ++db) {
+          tma_rows(qs + w * C::kQTile + db * 64 * 128, &m.q, m.q_hf, bar_q,
+                   db * 64, r0, h, b);
+          tma_rows(dos + w * C::kQTile + db * 64 * 128, &m.dout, m.do_hf,
+                   bar_q, db * 64, r0, h, b);
+        }
+        bulk_load(rows + w * C::kRows,
+                  a.delta + (static_cast<int64_t>(bh) * chunks + r0 / 64) * 128,
+                  C::kRows, bar_q);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kS, k0 = k_first + t * kBKV;
+        uint8_t* kt = ring + s * 2 * C::kKVTileQ;
+        bar_wait(&empty[s], ((t / kS) & 1) ^ 1);
+        bar_expect_tx(&full[s], 2 * C::kKVTileQ);
+        for (int db = 0; db < C::kDB; ++db) {
+          tma_rows(kt + db * kBKV * 128, &m.kq, m.k_hf, &full[s], db * 64, k0,
+                   hk, b);
+          tma_rows(kt + C::kKVTileQ + db * kBKV * 128, &m.vq, m.v_hf, &full[s],
+                   db * 64, k0, hk, b);
+        }
+      }
+    }
+  } else {                                       // consumers
+    setmaxnreg_inc<240>();
+    dq_consume<D>(a, qs, dos, rows, ring, bar_q, full, empty, b, h, q0,
+                  k_first, n_tiles);
+  }
+}
+
+template <int D>
+int launch_wgmma(const BwdArgs& a, int batch, cudaStream_t st) {
+  using C = WgCfg<D>;
+  Maps m;
+  QKVMap mq, mk, mv, mdo, mkq, mvq;
+  if (!make_qkv_map(&mq, a.q, batch, a.hq, a.sq, D, a.st[kQ][0], a.st[kQ][1],
+                    a.st[kQ][2], 64) ||
+      !make_qkv_map(&mdo, a.dout, batch, a.hq, a.sq, D, a.st[kDO][0],
+                    a.st[kDO][1], a.st[kDO][2], 64) ||
+      !make_qkv_map(&mk, a.k, batch, a.hkv, a.skv, D, a.st[kK][0],
+                    a.st[kK][1], a.st[kK][2], C::kBKV) ||
+      !make_qkv_map(&mv, a.v, batch, a.hkv, a.skv, D, a.st[kV][0],
+                    a.st[kV][1], a.st[kV][2], C::kBKV) ||
+      !make_qkv_map(&mkq, a.k, batch, a.hkv, a.skv, D, a.st[kK][0],
+                    a.st[kK][1], a.st[kK][2], C::kBKVQ) ||
+      !make_qkv_map(&mvq, a.v, batch, a.hkv, a.skv, D, a.st[kV][0],
+                    a.st[kV][1], a.st[kV][2], C::kBKVQ))
+    return static_cast<int>(cudaErrorInvalidValue);
+  m.q = mq.map; m.k = mk.map; m.v = mv.map; m.dout = mdo.map;
+  m.kq = mkq.map; m.vq = mvq.map;
+  m.q_hf = mq.heads_first; m.k_hf = mk.heads_first;
+  m.v_hf = mv.heads_first; m.do_hf = mdo.heads_first;
+  static unsigned set_kv = 0, set_q = 0;
+  cudaError_t err = set_smem_once(bwd_dkdv_wgmma_kernel<D>, C::kSmemKV,
+                                  &set_kv);
+  if (err == cudaSuccess)
+    err = set_smem_once(bwd_dq_wgmma_kernel<D>, C::kSmemQ, &set_q);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = batch * a.hq * row_chunks(a.sq) * 64;
+  const int per = kT / 32;
+  bwd_delta_kernel<__nv_bfloat16, D><<<(rows + per - 1) / per, kT, 0, st>>>(
+      a, rows);
+  bwd_dkdv_wgmma_kernel<D><<<dim3(batch * a.hkv,
+                                  (a.skv + C::kBKV - 1) / C::kBKV),
+                             C::kThreads, C::kSmemKV, st>>>(m, a);
+  bwd_dq_wgmma_kernel<D><<<dim3(batch * a.hq, (a.sq + 127) / 128),
+                           C::kThreads, C::kSmemQ, st>>>(m, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -642,35 +984,20 @@ __global__ void __launch_bounds__(kT) bwd_dq_f32_kernel(BwdArgs a) {
 
 template <int D>
 int launch(const BwdArgs& a, int batch, int dtype, cudaStream_t st) {
+  if (dtype != kF32) return launch_wgmma<D>(a, batch, st);
   const int rows = batch * a.hq * a.sq;
   const int per = kT / 32;
-  cudaError_t err;
-  if (dtype == kF32) {
-    bwd_delta_kernel<float, D><<<(rows + per - 1) / per, kT, 0, st>>>(a, rows);
-    const int smem = f32_smem_floats<D>() * 4;
-    static unsigned set_kv = 0, set_q = 0;
-    err = set_smem_once(bwd_dkdv_f32_kernel<D>, smem, &set_kv);
-    if (err == cudaSuccess)
-      err = set_smem_once(bwd_dq_f32_kernel<D>, smem, &set_q);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    bwd_dkdv_f32_kernel<D><<<dim3((a.skv + kFT - 1) / kFT, batch * a.hkv), kT,
-                             smem, st>>>(a);
-    bwd_dq_f32_kernel<D><<<dim3((a.sq + kFT - 1) / kFT, batch * a.hq), kT,
-                           smem, st>>>(a);
-    return static_cast<int>(cudaGetLastError());
-  }
-  using C = BwdCfg<D>;
-  bwd_delta_kernel<__nv_bfloat16, D><<<(rows + per - 1) / per, kT, 0, st>>>(
-      a, rows);
+  bwd_delta_kernel<float, D><<<(rows + per - 1) / per, kT, 0, st>>>(a, rows);
+  const int smem = f32_smem_floats<D>() * 4;
   static unsigned set_kv = 0, set_q = 0;
-  err = set_smem_once(bwd_dkdv_mma_kernel<D>, C::kSmemKV, &set_kv);
+  cudaError_t err = set_smem_once(bwd_dkdv_f32_kernel<D>, smem, &set_kv);
   if (err == cudaSuccess)
-    err = set_smem_once(bwd_dq_mma_kernel<D>, C::kSmemQ, &set_q);
+    err = set_smem_once(bwd_dq_f32_kernel<D>, smem, &set_q);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dkdv_mma_kernel<D><<<dim3((a.skv + C::kBKV - 1) / C::kBKV,
-                                batch * a.hkv), kT, C::kSmemKV, st>>>(a);
-  bwd_dq_mma_kernel<D><<<dim3((a.sq + C::kBQ - 1) / C::kBQ, batch * a.hq), kT,
-                         C::kSmemQ, st>>>(a);
+  bwd_dkdv_f32_kernel<D><<<dim3((a.skv + kFT - 1) / kFT, batch * a.hkv), kT,
+                           smem, st>>>(a);
+  bwd_dq_f32_kernel<D><<<dim3((a.sq + kFT - 1) / kFT, batch * a.hq), kT,
+                         smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -679,7 +1006,8 @@ int launch(const BwdArgs& a, int batch, int dtype, cudaStream_t st) {
 // q/out/dout/dq (B, Hq, Sq, d), k/v/dk/dv (B, Hkv, Skv, d), given through
 // `strides`: (b, h, s) element strides of q, k, v, out, dout, dq, dk, dv
 // (24 int64, last dims contiguous).  lse (B, Hq, Sq) f32 from the forward;
-// delta a (B, Hq, Sq) f32 workspace.  window <= 0: no sliding window.
+// delta an f32 workspace of B * Hq * 256 * ceil(Sq / 128) floats,
+// 16-byte aligned.  window <= 0: no sliding window.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* out, const void* dout,
                                    const void* lse, void* delta, void* dq,

@@ -4,10 +4,12 @@ kernels use, one specialisation per instruction width N.
     python src/repro_torch/csrc/gen_wgmma.py > src/repro_torch/csrc/wgmma.cuh
 
 An instruction of width N names its N / 2 f32 accumulator registers one
-by one in the PTX, so each width is spelled out.  ``SS_WIDTHS`` are the
-widths with both operands in shared memory (``moe_ffn.cu``'s token
-tiles, ``flash_attention.cu``'s key tiles); ``RS_WIDTHS`` those with A
-in registers (the P V product of ``flash_attention.cu``, N = head dim).
+by one in the PTX, so each width is spelled out; scale-d is a template
+argument (1 by default).  ``SS_WIDTHS`` are the widths with both
+operands in shared memory (``moe_ffn.cu``'s token tiles, the flash
+kernels' key and query tiles); ``RS_WIDTHS`` those with A in registers
+(the P V product of ``flash_attention.cu`` and the dV / dK / dQ
+products of ``flash_attention_bwd.cu``, N = head dim).
 tests/test_torch_kernel_precision.py checks that the committed header
 is this script's output.
 """
@@ -22,9 +24,10 @@ HEAD = """\
 // bf16 x bf16 -> f32 warpgroup products of Hopper (sm_90a), m64 x N x k16:
 // Wgmma<N>::ss(d, desc_a, desc_b) with A and B in shared memory,
 // Wgmma<N>::rs(d, a, desc_b) with A as four bf16x2 registers.  d holds
-// the N / 2 accumulators of the calling thread, always accumulated into
-// (scale-d = 1: callers zero them first).  TA / TB pick the transposed
-// (MN-major) layout of A / B in shared memory.
+// the N / 2 accumulators of the calling thread, accumulated into (scale-d
+// SD = 1, the default) or overwritten (SD = 0: a product's first k16 step,
+// with no zeroing of d before it).  TA / TB pick the transposed (MN-major)
+// layout of A / B in shared memory.
 #pragma once
 
 #include <stdint.h>
@@ -48,29 +51,29 @@ def spec(n: int) -> str:
     lines = [f"template <> struct Wgmma<{n}> {{"]
     if n in SS_WIDTHS:
         lines += [
-            "  template <int TA, int TB>",
+            "  template <int TA, int TB, int SD = 1>",
             f"  __device__ __forceinline__ static void ss(float (&d)[{r}], "
             "uint64_t da, uint64_t db) {",
             "    asm volatile(",
             f'        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "',
-            f'        "{{{_regs(r)}}}, %{r}, %{r + 1}, 1, 1, 1, %{r + 2}, '
+            f'        "{{{_regs(r)}}}, %{r}, %{r + 1}, %{r + 4}, 1, 1, %{r + 2}, '
             f'%{r + 3};\\n"',
             f"        : {_outs(r)}",
-            '        : "l"(da), "l"(db), "n"(TA), "n"(TB));',
+            '        : "l"(da), "l"(db), "n"(TA), "n"(TB), "n"(SD));',
             "  }",
         ]
     if n in RS_WIDTHS:
         lines += [
-            "  template <int TB>",
+            "  template <int TB, int SD = 1>",
             f"  __device__ __forceinline__ static void rs(float (&d)[{r}], "
             "const uint32_t (&a)[4], uint64_t db) {",
             "    asm volatile(",
             f'        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "',
             f'        "{{{_regs(r)}}}, {{%{r}, %{r + 1}, %{r + 2}, %{r + 3}}}, '
-            f'%{r + 4}, 1, 1, 1, %{r + 5};\\n"',
+            f'%{r + 4}, %{r + 6}, 1, 1, %{r + 5};\\n"',
             f"        : {_outs(r)}",
             '        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), '
-            '"n"(TB));',
+            '"n"(TB), "n"(SD));',
             "  }",
         ]
     lines.append("};")

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels
-// (moe_ffn.cu, flash_attention.cu; wkv6.cu's chunked kernel uses the TMA
-// and mbarrier parts): TMA tensor maps and loads, mbarrier
-// pipelines, wgmma shared-memory descriptors and fences, setmaxnreg.
+// (moe_ffn.cu, flash_attention.cu, flash_attention_bwd.cu; wkv6.cu's
+// chunked kernel uses the TMA and mbarrier parts): TMA tensor maps and
+// loads, bulk copies, mbarrier pipelines, named barriers, wgmma
+// shared-memory descriptors and fences, setmaxnreg.
 // All inline PTX; cuTensorMapEncodeTiled is looked up at run time with
 // cudaGetDriverEntryPoint, so the libraries need no -lcuda.
 #pragma once
@@ -137,6 +138,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
+// bytes (a multiple of 16) from 16-byte-aligned global memory, completion
+// reported to bar like a tensor load
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map)) : "memory");
@@ -173,6 +185,18 @@ template <int R>
 __device__ __forceinline__ void reg_fence(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Make this thread's shared-memory stores visible to the asynchronous
+// proxy (a wgmma that reads them), before the barrier that orders them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, whole
+// warps.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 template <int R>

@@ -5,9 +5,9 @@ Replaces the JAX package's custom VJP of its flash attention,
 ``pallas_call``).  On CPU tensors it returns the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_bwd_ref`); on CUDA
 tensors it launches the kernel (three launches on the current stream:
-the row sums D, then dK/dV, then dQ) or raises.  ``launches`` counts the
-calls that launched it.  The kernel is bound by operations (see the
-source's note).
+the row sums D, then dK/dV, then dQ; in bf16 on ``wgmma`` fed by TMA)
+or raises.  ``launches`` counts the calls that launched it.  The kernel
+is bound by operations (see the source's note).
 
 Every tensor is read or written through its (b, h, s) strides with a
 contiguous last dim, so the model hands over its (B, S, H, d) tensors
@@ -71,7 +71,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale=None, causal=True,
     _build.require(d in HEAD_DIMS, f"head dim must be one of {HEAD_DIMS}")
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    # the row sums D (f32: (B, Hq, Sq); bf16: packed beside lse * log2 e
+    # in 64-row chunks, Sq rounded up to 128)
+    delta = torch.empty(b * hq * 256 * ((sq + 127) // 128),
+                        dtype=torch.float32, device=q.device)
     st = []
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
                     ("dout", dout), ("dq", dq), ("dk", dk), ("dv", dv)):

@@ -56,7 +56,7 @@ GROUPS = (("moe_ffn kernels", r"moe_wgmma_kernel|grouped_gemm_kernel"),
           ("wkv6 kernels", r"wkv6_(chunked_)?kernel"),
           ("flash_attention kernel", r"flash_fwd_(wgmma_)?kernel"),
           ("flash_attention_bwd kernels",
-           r"bwd_(delta|dkdv_mma|dq_mma|dkdv_f32|dq_f32)_kernel"),
+           r"bwd_(delta|dkdv_wgmma|dq_wgmma|dkdv_f32|dq_f32)_kernel"),
           ("cuBLAS products", r"gemm|gemv|cutlass|xmma|cublas|nvjet|sm90_"),
           ("everything else", r""))
 

@@ -2,8 +2,11 @@
 the JAX package: ``flash_attention_ref``'s log-sum-exp against
 ``_flash_forward``'s, ``flash_attention_bwd_ref`` against ``jax.vjp`` of
 ``attention_chunked`` (whose custom VJP is ``_flash_bwd_rule``), over
-causal, sliding-window and bidirectional masks, GQA (g 2), Sq != Skv and
-lengths that are no multiple of the KV chunk; ``FlashAttentionFn`` on
+causal, sliding-window and bidirectional masks, GQA (g 1, 2 and 8), Sq
+!= Skv (also under a causal mask, both ways), lengths that are no
+multiple of the KV chunk, and the edges of the bf16 kernels' tiles (Sq
+and Skv of 63, 65 and 129; a window of 23, under a tile and no multiple
+of 16); ``FlashAttentionFn`` on
 CPU tensors against autograd of the materialised plain attention; and
 the attention layer's train phase against JAX's.  Inputs are drawn with
 numpy from a seed; f32, atol 1e-5 (rtol 1e-5)."""
@@ -31,6 +34,16 @@ CASES = {
     "gqa-g2": (1, 4, 2, 48, 48, 32, True, None, 16),
     "sq-ne-skv": (2, 4, 2, 24, 40, 16, False, None, 16),
     "ragged-37": (1, 2, 1, 37, 37, 16, True, 12, 16),
+    # the edges of the bf16 kernels' tiles (64 query rows; 128 or 64 keys a
+    # dK / dV CTA; 128 query rows and 128 or 32 keys a dQ tile)
+    "edge-63": (1, 4, 2, 63, 63, 32, True, None, 16),
+    "edge-65": (1, 4, 2, 65, 65, 16, True, None, 16),
+    "edge-129": (1, 2, 1, 129, 129, 16, True, None, 32),
+    "edge-window-23": (1, 4, 2, 129, 129, 16, True, 23, 16),
+    "edge-g1": (1, 2, 2, 65, 65, 32, True, 23, 16),
+    "edge-g8": (1, 8, 1, 65, 65, 16, True, None, 16),
+    "edge-causal-sq-lt-skv": (1, 4, 2, 63, 129, 16, True, None, 16),
+    "edge-causal-sq-gt-skv": (1, 4, 2, 129, 65, 16, True, None, 16),
 }
 
 
@@ -179,3 +192,83 @@ def test_train_phase_attention_matches_jax(window):
     _close(grads[0], jgx)
     for name, g in zip(tw, grads[1:]):
         _close(g, jg[name])
+
+
+# -- the bf16 kernels' tile walks, emulated (csrc/flash_attention_bwd.cu:
+# q_range, kv_range, live_tile, whole_tile and the loops over them) --------
+
+def _ranges_mask(sq, skv, causal, window):
+    i = np.arange(sq)[:, None]
+    j = np.arange(skv)[None, :]
+    ok = np.ones((sq, skv), bool)
+    if causal:
+        ok &= j <= i
+    if window is not None:
+        ok &= j > i - window
+    return ok
+
+
+def _walks(sq, skv, d, causal, window):
+    """[(kernel, q0, nq, k0, nk, whole)] of every (query tile, key tile) a
+    consumer warpgroup computes, as the two bf16 kernels walk them."""
+    w = window or 0
+    wide = (d + 63) // 64 * 64 > 128
+    bkv, bkvq = (64, 32) if wide else (128, 128)
+
+    def live(q0, nq, k0, nk):
+        return (q0 < sq and k0 < skv and (not causal or k0 <= q0 + nq - 1)
+                and (w <= 0 or q0 < k0 + nk - 1 + w))
+
+    def whole(q0, nq, k0, nk):
+        return (q0 + nq <= sq and k0 + nk <= skv
+                and (not causal or k0 + nk - 1 <= q0)
+                and (w <= 0 or k0 > q0 + nq - 1 - w))
+
+    out = []
+    for k0 in range(0, skv, bkv):              # dK / dV: a CTA's keys
+        lo = k0 if causal else 0
+        hi = min(sq, k0 + bkv - 1 + w) if w > 0 else sq
+        for t in range(lo // 64, -(-hi // 64) if hi > lo else 0):
+            for kw0 in range(k0, k0 + bkv, 64):    # d <= 128: 2 warpgroups
+                if live(64 * t, 64, kw0, 64):
+                    out.append(("dkdv", 64 * t, 64, kw0, 64,
+                                whole(64 * t, 64, kw0, 64)))
+    for q0 in range(0, sq, 128):               # dQ: 128 query rows a CTA
+        lo = max(0, q0 - w + 1) if w > 0 else 0
+        hi = min(skv, q0 + 128) if causal else skv
+        first = lo // bkvq * bkvq
+        for k0 in range(first, hi if hi > first else first, bkvq):
+            for qw0 in (q0, q0 + 64):
+                if live(qw0, 64, k0, bkvq):
+                    out.append(("dq", qw0, 64, k0, bkvq,
+                                whole(qw0, 64, k0, bkvq)))
+    return out
+
+
+# (sq, skv, causal, window): CASES' shapes, and windows on both sides of
+# the tiles' 32 / 64 / 128 rows over 300 tokens
+WALKS = sorted({(c[3], c[4], c[6], c[7]) for c in CASES.values()}
+               | {(300, 300, True, w) for w in (1, 8, 23, 31, 60, 64, 65,
+                                                92, 100, 129)}
+               | {(300, 300, False, 40), (200, 300, True, 50),
+                  (300, 200, True, 50), (300, 200, False, None)},
+               key=str)
+
+
+@pytest.mark.parametrize("d", [128, 240])
+@pytest.mark.parametrize("shape", WALKS, ids=str)
+def test_tile_walks_cover_every_visible_pair_once(shape, d):
+    """Each kernel computes every visible (query, key) pair in exactly one
+    tile, and a tile it treats as whole (no per-element mask) holds only
+    visible pairs."""
+    sq, skv, causal, window = shape
+    ok = _ranges_mask(sq, skv, causal, window)
+    for kernel in ("dkdv", "dq"):
+        seen = np.zeros((sq, skv), int)
+        for kern, q0, nq, k0, nk, whole in _walks(sq, skv, d, causal, window):
+            if kern != kernel:
+                continue
+            seen[q0:q0 + nq, k0:k0 + nk] += 1
+            if whole:
+                assert ok[q0:q0 + nq, k0:k0 + nk].all(), (kernel, q0, k0)
+        assert (seen[ok] == 1).all(), kernel

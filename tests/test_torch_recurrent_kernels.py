@@ -446,7 +446,7 @@ def test_profile_groups_name_every_kernel_of_its_source():
            "moe_ffn": "moe_ffn kernels", "rglru_scan": "rglru_scan kernels",
            "wkv6": "wkv6 kernels"}
     # two kernels a source; the flash backward's five (the row sums D,
-    # then dK/dV and dQ, each on the tensor cores and in exact f32)
+    # then dK/dV and dQ, each on wgmma and in exact f32)
     n_kernels = dict.fromkeys(own, 2) | {"flash_attention_bwd": 5}
     seen = dict.fromkeys(own, 0)
     for path in sorted(glob.glob(os.path.join(_build.CSRC, "*.cu"))):
