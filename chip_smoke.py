@@ -2,6 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --eq-readings   # 5t-eq-k's limit readings only
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; imports nothing of JAX.  Phases, each printed
@@ -148,15 +149,36 @@ on its own lines with its wall seconds:
    steps' wall;
    (t-eq) the same widths in f32, B 1 x 1281 tokens: loss and every
    gradient leaf on the card against the same step on the CPU (plain
-   versions, same weights); (t-w) Whisper-base whole (6 + 6 layers, B 4
-   x 1500 frames, 448 tokens), 3 steps: bidirectional, causal and cross
-   attention through the backward kernel; (t-l) ``python -m
-   repro_torch.launch.train`` at its defaults, which must print
-   ``LEARNED``.  Phase 2 also holds the forward's log-sum-exp against
+   versions, same weights); (t-m) Mixtral-8x7B at published widths cut
+   to 3 layers, B 1 x 4096, (t-r) RecurrentGemma-2B whole (27 layers), B
+   2 x 4096, (t-k) RWKV-6-7B cut to 8 layers, B 2 x 4096, each bf16 with
+   remat and AdamW as configured, 4 steps and a profiled one, launches a
+   step required exactly as reckoned from the layer pattern and remat's
+   recompute (``_expected_launches``; the expert FFN's ``moe_ffn`` once
+   a run of its group and ``moe_ffn_bwd`` once a step), the profiled
+   step showing its backward kernels' groups; (t-eq-m / -r / -k) those
+   widths in f32 at a few layers, B 2 x 257, card against CPU as 5t-eq
+   (5t-eq-k at its own fixed gradient limit, ``TRAIN_EQ_GRAD_TOL``, whose
+   readings ``--eq-readings`` prints), Mixtral's experts and drop slots
+   first required equal on both devices token by token;
+   (t-w) Whisper-base whole (6 + 6 layers, B 4 x 1500 frames, 448
+   tokens), 3 steps: bidirectional, causal and cross attention through
+   the backward kernel; (t-l) ``python -m repro_torch.launch.train`` at
+   its defaults, and with ``--arch`` mixtral-8x7b, recurrentgemma-2b and
+   rwkv6-7b, each of which must print ``LEARNED``.  Phase 2 also holds
+   the recurrences' backward kernels against their plain versions in f64
+   (``wkv6_bwd`` at 5t-k's shape, head size 128, ragged S and one step;
+   ``rglru_gated_scan_bwd`` at 5t-r's shape in bf16 and f32, an odd S,
+   widths 100 and 102, one step; each output within ``TOL_BWD`` of its
+   largest magnitude, the main cases bitwise equal twice), the expert
+   FFN's backward kernels (``moe_ffn_bwd`` at 5t-m's shape in bf16,
+   twice, and 5t-eq-m's in f32; ragged, gelu and one-token cases), and the
+   forward's log-sum-exp against
    the plain one in every flash case and the backward kernel against
    ``flash_attention_bwd_ref`` (Gemma-3 S 4096 window and global, the
-   f32 5t-eq shapes, Mistral widths, Whisper's encoder, decoder and cross
-   attention, head dim 32, partial tiles at S 100, Sq != Skv), the
+   f32 5t-eq shapes, Mistral widths, RecurrentGemma-2B's d 256 MQA (g
+   10) under a window of 2048 at S 4096, Whisper's encoder, decoder and
+   cross attention, head dim 32, partial tiles at S 100, Sq != Skv), the
    library yardstick being the backward of
    ``scaled_dot_product_attention``;
 6. the kernels as one JSON object; 7. the device as one JSON object.
@@ -225,7 +247,23 @@ REPLACES = {
     # no pallas_call: the custom VJP's backward rule of the JAX flash
     # attention, which the training path runs
     "flash_attention_bwd": "src/repro/models/attention.py:231",
+    # the TPU kernel rglru_scan with the gates of models/rglru.py:97-103
+    "rglru_gated_scan": "src/repro/kernels/rglru_scan.py:49",
+    # no pallas_call: the JAX package's autodiff through its checkpointed
+    # WKV scan and through its RG-LRU scan, which training runs
+    "wkv6_bwd": "src/repro/models/rwkv.py:145",
+    "rglru_gated_scan_bwd": "src/repro/models/rglru.py:88",
+    # no pallas_call: the JAX package's autodiff through its three expert
+    # einsums (in every phase), which training runs
+    "moe_ffn_bwd": "src/repro/models/moe.py:160",
 }
+# the training run whose launches each training-path kernel reports, and
+# its source
+TRAIN_PATH = {"flash_attention_bwd": ("5t", "flash_attention_bwd"),
+              "rglru_gated_scan": ("5t-r", "rglru_scan"),
+              "wkv6_bwd": ("5t-k", "wkv6_bwd"),
+              "rglru_gated_scan_bwd": ("5t-r", "rglru_scan_bwd"),
+              "moe_ffn_bwd": ("5t-m", "moe_ffn_bwd")}
 # the serving run whose launches each kernel reports (its path)
 PATH_RUN = {"paged_decode_attention": "3a", "flash_attention": "3a",
             "moe_ffn": "3a", "decode_attention": "3d", "rglru_scan": "3c",
@@ -922,6 +960,8 @@ def kernel_cases(bench) -> dict:
                                     2560)
     gated_case("prefill b1 s512 w2560 (serve path)", 1, 512, 2560)
     gated_case("stress b8 s4096 w2560", 8, 4096, 2560)
+    main["rglru_gated_scan"] = gated_case("5t-r train b2 s4096 w2560", 2,
+                                          4096, 2560)
     for x_dt in (torch.float32,):        # the lossless phase's f32 model
         gated_case("verify b2 s5 w2560 f32", 2, 5, 2560, x_dt)
         gated_case("prefill b1 s130 w2560 f32", 1, 130, 2560, x_dt)
@@ -995,6 +1035,221 @@ def kernel_cases(bench) -> dict:
               False, "model")
     wkv6_case("model decay decode b4 h64 s1", 4, 64, 1, 64, False, "model")
     torch.cuda.empty_cache()
+    main.update(recurrent_bwd_cases(bench, gen))
+    main.update(moe_bwd_cases(bench, gen))
+    return main
+
+
+# the recurrences' backward kernels against their plain versions in f64:
+# each output's worst error over its largest magnitude.  f32 sums over
+# 4096 steps round ~sqrt(4096) x 2^-24 ~ 4e-6 of that magnitude; the
+# tolerance leaves 25x room.
+TOL_BWD = 1e-4
+
+
+def _check_scaled(name, case, got, want, tol=TOL_BWD):
+    """Largest |got - want| against ``tol`` x max |want| (no NaN);
+    returns the largest absolute error."""
+    import torch
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.double().abs().max())
+    bad = int(torch.isnan(got).sum())
+    if bad or err > tol * max(scale, 1e-30):
+        raise AssertionError(f"{name} {case}: kernel disagrees with its plain "
+                             f"version (max abs err {err:.3e} of max "
+                             f"{scale:.3e}, tol {tol}, {bad} NaN)")
+    return err
+
+
+def recurrent_bwd_cases(bench, gen) -> dict:
+    """The backward kernels of the two recurrences against their plain
+    versions evaluated in f64 on the same inputs (each output held to
+    ``TOL_BWD`` of its largest magnitude), with time, bound and the plain
+    version's time (f32); no single PyTorch call computes either.
+    ``wkv6_bwd``: RWKV-6-7B's training shape (5t-k: B 2, H 64, S 4096, hd
+    64) with the model's decays (w == 0 and w = 1 - 1e-7 channels), a
+    nonzero s0 and final-state gradient, called twice (bitwise equal);
+    head size 128; S not a multiple of the checkpoint spacing; one step.
+    ``rglru_gated_scan_bwd``: RecurrentGemma-2B's (5t-r: B 2, S 4096, W
+    2560), x bf16 and f32, an odd S, widths 100 and 102.  Returns the main
+    cases' numbers by wrapper name."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import wkv6 as wk
+
+    dev = "cuda"
+    rn = lambda *s, dt=torch.float32: torch.randn(
+        s, generator=gen, device=dev).to(dt)
+    main = {}
+
+    def wkv6_bwd_case(label, b, h, s, hd, ds_fin=True, twice=False):
+        r, k, v, dy = (rn(b, s, h, hd).transpose(1, 2) for _ in range(4))
+        w_log = torch.rand((b, s, h, hd), generator=gen, device=dev) * 12 - 8
+        w = torch.exp(-torch.exp(w_log))
+        w[..., 0] = 0.0
+        w[..., 1] = 1.0 - 1e-7
+        w = w.transpose(1, 2)
+        u, s0 = rn(h, hd) * 0.1, rn(b, h, hd, hd) * 0.1
+        dsf = rn(b, h, hd, hd) if ds_fin else None
+        args = (r, k, v, w, u, s0, dy, dsf)
+        call = lambda: wk.wkv6_bwd(*args)
+        got = call()
+        if twice:
+            again = call()
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(got, again)), (
+                f"wkv6_bwd {label}: two calls differ")
+            del again
+        want = ref.wkv6_bwd_ref(*(None if t is None else t.double()
+                                  for t in args))
+        torch.cuda.synchronize()
+        names = ("dr", "dk", "dv", "dw", "du", "ds0")
+        err = max(_check_scaled("wkv6_bwd", f"{label} {n}", g, y)
+                  for n, g, y in zip(names, got, want))
+        del want
+        torch.cuda.empty_cache()
+        # 12 f32 operations an entry of the state and step (the source's
+        # note); each input read once, each output written once
+        bound = _bound(_nbytes(*[t for t in args if t is not None], *got),
+                       12.0 * b * h * s * hd * hd, "float32")
+        res = (err, bench.ms(call), bound,
+               bench.ms(lambda: ref.wkv6_bwd_ref(*args), budget_ms=1.0),
+               None)
+        _report("wkv6_bwd", label, "float32", *res,
+                path="bitwise equal twice" if twice else "")
+        del got
+        torch.cuda.empty_cache()
+        return res
+
+    main["wkv6_bwd"] = wkv6_bwd_case("5t-k b2 h64 s4096 hd64", 2, 64, 4096,
+                                     64, twice=True)
+    wkv6_bwd_case("hd128 b1 h32 s1024", 1, 32, 1024, 128)
+    wkv6_bwd_case("ragged b2 h8 s1000 hd64 no ds_fin", 2, 8, 1000, 64,
+                  ds_fin=False)
+    wkv6_bwd_case("ragged b1 h4 s37 hd128", 1, 4, 37, 128)
+    wkv6_bwd_case("one step b2 h4 s1 hd64", 2, 4, 1, 64)
+
+    def rglru_bwd_case(label, b, s, w, x_dt=torch.bfloat16, twice=False):
+        xa, xi = rn(b, s, w), rn(b, s, w)
+        x = rn(b, s, w, dt=x_dt)
+        b_a, b_i = rn(w) * 0.5, rn(w) * 0.5
+        uu = 0.9 + 0.099 * torch.rand((w,), generator=gen, device=dev)
+        a_param = torch.log(torch.expm1(-torch.log(uu) / 8.0))
+        a_param[:3] = 25.0
+        h0, dh = rn(b, w), rn(b, s, w)
+        h_all = rg.rglru_gated_scan(xa, xi, x, b_a, b_i, a_param, h0)
+        args = (xa, xi, x, b_a, b_i, a_param, h0, h_all, dh)
+        call = lambda: rg.rglru_gated_scan_bwd(*args)
+        got = call()
+        if twice:
+            again = call()
+            torch.cuda.synchronize()
+            assert all(torch.equal(x_, y) for x_, y in zip(got, again)), (
+                f"rglru_gated_scan_bwd {label}: two calls differ")
+        want = ref.rglru_gated_scan_bwd_ref(*(t.double() for t in args))
+        torch.cuda.synchronize()
+        names = ("dxa", "dxi", "dx", "db_a", "db_i", "da_param", "dh0")
+        # dx in bf16 is held to bf16's rounding (TOL) elementwise
+        err = max(_check("rglru_gated_scan_bwd", f"{label} {n}", g, y,
+                         "bfloat16") if g.dtype == torch.bfloat16
+                  else _check_scaled("rglru_gated_scan_bwd", f"{label} {n}",
+                                     g, y)
+                  for n, g, y in zip(names, got, want))
+        # ~48 f32 operations an element (the source's note)
+        bound = _bound(_nbytes(*args, *got), 48.0 * b * s * w, "float32")
+        res = (err, bench.ms(call), bound,
+               bench.ms(lambda: ref.rglru_gated_scan_bwd_ref(*args),
+                        budget_ms=1.0), None)
+        _report("rglru_gated_scan_bwd", label,
+                f"x {str(x_dt).split('.')[1]}", *res,
+                path="bitwise equal twice" if twice else "")
+        return res
+
+    main["rglru_gated_scan_bwd"] = rglru_bwd_case(
+        "5t-r b2 s4096 w2560", 2, 4096, 2560, twice=True)
+    rglru_bwd_case("5t-r b2 s4096 w2560 f32", 2, 4096, 2560, torch.float32)
+    rglru_bwd_case("odd b2 s257 w2560 f32 (5t-eq-r)", 2, 257, 2560,
+                   torch.float32)
+    rglru_bwd_case("b2 s40 w100", 2, 40, 100)
+    rglru_bwd_case("b1 s1001 w102 (one channel a thread)", 1, 1001, 102)
+    rglru_bwd_case("one step b2 s1 w2560", 2, 1, 2560)
+    torch.cuda.empty_cache()
+    return main
+
+
+# the expert FFN backward's bf16 outputs: the plain version in f64 rounds
+# nothing, the kernel rounds g, u, dh, dg, du and h to bf16 (and each
+# output once), so each output is held to 2e-2 of its largest magnitude
+TOL_MOE_BWD_BF16 = 2e-2
+
+
+def moe_bwd_cases(bench, gen) -> dict:
+    """The expert FFN's backward kernels against ``moe_ffn_bwd_ref``
+    evaluated in f64 on the same inputs (f32 outputs within ``TOL_BWD``
+    of each one's largest magnitude, bf16 within ``TOL_MOE_BWD_BF16``),
+    with time, bound (seven products of 2 E C D F operations) and the
+    plain version's time; no single PyTorch call computes it.  5t-m's
+    shape (Mixtral-8x7B, B 1 x S 4096: E 8, C 2049, D 4096, F 14336,
+    bf16) called twice (bitwise equal); 5t-eq-m's (B 2 x 257: C 258, f32);
+    gelu and ragged C / D / F (F padded to 8 in bf16) at small widths.
+    Returns the main case's numbers."""
+    import torch
+
+    from repro_torch.kernels import moe_ffn as mf
+    from repro_torch.kernels import ref
+
+    dev = "cuda"
+    rn = lambda *s: torch.randn(s, generator=gen, device=dev)
+
+    def case(label, e, c, d, f, dt, activation="swiglu", twice=False):
+        dname = str(dt).split(".")[1]
+        buf, dy = rn(e, c, d).to(dt), rn(e, c, d).to(dt)
+        ws = []
+        for rows, cols in ((d, f), (d, f), (f, d)):
+            w = torch.empty((e, rows, cols), dtype=dt, device=dev)
+            for i in range(e):          # an expert at a time: no f32 stack
+                w[i] = (rn(rows, cols) * rows ** -0.5).to(dt)
+            ws.append(w)
+        args = (buf, *ws, dy)
+        call = lambda: mf.moe_ffn_bwd(*args, activation=activation)
+        got = call()
+        if twice:
+            again = call()
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(got, again)), (
+                f"moe_ffn_bwd {label}: two calls differ")
+            del again
+        want = ref.moe_ffn_bwd_ref(*(t.double() for t in args),
+                                   activation=activation)
+        torch.cuda.synchronize()
+        tol = TOL_MOE_BWD_BF16 if dt == torch.bfloat16 else TOL_BWD
+        err = max(_check_scaled("moe_ffn_bwd", f"{label} {n}", g, y, tol)
+                  for n, g, y in zip(("dbuf", "dw_gate", "dw_up", "dw_down"),
+                                     got, want))
+        del want
+        torch.cuda.empty_cache()
+        bound = _bound(_nbytes(*args, *got), 7 * 2.0 * e * c * d * f, dname)
+        res = (err, bench.ms(call), bound,
+               bench.ms(lambda: ref.moe_ffn_bwd_ref(*args,
+                                                    activation=activation),
+                        budget_ms=1.0), None)
+        _report("moe_ffn_bwd", label, dname, *res,
+                path=_tc_path(dt) + (", bitwise equal twice" if twice
+                                     else ""))
+        del got, args, ws
+        torch.cuda.empty_cache()
+        return res
+
+    main = {"moe_ffn_bwd": case("5t-m e8 c2049 d4096 f14336", 8, 2049, 4096,
+                                14336, torch.bfloat16, twice=True)}
+    case("5t-eq-m e8 c258 d4096 f14336 f32", 8, 258, 4096, 14336,
+         torch.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        case("ragged e4 c37 d72 f100", 4, 37, 72, 100, dt)
+        case("gelu e3 c130 d136 f200", 3, 130, 136, 200, dt, "gelu")
+        case("one token e2 c1 d64 f64", 2, 1, 64, 64, dt)
     return main
 
 
@@ -1084,6 +1339,9 @@ def flash_bwd_cases(bench, rn):
          True, None, torch.float32)
     case("mistral d128 b1 32/8 s4096", 1, 32, 8, 4096, 128, True, None, bf16,
          twice=True)
+    # RecurrentGemma-2B's attention layers (5t-r): MQA, g 10, window 2048
+    case("recurrentgemma d256 b2 10/1 s4096 w2048 (5t-r)", 2, 10, 1, 4096,
+         256, True, 2048, bf16, twice=True)
     case("whisper encoder b4 T1500 d64 bidir (5t-w)", 4, 8, 8, 1500, 64,
          False, None, bf16)
     case("whisper cross b4 sq448 skv1500 d64 (5t-w)", 4, 8, 8, 448, 64, False,
@@ -2277,13 +2535,39 @@ TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 6, 2, 4096, 5, 3e-4
 TRAIN_EQ_S = 1281
 TRAIN_EQ_TOL = (1e-5, 1e-4)     # loss relative; worst leaf / its max |g|
 WHISPER_TRAIN_S, WHISPER_TRAIN_STEPS = 448, 3
+# 5t-m / 5t-r / 5t-k: (label, config, layers, batch of TRAIN_S tokens, the
+# profiler groups its step must show).  Mixtral-8x7B cut to 3 layers
+# (4.6 G parameters, ~55 GB with AdamW's state at 12 bytes a parameter);
+# RecurrentGemma-2B whole (27 layers, ~3.0 G); RWKV-6-7B cut to 8 layers
+# (~2.3 G with its untied 65536-row embedding and head)
+TRAIN_FAMILIES = (
+    ("5t-m", "mixtral-8x7b", 3, 1, ("flash_attention_bwd kernels",
+                                    "moe_ffn kernels",
+                                    "moe_ffn_bwd kernels")),
+    ("5t-r", "recurrentgemma-2b", 27, 2,
+     ("flash_attention_bwd kernels", "rglru_scan kernels",
+      "rglru_scan_bwd kernels")),
+    ("5t-k", "rwkv6-7b", 8, 2, ("wkv6 kernels", "wkv6_bwd kernels")))
+TRAIN_FAMILY_STEPS = 4
+# 5t-eq-m / -r / -k: f32, B 2 x 257 (S - 1 = 256: one loss chunk), card
+# against CPU; Mixtral 2 layers, RecurrentGemma one group (3), RWKV 2
+TRAIN_EQ_FAMILIES = (("5t-eq-m", "mixtral-8x7b", 2),
+                     ("5t-eq-r", "recurrentgemma-2b", 3),
+                     ("5t-eq-k", "rwkv6-7b", 2))
+TRAIN_EQ_FAMILY_S = 257
+# a config's own fixed gradient limit where the f32 model's spread
+# between the card and the CPU passes TRAIN_EQ_TOL[1] with the summation
+# order alone (eq_readings, PERF.md section 6): RWKV-6-7B's u gradient
+TRAIN_EQ_GRAD_TOL = {"rwkv6-7b": 1e-3}
+# 5t-l: the launcher's defaults (None: its default arch, Gemma-3)
+LAUNCHER_ARCHS = (None, "mixtral-8x7b", "recurrentgemma-2b", "rwkv6-7b")
 
 
 class _PlainAttentionCounter:
-    """Counts calls of the plain attention functions (the model's
-    ``attention_direct`` / ``attention_chunked`` and the flash plain
-    versions) while it is entered: the training runs on the card must
-    make none."""
+    """Counts calls of the plain versions while it is entered: the
+    model's ``attention_direct`` / ``attention_chunked``, the flash plain
+    versions and those of ``wkv6``, the RG-LRU and ``moe_ffn`` (forward
+    and backward): the training runs on the card must make none."""
 
     def __enter__(self):
         from repro_torch.kernels import ref
@@ -2294,7 +2578,12 @@ class _PlainAttentionCounter:
                           (attention, "attention_chunked"),
                           (encdec, "attention_chunked"),
                           (ref, "flash_attention_ref"),
-                          (ref, "flash_attention_bwd_ref")):
+                          (ref, "flash_attention_bwd_ref"),
+                          (ref, "wkv6_ref"), (ref, "wkv6_bwd_ref"),
+                          (ref, "rglru_scan_ref"),
+                          (ref, "rglru_gated_scan_ref"),
+                          (ref, "rglru_gated_scan_bwd_ref"),
+                          (ref, "moe_ffn_ref"), (ref, "moe_ffn_bwd_ref")):
             fn = getattr(mod, name)
             self.saved.append((mod, name, fn))
 
@@ -2310,10 +2599,12 @@ class _PlainAttentionCounter:
         return False
 
 
-def _profiled_step(label, cfg, params, opt_state, data, step_wall):
+def _profiled_step(label, cfg, params, opt_state, data, step_wall,
+                   must_see):
     """One more train step under ``torch.profiler``: the device's kernel
     time by group (``launch/profile_serve.py``'s groups, copies apart),
-    against ``step_wall`` (the untraced steps' mean) as the idle share."""
+    against ``step_wall`` (the untraced steps' mean) as the idle share.
+    Every group of ``must_see`` must have device time."""
     import re
 
     import torch
@@ -2346,18 +2637,20 @@ def _profiled_step(label, cfg, params, opt_state, data, step_wall):
           + f"); against the untraced steps' mean wall {step_wall:.3f}s "
           f"the card computes {busy / 1e3 / step_wall:.3f} of a step "
           f"(idle share {1 - busy / 1e3 / step_wall:.3f})", flush=True)
-    assert groups["flash_attention_bwd kernels"] > 0, (
-        f"[{label}] the profiler saw no backward kernel")
+    missing = [g for g in must_see if groups[g] <= 0]
+    assert not missing, f"[{label}] the profiler saw no {missing}"
 
 
-def _train_run(label, cfg, data, steps, n_tokens, profile=False):
+def _train_run(label, cfg, data, steps, n_tokens, per_step=None,
+               profile=()):
     """``train_loop`` over ``steps`` batches of ``data`` from seeded
     weights, AdamW at ``TRAIN_LR``: per step its loss, gradient norm and
     wall (each step ends in a read of its loss), tokens/s after the first
     step, peak device memory and launches a step.  Losses and gradient
-    norms must be finite and no plain attention may run.  With
-    ``profile``, one more step under the profiler
-    (:func:`_profiled_step`)."""
+    norms must be finite and no plain version may run; ``per_step``
+    (``_expected_launches``) are the exact launches a step.  With
+    ``profile`` (the groups that must show device time), one more step
+    under the profiler (:func:`_profiled_step`)."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launches
@@ -2381,33 +2674,82 @@ def _train_run(label, cfg, data, steps, n_tokens, profile=False):
     torch.cuda.synchronize()
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    assert not plain.calls, f"[{label}] plain attention ran: {plain.calls}"
+    assert not plain.calls, f"[{label}] plain versions ran: {plain.calls}"
     walls = np.diff([0.0] + [row["elapsed_s"] for row in log])
     for row, wall in zip(log, walls):
         assert np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"]), row
         print(f"  [{label}] step {row['step']}: loss {row['loss']:.4f} "
               f"grad norm {row['grad_norm']:.4f} wall {wall:.3f}s", flush=True)
     tok_s = n_tokens * (steps - 1) / float(walls[1:].sum())
+    got = {k: v / steps for k, v in launches.items() if v}
     print(f"  [{label}] {cfg.name} {cfg.n_layers} layers {cfg.dtype}, "
           f"{n_params / 1e9:.3f} G parameters, {n_tokens} tokens a step: "
           f"{tok_s:.1f} tokens/s after the first step, peak memory "
-          f"{peak:.2f} GiB, launches a step: flash_attention "
-          f"{launches['flash_attention'] / steps:g}, flash_attention_bwd "
-          f"{launches['flash_attention_bwd'] / steps:g}; run wall "
-          f"{time.perf_counter() - t_run:.1f}s", flush=True)
+          f"{peak:.2f} GiB, launches a step: " + ", ".join(
+              f"{k} {v:g}" for k, v in got.items())
+          + f"; run wall {time.perf_counter() - t_run:.1f}s", flush=True)
+    if per_step is not None:
+        assert got == per_step, (f"[{label}] launches a step {got}, "
+                                 f"expected {per_step}")
     if profile:
         _profiled_step(label, cfg, params, opt_state, data,
-                       float(walls[1:].mean()))
+                       float(walls[1:].mean()), profile)
     del params, opt_state
     _free()
     return launches, log
 
 
+def _group_runs(cfg) -> int:
+    """Forward runs of the layer groups in one train step: each group
+    once, once more for remat's recompute and, under sqrt-remat (past 8
+    groups, ``transformer._forward_train``), a third time for every group
+    but the last of its superblock (torch's non-reentrant checkpoints two
+    deep; tests/test_torch_recurrent_bwd.py pins the count on the CPU)."""
+    from repro_torch.models.transformer import _sqrt_factor
+    n = cfg.n_groups
+    if not cfg.remat:
+        return n
+    n_outer = 1 if cfg.offload_carries else _sqrt_factor(n)
+    return 2 * n + (n - n_outer if n_outer > 1 else 0)
+
+
+def _expected_launches(cfg, seq: int) -> dict:
+    """Exact kernel launches of one train step of a decoder-only config,
+    reckoned from its layer pattern and :func:`_group_runs`: each
+    attention, RG-LRU and RWKV layer launches its forward kernel once a
+    run of its group and its backward kernel once, and so does each MoE
+    layer's expert FFN (``moe_ffn``, ``moe_ffn_bwd``)."""
+    from repro_torch.configs import ATTN, RGLRU, RWKV, SWA
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import wkv6 as wk
+    kinds = Counter(cfg.layer_pattern)
+    runs, n = _group_runs(cfg), cfg.n_groups
+    out = Counter()
+    n_moe = sum(map(bool, cfg.moe_pattern)) if cfg.is_moe else 0
+    if n_moe:
+        out["moe_ffn"] += n_moe * runs
+        out["moe_ffn_bwd"] += n_moe * n
+    for kind, fwd, bwd, route in (
+            ((ATTN, SWA), "flash_attention", "flash_attention_bwd", None),
+            ((RGLRU,), "rglru_gated_scan", "rglru_gated_scan_bwd",
+             rg.route(seq)),
+            ((RWKV,), "wkv6", "wkv6_bwd",
+             wk.route(seq, False, cfg.rwkv_head_size))):
+        per_group = sum(kinds[k] for k in kind)
+        if per_group:
+            out[fwd] += per_group * runs
+            out[bwd] += per_group * n
+            if route is not None:
+                out[f"{fwd} {route}"] += per_group * runs
+    return dict(out)
+
+
 def train_phase() -> dict:
-    """5t, 5t-eq, 5t-w, 5t-l; returns 5t's launches."""
+    """5t, 5t-eq, 5t-m, 5t-r, 5t-k and their eq runs, 5t-w, 5t-l; returns
+    {run label: launches}."""
     import torch
 
-    from repro_torch.configs import GEMMA3_12B, WHISPER_BASE
+    from repro_torch.configs import GEMMA3_12B, WHISPER_BASE, get_config
     from repro_torch.data.pipeline import make_lm_batches
 
     # 5t: one step's forward runs 6 flash launches, remat's recompute of
@@ -2415,14 +2757,29 @@ def train_phase() -> dict:
     cfg = dataclasses.replace(GEMMA3_12B, n_layers=TRAIN_LAYERS)
     assert cfg.remat and cfg.dtype == "bfloat16" and cfg.n_groups == 1
     data = make_lm_batches(TRAIN_B, TRAIN_S, cfg.vocab_size, seed=0)
-    launches, _ = _train_run("5t", cfg, data, TRAIN_STEPS,
-                             TRAIN_B * TRAIN_S, profile=True)
-    per = 2 * cfg.n_layers
-    assert launches["flash_attention"] == per * TRAIN_STEPS, launches
-    assert launches["flash_attention_bwd"] == cfg.n_layers * TRAIN_STEPS, \
-        launches
+    runs = {}
+    runs["5t"], _ = _train_run("5t", cfg, data, TRAIN_STEPS,
+                               TRAIN_B * TRAIN_S,
+                               _expected_launches(cfg, TRAIN_S),
+                               profile=("flash_attention_bwd kernels",))
+    assert runs["5t"]["flash_attention"] == 2 * cfg.n_layers * TRAIN_STEPS
 
-    train_eq_run("5t-eq")
+    train_eq_run("5t-eq", dataclasses.replace(cfg, dtype="float32"), 1,
+                 TRAIN_EQ_S)
+
+    # 5t-m / 5t-r / 5t-k: the MoE and recurrent families at published
+    # widths, bf16, remat and AdamW as configured
+    for label, arch, layers, batch, must_see in TRAIN_FAMILIES:
+        fcfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        fdata = make_lm_batches(batch, TRAIN_S, fcfg.vocab_size, seed=0)
+        runs[label], _ = _train_run(label, fcfg, fdata, TRAIN_FAMILY_STEPS,
+                                    batch * TRAIN_S,
+                                    _expected_launches(fcfg, TRAIN_S),
+                                    profile=must_see)
+    for label, arch, layers in TRAIN_EQ_FAMILIES:
+        fcfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                   dtype="float32")
+        train_eq_run(label, fcfg, 2, TRAIN_EQ_FAMILY_S, family=True)
 
     # 5t-w: the encoder (6 bidirectional layers, not rematerialised, as in
     # JAX), the decoder's 6 groups each a checkpoint (self + cross)
@@ -2441,81 +2798,284 @@ def train_phase() -> dict:
     assert wl["flash_attention_bwd"] == WHISPER_TRAIN_STEPS * (
         n_enc + n_dec), wl
 
-    # 5t-l: the launcher at its defaults (reduced Gemma-3, f32, head dim 32)
-    t0 = time.perf_counter()
+    # 5t-l: the launcher at its defaults (reduced configs, f32): Gemma-3
+    # (head dim 32), then the MoE and recurrent families, the four
+    # processes at once on the card
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"],
-                         cwd=ROOT, env=env, capture_output=True, text=True,
-                         timeout=600)
-    lines = out.stdout.strip().splitlines()
-    print("  [5t-l] python -m repro_torch.launch.train (defaults): "
-          + " | ".join(lines[-3:])
-          + f"; wall {time.perf_counter() - t0:.1f}s", flush=True)
-    assert out.returncode == 0, out.stderr[-2000:]
-    assert lines and "LEARNED" in lines[-1], out.stdout[-2000:]
+    t0 = time.perf_counter()
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train"]
+        + (["--arch", arch] if arch else []), cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch in LAUNCHER_ARCHS}
+    try:
+        outs = {arch: p.communicate(timeout=600) + (p.returncode,)
+                for arch, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for arch, (stdout, stderr, rc) in outs.items():
+        lines = stdout.strip().splitlines()
+        print(f"  [5t-l] python -m repro_torch.launch.train"
+              + (f" --arch {arch}" if arch else " (defaults)") + ": "
+              + " | ".join(lines[-3:]), flush=True)
+        assert rc == 0, stderr[-2000:]
+        assert lines and "LEARNED" in lines[-1], stdout[-2000:]
+    print(f"  [5t-l] the {len(procs)} launchers' wall "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
     torch.cuda.synchronize()
-    return launches
+    return runs
 
 
-def train_eq_run(label) -> None:
-    """The same train step's loss and gradients on the card (kernels)
-    and on the CPU (plain versions) from the same f32 weights: Gemma-3-12B
-    widths, 6 layers, B 1 x ``TRAIN_EQ_S`` tokens (longer than the
-    window).  Held to ``TRAIN_EQ_TOL``: the loss's relative error, and for
-    every gradient leaf its largest error over the leaf's largest
-    magnitude."""
+class _RoutingRecorder:
+    """Records every MoE layer's top-k experts and capacity slots
+    (``models.moe._dispatch``'s idx and its slot output) while entered."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.fn, self.calls = moe, moe._dispatch, []
+
+        def recorded(x_flat, idx, n_experts, capacity):
+            buf, slot = self.fn(x_flat, idx, n_experts, capacity)
+            self.calls.append((idx.detach().cpu(), slot.detach().cpu()))
+            return buf, slot
+        moe._dispatch = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._dispatch = self.fn
+        return False
+
+
+def _same_routing(label, card, cpu) -> None:
+    """The card's and the CPU's MoE routing must be identical: the same
+    experts and the same drop slots for every token of every layer call.
+    A token where they differ (a near-tie of router probabilities) is
+    reported by layer call and token, never passed."""
+    assert len(card) == len(cpu), (label, len(card), len(cpu))
+    bad = []
+    for call, ((ic, sc), (ih, sh)) in enumerate(zip(card, cpu)):
+        diff = ((ic != ih) | (sc != sh)).any(-1).nonzero().flatten()
+        bad += [(call, int(t), ic[t].tolist(), ih[t].tolist(),
+                 sc[t].tolist(), sh[t].tolist()) for t in diff]
+    n_tok = sum(int(i.shape[0]) for i, _ in card)
+    n_drop = sum(int((s < 0).sum()) for _, s in card)
+    print(f"  [{label}] routing: {len(card)} MoE layer calls, {n_tok} "
+          f"tokens, {n_drop} dropped slots; card == CPU for "
+          f"{n_tok - len(bad)} of {n_tok} tokens", flush=True)
+    assert not bad, (f"[{label}] routing differs at (call, token, experts "
+                     f"card / CPU, slots card / CPU): {bad[:20]}")
+
+
+def _worst_leaf(paths, got, want) -> tuple:
+    """(largest error over its leaf's largest magnitude, that leaf)."""
+    worst, worst_at = 0.0, None
+    for path, g_, w_ in zip(paths, got, want):
+        err = float((g_.to("cpu") - w_).abs().max()) / max(
+            float(w_.abs().max()), 1e-30)
+        if err > worst:
+            worst, worst_at = err, path
+    return worst, worst_at
+
+
+class _BackwardRecorder:
+    """Records each call of the backward wrappers (the recurrences' and
+    the expert FFN's) that the model makes while entered: inputs and
+    outputs.  Patches the functions on their kernel modules, which the
+    model modules call through; a wrapper counts its launches on the
+    function its module names, so the recording function carries the
+    count while entered and hands it back on exit."""
+
+    def __enter__(self):
+        import functools
+
+        from repro_torch.kernels import moe_ffn as mf
+        from repro_torch.kernels import rglru_scan as rg
+        from repro_torch.kernels import wkv6 as wk
+        self.calls = []
+        self.saved = [(wk, "wkv6_bwd", "wkv6_bwd_ref"),
+                      (rg, "rglru_gated_scan_bwd",
+                       "rglru_gated_scan_bwd_ref"),
+                      (mf, "moe_ffn_bwd", "moe_ffn_bwd_ref")]
+        self.saved = [(mod, name, plain, getattr(mod, name))
+                      for mod, name, plain in self.saved]
+        for mod, name, plain, fn in self.saved:
+            @functools.wraps(fn)        # its launches attribute too
+            def call(*args, _fn=fn, _name=name, _plain=plain, **kw):
+                out = _fn(*args, **kw)
+                self.calls.append((_name, _plain, args, kw, out))
+                return out
+            setattr(mod, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, _, fn in self.saved:
+            fn.launches = getattr(mod, name).launches
+            setattr(mod, name, fn)
+        return False
+
+    def worst(self, label) -> str:
+        """Each recorded kernel call against its plain version in f64 on
+        the same inputs (``TOL_BWD`` of each output's largest magnitude);
+        returns a line naming the worst."""
+        import torch
+
+        from repro_torch.kernels import ref
+        worst = {}
+        for name, plain, args, kw, out in self.calls:
+            want = getattr(ref, plain)(*(None if a is None else a.double()
+                                         for a in args), **kw)
+            err = max(_check_scaled(name, label, g, w) / max(
+                float(w.abs().max()), 1e-30) for g, w in zip(out, want))
+            worst[name] = max(worst.get(name, 0.0), err)
+            del want
+        torch.cuda.empty_cache()
+        return ", ".join(f"{k} {len([c for c in self.calls if c[0] == k])} "
+                         f"calls, worst {v:.2e} of its output's largest "
+                         f"magnitude" for k, v in worst.items())
+
+
+def _eq_step(cfg, params, tokens, dev, plain=False) -> dict:
+    """One train step's loss and gradients of ``params`` on ``dev`` (with
+    ``plain`` the card runs the plain versions: ``use_kernel`` False),
+    recording the MoE routing, the plain calls and the backward calls."""
     import torch
 
-    from repro_torch.configs import GEMMA3_12B
-    from repro_torch.data.pipeline import make_lm_batches
+    from repro_torch.kernels import _build as build
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    reset_launches()
+    use_kernel = build.use_kernel
+    if plain:
+        build.use_kernel = lambda *tensors: False
+    t0 = time.perf_counter()
+    try:
+        with _RoutingRecorder() as rec, _PlainAttentionCounter() as pc, \
+                _BackwardRecorder() as bwd:
+            loss = M.loss_fn(params, cfg, {"tokens": torch.as_tensor(
+                tokens, device=dev).long()})
+            grads = torch.autograd.grad(loss, leaves)
+    finally:
+        build.use_kernel = use_kernel
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return {"loss": float(loss.detach()), "grads": grads,
+            "secs": time.perf_counter() - t0, "routes": rec.calls,
+            "plain": pc.calls, "bwd": bwd,
+            "launches": {k: v for k, v in launch_counts().items() if v}}
+
+
+def train_eq_run(label, cfg, batch, seq, family=False) -> None:
+    """The same train step's loss and gradients on the card (kernels)
+    and on the CPU (plain versions) from the same f32 weights, B ``batch``
+    x ``seq`` tokens.  Held to ``TRAIN_EQ_TOL`` (the loss's relative
+    error, and for every gradient leaf its largest error over the leaf's
+    largest magnitude; a config of ``TRAIN_EQ_GRAD_TOL``, its own fixed
+    gradient limit); the card's launches must be
+    :func:`_expected_launches`'s, with no plain version.  ``family`` (the
+    MoE and recurrent runs): a MoE config's experts and drop slots must
+    first be the same on both devices (:func:`_same_routing`); the step
+    runs a third time on the card through the plain versions, whose
+    distance to the CPU step is printed (the f32 model's own spread
+    between two devices, a diagnostic); every backward kernel call of the
+    card's step is held to its plain version in f64 on its own inputs."""
+    import torch
+
+    from repro_torch.data.pipeline import make_lm_batches
     from repro_torch.params import init_params
-    from repro_torch.tree import tree_flatten, tree_leaves, tree_map
+    from repro_torch.tree import tree_flatten, tree_map
 
     t_run = time.perf_counter()
-    cfg = dataclasses.replace(GEMMA3_12B, n_layers=TRAIN_LAYERS,
-                              dtype="float32")
     g = torch.Generator(device="cuda").manual_seed(1)
     params = init_params(cfg, g, "cuda")
     cpu_params = tree_map(lambda t: t.to("cpu"), params)
-    tokens = next(make_lm_batches(1, TRAIN_EQ_S, cfg.vocab_size, seed=1))[
+    tokens = next(make_lm_batches(batch, seq, cfg.vocab_size, seed=1))[
         "tokens"]
-    res = {}
-    for dev, p in (("cuda", params), ("cpu", cpu_params)):
-        leaves = tree_leaves(p)
-        for t in leaves:
-            t.requires_grad_(True)
-        reset_launches()
-        t0 = time.perf_counter()
-        loss = M.loss_fn(p, cfg, {"tokens": torch.as_tensor(
-            tokens, device=dev).long()})
-        grads = torch.autograd.grad(loss, leaves)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            n = launch_counts()
-        res[dev] = (float(loss.detach()), grads, time.perf_counter() - t0)
-    loss_err = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
-    worst, worst_at = 0.0, None
+    card = _eq_step(cfg, params, tokens, "cuda")
+    assert not card["plain"], f"[{label}] plain versions ran: " \
+        f"{card['plain']}"
+    cpu = _eq_step(cfg, cpu_params, tokens, "cpu")
+    if family and cfg.is_moe:
+        _same_routing(label, card["routes"], cpu["routes"])
+    loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
     paths = list(tree_flatten(params))
-    for path, gc_, gh in zip(paths, res["cuda"][1], res["cpu"][1]):
-        err = float((gc_.to("cpu") - gh).abs().max()) / max(
-            float(gh.abs().max()), 1e-30)
-        if err > worst:
-            worst, worst_at = err, path
-    print(f"  [{label}] {cfg.name} {cfg.n_layers} layers f32, B 1 x "
-          f"{TRAIN_EQ_S}: loss card {res['cuda'][0]:.6f} / CPU "
-          f"{res['cpu'][0]:.6f} (relative error {loss_err:.2e}, tolerance "
-          f"{TRAIN_EQ_TOL[0]}); worst gradient leaf {worst_at}: max error / "
-          f"max |g| = {worst:.2e} (tolerance {TRAIN_EQ_TOL[1]}); card step "
-          f"{res['cuda'][2]:.2f}s (flash {n['flash_attention']}, bwd "
-          f"{n['flash_attention_bwd']} launches), CPU step "
-          f"{res['cpu'][2]:.2f}s; run wall {time.perf_counter() - t_run:.1f}s",
-          flush=True)
-    assert loss_err <= TRAIN_EQ_TOL[0] and worst <= TRAIN_EQ_TOL[1]
-    assert n["flash_attention_bwd"] == cfg.n_layers
-    del params, cpu_params, res
+    worst, worst_at = _worst_leaf(paths, card["grads"], cpu["grads"])
+    tol = TRAIN_EQ_GRAD_TOL.get(cfg.name, TRAIN_EQ_TOL[1])
+    spread = ""
+    if family:
+        card_plain = _eq_step(cfg, params, tokens, "cuda", plain=True)
+        plain_worst, plain_at = _worst_leaf(paths, card_plain["grads"],
+                                            cpu["grads"])
+        spread = (f"; the plain versions on the card against the CPU "
+                  f"(diagnostic): {plain_worst:.2e} at {plain_at} (step "
+                  f"{card_plain['secs']:.2f}s)")
+        del card_plain
+    n = card["launches"]
+    print(f"  [{label}] {cfg.name} {cfg.n_layers} layers f32, B {batch} x "
+          f"{seq}: loss card {card['loss']:.6f} / CPU {cpu['loss']:.6f} "
+          f"(relative error {loss_err:.2e}, tolerance {TRAIN_EQ_TOL[0]}); "
+          f"worst gradient leaf {worst_at}: max error / max |g| = "
+          f"{worst:.2e} (tolerance {tol:.2e}){spread}; card step "
+          f"{card['secs']:.2f}s (launches {n}), CPU step {cpu['secs']:.2f}s;"
+          f" run wall {time.perf_counter() - t_run:.1f}s", flush=True)
+    if card["bwd"].calls:
+        print(f"  [{label}] the backward kernels on the step's own inputs "
+              f"against their plain versions in f64: "
+              + card["bwd"].worst(label), flush=True)
+    assert loss_err <= TRAIN_EQ_TOL[0] and worst <= tol
+    assert n == _expected_launches(cfg, seq), (n, _expected_launches(cfg,
+                                                                     seq))
+    del params, cpu_params, card, cpu
     _free()
+
+
+def eq_readings(seeds=(1, 2, 3, 4)) -> None:
+    """The readings that set 5t-eq-k's fixed gradient limit
+    (``TRAIN_EQ_GRAD_TOL``; ``python3 chip_smoke.py --eq-readings``): at
+    5t-eq-k's config, for each weight seed the worst gradient leaf of the
+    plain versions run on the card against the CPU step (the f32 model's
+    spread between two devices: the limit must sit above its largest),
+    and of the kernels' step from the same weights rounded to bf16
+    against the CPU step from the f32 weights (an error of bf16's size:
+    the limit must sit below it)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_lm_batches
+    from repro_torch.params import init_params
+    from repro_torch.tree import tree_flatten, tree_map
+    label, arch, layers = TRAIN_EQ_FAMILIES[2]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              dtype="float32")
+    tokens = next(make_lm_batches(2, TRAIN_EQ_FAMILY_S, cfg.vocab_size,
+                                  seed=1))["tokens"]
+    for seed in seeds:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        params = init_params(cfg, g, "cuda")
+        paths = list(tree_flatten(params))
+        cpu = _eq_step(cfg, tree_map(lambda t: t.to("cpu"), params),
+                       tokens, "cpu")
+        kern = _eq_step(cfg, params, tokens, "cuda")
+        plain = _eq_step(cfg, params, tokens, "cuda", plain=True)
+        ctrl = _eq_step(cfg, tree_map(
+            lambda t: t.detach().bfloat16().float(), params), tokens, "cuda")
+        print(f"  [eq readings] {label} {cfg.name} {layers} layers f32, B 2 x "
+              f"{TRAIN_EQ_FAMILY_S}, weight seed {seed}: worst leaf against "
+              f"the CPU: kernels %.2e at %s, plain versions on the card "
+              f"%.2e at %s, kernels on bf16-rounded weights %.2e at %s" % (
+                  *_worst_leaf(paths, kern["grads"], cpu["grads"]),
+                  *_worst_leaf(paths, plain["grads"], cpu["grads"]),
+                  *_worst_leaf(paths, ctrl["grads"], cpu["grads"])),
+              flush=True)
+        del params, cpu, kern, plain, ctrl
+        _free()
 
 
 def ptxas_report(_build) -> None:
@@ -2539,7 +3099,11 @@ def ptxas_report(_build) -> None:
                       ("wkv6", "wkv6_kernel"),
                       ("wkv6", "wkv6_chunked_kernel"),
                       ("rglru_scan", "rglru_serial_kernel"),
-                      ("rglru_scan", "rglru_parallel_kernel")):
+                      ("rglru_scan", "rglru_parallel_kernel"),
+                      ("wkv6_bwd", "wkv6_bwd_kernel"),
+                      ("rglru_scan_bwd", "rglru_bwd_kernel"),
+                      ("moe_ffn_bwd", "moe_bwd_wgmma_kernel"),
+                      ("moe_ffn_bwd", "moe_bwd_f32_kernel")):
         usage = _build.ptxas_usage(src, kern)
         print(f"  ptxas -v {kern} (<template args>: registers, static smem "
               "B, spill stores/loads B): " + "; ".join(
@@ -2556,11 +3120,12 @@ def ptxas_report(_build) -> None:
                                                          256], usage
             assert all(ss == sl == 0 for a, r, sm, ss, sl in usage), usage
     # ... and no wgmma serialised, no warpgroup fence or wait injected
-    log = _build._lib_path("flash_attention_bwd").with_suffix(".log")
-    notes = re.findall(r"\((C75(?:17|19|20))\)", log.read_text())
-    print(f"  ptxas wgmma notes in flash_attention_bwd: {len(notes)} "
-          f"{sorted(set(notes))}")
-    assert not notes, notes
+    for src in ("flash_attention_bwd", "moe_ffn_bwd"):
+        log = _build._lib_path(src).with_suffix(".log")
+        notes = re.findall(r"\((C75(?:17|19|20))\)", log.read_text())
+        print(f"  ptxas wgmma notes in {src}: {len(notes)} "
+              f"{sorted(set(notes))}")
+        assert not notes, notes
     assert any("flash_fwd_wgmma_kernel<240>" in x for x in d240), d240
     print("  head dim 240 instantiations: " + "; ".join(d240), flush=True)
 
@@ -2589,6 +3154,9 @@ def main() -> int:
           + ", ".join(f"{k}={v:.2f}" for k, v in per_source.items()) + ")",
           flush=True)
     ptxas_report(_build)
+    if "--eq-readings" in sys.argv[1:]:
+        eq_readings()
+        return 0
     rates = host_phase(torch)
 
     phases = {}
@@ -2606,7 +3174,7 @@ def main() -> int:
     phases["4"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     print("== 5. training", flush=True)
-    train_launches = train_phase()
+    train_runs = train_phase()
     phases["5"] = time.perf_counter() - t0
     print("  phase wall seconds: " + ", ".join(
         f"{k}={v:.1f}" for k, v in phases.items())
@@ -2622,15 +3190,15 @@ def main() -> int:
                         "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": lib_ms})
-    err, ms, (bound_ms, bound_by), plain_ms, lib_ms = main_cases[
-        "flash_attention_bwd"]
-    kernels.append({"name": "flash_attention_bwd", "route": "cuda",
-                    "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-                    "replaces": REPLACES["flash_attention_bwd"],
-                    "launches": train_launches["flash_attention_bwd"],
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": lib_ms})
+    for name, (run, source) in TRAIN_PATH.items():
+        err, ms, (bound_ms, bound_by), plain_ms, lib_ms = main_cases[name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/csrc/{source}.cu",
+                        "replaces": REPLACES[name],
+                        "launches": train_runs[run][name],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": lib_ms})
     print("== 6. kernels")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

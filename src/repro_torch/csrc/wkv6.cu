@@ -644,6 +644,9 @@ extern "C" int wkv6(const void* r, const void* k, const void* v,
                     void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 32:        // the training launcher's reduced config, any length
+      return launch<32>(r, k, v, w, u, s0, y, s_out, stack, batch, n_heads,
+                        seq, sb, sh, ss, st);
     case 64:
       return launch<64>(r, k, v, w, u, s0, y, s_out, stack, batch, n_heads,
                         seq, sb, sh, ss, st);

@@ -8,8 +8,9 @@ on CPU tensors.  Each wrapper function counts its kernel launches in its
 def wrappers() -> tuple:
     """The kernel wrapper functions: the paged path's three, then the
     contiguous path's, then the RG-LRU's fused entry (the model's call
-    of the ``rglru_scan`` kernel source), then the training path's flash
-    backward."""
+    of the ``rglru_scan`` kernel source), then the training path's
+    backward kernels: flash attention's, the ``wkv6`` recurrence's, the
+    RG-LRU's (its fused entry's) and the expert FFN's."""
     from repro_torch.kernels import (decode_attention as da,
                                      flash_attention as fa,
                                      flash_attention_bwd as fb,
@@ -18,7 +19,8 @@ def wrappers() -> tuple:
                                      rglru_scan as rg, wkv6 as wk)
     return (pd.paged_decode_attention, fa.flash_attention, mf.moe_ffn,
             da.decode_attention, rg.rglru_scan, wk.wkv6,
-            rg.rglru_gated_scan, fb.flash_attention_bwd)
+            rg.rglru_gated_scan, fb.flash_attention_bwd, wk.wkv6_bwd,
+            rg.rglru_gated_scan_bwd, mf.moe_ffn_bwd)
 
 
 def launch_counts() -> dict:

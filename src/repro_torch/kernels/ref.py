@@ -8,6 +8,8 @@ the CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -166,12 +168,51 @@ def ffn_act(h, activation: str):
     raise ValueError(activation)
 
 
+def _compute_dtype(t):
+    """f64 stays f64 (the gradient checks); everything else computes in
+    f32."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def moe_ffn_ref(buf, w_gate, w_up, w_down, *, activation="swiglu"):
     """buf (E,C,D); w_gate/w_up (E,D,F); w_down (E,F,D) -> (E,C,D)."""
-    buff = buf.float()
-    h = ffn_act(torch.bmm(buff, w_gate.float()), activation)
-    h = h * torch.bmm(buff, w_up.float())
-    return torch.bmm(h, w_down.float()).to(buf.dtype)
+    ct = _compute_dtype(buf)
+    buff = buf.to(ct)
+    h = ffn_act(torch.bmm(buff, w_gate.to(ct)), activation)
+    h = h * torch.bmm(buff, w_up.to(ct))
+    return torch.bmm(h, w_down.to(ct)).to(buf.dtype)
+
+
+def ffn_act_grad(h, activation: str):
+    """(act(h), act'(h)) for :func:`ffn_act`, written out."""
+    if activation == "swiglu":
+        s = torch.sigmoid(h)
+        return h * s, s * (1 + h * (1 - s))
+    if activation in ("gelu", "geglu"):
+        c, k = math.sqrt(2 / math.pi), 0.044715
+        t = torch.tanh(c * (h + k * h ** 3))
+        return (0.5 * h * (1 + t),
+                0.5 * (1 + t) + 0.5 * h * (1 - t * t) * c * (1 + 3 * k * h * h))
+    raise ValueError(activation)
+
+
+def moe_ffn_bwd_ref(buf, w_gate, w_up, w_down, dy, *, activation="swiglu"):
+    """The backward of :func:`moe_ffn_ref` from dy (E,C,D): (dbuf
+    (E,C,D), dw_gate, dw_up (E,D,F), dw_down (E,F,D)) in buf's dtype,
+    written out: dh = dy Wd^T, dg = dh u act'(g), du = dh act(g), dbuf =
+    dg Wg^T + du Wu^T, dWg = buf^T dg, dWu = buf^T du, dWd = h^T dy."""
+    ct = _compute_dtype(buf)
+    x, wg, wu, wd, gy = (t.to(ct) for t in (buf, w_gate, w_up, w_down, dy))
+    g, u = torch.bmm(x, wg), torch.bmm(x, wu)
+    a, da = ffn_act_grad(g, activation)
+    dh = torch.bmm(gy, wd.transpose(1, 2))
+    dg, du = dh * u * da, dh * a
+    xt = x.transpose(1, 2)
+    out = (torch.bmm(dg, wg.transpose(1, 2))
+           + torch.bmm(du, wu.transpose(1, 2)),
+           torch.bmm(xt, dg), torch.bmm(xt, du),
+           torch.bmm((a * u).transpose(1, 2), gy))
+    return tuple(t.to(buf.dtype) for t in out)
 
 
 def rglru_scan_ref(a, gated, h0):
@@ -194,13 +235,52 @@ def rglru_gates_ref(xa, xi, x, b_a, b_i, a_param):
     a = torch.exp(log_a)
     gated = (torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), RGLRU_EPS,
                                     1.0))
-             * (i * x.float()))
+             * (i * x.to(xa.dtype)))
     return a, gated
 
 
 def rglru_gated_scan_ref(xa, xi, x, b_a, b_i, a_param, h0):
     """The gates, then the recurrence: h_all (B,S,W) f32."""
     return rglru_scan_ref(*rglru_gates_ref(xa, xi, x, b_a, b_i, a_param), h0)
+
+
+def rglru_gated_scan_bwd_ref(xa, xi, x, b_a, b_i, a_param, h0, h_all, dh):
+    """The backward of :func:`rglru_gated_scan_ref` from its output
+    ``h_all`` and the output's gradient ``dh`` (B,S,W), written out: the
+    gates recomputed as :func:`rglru_gates_ref` forms them, the reverse
+    scan ``dH_t = dh_t + a_{t+1} dH_{t+1}`` (dH the gradient of the state
+    h_t), then ``da_t = dH_t h_{t-1}``, ``dg_t = dH_t`` and the chain
+    through ``log_a = -C softplus(a_param) r``, ``a = exp(log_a)`` and
+    ``gated = sqrt(clip(1 - a^2, eps, 1)) i x``; the clip passes the
+    gradient inside its range only (as ``torch.clamp``'s does).  Returns
+    (dxa, dxi, dx in x's dtype, db_a, db_i, da_param, dh0)."""
+    dt = xa.dtype
+    xf = x.to(dt)
+    r = torch.sigmoid(xa + b_a)
+    i = torch.sigmoid(xi + b_i)
+    c = -RGLRU_C * F.softplus(a_param)
+    log_a = c * r
+    a = torch.exp(log_a)
+    a2 = torch.exp(2.0 * log_a)
+    m = 1.0 - a2
+    sq = torch.sqrt(torch.clamp(m, RGLRU_EPS, 1.0))
+    d_h = torch.empty_like(dh, dtype=dt)
+    carry = dh[:, -1].to(dt)
+    d_h[:, -1] = carry
+    for t in range(dh.shape[1] - 2, -1, -1):
+        carry = dh[:, t] + a[:, t + 1] * carry
+        d_h[:, t] = carry
+    h_prev = torch.cat([h0[:, None].to(dt), h_all[:, :-1].to(dt)], dim=1)
+    dx = d_h * sq * i
+    dxi = d_h * sq * xf * i * (1.0 - i)
+    inside = (m >= RGLRU_EPS) & (m <= 1.0)
+    dm = torch.where(inside, d_h * i * xf / (2.0 * sq), torch.zeros_like(m))
+    dlog_a = d_h * h_prev * a - 2.0 * a2 * dm
+    dxa = dlog_a * c * r * (1.0 - r)
+    da_param = ((dlog_a * r).sum((0, 1)) * -RGLRU_C
+                * torch.sigmoid(a_param))
+    return (dxa, dxi, dx.to(x.dtype), dxa.sum((0, 1)), dxi.sum((0, 1)),
+            da_param, a[:, 0] * d_h[:, 0])
 
 
 def wkv6_ref(r, k, v, w, u, s0, *, stack: bool = False):
@@ -221,3 +301,47 @@ def wkv6_ref(r, k, v, w, u, s0, *, stack: bool = False):
     if stack:
         return y, s, torch.stack(states, dim=1)
     return y, s
+
+
+def wkv6_bwd_ref(r, k, v, w, u, s0, dy, ds_fin=None):
+    """The backward of :func:`wkv6_ref` (no stack) as the explicit
+    reverse recurrence.  With ``G_t`` the gradient of the state after
+    step t (``G_S = ds_fin``, zero when None) and ``S_{t-1}`` the state
+    before it (every state re-formed forward from s0; nothing divides by
+    a decay)::
+
+        G_{t-1} = diag(w_t) G_t + r_t dy_t^T
+        dr_t = (S_{t-1} + diag(u) k_t v_t^T) dy_t
+        dk_t = G_t v_t + u * r_t (v_t . dy_t)
+        dv_t = G_t^T k_t + (r_t . (u * k_t)) dy_t
+        dw_t = rowsum(G_t * S_{t-1})
+        du = sum_t r_t * k_t (v_t . dy_t)   (and over the batch)
+        ds0 = G_0
+
+    r/k/v/w/dy (B,H,S,hd); u (H,hd); s0/ds_fin (B,H,hd,hd).  Returns
+    (dr, dk, dv, dw, du, ds0)."""
+    b, h, s, hd = r.shape
+    states = torch.empty((s + 1, b, h, hd, hd), dtype=r.dtype,
+                         device=r.device)
+    states[0] = s0
+    for t in range(s):
+        states[t + 1] = (w[:, :, t, :, None] * states[t]
+                         + k[:, :, t, :, None] * v[:, :, t, None, :])
+    g = (torch.zeros_like(s0) if ds_fin is None
+         else ds_fin.to(r.dtype).clone())
+    grads = [torch.empty_like(r, memory_format=torch.contiguous_format)
+             for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros((b, h, hd), dtype=r.dtype, device=r.device)
+    for t in range(s - 1, -1, -1):
+        rt, kt, vt, wt, dyt = (z[:, :, t] for z in (r, k, v, w, dy))
+        vdy = (vt * dyt).sum(-1, keepdim=True)                   # (B,H,1)
+        dr[:, :, t] = (torch.einsum("bhij,bhj->bhi", states[t], dyt)
+                       + u * kt * vdy)
+        dk[:, :, t] = torch.einsum("bhij,bhj->bhi", g, vt) + u * rt * vdy
+        dv[:, :, t] = (torch.einsum("bhij,bhi->bhj", g, kt)
+                       + (rt * u * kt).sum(-1, keepdim=True) * dyt)
+        dw[:, :, t] = (g * states[t]).sum(-1)
+        du += rt * kt * vdy
+        g = wt[..., :, None] * g + rt[..., :, None] * dyt[..., None, :]
+    return dr, dk, dv, dw, du.sum(0), g

@@ -15,6 +15,11 @@ it launches the kernel or raises.  :func:`route` picks the serial kernel
 alone.  Each function counts its launches in ``launches``, and each
 route's in ``route_launches``.  The kernels
 are bound by bytes (see the source's note).
+
+:func:`rglru_gated_scan_bwd` is the fused entry's backward
+(``csrc/rglru_scan_bwd.cu``, on the time-parallel layout at every step
+count), which training runs through ``models.rglru.RGLRUScanFn``; no TPU
+kernel has it.
 """
 from __future__ import annotations
 
@@ -79,6 +84,16 @@ rglru_scan.launches = 0
 rglru_scan.route_launches = {"serial": 0, "parallel": 0}
 
 
+def _check_gate_dtypes(xa, xi, x, b_a, b_i, a_param, *state) -> None:
+    ts = (xa, xi, b_a, b_i, a_param, *state)
+    _build.require((all(t.dtype == torch.float32 for t in ts)
+                    and x.dtype in (torch.float32, torch.bfloat16))
+                   or (all(t.dtype == torch.float64 for t in (*ts, x))
+                       and xa.device.type == "cpu"),
+                   "the gates take float32 (x float32 or bfloat16; "
+                   "float64 on the CPU)")
+
+
 def rglru_gated_scan(xa, xi, x, b_a, b_i, a_param, h0):
     """The RG-LRU with its gates (``repro/models/rglru.py:97-108``).
 
@@ -92,10 +107,7 @@ def rglru_gated_scan(xa, xi, x, b_a, b_i, a_param, h0):
     _build.require(h0.shape == (b, w) and all(
         p.shape == (w,) for p in (b_a, b_i, a_param)),
         "h0 must be (B, W) and b_a/b_i/a_param (W,)")
-    _build.require(all(t.dtype == torch.float32
-                       for t in (xa, xi, b_a, b_i, a_param, h0))
-                   and x.dtype in (torch.float32, torch.bfloat16),
-                   "the gates take float32 (x float32 or bfloat16)")
+    _check_gate_dtypes(xa, xi, x, b_a, b_i, a_param, h0)
     if not _build.use_kernel(xa, xi, x, b_a, b_i, a_param, h0):
         return ref.rglru_gated_scan_ref(xa, xi, x, b_a, b_i, a_param, h0)
 
@@ -116,3 +128,44 @@ def rglru_gated_scan(xa, xi, x, b_a, b_i, a_param, h0):
 
 rglru_gated_scan.launches = 0
 rglru_gated_scan.route_launches = {"serial": 0, "parallel": 0}
+
+
+_BWD_ARGS = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def rglru_gated_scan_bwd(xa, xi, x, b_a, b_i, a_param, h0, h_all, dh):
+    """The backward of :func:`rglru_gated_scan` from its output h_all and
+    the output's gradient dh (B, S, W) f32.  Returns (dxa, dxi, dx in x's
+    dtype, db_a, db_i, da_param, dh0).  On CPU tensors the plain version
+    (:func:`repro_torch.kernels.ref.rglru_gated_scan_bwd_ref`); on CUDA
+    tensors the kernel of ``csrc/rglru_scan_bwd.cu`` or an error."""
+    _build.require(xa.dim() == 3 and all(
+        t.shape == xa.shape for t in (xi, x, h_all, dh)),
+        "xa/xi/x/h_all/dh must be (B, S, W)")
+    b, s, w = xa.shape
+    _build.require(h0.shape == (b, w) and all(
+        p.shape == (w,) for p in (b_a, b_i, a_param)),
+        "h0 must be (B, W) and b_a/b_i/a_param (W,)")
+    _check_gate_dtypes(xa, xi, x, b_a, b_i, a_param, h0, h_all, dh)
+    args = (xa, xi, x, b_a, b_i, a_param, h0, h_all, dh)
+    if not _build.use_kernel(*args):
+        return ref.rglru_gated_scan_bwd_ref(*args)
+
+    _build.check_contiguous(xa=xa, xi=xi, x=x, b_a=b_a, b_i=b_i,
+                            a_param=a_param, h0=h0, h_all=h_all, dh=dh)
+    dxa, dxi, dx = (torch.empty_like(t) for t in (xa, xi, x))
+    dh0 = torch.empty_like(h0)
+    db_a, db_i, da_param = (torch.empty_like(p) for p in (b_a, b_i, a_param))
+    part = torch.empty((b, 3, w), dtype=torch.float32, device=xa.device)
+    _, vec = _launch_shape(PARALLEL_MIN_STEPS, w, xa, xi, x, h0, h_all, dh,
+                           dxa, dxi, dx, dh0)
+    fn = _build.bind("rglru_scan_bwd", "rglru_gated_scan_bwd", _BWD_ARGS)
+    rc = fn(*(t.data_ptr() for t in (*args, dxa, dxi, dx, dh0, db_a, db_i,
+                                     da_param, part)),
+            b, s, w, _build.DTYPE_CODE[x.dtype], vec, _build.stream_ptr(xa))
+    _build.check(rc, "rglru_gated_scan_bwd")
+    rglru_gated_scan_bwd.launches += 1
+    return dxa, dxi, dx, db_a, db_i, da_param, dh0
+
+
+rglru_gated_scan_bwd.launches = 0

@@ -48,11 +48,15 @@ from repro_torch.serving.trace import poisson_requests
 # Each kernel lands in the first group whose pattern it matches: the paged
 # pattern comes first, since the contiguous one also matches its names.
 # The recurrences' patterns match both their earlier single kernels and
-# the serial / chunked (wkv6) and serial / time-parallel (RG-LRU) pairs.
-GROUPS = (("moe_ffn kernels", r"moe_wgmma_kernel|grouped_gemm_kernel"),
+# the serial / chunked (wkv6) and serial / time-parallel (RG-LRU) pairs;
+# their backward kernels (training) have groups of their own.
+GROUPS = (("moe_ffn_bwd kernels", r"moe_bwd_(act|wgmma|f32)_kernel"),
+          ("moe_ffn kernels", r"moe_wgmma_kernel|grouped_gemm_kernel"),
           ("paged_decode_attention kernel", r"paged_decode_(mma_)?kernel"),
           ("decode_attention kernel", r"decode_(mma_)?kernel"),
           ("rglru_scan kernels", r"rglru_(scan|serial|parallel)_kernel"),
+          ("rglru_scan_bwd kernels", r"rglru_bwd_(sum_)?kernel"),
+          ("wkv6_bwd kernels", r"wkv6_bwd_(du_|dv_)?kernel"),
           ("wkv6 kernels", r"wkv6_(chunked_)?kernel"),
           ("flash_attention kernel", r"flash_fwd_(wgmma_)?kernel"),
           ("flash_attention_bwd kernels",

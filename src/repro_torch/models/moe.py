@@ -4,8 +4,11 @@ Counterpart of ``repro/models/moe.py``'s ``local`` mode: softmax router,
 top-k experts per token, per-expert capacity
 ``C = int(tokens * top_k * cf / E) + 1`` (or every token when
 ``cf * top_k >= E`` / ``cf = inf``), overflow dropped in token-major
-order, gates renormalized over the top k.  The expert FFN runs the
-``moe_ffn`` kernel on CUDA tensors and the einsum on CPU tensors.
+order, gates renormalized over the top k.  The expert FFN is the
+``moe_ffn`` kernel on CUDA tensors and its plain version on CPU tensors;
+where a gradient is needed it goes through :class:`MoEFFNFn`, whose
+backward is the ``moe_ffn_bwd`` kernel (the JAX package differentiates
+its three ``einsum`` products, ``repro/models/moe.py:160-167``).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import moe_ffn as _mf
 from repro_torch.kernels.ref import ffn_act
+from repro_torch.models.attention import needs_grad
 
 
 def _route(router_w, x_flat, n_experts: int, top_k: int):
@@ -62,20 +66,37 @@ def _combine(y_buf, idx, slot, gate):
     return torch.einsum("nkd,nk->nd", picked.float(), gate).to(y_buf.dtype)
 
 
+class MoEFFNFn(torch.autograd.Function):
+    """The gated expert FFN with a hand-written backward: the forward
+    runs ``moe_ffn`` and saves its inputs; the backward runs
+    ``moe_ffn_bwd``, which recomputes the forward's products.  Kernels on
+    CUDA tensors, plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, buf, w_gate, w_up, w_down, activation):
+        ctx.activation = activation
+        ctx.save_for_backward(buf, w_gate, w_up, w_down)
+        return _mf.moe_ffn(buf, w_gate, w_up, w_down, activation=activation)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*_mf.moe_ffn_bwd(*ctx.saved_tensors, dy.contiguous(),
+                                 activation=ctx.activation), None)
+
+
 def _expert_ffn(params, buf, activation: str):
     """(E, C, D) -> (E, C, D) grouped FFN: the ``moe_ffn`` kernel on CUDA
-    tensors, the einsum on CPU tensors."""
-    if buf.is_cuda:
-        if "w_gate" not in params:
+    tensors (through :class:`MoEFFNFn` where a gradient is needed), the
+    products on CPU tensors."""
+    if "w_gate" not in params:
+        if buf.is_cuda:
             raise NotImplementedError("the moe_ffn kernel is gated only")
-        return _mf.moe_ffn(buf, params["w_gate"], params["w_up"],
-                           params["w_down"], activation=activation)
-    if "w_gate" in params:
-        h = ffn_act(torch.bmm(buf, params["w_gate"]), activation)
-        h = h * torch.bmm(buf, params["w_up"])
-    else:
         h = ffn_act(torch.bmm(buf, params["w_up"]), activation)
-    return torch.bmm(h, params["w_down"])
+        return torch.bmm(h, params["w_down"])
+    ws = (params["w_gate"], params["w_up"], params["w_down"])
+    if needs_grad(buf, *ws):
+        return MoEFFNFn.apply(buf, *ws, activation)
+    return _mf.moe_ffn(buf, *ws, activation=activation)
 
 
 def _moe_local(params, x_flat, *, n_experts, top_k, capacity_factor,

@@ -10,7 +10,8 @@ weights that :mod:`repro_torch.params` stores f32 (``.float()`` is then
 the tensor itself); the gates (``r``, ``i``, ``log a``, ``a``, the
 gated input) and the time recurrence ``h_t = a_t * h_{t-1} + g_t`` are
 one ``rglru_gated_scan`` kernel on CUDA tensors (its plain version on
-the CPU).
+the CPU); where a gradient is needed, through :class:`RGLRUScanFn`,
+whose backward is the ``rglru_gated_scan_bwd`` kernel.
 
 State: ``{"h": (B, W) f32, "conv": (B, conv_width-1, W)}``.  A
 multi-token decode (S <= 16) also returns the per-step state stack that
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import rglru_scan as _rg
+from repro_torch.models.attention import needs_grad
 
 
 def init_rglru_state(batch: int, width: int, conv_width: int, dtype,
@@ -44,15 +46,35 @@ def _conv1d_causal(x, conv_state, w, b):
     return y + b, new_state
 
 
+class RGLRUScanFn(torch.autograd.Function):
+    """The gated RG-LRU with a hand-written backward: the forward runs
+    ``rglru_gated_scan`` and saves its inputs and its output h_all (the
+    states the backward reads as h_{t-1}); the backward runs
+    ``rglru_gated_scan_bwd``.  Both are kernels on CUDA tensors and
+    plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, xa, xi, x, b_a, b_i, a_param, h0):
+        h_all = _rg.rglru_gated_scan(xa, xi, x, b_a, b_i, a_param, h0)
+        ctx.save_for_backward(xa, xi, x, b_a, b_i, a_param, h0, h_all)
+        return h_all
+
+    @staticmethod
+    def backward(ctx, dh):
+        return _rg.rglru_gated_scan_bwd(*ctx.saved_tensors, dh.contiguous())
+
+
 def _rglru_scan(params: dict, x, h0):
     """The RG-LRU over x (B,S,W) from h0 (B,W) f32: the gate products in
-    f32, then the gates and the recurrence in one kernel.  Returns h_all
+    f32, then the gates and the recurrence in one kernel (through
+    :class:`RGLRUScanFn` when a gradient is needed).  Returns h_all
     (B,S,W) f32 (the output is the state)."""
     xf = x.float()
-    return _rg.rglru_gated_scan(xf @ params["w_a"].float(),
-                                xf @ params["w_i"].float(), x,
-                                params["b_a"], params["b_i"],
-                                params["a_param"], h0)
+    args = (xf @ params["w_a"].float(), xf @ params["w_i"].float(), x,
+            params["b_a"], params["b_i"], params["a_param"], h0)
+    if needs_grad(*args):
+        return RGLRUScanFn.apply(*args)
+    return _rg.rglru_gated_scan(*args)
 
 
 def apply_rglru_block(params: dict, x, state: dict):

@@ -12,6 +12,9 @@ the recurrence is the ``wkv6`` kernel on CUDA tensors (its plain version
 on the CPU), in prefill and in verify.  The JAX prefill scans in
 ``jax.checkpoint`` segments only to bound training's backward pass;
 serving has none, so the port runs the whole sequence in one call.
+Where a gradient is needed the call goes through :class:`WKV6Fn`, whose
+backward, the ``wkv6_bwd`` kernel, keeps that segment checkpointing
+inside the kernel.
 
 State per layer: ``{"S": (B,H,hd,hd) f32, "ts_a": (B,D), "ts_c": (B,D)}``
 (the last inputs of the time-mix and channel-mix token shifts).  A
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import wkv6 as _wk
+from repro_torch.models.attention import needs_grad
 
 
 def init_rwkv_state(batch: int, d_model: int, head_size: int, dtype,
@@ -42,6 +46,33 @@ def _token_shift(x, prev):
 
 def _lerp(x, x_prev, mu):
     return x + (x_prev - x) * mu
+
+
+class WKV6Fn(torch.autograd.Function):
+    """The WKV recurrence with a hand-written backward, the counterpart of
+    the JAX package's autodiff through its checkpointed scan
+    (``repro/models/rwkv.py:145-162``).  Takes r/k/v/w (B, H, S, hd) (the
+    model's (B, S, H, hd) tensors as transposed views), u (H, hd) and s0;
+    returns (y, s_final).  The forward runs ``wkv6`` (no stack) and saves
+    its inputs; the backward runs ``wkv6_bwd``, which writes dr/dk/dv/dw
+    through r's strides.  Kernels on CUDA tensors, plain versions on CPU
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        y, s_fin = _wk.wkv6(r, k, v, w, u, s0)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.set_materialize_grads(False)
+        return y, s_fin
+
+    @staticmethod
+    def backward(ctx, dy, ds_fin):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        elif dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        return _wk.wkv6_bwd(r, k, v, w, u, s0, dy, ds_fin)
 
 
 def apply_rwkv_tmix(params: dict, x, state_S, ts_prev, head_size: int):
@@ -64,12 +95,15 @@ def apply_rwkv_tmix(params: dict, x, state_S, ts_prev, head_size: int):
         return z.reshape(b, s, h, head_size).float().transpose(1, 2)
 
     u = params["u"].reshape(h, head_size)
-    if s <= 16:     # decode/verify keeps every per-step state for rollback
-        y, _, S_stack = _wk.wkv6(heads(r), heads(k), heads(v), heads(w), u,
-                                 state_S, stack=True)
+    rh, kh, vh, wh = heads(r), heads(k), heads(v), heads(w)
+    if needs_grad(rh, kh, vh, wh, u, state_S):
+        # training: no per-step states (verify runs without a gradient)
+        y, s_last = WKV6Fn.apply(rh, kh, vh, wh, u, state_S)
+        S_stack = s_last[:, None]
+    elif s <= 16:   # decode/verify keeps every per-step state for rollback
+        y, _, S_stack = _wk.wkv6(rh, kh, vh, wh, u, state_S, stack=True)
     else:
-        y, s_last = _wk.wkv6(heads(r), heads(k), heads(v), heads(w), u,
-                             state_S)
+        y, s_last = _wk.wkv6(rh, kh, vh, wh, u, state_S)
         S_stack = s_last[:, None]
     y = y.transpose(1, 2)                             # (B,S,H,hd)
 

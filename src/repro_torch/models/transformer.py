@@ -258,29 +258,6 @@ def release_slot_paged(cache: dict, slot: int) -> dict:
 # ---------------------------------------------------------------------------
 # forward
 
-#: the ROADMAP item that brings the backward kernels training still lacks
-BACKWARD_ITEM = "ROADMAP.md section 1 item 12 (backward kernels)"
-
-
-def check_trainable(cfg: ModelConfig, device) -> None:
-    """Raise ``NotImplementedError`` where training ``cfg`` on ``device``
-    would run a kernel that has no backward yet: on the card, MoE layers
-    (``moe_ffn``), RG-LRU layers (``rglru_gated_scan``) and RWKV-6
-    layers (``wkv6``).  On the CPU every family trains through the plain
-    versions."""
-    if torch.device(device).type != "cuda":
-        return
-    missing = [name for name, needed in (
-        ("moe_ffn", cfg.is_moe), ("rglru_gated_scan",
-                                  RGLRU in cfg.layer_pattern),
-        ("wkv6", RWKV in cfg.layer_pattern)) if needed]
-    if missing:
-        raise NotImplementedError(
-            f"training {cfg.name} on the card needs the backward of "
-            f"{', '.join(missing)}, which is not written yet: "
-            f"{BACKWARD_ITEM}")
-
-
 def _sqrt_factor(n: int, threshold: int = 8) -> int:
     """Outer superblock count for sqrt-remat (1 = disabled): the largest
     divisor of ``n`` up to its square root, as the JAX package picks it."""
@@ -351,7 +328,6 @@ def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
     [])."""
     if phase == "train":
         assert cache is None, "the training forward takes no cache"
-        check_trainable(cfg, x.device)
         return _forward_train(params, cfg, x, enc_out), None, []
     pos = cache["pos"] if (cache is not None and phase == "decode") else None
     block_tables = (cache.get("block_tables")

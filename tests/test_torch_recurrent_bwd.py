@@ -1,0 +1,528 @@
+"""The backward of the port's recurrences and the MoE layer's train route
+against the JAX package on the CPU, and the backward kernels' orders
+emulated in PyTorch:
+
+* (a) the plain ``wkv6_bwd_ref`` against ``jax.vjp`` of the JAX
+  package's ``repro.kernels.ref.wkv6_ref`` (S 1, 17, 64, 130; head sizes
+  64 and 128; nonzero s0 and final-state gradient; the model's decays
+  with w == 0 and w = 1 - 1e-7 channels), and an emulation of
+  ``csrc/wkv6_bwd.cu``'s order (checkpoints every ``kSeg`` steps, a
+  segment's sub-checkpoints every ``kSub`` steps, the per-step states
+  re-formed forward, the reverse recurrence, row sums by column group in
+  order) against the plain version;
+* (b) the port's ``models.rglru._rglru_scan`` (the gate products, then
+  ``RGLRUScanFn`` whose backward is ``rglru_gated_scan_bwd_ref`` on the
+  CPU) against ``jax.vjp`` of ``repro.models.rglru._rglru_scan`` over
+  every parameter, x and h0 (S 1, 16, 17, 300; x f32 and bf16), the
+  plain backward against the port's autograd of the plain forward, and
+  the reverse time-parallel scan of ``csrc/rglru_scan_bwd.cu``
+  (segments of ``LAYOUT``, tiles from the last) against the plain
+  reverse scan;
+* (c) ``torch.autograd.gradcheck`` in f64 through ``WKV6Fn`` and
+  ``RGLRUScanFn``;
+* (d) the MoE layer under a gradient (``MoEFFNFn``, whose backward is
+  ``moe_ffn_bwd_ref`` on the CPU; tests/test_torch_moe_bwd.py holds the
+  kernel's own steps) against ``jax.vjp`` of the JAX ``apply_moe``;
+* (e) CUDA calls of the backward wrappers without a build raise, and
+  their launches are counted;
+* (f) remat's recompute counts, which the card's training runs in
+  ``chip_smoke.py`` require launch for launch.
+
+Tolerances as ROADMAP section 3 states them: gradients f32 atol 1e-5
+plus rtol 5e-5, the atol times the gradient's largest magnitude where
+that passes 1 (bf16 x: its rounding, 1e-2 on dx)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
+from repro.models import rglru as jrglru  # noqa: E402
+from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
+from repro_torch.kernels import wkv6 as wk  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models import rglru as trglru  # noqa: E402
+from repro_torch.models import rwkv as trwkv  # noqa: E402
+
+GRAD_TOL = dict(atol=1e-5, rtol=5e-5)
+
+
+def _close(got, want, **tol):
+    """Gradients: ``GRAD_TOL`` with atol scaled by the largest magnitude
+    where that passes 1 (the recurrences' gradients reach 10-100 here,
+    and f32 sums over a head and over time round in different orders in
+    the two packages)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if not tol:
+        tol = dict(GRAD_TOL)
+        tol["atol"] *= max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, **tol)
+
+
+# ---------------------------------------------------------------------------
+# (a) wkv6
+
+
+def _wkv6_inputs(b, h, s, hd, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.standard_normal(shape).astype(dtype)
+    r, k, v, dy = (f(b, h, s, hd) for _ in range(4))
+    w = np.exp(-np.exp(rng.uniform(-8, 4, (b, h, s, hd)))).astype(dtype)
+    w[..., 0] = 0.0
+    w[..., 1] = 1.0 - 1e-7
+    u, s0 = f(h, hd) * 0.1, f(b, h, hd, hd) * 0.1
+    ds_fin = f(b, h, hd, hd)
+    return r, k, v, w, u, s0, dy, ds_fin
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s", [1, 17, 64, 130])
+def test_wkv6_bwd_ref_matches_jax_vjp(s, hd):
+    """Head sizes 64 and 128 (``HEAD_DIMS``; 32 is the launcher's reduced
+    config, held by the whole-model gradient tests)."""
+    r, k, v, w, u, s0, dy, ds_fin = _wkv6_inputs(2, 2, s, hd, seed=s + hd)
+    _, vjp = jax.vjp(jref.wkv6_ref, *map(jnp.asarray, (r, k, v, w, u, s0)))
+    want = vjp((jnp.asarray(dy), jnp.asarray(ds_fin)))
+    got = ref.wkv6_bwd_ref(*map(torch.from_numpy,
+                                (r, k, v, w, u, s0, dy, ds_fin)))
+    for g, j in zip(got, want):
+        _close(g.numpy(), np.asarray(j))
+
+
+# csrc/wkv6_bwd.cu's Cfg by head size (keep the two in step): (kSeg,
+# kSub), the spacing of the checkpoints in device memory and of a
+# segment's sub-checkpoints in shared memory
+BWD_LAYOUT = {32: (128, 16), 64: (64, 8), 128: (16, 4)}
+
+
+def wkv6_bwd_emulation(r, k, v, w, u, s0, dy, ds_fin):
+    """``csrc/wkv6_bwd.cu``'s order over (B, H) at once: pass A writes
+    the state before every kSeg-th step; pass B walks the segments in
+    reverse, writes the state before every kSub-th step of the segment,
+    then walks the sub-segments in reverse, re-forms their kSub per-step
+    states forward and runs the reverse recurrence.  dr / dk / dw are
+    summed over each of the 8 column groups, then the groups in order,
+    then the u terms added; dv is summed over each row slab's (min(64,
+    hd) rows) warps of 32 rows, the warps added in order, (r.(u k)) dy
+    added by slab 0, then the slabs in order."""
+    b, h, s, hd = r.shape
+    seg, sub = BWD_LAYOUT[hd]
+    cols, n_slabs = hd // 8, max(1, hd // 64)
+    ckpt, st = {}, s0.clone()
+    for t in range(s):
+        if t % seg == 0:
+            ckpt[t // seg] = st.clone()
+        st = w[:, :, t, :, None] * st + k[:, :, t, :, None] * v[:, :, t, None, :]
+    g = ds_fin.clone()
+    grads = [torch.zeros_like(r) for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros((b, h, hd))
+    for n in range((s + seg - 1) // seg - 1, -1, -1):
+        tb, te = n * seg, min(s, n * seg + seg)
+        subck, st = [], ckpt[n].clone()
+        for t0 in range(tb, te, sub):
+            subck.append(st.clone())
+            for t in range(t0, min(te, t0 + sub)):
+                st = (w[:, :, t, :, None] * st
+                      + k[:, :, t, :, None] * v[:, :, t, None, :])
+        for ms in range(len(subck) - 1, -1, -1):
+            t0 = tb + ms * sub
+            steps = list(range(t0, min(te, t0 + sub)))
+            sb = [subck[ms]]
+            for t in steps[:-1]:
+                sb.append(w[:, :, t, :, None] * sb[-1]
+                          + k[:, :, t, :, None] * v[:, :, t, None, :])
+            for m in range(len(steps) - 1, -1, -1):
+                t = steps[m]
+                rt, kt, vt, wt, dyt = (z[:, :, t] for z in (r, k, v, w, dy))
+                q = (vt * dyt).sum(-1, keepdim=True)
+                p = (rt * (u * kt)).sum(-1, keepdim=True)
+
+                def by_groups(z):       # (B, H, hd, hd) -> rows, in order
+                    parts = z.reshape(b, h, hd, 8, cols).sum(-1)
+                    acc = parts[..., 0]
+                    for gi in range(1, 8):
+                        acc = acc + parts[..., gi]
+                    return acc
+
+                dr[:, :, t] = by_groups(sb[m] * dyt[:, :, None, :]) + u * q * kt
+                dk[:, :, t] = by_groups(g * vt[:, :, None, :]) + u * q * rt
+                dw[:, :, t] = by_groups(g * sb[m])
+                halves = (kt[..., None] * g).reshape(b, h, n_slabs, -1, 32,
+                                                     hd).sum(4)
+                slabs = halves[:, :, :, 0]
+                for hf in range(1, halves.shape[3]):
+                    slabs = slabs + halves[:, :, :, hf]
+                acc = slabs[:, :, 0] + p * dyt
+                for si in range(1, slabs.shape[2]):
+                    acc = acc + slabs[:, :, si]
+                dv[:, :, t] = acc
+                du += rt * kt * q
+                g = wt[..., None] * g + rt[..., None] * dyt[..., None, :]
+    du_sum = du[0]
+    for bi in range(1, b):
+        du_sum = du_sum + du[bi]
+    return dr, dk, dv, dw, du_sum, g
+
+
+@pytest.mark.parametrize("hd,s", [(64, 1), (64, 64), (64, 65), (64, 200),
+                                  (128, 16), (128, 37), (32, 129)])
+def test_wkv6_bwd_emulation_matches_the_plain_backward(hd, s):
+    """Across checkpoint and sub-checkpoint boundaries, and a ragged last
+    segment (64 steps a segment at hd 64, 16 at hd 128, 128 at hd 32)."""
+    args = tuple(map(torch.from_numpy, _wkv6_inputs(2, 2, s, hd, seed=7)))
+    got = wkv6_bwd_emulation(*args)
+    want = ref.wkv6_bwd_ref(*args)
+    for g, w_ in zip(got, want):
+        _close(g.numpy(), w_.numpy())
+
+
+def test_head_size_32_runs_the_serial_kernel():
+    assert wk.route(4096, False, 32) == "serial"
+    assert wk.route(4096, False, 64) == "chunked"
+
+
+def test_wkv6_bwd_without_final_gradient_is_a_zero_one():
+    args = tuple(map(torch.from_numpy, _wkv6_inputs(1, 2, 9, 64, seed=3)))
+    got = ref.wkv6_bwd_ref(*args[:7], None)
+    want = ref.wkv6_bwd_ref(*args[:7], torch.zeros_like(args[7]))
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# (b) the gated RG-LRU
+
+
+def _rglru_params(w, seed):
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(0.9, 0.999, w)
+    p = {"w_a": rng.standard_normal((w, w)) * w ** -0.5,
+         "w_i": rng.standard_normal((w, w)) * w ** -0.5,
+         "b_a": rng.standard_normal(w) * 0.5,
+         "b_i": rng.standard_normal(w) * 0.5,
+         "a_param": np.log(np.expm1(-np.log(u) / 8.0))}
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 16, 17, 300])
+def test_rglru_gradients_match_jax_vjp(s, x_dtype):
+    """Every parameter, x and h0 through the port's ``_rglru_scan`` (f32
+    products, then ``RGLRUScanFn``) against ``jax.vjp`` of JAX's."""
+    b, w = 2, 16
+    rng = np.random.default_rng(s)
+    params = _rglru_params(w, seed=s)
+    x = rng.standard_normal((b, s, w)).astype(np.float32)
+    h0 = rng.standard_normal((b, w)).astype(np.float32)
+    dh = rng.standard_normal((b, s, w)).astype(np.float32)
+    jx = jnp.asarray(x).astype(x_dtype)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    (h_all, _), vjp = jax.vjp(jrglru._rglru_scan, jp, jx, jnp.asarray(h0))
+    jgp, jgx, jgh0 = vjp((jnp.asarray(dh), jnp.zeros_like(h_all)))
+
+    tp = {k: torch.from_numpy(v).requires_grad_(True)
+          for k, v in params.items()}
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(
+        getattr(torch, x_dtype)).requires_grad_(True)
+    th0 = torch.from_numpy(h0).requires_grad_(True)
+    out = trglru._rglru_scan(tp, tx, th0)
+    _close(out.detach().numpy(), np.asarray(h_all), atol=1e-5, rtol=1e-5)
+    grads = torch.autograd.grad(out, [*tp.values(), tx, th0],
+                                torch.from_numpy(dh))
+    for name, g in zip(tp, grads):
+        _close(g.numpy(), np.asarray(jgp[name]))
+    tol = GRAD_TOL if x_dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
+    _close(grads[-2].float().numpy(), np.asarray(jgx.astype(jnp.float32)),
+           **tol)
+    _close(grads[-1].numpy(), np.asarray(jgh0))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_rglru_bwd_ref_matches_autograd_of_the_plain_forward(x_dtype):
+    """The written-out backward against torch's autograd through
+    ``rglru_gated_scan_ref``, a few channels past softplus's threshold."""
+    b, s, w = 2, 23, 12
+    gen = torch.Generator().manual_seed(0)
+    rn = lambda *shape: torch.randn(shape, generator=gen)
+    xa, xi, h0, dh = rn(b, s, w), rn(b, s, w), rn(b, w), rn(b, s, w)
+    x = rn(b, s, w).to(x_dtype)
+    b_a, b_i, a_param = rn(w) * 0.5, rn(w) * 0.5, rn(w)
+    a_param[:2] = 25.0
+    leaves = [t.clone().requires_grad_(True)
+              for t in (xa, xi, x, b_a, b_i, a_param, h0)]
+    h_all = ref.rglru_gated_scan_ref(*leaves)
+    want = torch.autograd.grad(h_all, leaves, dh)
+    got = ref.rglru_gated_scan_bwd_ref(xa, xi, x, b_a, b_i, a_param, h0,
+                                       h_all.detach(), dh)
+    order = (0, 1, 2, 3, 4, 5, 6)
+    for i in order:
+        tol = (GRAD_TOL if got[i].dtype != torch.bfloat16
+               else dict(atol=1e-2, rtol=1e-2))
+        torch.testing.assert_close(got[i].float(), want[i].float(), **tol)
+    assert got[2].dtype == x_dtype
+
+
+def rglru_reverse_scan_emulation(a, dh):
+    """``csrc/rglru_scan_bwd.cu``'s reverse scan dH_t = dh_t + a_{t+1}
+    dH_{t+1} in its layout: tiles of ``LAYOUT``'s segments walked from the
+    last tile to the first, a ragged last tile padded past the end (a = 1,
+    dh = 0, where dH stays 0); in a tile, segment 0 the latest steps,
+    each segment composed backwards into (prod a, dH from 0), a
+    Hillis-Steele scan over each warp's segments, the warps' totals
+    composed in order onto the tile's carry, then every segment re-walked
+    from its incoming dH."""
+    seg, per_warp, per_tile = rg.LAYOUT
+    b, s, w = a.shape
+    tile_len = seg * per_tile
+    pad = (-s) % tile_len
+    coef = torch.cat([a[:, 1:], torch.ones((b, 1 + pad, w))], 1)
+    d = torch.cat([dh, torch.zeros((b, pad, w))], 1)
+    carry, tiles = torch.zeros((b, w)), []
+    for t0 in range(s + pad - tile_len, -1, -tile_len):
+        # (B, segment, step) with segment 0 the latest, steps latest first
+        ct = coef[:, t0:t0 + tile_len].flip(1).reshape(b, per_tile, seg, w)
+        dt = d[:, t0:t0 + tile_len].flip(1).reshape(b, per_tile, seg, w)
+        big_a, big_h = torch.ones((b, per_tile, w)), torch.zeros(
+            (b, per_tile, w))
+        for k in range(seg):
+            big_h = ct[:, :, k] * big_h + dt[:, :, k]
+            big_a = big_a * ct[:, :, k]
+        big_a = big_a.reshape(b, -1, per_warp, w)
+        big_h = big_h.reshape(b, -1, per_warp, w)
+        step = 1
+        while step < per_warp:
+            new_h, new_a = big_h.clone(), big_a.clone()
+            new_h[:, :, step:] = (big_a[:, :, step:] * big_h[:, :, :-step]
+                                  + big_h[:, :, step:])
+            new_a[:, :, step:] = big_a[:, :, step:] * big_a[:, :, :-step]
+            big_a, big_h, step = new_a, new_h, 2 * step
+        starts = []
+        for wi in range(per_tile // per_warp):
+            x = carry.clone()
+            for wj in range(wi):
+                x = big_a[:, wj, -1] * x + big_h[:, wj, -1]
+            for si in range(per_warp):
+                starts.append(x if si == 0 else
+                              big_a[:, wi, si - 1] * x + big_h[:, wi, si - 1])
+        x, outs = torch.stack(starts, 1), []
+        for k in range(seg):
+            x = ct[:, :, k] * x + dt[:, :, k]
+            outs.append(x)
+        tile = torch.stack(outs, 2).reshape(b, tile_len, w).flip(1)
+        tiles.insert(0, tile)
+        carry = tile[:, 0]
+    return torch.cat(tiles, 1)[:, :s]
+
+
+@pytest.mark.parametrize("b,s,w", [(2, 1, 4), (2, 17, 36), (1, 100, 64),
+                                   (2, 513, 20), (1, 1100, 12)])
+def test_reverse_rglru_scan_emulation_matches_the_plain_reverse_scan(b, s,
+                                                                     w):
+    """Ragged segments, warps and tiles, RecurrentGemma's decays (a in
+    [0.9, 0.999]) with two channels whose products underflow."""
+    rng = np.random.default_rng(s)
+    a = rng.uniform(0.9, 0.999, (b, s, w)).astype(np.float32)
+    a[..., :2] = np.float32(1e-30)
+    dh = rng.standard_normal((b, s, w)).astype(np.float32)
+    a, dh = torch.from_numpy(a), torch.from_numpy(dh)
+    want, carry = torch.empty_like(dh), torch.zeros((b, w))
+    for t in range(s - 1, -1, -1):
+        carry = dh[:, t] + (a[:, t + 1] * carry if t + 1 < s else 0)
+        want[:, t] = carry
+    got = rglru_reverse_scan_emulation(a, dh)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# (c) gradcheck in f64
+
+
+def test_wkv6_fn_gradcheck_f64():
+    """Through the plain versions on the CPU, which take any head size
+    (8 keeps the numerical Jacobian small)."""
+    gen = torch.Generator().manual_seed(0)
+    b, h, s, hd = 2, 2, 5, 8
+    rn = lambda *shape: torch.randn(shape, generator=gen,
+                                    dtype=torch.float64)
+    r, k, v = rn(b, h, s, hd), rn(b, h, s, hd), rn(b, h, s, hd)
+    w = torch.sigmoid(rn(b, h, s, hd))
+    u, s0 = rn(h, hd) * 0.1, rn(b, h, hd, hd) * 0.1
+    leaves = [t.requires_grad_(True) for t in (r, k, v, w, u, s0)]
+    assert torch.autograd.gradcheck(trwkv.WKV6Fn.apply, leaves, eps=1e-6,
+                                    atol=1e-5, rtol=1e-4)
+
+
+def test_rglru_fn_gradcheck_f64():
+    gen = torch.Generator().manual_seed(0)
+    b, s, w = 2, 7, 3
+    rn = lambda *shape: torch.randn(shape, generator=gen,
+                                    dtype=torch.float64)
+    leaves = [t.requires_grad_(True) for t in (
+        rn(b, s, w), rn(b, s, w), rn(b, s, w), rn(w) * 0.5, rn(w) * 0.5,
+        rn(w), rn(b, w))]
+    assert torch.autograd.gradcheck(trglru.RGLRUScanFn.apply, leaves,
+                                    eps=1e-6, atol=1e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# (d) the MoE layer's train route
+
+
+@pytest.mark.parametrize("activation,cf", [("swiglu", 2.0), ("swiglu", 1.0),
+                                           ("gelu", 2.0)])
+def test_moe_train_route_gradients_match_jax(activation, cf):
+    """``apply_moe`` under a gradient (capacity drops at cf 1.0; the
+    ungated experts too, which run the plain products on the CPU) against
+    ``jax.vjp`` of the JAX ``apply_moe`` on the same weights."""
+    d, f, e, top_k = 32, 48, 4, 2
+    jp = jmoe.init_moe(jax.random.PRNGKey(0), d, f, e, activation,
+                       jnp.float32)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 11, d)).astype(np.float32)
+    dout = rng.standard_normal((2, 11, d)).astype(np.float32)
+    kw = dict(n_experts=e, top_k=top_k, activation=activation,
+              capacity_factor=cf)
+    out, vjp = jax.vjp(lambda p, xx: jmoe.apply_moe(p, xx, **kw), jp,
+                       jnp.asarray(x))
+    jgp, jgx = vjp(jnp.asarray(dout))
+    tp = {k: torch.from_numpy(np.array(v)).requires_grad_(True)
+          for k, v in jp.items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    got = tmoe.apply_moe(tp, tx, **kw)
+    _close(got.detach().numpy(), np.asarray(out), atol=1e-5, rtol=1e-5)
+    grads = torch.autograd.grad(got, [*tp.values(), tx],
+                                torch.from_numpy(dout))
+    for name, g in zip(tp, grads):
+        _close(g.numpy(), np.asarray(jgp[name]))
+    _close(grads[-1].numpy(), np.asarray(jgx))
+
+
+# ---------------------------------------------------------------------------
+# (e) the wrappers on a card without a build
+
+
+def _no_build(monkeypatch, plain_name):
+    monkeypatch.setattr(_build, "use_kernel", lambda *tensors: True)
+
+    def no_build(name):
+        raise _build.KernelBuildError(f"no build of {name}")
+    monkeypatch.setattr(_build, "load_library", no_build)
+    monkeypatch.setattr(ref, plain_name, lambda *a, **k: 1 / 0)
+
+
+def test_wkv6_bwd_cuda_call_without_a_build_raises(monkeypatch):
+    _no_build(monkeypatch, "wkv6_bwd_ref")
+    x = torch.zeros(1, 2, 20, 64)
+    before = wk.wkv6_bwd.launches
+    with pytest.raises(_build.KernelBuildError):
+        wk.wkv6_bwd(x, x, x, x, torch.zeros(2, 64),
+                    torch.zeros(1, 2, 64, 64), x)
+    assert wk.wkv6_bwd.launches == before
+
+
+def test_rglru_bwd_cuda_call_without_a_build_raises(monkeypatch):
+    _no_build(monkeypatch, "rglru_gated_scan_bwd_ref")
+    z = torch.zeros(1, 20, 8)
+    before = rg.rglru_gated_scan_bwd.launches
+    with pytest.raises(_build.KernelBuildError):
+        rg.rglru_gated_scan_bwd(z, z, z.bfloat16(), *[torch.zeros(8)] * 3,
+                                torch.zeros(1, 8), z, z)
+    assert rg.rglru_gated_scan_bwd.launches == before
+
+
+def test_backward_wrappers_count_their_launches(monkeypatch):
+    from repro_torch.kernels import launch_counts, reset_launches
+    monkeypatch.setattr(_build, "use_kernel", lambda *tensors: True)
+    # every entry point returns 0 (no error), wkv6_bwd_seg its kSeg
+    monkeypatch.setattr(_build, "bind", lambda src, fn, args: lambda *a:
+                        64 if fn == "wkv6_bwd_seg" else 0)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    reset_launches()
+    x = torch.zeros(1, 2, 20, 64)
+    wk.wkv6_bwd(x, x, x, x, torch.zeros(2, 64), torch.zeros(1, 2, 64, 64), x)
+    z = torch.zeros(1, 20, 8)
+    for _ in range(2):
+        rg.rglru_gated_scan_bwd(z, z, z, *[torch.zeros(8)] * 3,
+                                torch.zeros(1, 8), z, z)
+    counts = launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "wkv6_bwd": 1, "rglru_gated_scan_bwd": 2}
+    reset_launches()
+
+
+def test_backward_wrappers_reject_bad_inputs():
+    x = torch.zeros(1, 2, 4, 64)
+    with pytest.raises(ValueError):         # dy of another shape
+        wk.wkv6_bwd(x, x, x, x, torch.zeros(2, 64),
+                    torch.zeros(1, 2, 64, 64), torch.zeros(1, 2, 5, 64))
+    z = torch.zeros(1, 4, 8)
+    with pytest.raises(ValueError):         # h_all must be f32
+        rg.rglru_gated_scan_bwd(z, z, z, *[torch.zeros(8)] * 3,
+                                torch.zeros(1, 8), z.bfloat16(), z)
+
+
+# ---------------------------------------------------------------------------
+# (f) remat's recompute
+
+
+@pytest.mark.parametrize("arch,n_layers", [("mixtral-8x7b", 3),
+                                           ("recurrentgemma-2b", 27),
+                                           ("rwkv6-7b", 8)])
+def test_remat_runs_each_group_as_the_card_run_reckons(arch, n_layers,
+                                                       monkeypatch):
+    """One train step runs every group's forward once, remat's recompute
+    once more and, under sqrt-remat (past 8 groups), every group but the
+    last of its superblock a third time; the backward kernels once a
+    layer (the expert FFN's too).  chip_smoke.py's 5t-m / 5t-r / 5t-k
+    require these launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as TM
+    from repro_torch.models import transformer as TT
+    from repro_torch.params import init_params
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config(arch).reduced(d_model=64),
+                              n_layers=n_layers, remat=True)
+    from repro_torch.kernels import moe_ffn as mf
+    calls = {}
+    for mod, name in ((rg, "rglru_gated_scan"), (rg, "rglru_gated_scan_bwd"),
+                      (wk, "wkv6"), (wk, "wkv6_bwd"),
+                      (fa, "flash_attention"), (mf, "moe_ffn"),
+                      (mf, "moe_ffn_bwd")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=fn, _n=name, **k:
+                            calls.__setitem__(_n, calls.get(_n, 0) + 1)
+                            or _f(*a, **k))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 33),
+                           generator=torch.Generator().manual_seed(0))
+    torch.autograd.grad(TM.loss_fn(params, cfg, {"tokens": tokens}),
+                        leaves)
+    n = cfg.n_groups
+    n_outer = TT._sqrt_factor(n)
+    runs = 2 * n + (n - n_outer if n_outer > 1 else 0)
+    per = {k: sum(kind in ks for kind in cfg.layer_pattern)
+           for k, ks in (("flash_attention", ("attn", "swa")),
+                         ("rglru_gated_scan", ("rglru",)),
+                         ("wkv6", ("rwkv",)))}
+    per["moe_ffn"] = sum(map(bool, cfg.moe_pattern)) if cfg.is_moe else 0
+    want = {}
+    for fwd, bwd in (("flash_attention", None),
+                     ("rglru_gated_scan", "rglru_gated_scan_bwd"),
+                     ("wkv6", "wkv6_bwd"), ("moe_ffn", "moe_ffn_bwd")):
+        if per[fwd]:
+            want[fwd] = per[fwd] * runs
+            if bwd:
+                want[bwd] = per[fwd] * n
+    assert calls == want

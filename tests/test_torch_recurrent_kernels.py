@@ -444,10 +444,16 @@ def test_profile_groups_name_every_kernel_of_its_source():
            "flash_attention": "flash_attention kernel",
            "flash_attention_bwd": "flash_attention_bwd kernels",
            "moe_ffn": "moe_ffn kernels", "rglru_scan": "rglru_scan kernels",
-           "wkv6": "wkv6 kernels"}
+           "wkv6": "wkv6 kernels", "wkv6_bwd": "wkv6_bwd kernels",
+           "rglru_scan_bwd": "rglru_scan_bwd kernels",
+           "moe_ffn_bwd": "moe_ffn_bwd kernels"}
     # two kernels a source; the flash backward's five (the row sums D,
-    # then dK/dV and dQ, each on wgmma and in exact f32)
-    n_kernels = dict.fromkeys(own, 2) | {"flash_attention_bwd": 5}
+    # then dK/dV and dQ, each on wgmma and in exact f32); the wkv6
+    # backward's three (the recurrence, the slabs' dv, the batch's du);
+    # the expert FFN backward's three (the products on wgmma and in exact
+    # f32, the elementwise step)
+    n_kernels = dict.fromkeys(own, 2) | {"flash_attention_bwd": 5,
+                                         "wkv6_bwd": 3, "moe_ffn_bwd": 3}
     seen = dict.fromkeys(own, 0)
     for path in sorted(glob.glob(os.path.join(_build.CSRC, "*.cu"))):
         src = os.path.basename(path)[:-3]

@@ -2,7 +2,8 @@
 (``params.from_jax``, which converts gradient trees too):
 ``forward_train`` and ``loss_fn`` with every gradient leaf against
 ``jax.value_and_grad(M.loss_fn)`` for reduced Gemma-3 (SWA + ATTN),
-Mixtral (MoE), RecurrentGemma, RWKV-6 and Whisper configs (loss rtol
+Mixtral, Phi-3.5-MoE and Llama-4 Maverick (MoE), RecurrentGemma, RWKV-6
+and Whisper configs (loss rtol
 1e-5, logits atol 1e-5, gradients atol 1e-5 plus rtol 5e-5: the f32
 rounding of the RWKV-6 recurrence's backward, in either package, reaches
 1.8e-5 relative on O(1) embedding gradients); remat, sqrt-remat and
@@ -10,9 +11,10 @@ rounding of the RWKV-6 recurrence's backward, in either package, reaches
 (stacked factoring, the (n_groups, D) norm leaves included) over 3 steps
 against JAX's; five ``train_loop`` steps against JAX's (losses rtol
 1e-4), ``accum_steps=2`` and ``host_optimizer``; the checkpoint round
-trip; the data pipeline; the launcher; and the refusal to train MoE and
-recurrent layers on the card (no backward kernels yet).  Inputs and
-gradients are drawn with numpy from a seed."""
+trip; the data pipeline; and the launcher.  The MoE families train
+through the train phase's grouped products, the recurrent ones through
+``WKV6Fn`` / ``RGLRUScanFn`` (their written-out backwards on the CPU).
+Inputs and gradients are drawn with numpy from a seed."""
 import contextlib
 import dataclasses
 import io
@@ -47,7 +49,8 @@ from repro_torch.training.train_loop import (  # noqa: E402
 CPU = "cpu"
 TOL = 1e-5
 GRAD_RTOL = 5e-5
-FAMILIES = ("gemma3-12b", "mixtral-8x7b", "recurrentgemma-2b", "rwkv6-7b",
+FAMILIES = ("gemma3-12b", "mixtral-8x7b", "phi3.5-moe-42b-a6.6b",
+            "llama4-maverick-400b-a17b", "recurrentgemma-2b", "rwkv6-7b",
             "whisper-base")
 
 
@@ -339,22 +342,3 @@ def test_launcher_trains_on_the_cpu_and_plans_like_jax(monkeypatch):
     with contextlib.redirect_stdout(buf):
         jlaunch.main()
     assert plan == buf.getvalue().splitlines() and len(plan) == 3
-
-
-@pytest.mark.parametrize("arch,missing", [
-    ("mixtral-8x7b", "moe_ffn"), ("recurrentgemma-2b", "rglru_gated_scan"),
-    ("rwkv6-7b", "wkv6"), ("llama4-maverick-400b-a17b", "moe_ffn"),
-    ("gemma3-12b", None), ("whisper-base", None)])
-def test_training_on_the_card_refuses_layers_without_a_backward(arch,
-                                                                missing):
-    """Decided from the config and the device alone (no card needed):
-    MoE, RG-LRU and RWKV-6 layers raise on CUDA, naming the ROADMAP
-    item; every family trains on the CPU."""
-    cfg = get_config(arch)
-    TT.check_trainable(cfg, torch.device("cpu"))
-    if missing is None:
-        TT.check_trainable(cfg, torch.device("cuda"))
-        return
-    with pytest.raises(NotImplementedError, match=missing) as err:
-        TT.check_trainable(cfg, torch.device("cuda"))
-    assert "ROADMAP" in str(err.value)
