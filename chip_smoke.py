@@ -167,12 +167,18 @@ on its own lines with its wall seconds:
    its defaults, and with ``--arch`` mixtral-8x7b, recurrentgemma-2b and
    rwkv6-7b, each of which must print ``LEARNED``.  Phase 2 also holds
    the recurrences' backward kernels against their plain versions in f64
-   (``wkv6_bwd`` at 5t-k's shape, head size 128, ragged S and one step;
+   (``wkv6_bwd`` at 5t-k's shape with the device time of each of its
+   launches, head size 128, ragged S and one step;
    ``rglru_gated_scan_bwd`` at 5t-r's shape in bf16 and f32, an odd S,
    widths 100 and 102, one step; each output within ``TOL_BWD`` of its
-   largest magnitude, the main cases bitwise equal twice), the expert
+   largest magnitude, ``wkv6_bwd`` printing each output's err/max, the
+   main cases bitwise equal twice; ``wkv6_bwd`` at head size 64 with
+   32-column slabs and whole heads, B x H 32 to 128, timed side by
+   side: the readings behind ``bwd_slab``), the expert
    FFN's backward kernels (``moe_ffn_bwd`` at 5t-m's shape in bf16,
-   twice, and 5t-eq-m's in f32; ragged, gelu and one-token cases), and the
+   twice, with the device time of each of its launches and the library
+   yardstick ``moe_bwd_library``, seven ``bmm`` and a ``baddbmm``;
+   5t-eq-m's in f32; ragged, gelu and one-token cases), and the
    forward's log-sum-exp against
    the plain one in every flash case and the backward kernel against
    ``flash_attention_bwd_ref`` (Gemma-3 S 4096 window and global, the
@@ -1036,6 +1042,7 @@ def kernel_cases(bench) -> dict:
     wkv6_case("model decay decode b4 h64 s1", 4, 64, 1, 64, False, "model")
     torch.cuda.empty_cache()
     main.update(recurrent_bwd_cases(bench, gen))
+    wkv6_bwd_slab_readings(bench, gen)
     main.update(moe_bwd_cases(bench, gen))
     return main
 
@@ -1059,6 +1066,60 @@ def _check_scaled(name, case, got, want, tol=TOL_BWD):
                              f"version (max abs err {err:.3e} of max "
                              f"{scale:.3e}, tol {tol}, {bad} NaN)")
     return err
+
+
+def _wkv6_bwd_args(gen, b, h, s, hd, ds_fin=True) -> tuple:
+    """``wkv6_bwd``'s inputs on the card: r, k, v, dy as the model's
+    transposed (B, S, H, hd) views, the model's decays with a w == 0 and
+    a w = 1 - 1e-7 channel, a nonzero s0 and (with ``ds_fin``) final-state
+    gradient."""
+    import torch
+    rn = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    r, k, v, dy = (rn(b, s, h, hd).transpose(1, 2) for _ in range(4))
+    w_log = torch.rand((b, s, h, hd), generator=gen, device="cuda") * 12 - 8
+    w = torch.exp(-torch.exp(w_log))
+    w[..., 0] = 0.0
+    w[..., 1] = 1.0 - 1e-7
+    w = w.transpose(1, 2)
+    u, s0 = rn(h, hd) * 0.1, rn(b, h, hd, hd) * 0.1
+    dsf = rn(b, h, hd, hd) if ds_fin else None
+    return (r, k, v, w, u, s0, dy, dsf)
+
+
+def wkv6_bwd_slab_readings(bench, gen) -> None:
+    """The readings behind ``kernels/wkv6.py::bwd_slab`` at head size 64:
+    ``wkv6_bwd`` at RWKV-6-7B's S 4096 for B x H from 32 to 128, with
+    32-column slabs (two CTAs a head) and with whole heads (one), timed
+    on the same inputs; the two agree within ``TOL_BWD`` of each output's
+    largest magnitude (each is held to f64 in ``recurrent_bwd_cases``)."""
+    import torch
+
+    from repro_torch.kernels import wkv6 as wk
+
+    n_sms, rows = wk.N_SMS, []
+    try:
+        for b, h in ((1, 32), (1, 64), (2, 40), (2, 64)):
+            args = _wkv6_bwd_args(gen, b, h, 4096, 64)
+            pick, ms, outs = wk.bwd_slab(b, h, 64), {}, {}
+            for slab, sms in ((32, 1 << 30), (64, 0)):
+                wk.N_SMS = sms      # forces the slab
+                assert wk.bwd_slab(b, h, 64) == slab
+                outs[slab] = wk.wkv6_bwd(*args)
+                ms[slab] = bench.ms(lambda: wk.wkv6_bwd(*args))
+            wk.N_SMS = n_sms
+            for n, x, y in zip(("dr", "dk", "dv", "dw", "du", "ds0"),
+                               outs[32], outs[64]):
+                _check_scaled("wkv6_bwd", f"slab 32 against 64, B {b} H {h} "
+                              f"{n}", x, y)
+            rows.append(f"B x H {b * h}: slab 32 {ms[32]:.4f}"
+                        f"{'*' if pick == 32 else ''}, whole head "
+                        f"{ms[64]:.4f}{'*' if pick == 64 else ''}")
+            del args, outs
+            torch.cuda.empty_cache()
+    finally:
+        wk.N_SMS = n_sms
+    print("  wkv6_bwd slabs at hd 64, S 4096, ms (* bwd_slab's pick): "
+          + "; ".join(rows), flush=True)
 
 
 def recurrent_bwd_cases(bench, gen) -> dict:
@@ -1085,15 +1146,7 @@ def recurrent_bwd_cases(bench, gen) -> dict:
     main = {}
 
     def wkv6_bwd_case(label, b, h, s, hd, ds_fin=True, twice=False):
-        r, k, v, dy = (rn(b, s, h, hd).transpose(1, 2) for _ in range(4))
-        w_log = torch.rand((b, s, h, hd), generator=gen, device=dev) * 12 - 8
-        w = torch.exp(-torch.exp(w_log))
-        w[..., 0] = 0.0
-        w[..., 1] = 1.0 - 1e-7
-        w = w.transpose(1, 2)
-        u, s0 = rn(h, hd) * 0.1, rn(b, h, hd, hd) * 0.1
-        dsf = rn(b, h, hd, hd) if ds_fin else None
-        args = (r, k, v, w, u, s0, dy, dsf)
+        args = _wkv6_bwd_args(gen, b, h, s, hd, ds_fin)
         call = lambda: wk.wkv6_bwd(*args)
         got = call()
         if twice:
@@ -1106,14 +1159,21 @@ def recurrent_bwd_cases(bench, gen) -> dict:
                                   for t in args))
         torch.cuda.synchronize()
         names = ("dr", "dk", "dv", "dw", "du", "ds0")
-        err = max(_check_scaled("wkv6_bwd", f"{label} {n}", g, y)
-                  for n, g, y in zip(names, got, want))
+        errs = [_check_scaled("wkv6_bwd", f"{label} {n}", g, y)
+                for n, g, y in zip(names, got, want)]
+        err = max(errs)
+        print(f"  wkv6_bwd {label}: err/max of each output (TOL_BWD "
+              f"{TOL_BWD:g}): " + ", ".join(
+                  f"{n} {e / float(y.abs().max()):.3e}"
+                  for n, e, y in zip(names, errs, want)), flush=True)
         del want
         torch.cuda.empty_cache()
         # 12 f32 operations an entry of the state and step (the source's
         # note); each input read once, each output written once
         bound = _bound(_nbytes(*[t for t in args if t is not None], *got),
                        12.0 * b * h * s * hd * hd, "float32")
+        if twice:
+            _print_launches("wkv6_bwd", label, call)
         res = (err, bench.ms(call), bound,
                bench.ms(lambda: ref.wkv6_bwd_ref(*args), budget_ms=1.0),
                None)
@@ -1185,14 +1245,75 @@ def recurrent_bwd_cases(bench, gen) -> dict:
 TOL_MOE_BWD_BF16 = 2e-2
 
 
+def _launch_times(fn) -> list:
+    """The device time of each kernel one call of ``fn`` launches, in
+    launch order: [(kernel name without its arguments, ms)].  Two calls
+    run under ``torch.profiler`` after a warm-up, each after a marker
+    kernel (``torch.cuda._sleep``'s ``spin_kernel``), and the kernels
+    after the last marker are reported: a profiler session can miss its
+    first kernels (seen on the card), so counting halves is not safe."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("Mem")),
+                 key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(evs) if "spin_kernel" in e.name]
+    assert marks, "no marker kernel in the profile"
+    evs = evs[marks[-1] + 1:]
+    short = lambda n: re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
+                             n)
+    return [(short(e.name), e.time_range.elapsed_us() / 1e3) for e in evs]
+
+
+def _print_launches(name, label, fn) -> None:
+    rows = _launch_times(fn)
+    print(f"  {name} {label}: {len(rows)} launches a call, device ms in "
+          "launch order: " + "; ".join(f"{n} {ms:.4f}" for n, ms in rows)
+          + f" (sum {sum(ms for _, ms in rows):.4f})", flush=True)
+
+
+def moe_bwd_library(buf, w_gate, w_up, w_down, dy, activation):
+    """The expert FFN's backward as PyTorch calls on the operands as
+    stored (transposes as views): seven ``torch.bmm`` and one
+    ``torch.baddbmm`` (dX adds its two products) through cuBLAS, the
+    elementwise step in f32 between them, each product rounded to the
+    inputs' dtype.  A yardstick only: the port runs ``moe_ffn_bwd``."""
+    import torch
+
+    from repro_torch.kernels import ref
+    dt = buf.dtype
+    g, u = torch.bmm(buf, w_gate), torch.bmm(buf, w_up)
+    dh = torch.bmm(dy, w_down.transpose(1, 2))
+    a, da = ref.ffn_act_grad(g.float(), activation)
+    dg, du = (dh.float() * u.float() * da).to(dt), (dh.float() * a).to(dt)
+    h = (a * u.float()).to(dt)
+    del g, dh, a, da
+    dx = torch.baddbmm(torch.bmm(dg, w_gate.transpose(1, 2)), du,
+                       w_up.transpose(1, 2))
+    xt = buf.transpose(1, 2)
+    return (dx, torch.bmm(xt, dg), torch.bmm(xt, du),
+            torch.bmm(h.transpose(1, 2), dy))
+
+
 def moe_bwd_cases(bench, gen) -> dict:
     """The expert FFN's backward kernels against ``moe_ffn_bwd_ref``
     evaluated in f64 on the same inputs (f32 outputs within ``TOL_BWD``
     of each one's largest magnitude, bf16 within ``TOL_MOE_BWD_BF16``),
-    with time, bound (seven products of 2 E C D F operations) and the
-    plain version's time; no single PyTorch call computes it.  5t-m's
-    shape (Mixtral-8x7B, B 1 x S 4096: E 8, C 2049, D 4096, F 14336,
-    bf16) called twice (bitwise equal); 5t-eq-m's (B 2 x 257: C 258, f32);
+    with time, bound (eight products of 2 E C D F operations), the plain
+    version's time and, in bf16, the library's (``moe_bwd_library``: no
+    single PyTorch call computes it).  5t-m's shape (Mixtral-8x7B, B 1 x
+    S 4096: E 8, C 2049, D 4096, F 14336, bf16) called twice (bitwise
+    equal), with the device time of each of its launches;
+    5t-eq-m's (B 2 x 257: C 258, f32);
     gelu and ragged C / D / F (F padded to 8 in bf16) at small widths.
     Returns the main case's numbers."""
     import torch
@@ -1230,11 +1351,16 @@ def moe_bwd_cases(bench, gen) -> dict:
                                      got, want))
         del want
         torch.cuda.empty_cache()
-        bound = _bound(_nbytes(*args, *got), 7 * 2.0 * e * c * d * f, dname)
+        # eight products of 2 E C D F (g, u, dh, dX's two, three dW)
+        bound = _bound(_nbytes(*args, *got), 8 * 2.0 * e * c * d * f, dname)
+        if twice:
+            _print_launches("moe_ffn_bwd", label, call)
+        lib = lambda: moe_bwd_library(*args, activation)
         res = (err, bench.ms(call), bound,
                bench.ms(lambda: ref.moe_ffn_bwd_ref(*args,
                                                     activation=activation),
-                        budget_ms=1.0), None)
+                        budget_ms=1.0),
+               bench.ms(lib) if dt == torch.bfloat16 else None)
         _report("moe_ffn_bwd", label, dname, *res,
                 path=_tc_path(dt) + (", bitwise equal twice" if twice
                                      else ""))
@@ -3083,7 +3209,8 @@ def ptxas_report(_build) -> None:
     kernels, and of every head dim 240 instantiation apart (beside the d
     256 verify tile with the most n-tiles).  The flash backward's wgmma
     kernels must exist at head dims 32, 64, 128, 240 and 256 and spill
-    nothing."""
+    nothing; so must the expert FFN backward's wgmma kernel and the
+    chunked ``wkv6_bwd`` at every instantiation."""
     d240 = []
     for src, kern in (("moe_ffn", "moe_wgmma_kernel"),
                       ("flash_attention", "flash_fwd_wgmma_kernel"),
@@ -3101,6 +3228,7 @@ def ptxas_report(_build) -> None:
                       ("rglru_scan", "rglru_serial_kernel"),
                       ("rglru_scan", "rglru_parallel_kernel"),
                       ("wkv6_bwd", "wkv6_bwd_kernel"),
+                      ("wkv6_bwd", "wkv6_bwd_chunked_kernel"),
                       ("rglru_scan_bwd", "rglru_bwd_kernel"),
                       ("moe_ffn_bwd", "moe_bwd_wgmma_kernel"),
                       ("moe_ffn_bwd", "moe_bwd_f32_kernel")):
@@ -3114,6 +3242,11 @@ def ptxas_report(_build) -> None:
         if kern == "decode_mma_kernel":
             d240 += [f"(beside {kern}<{a}> {r} regs, spills {ss}/{sl} B)"
                      for a, r, sm, ss, sl in usage if a == "256,10"]
+        if kern in ("moe_bwd_wgmma_kernel", "wkv6_bwd_chunked_kernel"):
+            # the backward kernels redesigned for the card: every
+            # instantiation built, nothing spilled
+            assert usage and all(ss == sl == 0
+                                 for a, r, sm, ss, sl in usage), usage
         if kern in ("bwd_dkdv_wgmma_kernel", "bwd_dq_wgmma_kernel"):
             # the backward's bf16 route: every head dim, nothing spilled
             assert sorted(int(a) for a, *_ in usage) == [32, 64, 128, 240,

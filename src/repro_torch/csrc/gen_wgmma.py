@@ -7,7 +7,8 @@ An instruction of width N names its N / 2 f32 accumulator registers one
 by one in the PTX, so each width is spelled out; scale-d is a template
 argument (1 by default).  ``SS_WIDTHS`` are the widths with both
 operands in shared memory (``moe_ffn.cu``'s token tiles, the flash
-kernels' key and query tiles); ``RS_WIDTHS`` those with A in registers
+kernels' key and query tiles, ``moe_ffn_bwd.cu``'s 128- and 256-wide
+tiles); ``RS_WIDTHS`` those with A in registers
 (the P V product of ``flash_attention.cu`` and the dV / dK / dQ
 products of ``flash_attention_bwd.cu``, N = head dim).
 tests/test_torch_kernel_precision.py checks that the committed header
@@ -15,7 +16,7 @@ is this script's output.
 """
 import sys
 
-SS_WIDTHS = (8, 16, 24, 32, 40, 48, 64, 80, 96, 128, 136, 152)
+SS_WIDTHS = (8, 16, 24, 32, 40, 48, 64, 80, 96, 128, 136, 152, 256)
 RS_WIDTHS = (64, 128, 256)
 
 HEAD = """\

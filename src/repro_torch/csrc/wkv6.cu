@@ -62,8 +62,14 @@
 // transposed view without a copy.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
+
+using repro::Frag;
+using repro::FragB;
+using repro::halve;
+using repro::mma_3xtf32;
 
 template <int HD>
 __global__ void __launch_bounds__(HD) wkv6_kernel(
@@ -228,61 +234,6 @@ __device__ __forceinline__ void carry_state(float tot, float d, float& hi,
   const float l = fmaf(tot, lo, __fadd_rn(e, pe));
   hi = __fadd_rn(s, l);
   lo = __fsub_rn(l, __fsub_rn(hi, s));
-}
-
-// 3xTF32: x = big + small, both TF32, the rest below f32's rounding.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  const float rest = __fsub_rn(x, __uint_as_float(big));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
-}
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-struct Frag {
-  uint32_t big[4], small[4];
-  __device__ __forceinline__ void set(float a0, float a1, float a2,
-                                      float a3) {
-    split_tf32(a0, big[0], small[0]);
-    split_tf32(a1, big[1], small[1]);
-    split_tf32(a2, big[2], small[2]);
-    split_tf32(a3, big[3], small[3]);
-  }
-};
-struct FragB {
-  uint32_t big[2], small[2];
-  __device__ __forceinline__ void set(float b0, float b1) {
-    split_tf32(b0, big[0], small[0]);
-    split_tf32(b1, big[1], small[1]);
-  }
-};
-// d += a b at about f32's accuracy: the two cross products, then big*big
-// (the small*small product is below f32's rounding)
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const Frag& a,
-                                           const FragB& b) {
-  mma_tf32(d, a.small, b.big);
-  mma_tf32(d, a.big, b.small);
-  mma_tf32(d, a.big, b.big);
-}
-
-// One exchange of the transpose-reduce of A's row over a warp: a lane
-// keeps the half of its first 2 M values that bit ``o`` of its lane
-// selects and adds its partner's copy of that half.
-template <int M>
-__device__ __forceinline__ void halve(float (&pa)[kChunk], int o, int lane) {
-  const bool upper = lane & o;
-#pragma unroll
-  for (int q = 0; q < M; ++q) {
-    const float send = upper ? pa[q] : pa[q + M];
-    const float keep = upper ? pa[q + M] : pa[q];
-    pa[q] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-  }
 }
 
 // What does not depend on the state, for the chunk in ``stage`` (its

@@ -22,72 +22,99 @@
 // w, dy (0.67 GB) and writes dr, dk, dv, dw (0.54 GB), ~0.36 ms at 3.35
 // TB/s; it does ~12 f32 operations an entry of S and step (the four
 // gradient products and G's update, one FMA each, and S re-formed once),
-// ~26 GFLOP, ~0.39 ms at 67 TFLOP/s outside the tensor cores.  This
-// kernel is serial in time on the CUDA cores (a later redesign can take
-// the chunked form of the forward onto the tensor cores).
+// ~26 GFLOP, ~0.39 ms at 67 TFLOP/s outside the tensor cores.
 //
-// Both recurrences are separable by entry: S_t[i,j] needs only w_t[i],
-// k_t[i], v_t[j]; G_{t-1}[i,j] only w_t[i], r_t[i], dy_t[j].  So a CTA of
-// 8 x kRows threads owns kRows = min(64, hd) rows of one (b, head) and
-// all hd columns (the whole head at hd 64: B*H = 128 CTAs at the
-// training shape; two row slabs at hd 128), with no reduction across
-// CTAs for dr, dk, dw, du.  Thread (row ir = tid % kRows, column group
-// c = tid / kRows) holds the entries (ir, c*CPT .. c*CPT + CPT) of S and
-// of G in registers (CPT = hd / 8).
+// Head sizes 64 and 128: the chunked form, the backward of csrc/wkv6.cu's
+// chunked forward.  Time is cut into chunks of kL = 16 steps.  In a
+// chunk with S_in the state before it and G_out the gradient of the
+// state after it, per channel i (all inside the chunk, no division):
+//   P_t = prod_{tau<t} w_tau,  Q'_t = prod_{tau>t} w_tau,  tot = prod w,
+//   D_ts = prod_{s<tau<t} w_tau (s < t),  E_ts = prod_{t<tau<s} w_tau (s > t),
+// S_{t-1} = P_t S_in + sum_{s<t} D_ts k_s v_s^T and G_t = Q'_t G_out +
+// sum_{s>t} E_ts r_s dy_s^T, so with B[s][t] = v_s . dy_t,
+// alpha_s = D_ts k_s, beta_s = E_ts r_s, gamma_x = sum_s alpha_s B[s][x]:
+//   dr_t = P_t (S_in dy_t) + gamma_t + u k_t B[t][t]
+//   dk_t = Q'_t (G_out v_t) + sum_s beta_s B[t][s] + u r_t B[t][t]
+//   dw_t = P_t Q'_t rowsum(G_out * S_in) + Q'_t sum_s alpha_s (G_out v_s)
+//          + P_t sum_s beta_s (S_in dy_s) + sum_s beta_s gamma_s
+//   dv_t = G_out^T (k_t Q'_t) + sum_{s>=t} A[s][t] dy_s,
+//          A[s][t] = sum_i r_s alpha_t (s > t), A[t][t] = sum_i r_t u k_t
+//   du  += r_t k_t B[t][t],  G_in = tot G_out + (r P)^T dY.
+// dw_t = rowsum(G_t * S_{t-1}) is formed without either matrix: its
+// four terms are products the chunk has anyway and the O(16^2) sums
+// over steps per channel (alpha, beta, gamma), run on the CUDA cores in
+// parallel over (step, channel).  Every decay factor is a running
+// product of w's in [0, 1], so w == 0 gives exact zeros and nothing
+// overflows.
 //
-// S_{t-1} is never rebuilt from S_t by dividing by w_t (a decay can be
-// 0, or underflow).  States are re-formed forward from checkpoints, as
-// JAX's segments do, on three levels:
-//   pass A walks the sequence forward from s0 and writes the state at
-//     every kSeg-th step to a scratch buffer (B, H, ceil(S/kSeg), hd, hd)
-//     f32 in device memory (each thread reads back only what it wrote);
-//   pass B walks the segments in reverse: from a segment's checkpoint it
-//     writes the state at every kSub-th step into shared memory (kSeg /
-//     kSub sub-checkpoints, rows padded by 4 floats so that the float4
-//     reads of a warp's 32 rows hit distinct banks), then walks the
-//     sub-segments in reverse, re-forms each one's kSub per-step states
-//     in registers (CPT x kSub = 64 floats a thread) and runs the
-//     reverse recurrence over them.
-// hd 64: CPT 8, kSub 8, kSeg 64 (8 sub-checkpoints of 17 KB);
-// hd 128: CPT 16, kSub 4, kSeg 16 (4 of 33 KB).  ~200 / ~175 KB of shared
-// memory, one CTA an SM.  (hd 32, the training launcher's reduced
-// config: 256 threads, CPT 4, kSub 16, kSeg 128.)
+// One CTA of 512 threads owns a slab of SLAB columns of S and G for one
+// (b, h) (S's column j needs only v_j, G's only dy_j): at hd 64 two
+// slabs of 32 while they fit in one wave of the card's SMs (B * H up to
+// 66), else the whole head (128 CTAs at the training shape; a slab does
+// the per-(step, channel) sums of the whole head, so a second wave
+// costs more than the slab saves); hd 128 always 4 slabs of 32.  Pass 1
+// walks the chunks forward, S <- tot S + (k Q)^T V (Q_s = prod_{s<tau}
+// w_tau), with the slab of S in registers as mma accumulators, and
+// writes S_in of every chunk to a scratch buffer (B H, n_chunks, hd,
+// SLAB) f32 in device memory; pass 2 walks them in reverse with G in
+// shared memory.  Per chunk: S_in dy, G v and B as 3xTF32 mma.sync
+// products over the slab (about f32's accuracy, csrc/mma_tf32.cuh: each
+// 8-deep step's three products go into a zeroed accumulator, added to
+// C in f32: the tensor cores' round-toward-zero sums straight into the
+// carried S and G gave up to 20x the serial kernel's error); the
+// per-(step, channel) sums above, warp t owning step t (16 warps); dv
+// and G's update as products again.  An operand that several products read (v, dy, r P, k Q') is
+// split into TF32's (big, small) once a chunk, in shared memory.
+// cp.async brings the next chunk's r, k, w, v, dy and checkpoint while
+// one is computed; a ragged last chunk pads its steps with r = k = v =
+// dy = 0 and w = 1, which leave S and G as they are.
+// (On an H100 at the training shape a 256-thread CTA with two steps a
+// warp took 3.56 ms, this layout 2.86.)
 //
 // Reductions, all in a fixed order (no atomics; the bits do not depend
-// on the order in which CTAs run):
-// - over j (dr, dk, dw): each thread sums its CPT columns, writes the
-//   partial to shared memory, and after the sub-segment the 8 column
-//   groups are added in order; the u terms need v_t . dy_t, which one
-//   warp a step forms while the step's inputs are staged;
-// - over i (dv): a reduce-scatter by shuffles over the warp's 32 rows
-//   (CPT values in, each lane out with one column's sum), then the two
-//   warps of a column group (kRows / 32 of them) added in shared memory, plus
-//   (r_t . (u * k_t)) dy_t (again one warp's dot product a step); at hd
-//   128 each row slab writes its partial and a second kernel adds the
-//   two in order;
-// - du: the column-group-0 thread of each row sums r k (v . dy) over the
-//   steps; a last kernel adds the batch in order.
+// on the order in which CTAs run): A's rows over a warp's lanes by a
+// transpose-reduce; rowsum(G * S_in) in kCThreads / hd partials added in
+// order; dr, dk, dw of several slabs as partials that a second kernel
+// adds in order; du over the chunks in the channel's thread, then over
+// the batch (and slabs) in order by a last kernel.
+//
+// Head size 32 (the training launcher's reduced config): the serial
+// kernel.  Both recurrences are separable by entry: S_t[i,j] needs only
+// w_t[i], k_t[i], v_t[j]; G_{t-1}[i,j] only w_t[i], r_t[i], dy_t[j].  One
+// CTA of 8 x 32 threads owns a (b, head); thread (row ir = tid % 32,
+// column group c = tid / 32) holds the entries (ir, 4 c .. 4 c + 4) of S
+// and of G in registers.  S_{t-1} is re-formed forward from checkpoints,
+// as JAX's segments do: pass A writes the state at every kSeg-th step to
+// a scratch buffer (B, H, ceil(S/kSeg), hd, hd) f32; pass B walks the
+// segments in reverse, writes the state at every kSub-th step into
+// shared memory, then re-forms each sub-segment's kSub per-step states in
+// registers and runs the reverse recurrence over them (kSub 16, kSeg
+// 128).  dr, dk, dw sum each thread's columns, then the 8 column groups
+// in order in shared memory; dv is a reduce-scatter by shuffles over the
+// warp's 32 rows.
 //
 // Inputs r/k/v/w (and the outputs dr/dk/dv/dw) are addressed through
 // one set of (batch, head, step) strides and dy through its own, each
 // with a contiguous last dimension, so the model's transposed
 // (B, S, H, hd) views are read and written without copies.
 #include "common.cuh"
+#include "hopper.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 constexpr int kGroups = 8;              // column groups
 
+// the serial kernel's shape (head size 32)
 template <int HD>
 struct Cfg {
-  static constexpr int kRows = HD < 64 ? HD : 64;     // rows a CTA owns
+  static constexpr int kRows = HD;                    // rows a CTA owns
   static constexpr int kThreads = kGroups * kRows;
   static constexpr int kHalves = kRows / 32;          // warps a group
   static constexpr int kCols = HD / kGroups;          // columns a thread
   static constexpr int kSub = 64 / kCols;             // register states
-  static constexpr int kNSub = HD == 128 ? 4 : 8;     // sub-checkpoints
+  static constexpr int kNSub = 8;                     // sub-checkpoints
   static constexpr int kSeg = kSub * kNSub;           // checkpoint spacing
-  static constexpr int kSlabs = HD / kRows;
   static constexpr int kPitch = HD + 4;               // padded smem row
   // shared memory, in floats
   static constexpr int kSubck = kNSub * kRows * kPitch;
@@ -110,11 +137,13 @@ struct Args {
   const float* ds_fin;      // may be null: zero
   float* dr;
   float* dk;
-  float* dv;                // hd 64: dv itself; hd 128: per-slab partials
+  float* dv;
   float* dw;
-  float* du_part;           // (B, H, hd)
+  float* du_part;           // (B, H, slabs, hd)
   float* ds0;
-  float* ckpt;              // (B, H, n_seg, hd, hd)
+  float* ckpt;              // serial: (B, H, n_seg, hd, hd); chunked:
+                            // (B H slabs, n_chunks, hd, slab)
+  float* part;              // chunked, several slabs: (slabs, 3, B, H, S, hd)
   int n_heads, seq, n_seg;
   long long sb, sh, ss;     // r/k/v/w and dr/dk/dv/dw
   long long yb, yh, ys;     // dy
@@ -255,10 +284,9 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
   constexpr int kRows = C::kRows, kThreads = C::kThreads;
   extern __shared__ __align__(16) float smem[];
   const Smem<HD> sm(smem);
-  const int bh = blockIdx.x / C::kSlabs, slab = blockIdx.x % C::kSlabs;
-  const int b = bh / a.n_heads, h = bh % a.n_heads;
+  const int bh = blockIdx.x, b = bh / a.n_heads, h = bh % a.n_heads;
   const int tid = threadIdx.x, ir = tid % kRows, cg = tid / kRows;
-  const int i = slab * kRows + ir, j0 = cg * CPT;
+  const int i = ir, j0 = cg * CPT;
   const int lane = tid % 32, half = (tid / 32) % C::kHalves;
   const size_t in0 = static_cast<size_t>(b) * a.sb
                      + static_cast<size_t>(h) * a.sh;
@@ -341,7 +369,7 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
       for (int e = tid; e < SUB * kRows; e += kThreads) {
         const int m = e / kRows, r2 = e % kRows, t = ts + m;
         if (t >= a.seq) continue;
-        const int i2 = slab * kRows + r2;
+        const int i2 = r2;
         float s3[3];
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
@@ -357,7 +385,7 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
         a.dk[off] = fmaf(uq, sm.rs[m * HD + i2], s3[1]);
         a.dw[off] = s3[2];
       }
-      // ... and its columns: dv (at hd 128 this slab's partial)
+      // ... and its columns: dv
       for (int e = tid; e < SUB * HD; e += kThreads) {
         const int m = e / HD, j = e % HD, t = ts + m;
         if (t >= a.seq) continue;
@@ -365,13 +393,8 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
 #pragma unroll
         for (int hf = 1; hf < C::kHalves; ++hf)
           acc += sm.dvbuf[(m * C::kHalves + hf) * HD + j];
-        if (slab == 0) acc = fmaf(sm.pv[m], sm.dys[m * HD + j], acc);
-        if constexpr (C::kSlabs == 1) {
-          a.dv[in0 + static_cast<size_t>(t) * a.ss + j] = acc;
-        } else {
-          a.dv[((static_cast<size_t>(slab) * gridDim.x / C::kSlabs + bh)
-                * a.seq + t) * HD + j] = acc;
-        }
+        acc = fmaf(sm.pv[m], sm.dys[m * HD + j], acc);
+        a.dv[in0 + static_cast<size_t>(t) * a.ss + j] = acc;
       }
     }
   }
@@ -379,78 +402,572 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
   if (cg == 0) a.du_part[static_cast<size_t>(bh) * HD + i] = du;
 }
 
-// hd 128: dv = the two row slabs' partials, added in order
-__global__ void wkv6_bwd_dv_kernel(const float* __restrict__ part,
-                                   float* __restrict__ dv, int n_heads,
-                                   int seq, int hd, int slabs,
-                                   long long sb, long long sh,
-                                   long long ss) {
-  const size_t n = static_cast<size_t>(gridDim.y) * seq * hd;  // one slab
-  const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x
-                   + threadIdx.x;
-  const size_t per_bh = static_cast<size_t>(seq) * hd;
-  if (e >= per_bh) return;
-  const int bh = blockIdx.y, b = bh / n_heads, h = bh % n_heads;
-  const int t = static_cast<int>(e / hd), j = static_cast<int>(e % hd);
-  float acc = part[bh * per_bh + e];
-  for (int s = 1; s < slabs; ++s) acc += part[s * n + bh * per_bh + e];
-  dv[static_cast<size_t>(b) * sb + static_cast<size_t>(h) * sh
-     + static_cast<size_t>(t) * ss + j] = acc;
+// ---------------------------------------------------------------------------
+// Chunked kernel (head sizes 64 and 128; see the note at the top)
+
+constexpr int kL = 16;                  // steps a chunk
+constexpr int kCThreads = 512;          // 16 warps: one a step in S2
+constexpr int kCWarps = kCThreads / 32;
+
+template <int HD_, int SLAB_>
+struct CCfg {
+  static constexpr int HD = HD_, SLAB = SLAB_;
+  static constexpr int kLd = HD + 4, kLs = SLAB + 4;   // padded smem rows
+  static constexpr int kParts = kCThreads / HD;        // rowdot partials
+  // 16 x 8 tiles of the state (HD x SLAB) a warp holds side by side (S
+  // in pass 1, G's update in pass 2)
+  static constexpr int kStateTiles = HD / 16 * (SLAB / 8) / kCWarps;
+  static_assert(HD % 32 == 0 && SLAB % 8 == 0 && HD % SLAB == 0, "shape");
+  static_assert(kStateTiles * kCWarps == HD / 16 * (SLAB / 8)
+                && (SLAB / 8) % kStateTiles == 0, "tiles");
+};
+
+template <class C>
+struct CSmem {
+  struct In {
+    float rkw[3][kL][C::kLd];     // r, k, w of the chunk
+    float vd[2][kL][C::kLs];      // v, dy: the slab's columns
+    float sin[C::HD][C::kLs];     // the state before the chunk (pass 2)
+  } in[2];
+  float g[C::HD][C::kLs];         // G: gradient of the state after the chunk
+  float sdy[kL][C::kLd];          // (S_in dy_t)_i over the slab
+  float gv[kL][C::kLd];           // (G v_t)_i over the slab
+  // operands of several products, split once into 3xTF32's (big, small)
+  float2 dy2[kL][C::kLs];         // dy
+  float2 v2[kL][C::kLs];          // v (both passes)
+  float2 rp2[kL][C::kLd];         // r_t P_t
+  float2 kq2[kL][C::kLd];         // k_t Q'_t (pass 1: k_s Q_s)
+  float bm[kL][kL + 4];           // B[s][t] = v_s . dy_t over the slab
+  float bmt[kL][kL + 4];          // its transpose
+  float am[kL][kL + 1];           // A[t][s], s <= t
+  float dup[kL][C::HD];           // r_t k_t B[t][t]
+  float rdp[C::kParts][C::HD];    // partials of G_i . S_in_i
+  float tot[2][C::HD];            // the chunk's decay (pass 1: two chunks)
+  float u[C::HD];
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   repro::smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// du (H, hd) = the batch's partials (B, H, hd), added in order
+// Start the copies of chunk c into buffer ``in`` (pass 1: k, w, v; pass 2
+// also r, dy and the chunk's checkpoint).  Steps past the sequence are
+// stored directly: r = k = v = dy = 0 and w = 1, which leave S and G as
+// they are and add nothing.
+template <class C, bool kFull>
+__device__ __forceinline__ void load_chunk(const Args& a,
+                                           typename CSmem<C>::In& in, int c,
+                                           size_t in0, size_t y0, int j0,
+                                           const float* ck) {
+  constexpr int HD = C::HD, SLAB = C::SLAB;
+  for (int e = threadIdx.x; e < 3 * kL * HD / 4; e += kCThreads) {
+    const int q = e / (kL * HD / 4), m = e / (HD / 4) % kL;
+    const int col = 4 * (e % (HD / 4)), t = c * kL + m;
+    if (!kFull && q == 0) continue;
+    float* dst = &in.rkw[q][m][col];
+    const float* src = q == 0 ? a.r : q == 1 ? a.k : a.w;
+    if (t < a.seq) {
+      cp_async16(dst, src + in0 + static_cast<size_t>(t) * a.ss + col);
+    } else {
+      const float f = q == 2 ? 1.f : 0.f;
+      *reinterpret_cast<float4*>(dst) = make_float4(f, f, f, f);
+    }
+  }
+  for (int e = threadIdx.x; e < 2 * kL * SLAB / 4; e += kCThreads) {
+    const int q = e / (kL * SLAB / 4), m = e / (SLAB / 4) % kL;
+    const int col = 4 * (e % (SLAB / 4)), t = c * kL + m;
+    if (!kFull && q == 1) continue;
+    float* dst = &in.vd[q][m][col];
+    if (t < a.seq) {
+      const float* src = q == 0
+          ? a.v + in0 + static_cast<size_t>(t) * a.ss + j0 + col
+          : a.dy + y0 + static_cast<size_t>(t) * a.ys + j0 + col;
+      cp_async16(dst, src);
+    } else {
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  if constexpr (kFull) {
+    for (int e = threadIdx.x; e < HD * SLAB / 4; e += kCThreads) {
+      const int i = e / (SLAB / 4), col = 4 * (e % (SLAB / 4));
+      cp_async16(&in.sin[i][col], ck + i * SLAB + col);
+    }
+  }
+  cp_async_commit();
+}
+
+// C (16 x 8 NT) += A (16 x K) B (K x 8 NT) in 3xTF32 as NT 16 x 8 tiles
+// that share A's fragments, A(m, k) = fa(m, k), B(k, n) = fb(k, n); C
+// takes each 8-deep step rounded to nearest.
+template <int K, int NT, class FA, class FB>
+__device__ __forceinline__ void mma_tiles(float (&c)[NT][4], const FA& fa,
+                                          const FB& fb) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    repro::Frag a;
+    a.set(fa(g, k0 + t4), fa(g + 8, k0 + t4), fa(g, k0 + t4 + 4),
+          fa(g + 8, k0 + t4 + 4));
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      repro::FragB b;
+      b.set(fb(k0 + t4, 8 * nt + g), fb(k0 + t4 + 4, 8 * nt + g));
+      repro::mma_3xtf32_rn(c[nt], a, b);
+    }
+  }
+}
+
+// One CTA: columns [j0, j0 + SLAB) of S and G for one (b, h), every chunk.
+template <class C>
+__global__ void __launch_bounds__(kCThreads, 1)
+    wkv6_bwd_chunked_kernel(Args a) {
+  constexpr int HD = C::HD, SLAB = C::SLAB, kSlabs = HD / SLAB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  CSmem<C>& sm = *reinterpret_cast<CSmem<C>*>(smem_raw);
+  const int slab = blockIdx.x % kSlabs, bh = blockIdx.x / kSlabs;
+  const int b = bh / a.n_heads, h = bh % a.n_heads, j0 = slab * SLAB;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int n_ch = (a.seq + kL - 1) / kL;
+  const size_t in0 = static_cast<size_t>(b) * a.sb
+                     + static_cast<size_t>(h) * a.sh;
+  const size_t y0 = static_cast<size_t>(b) * a.yb
+                    + static_cast<size_t>(h) * a.yh;
+  // this CTA's checkpoints: (n_ch, HD, SLAB)
+  float* ck0 = a.ckpt + static_cast<size_t>(blockIdx.x) * n_ch * HD * SLAB;
+  const auto ck = [&](int c) {
+    return ck0 + static_cast<size_t>(c) * HD * SLAB;
+  };
+  const size_t state0 = static_cast<size_t>(bh) * HD * HD + j0;
+  for (int i = tid; i < HD; i += kCThreads) sm.u[i] = a.u[h * HD + i];
+
+  // pass 1: the state before every chunk, S <- tot S + (k Q)^T V.  Warp
+  // w carries kStateTiles 16 x 8 tiles of the slab of S side by side:
+  // rows i0 .. i0 + 16, columns j1 .. j1 + 8 kStateTiles (so do S4's
+  // tiles of G).
+  constexpr int kNT = C::kStateTiles, kWarpsARow = SLAB / 8 / kNT;
+  const int i0w = 16 * (warp / kWarpsARow);
+  const int j1w = 8 * kNT * (warp % kWarpsARow);
+  float st[kNT][4];
+#pragma unroll
+  for (int q = 0; q < kNT; ++q) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      st[q][e] = a.s0[state0 + (i0w + g + 8 * (e / 2)) * HD + j1w + 8 * q
+                      + 2 * t4 + e % 2];
+  }
+  // k_s Q_s and v of chunk data ``in`` split into buffer b (kq2 / rp2,
+  // v2 / dy2: pass 2's arrays), and the chunk's decay into tot[b].  The
+  // four threads of a quad take a channel's four 4-step quarters, each
+  // its suffix products, then the products of the later quarters from
+  // its neighbours.
+  const auto prep = [&](const typename CSmem<C>::In& in, int buf) {
+    float2(*kqb)[C::kLd] = buf ? sm.rp2 : sm.kq2;
+    float2(*vb)[C::kLs] = buf ? sm.dy2 : sm.v2;
+    for (int e = tid; e < 4 * HD; e += kCThreads) {   // whole warps
+      const int i = e / 4, qq = e % 4;
+      float qv = 1.f, kq[4];
+#pragma unroll
+      for (int m = 3; m >= 0; --m) {
+        kq[m] = in.rkw[1][4 * qq + m][i] * qv;
+        qv *= in.rkw[2][4 * qq + m][i];
+      }
+      float later = 1.f;
+#pragma unroll
+      for (int d = 1; d < 4; ++d) {
+        const float tq = __shfl_sync(0xffffffffu, qv,
+                                     (lane & ~3) | min(qq + d, 3));
+        if (qq + d < 4) later *= tq;
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        kqb[4 * qq + m][i] = repro::tf32_pair(kq[m] * later);
+      if (qq == 0) sm.tot[buf][i] = qv * later;
+    }
+    for (int e = tid; e < kL * SLAB; e += kCThreads)
+      vb[e / SLAB][e % SLAB] = repro::tf32_pair(in.vd[0][e / SLAB][e % SLAB]);
+  };
+  // One barrier a chunk: chunk c's product and chunk c + 1's decays in
+  // one phase, chunk c + 2 loading meanwhile.
+  load_chunk<C, false>(a, sm.in[0], 0, in0, y0, j0, nullptr);
+  cp_async_wait<0>();
+  __syncthreads();
+  prep(sm.in[0], 0);
+  if (n_ch > 1) load_chunk<C, false>(a, sm.in[1], 1, in0, y0, j0, nullptr);
+  for (int c = 0; c < n_ch; ++c) {
+#pragma unroll
+    for (int q = 0; q < kNT; ++q) {
+#pragma unroll
+      for (int e = 0; e < 4; e += 2)
+        *reinterpret_cast<float2*>(
+            ck(c) + (i0w + g + 4 * e) * SLAB + j1w + 8 * q + 2 * t4) =
+            make_float2(st[q][e], st[q][e + 1]);
+    }
+    if (c + 1 < n_ch) cp_async_wait<0>();
+    __syncthreads();
+    if (c + 2 < n_ch)
+      load_chunk<C, false>(a, sm.in[c & 1], c + 2, in0, y0, j0, nullptr);
+    const int b = c & 1;
+    const float2(*kqb)[C::kLd] = b ? sm.rp2 : sm.kq2;
+    const float2(*vb)[C::kLs] = b ? sm.dy2 : sm.v2;
+#pragma unroll
+    for (int q = 0; q < kNT; ++q) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[q][e] *= sm.tot[b][i0w + g + 8 * (e / 2)];
+    }
+    mma_tiles<kL, kNT>(st, [&](int m, int s) { return kqb[s][i0w + m]; },
+                       [&](int s, int n) { return vb[s][j1w + n]; });
+    if (c + 1 < n_ch) prep(sm.in[(c + 1) & 1], b ^ 1);
+  }
+  __syncthreads();
+
+  // pass 2: the chunks in reverse
+  for (int e = tid; e < HD * SLAB; e += kCThreads) {
+    const int i = e / SLAB, j = e % SLAB;
+    sm.g[i][j] = a.ds_fin ? a.ds_fin[state0 + i * HD + j] : 0.f;
+  }
+  float du = 0.f;                   // thread i < HD: channel i's du
+  load_chunk<C, true>(a, sm.in[0], n_ch - 1, in0, y0, j0, ck(n_ch - 1));
+  for (int c = n_ch - 1; c >= 0; --c) {
+    const int buf = (n_ch - 1 - c) & 1, t0 = c * kL;
+    typename CSmem<C>::In& in = sm.in[buf];
+    if (c > 0) {
+      load_chunk<C, true>(a, sm.in[buf ^ 1], c - 1, in0, y0, j0, ck(c - 1));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float(*r)[C::kLd] = in.rkw[0];
+    const float(*k)[C::kLd] = in.rkw[1];
+    const float(*w)[C::kLd] = in.rkw[2];
+    for (int e = tid; e < kL * SLAB; e += kCThreads) {
+      const int m = e / SLAB, j = e % SLAB;
+      sm.v2[m][j] = repro::tf32_pair(in.vd[0][m][j]);
+      sm.dy2[m][j] = repro::tf32_pair(in.vd[1][m][j]);
+    }
+    __syncthreads();
+
+    // S1: S_in dy_t, G v_t (t x HD) and B (16 x 16), products over the
+    // slab; G_i . S_in_i on the CUDA cores
+    {
+      // warps 0-7 S_in dy_t, 8-15 G v_t: HD / 64 tiles each; warps 0
+      // and 8 also a tile of B
+      constexpr int kNw = HD / 64;
+      const int i0 = (warp % 8) * 8 * kNw;
+      float acc[kNw][4] = {};
+      if (warp < 8)
+        mma_tiles<SLAB, kNw>(acc, [&](int m, int j) { return sm.dy2[m][j]; },
+                             [&](int j, int n) { return in.sin[i0 + n][j]; });
+      else
+        mma_tiles<SLAB, kNw>(acc, [&](int m, int j) { return sm.v2[m][j]; },
+                             [&](int j, int n) { return sm.g[i0 + n][j]; });
+      float(*out)[C::kLd] = warp < 8 ? sm.sdy : sm.gv;
+#pragma unroll
+      for (int nt = 0; nt < kNw; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          out[g + 8 * (e / 2)][i0 + 8 * nt + 2 * t4 + e % 2] = acc[nt][e];
+      }
+      if (warp % 8 == 0) {             // B's columns 8 (warp / 8) ..
+        const int s0 = warp;
+        float bacc[1][4] = {};
+        mma_tiles<SLAB, 1>(bacc, [&](int m, int j) { return sm.v2[m][j]; },
+                           [&](int j, int n) { return sm.dy2[s0 + n][j]; });
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int sx = g + 8 * (e / 2), tx = s0 + 2 * t4 + e % 2;
+          sm.bm[sx][tx] = bacc[0][e];
+          sm.bmt[tx][sx] = bacc[0][e];
+        }
+      }
+    }
+    {
+      const int i = tid % HD, part = tid / HD;
+      constexpr int kCols = SLAB / C::kParts;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int j = part * kCols; j < (part + 1) * kCols; ++j)
+        acc = fmaf(sm.g[i][j], in.sin[i][j], acc);
+      sm.rdp[part][i] = acc;
+    }
+    __syncthreads();
+
+    // S2: per step t and channel i, the decays inside the chunk by
+    // running products (D_ts = prod_{s<tau<t} w, E_ts = prod_{t<tau<s} w),
+    //   alpha_s = D_ts k_s (s < t),  beta_s = E_ts r_s (s > t),
+    //   gamma_x = sum_s alpha_s B[s][x];
+    //   dr = P_t (S_in dy_t) + gamma_t + u k_t B[t][t]
+    //   dk = Q'_t (G v_t) + sum_s beta_s B[t][s] + u r_t B[t][t]
+    //   dw = P_t Q'_t (G . S_in) + Q'_t sum_s alpha_s (G v_s)
+    //        + P_t sum_s beta_s (S_in dy_s) + sum_s beta_s gamma_s
+    //   A[t][s] = sum_i r_t alpha_s (s < t), A[t][t] = sum_i r_t u k_t.
+    // Warp t owns step t, lane channels lane + 32 q.
+    const int t = warp;
+    float pa[kL];                   // A's row t, summed over the channels
+#pragma unroll
+    for (int s = 0; s < kL; ++s) pa[s] = 0.f;
+#pragma unroll 1
+    for (int q = 0; q < HD / 32; ++q) {
+      const int i = lane + 32 * q;
+      float rowdot = sm.rdp[0][i];
+#pragma unroll
+      for (int pq = 1; pq < C::kParts; ++pq) rowdot += sm.rdp[pq][i];
+      const float ui = sm.u[i];
+      {
+        float alpha[kL], beta[kL], gam[kL];
+        float dd = 1.f, ee = 1.f;
+#pragma unroll
+        for (int s = kL - 1; s >= 0; --s) {
+          alpha[s] = s < t ? dd * k[s][i] : 0.f;
+          if (s < t) dd *= w[s][i];
+        }
+#pragma unroll
+        for (int s = 0; s < kL; ++s) {
+          beta[s] = s > t ? ee * r[s][i] : 0.f;
+          if (s > t) ee *= w[s][i];
+        }
+#pragma unroll
+        for (int x = 0; x < kL; ++x) gam[x] = 0.f;
+#pragma unroll
+        for (int s = 0; s < kL - 1; ++s) {
+          if (s < t) {                // warp-uniform, as below
+#pragma unroll
+            for (int x = 0; x < kL; x += 4) {
+              if (x + 3 <= t) continue;      // gamma_x is read for x > t
+              const float4 bq = *reinterpret_cast<const float4*>(&sm.bm[s][x]);
+              gam[x] = fmaf(alpha[s], bq.x, gam[x]);
+              gam[x + 1] = fmaf(alpha[s], bq.y, gam[x + 1]);
+              gam[x + 2] = fmaf(alpha[s], bq.z, gam[x + 2]);
+              gam[x + 3] = fmaf(alpha[s], bq.w, gam[x + 3]);
+            }
+          }
+        }
+        float dri = 0.f, dki = 0.f, w_a = 0.f, w_b = 0.f, w_g = 0.f;
+        const float rt = r[t][i], kt = k[t][i];
+#pragma unroll
+        for (int s = 0; s < kL; s += 4) {
+          const float4 bc = *reinterpret_cast<const float4*>(&sm.bmt[t][s]);
+          const float4 br = *reinterpret_cast<const float4*>(&sm.bm[t][s]);
+          const float bcs[4] = {bc.x, bc.y, bc.z, bc.w};
+          const float brs[4] = {br.x, br.y, br.z, br.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = s + e;
+            dri = fmaf(alpha[x], bcs[e], dri);
+            dki = fmaf(beta[x], brs[e], dki);
+            w_a = fmaf(alpha[x], sm.gv[x][i], w_a);
+            w_b = fmaf(beta[x], sm.sdy[x][i], w_b);
+            w_g = fmaf(beta[x], gam[x], w_g);
+          }
+        }
+#pragma unroll
+        for (int x = 0; x < kL; ++x)
+          pa[x] = fmaf(rt, x == t ? ui * kt : alpha[x], pa[x]);
+        const float btt = sm.bm[t][t], uq = ui * btt;
+        const float drv = fmaf(dd, sm.sdy[t][i], dri) + uq * kt;
+        const float dkv = fmaf(ee, sm.gv[t][i], dki) + uq * rt;
+        const float dwv = dd * ee * rowdot + ee * w_a + dd * w_b + w_g;
+        sm.rp2[t][i] = repro::tf32_pair(rt * dd);
+        sm.kq2[t][i] = repro::tf32_pair(kt * ee);
+        sm.dup[t][i] = rt * kt * btt;
+        if (t == kL - 1) sm.tot[0][i] = dd * w[t][i];
+        if (t0 + t < a.seq) {
+          if constexpr (kSlabs == 1) {
+            const size_t off = in0 + static_cast<size_t>(t0 + t) * a.ss + i;
+            a.dr[off] = drv;
+            a.dk[off] = dkv;
+            a.dw[off] = dwv;
+          } else {
+            const size_t n = static_cast<size_t>(gridDim.x / kSlabs) * a.seq
+                             * HD;
+            float* pp = a.part + slab * 3 * n
+                        + (static_cast<size_t>(bh) * a.seq + t0 + t) * HD + i;
+            pp[0] = drv;
+            pp[n] = dkv;
+            pp[2 * n] = dwv;
+          }
+        }
+      }
+    }
+    repro::halve<8>(pa, 16, lane);
+    repro::halve<4>(pa, 8, lane);
+    repro::halve<2>(pa, 4, lane);
+    repro::halve<1>(pa, 2, lane);
+    pa[0] += __shfl_xor_sync(0xffffffffu, pa[0], 1);
+    if (lane % 2 == 0) sm.am[t][lane / 2] = pa[0];
+    __syncthreads();
+
+    // S3: dv (16 x SLAB) = (k Q') G + A^T dy, complete within the slab;
+    // du's steps added in order
+    for (int q = warp; q < SLAB / 8; q += kCWarps) {
+      const int jt = 8 * q;
+      float acc[1][4] = {};
+      mma_tiles<HD, 1>(acc, [&](int m, int i) { return sm.kq2[m][i]; },
+                       [&](int i, int n) { return sm.g[i][jt + n]; });
+      mma_tiles<kL, 1>(acc, [&](int m, int s) { return sm.am[s][m]; },
+                       [&](int s, int n) { return sm.dy2[s][jt + n]; });
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int t = t0 + g + 4 * e;
+        if (t < a.seq)
+          *reinterpret_cast<float2*>(
+              a.dv + in0 + static_cast<size_t>(t) * a.ss + j0 + jt + 2 * t4) =
+              make_float2(acc[0][e], acc[0][e + 1]);
+      }
+    }
+    for (int i = tid; i < HD; i += kCThreads) {
+#pragma unroll
+      for (int t = 0; t < kL; ++t) du += sm.dup[t][i];
+    }
+    __syncthreads();
+
+    // S4: G <- tot G + (r P)^T dy, each element by the thread that holds
+    // it in the product
+    {
+      float acc[kNT][4];
+#pragma unroll
+      for (int q = 0; q < kNT; ++q) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0w + g + 8 * (e / 2);
+          acc[q][e] = sm.tot[0][i] * sm.g[i][j1w + 8 * q + 2 * t4 + e % 2];
+        }
+      }
+      mma_tiles<kL, kNT>(
+          acc, [&](int m, int s) { return sm.rp2[s][i0w + m]; },
+          [&](int s, int n) { return sm.dy2[s][j1w + n]; });
+#pragma unroll
+      for (int q = 0; q < kNT; ++q) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sm.g[i0w + g + 8 * (e / 2)][j1w + 8 * q + 2 * t4 + e % 2] =
+              acc[q][e];
+      }
+    }
+    __syncthreads();
+  }
+  for (int e = tid; e < HD * SLAB; e += kCThreads) {
+    const int i = e / SLAB, j = e % SLAB;
+    a.ds0[state0 + i * HD + j] = sm.g[i][j];
+  }
+  for (int i = tid; i < HD; i += kCThreads)
+    a.du_part[static_cast<size_t>(blockIdx.x) * HD + i] = du;
+}
+
+// dr, dk, dw = the slabs' partials added in order, written through r's
+// strides
+__global__ void wkv6_bwd_slab_sum_kernel(const float* __restrict__ part,
+                                         float* dr, float* dk, float* dw,
+                                         int n_heads, int seq, int hd,
+                                         int slabs, long long sb,
+                                         long long sh, long long ss) {
+  const size_t n = static_cast<size_t>(gridDim.y) * seq * hd;  // one output
+  const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x
+                   + threadIdx.x;
+  if (e >= static_cast<size_t>(seq) * hd) return;
+  const int bh = blockIdx.y, b = bh / n_heads, h = bh % n_heads;
+  const int t = static_cast<int>(e / hd), i = static_cast<int>(e % hd);
+  const size_t src = static_cast<size_t>(bh) * seq * hd + e;
+  const size_t dst = static_cast<size_t>(b) * sb + static_cast<size_t>(h) * sh
+                     + static_cast<size_t>(t) * ss + i;
+  float* outs[3] = {dr, dk, dw};
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    float acc = part[q * n + src];
+    for (int s = 1; s < slabs; ++s) acc += part[(s * 3 + q) * n + src];
+    outs[q][dst] = acc;
+  }
+}
+
+template <class C>
+int launch_chunked(Args a, int batch, cudaStream_t st) {
+  constexpr int kSlabs = C::HD / C::SLAB;
+  const size_t smem = sizeof(CSmem<C>);
+  auto kern = wkv6_bwd_chunked_kernel<C>;
+  static unsigned smem_set = 0;
+  cudaError_t err = repro::set_smem_once(kern, static_cast<int>(smem),
+                                         &smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int bh = batch * a.n_heads;
+  kern<<<bh * kSlabs, kCThreads, smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || kSlabs == 1) return static_cast<int>(err);
+  const dim3 grid((a.seq * C::HD + 255) / 256, bh);
+  wkv6_bwd_slab_sum_kernel<<<grid, 256, 0, st>>>(
+      a.part, a.dr, a.dk, a.dw, a.n_heads, a.seq, C::HD, kSlabs, a.sb, a.sh,
+      a.ss);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// du (H, hd) = the partials (B, H, slabs, hd), added in order
 __global__ void wkv6_bwd_du_kernel(const float* __restrict__ part,
                                    float* __restrict__ du, int batch,
-                                   int n_heads, int hd) {
+                                   int n_heads, int slabs, int hd) {
   const int h = blockIdx.x, i = threadIdx.x;
   float acc = 0.f;
-  for (int b = 0; b < batch; ++b)
-    acc += part[(static_cast<size_t>(b) * n_heads + h) * hd + i];
+  for (int b = 0; b < batch; ++b) {
+    for (int s = 0; s < slabs; ++s)
+      acc += part[((static_cast<size_t>(b) * n_heads + h) * slabs + s) * hd
+                  + i];
+  }
   du[h * hd + i] = acc;
 }
 
 template <int HD>
-int launch(Args a, float* du, float* dv_out, int batch, cudaStream_t st) {
+int launch_serial(Args a, int batch, cudaStream_t st) {
   using C = Cfg<HD>;
   const size_t smem = C::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      wkv6_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static unsigned smem_set = 0;
+  cudaError_t err = repro::set_smem_once(wkv6_bwd_kernel<HD>,
+                                         static_cast<int>(smem), &smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int bh = batch * a.n_heads;
-  wkv6_bwd_kernel<HD><<<bh * C::kSlabs, C::kThreads, smem, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if constexpr (C::kSlabs > 1) {
-    const dim3 grid((a.seq * HD + 255) / 256, bh);
-    wkv6_bwd_dv_kernel<<<grid, 256, 0, st>>>(a.dv, dv_out, a.n_heads, a.seq,
-                                            HD, C::kSlabs, a.sb, a.sh, a.ss);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  wkv6_bwd_du_kernel<<<a.n_heads, HD, 0, st>>>(a.du_part, du, batch,
-                                               a.n_heads, HD);
+  wkv6_bwd_kernel<HD><<<batch * a.n_heads, C::kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// The spacing of the checkpoints at head size hd (0 for a head size the
+// kernels do not take): the serial kernel's kSeg, or a chunk.  The caller
+// sizes the checkpoint scratch by it.
+extern "C" int wkv6_bwd_seg(int hd) {
+  return hd == 32 ? Cfg<32>::kSeg : hd == 64 || hd == 128 ? kL : 0;
+}
+
 // r/k/v/w (B, H, S, hd) f32 through strides (sb, sh, ss) with a
-// contiguous last dim; dy through (yb, yh, ys); u (H, hd); s0 and ds_fin
-// (B, H, hd, hd) contiguous, ds_fin may be null.  dr/dk/dv/dw are written
-// through r's strides; du (H, hd), ds0 (B, H, hd, hd).  Scratch: ckpt
-// (B, H, n_seg, hd, hd) f32 with n_seg = ceil(S / kSeg) (kSeg as
-// wkv6_bwd_seg reports it; another n_seg is refused), du_part (B, H, hd) f32, and at
-// hd 128 dv_part (2, B, H, S, hd) f32 (null at hd 32 and 64).
+// contiguous last dim, 16-byte aligned with strides that are multiples
+// of 4 at hd 64 and 128 (the wrapper checks); dy through (yb, yh, ys);
+// u (H, hd); s0 and ds_fin (B, H, hd, hd) contiguous, ds_fin may be null.
+// dr/dk/dv/dw are written through r's strides; du (H, hd), ds0 (B, H,
+// hd, hd).  slab: the columns of S a CTA owns (hd 32: 32; hd 64: 64 or
+// 32; hd 128: 32).  Scratch: ckpt of B * H * n_seg * hd * hd f32 with
+// n_seg = ceil(S / wkv6_bwd_seg(hd)) (another n_seg is refused), du_part
+// (B, H, hd / slab, hd) f32, and with more than one slab part (hd / slab,
+// 3, B, H, S, hd) f32 (else null).
 extern "C" int wkv6_bwd(const void* r, const void* k, const void* v,
                         const void* w, const void* u, const void* s0,
                         const void* dy, const void* ds_fin, void* dr,
                         void* dk, void* dv, void* dw, void* du, void* ds0,
-                        void* ckpt, void* du_part, void* dv_part, int batch,
-                        int n_heads, int seq, int hd, int n_seg, long long sb,
-                        long long sh, long long ss, long long yb,
-                        long long yh, long long ys, void* stream) {
+                        void* ckpt, void* du_part, void* part, int batch,
+                        int n_heads, int seq, int hd, int slab, int n_seg,
+                        long long sb, long long sh, long long ss,
+                        long long yb, long long yh, long long ys,
+                        void* stream) {
   if (batch <= 0 || n_heads <= 0 || seq <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int seg = wkv6_bwd_seg(hd);
+  if (seg == 0 || n_seg != (seq + seg - 1) / seg || hd % slab != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd / slab > 1 && part == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   a.r = static_cast<const float*>(r);
@@ -463,42 +980,32 @@ extern "C" int wkv6_bwd(const void* r, const void* k, const void* v,
   a.ds_fin = static_cast<const float*>(ds_fin);
   a.dr = static_cast<float*>(dr);
   a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
   a.dw = static_cast<float*>(dw);
   a.du_part = static_cast<float*>(du_part);
   a.ds0 = static_cast<float*>(ds0);
   a.ckpt = static_cast<float*>(ckpt);
+  a.part = static_cast<float*>(part);
   a.n_heads = n_heads;
   a.seq = seq;
   a.n_seg = n_seg;
   a.sb = sb; a.sh = sh; a.ss = ss;
   a.yb = yb; a.yh = yh; a.ys = ys;
   auto st = static_cast<cudaStream_t>(stream);
-  if (hd == 32) {
-    if (n_seg != (seq + Cfg<32>::kSeg - 1) / Cfg<32>::kSeg)
-      return static_cast<int>(cudaErrorInvalidValue);
-    a.dv = static_cast<float*>(dv);
-    return launch<32>(a, static_cast<float*>(du), nullptr, batch, st);
-  }
-  if (hd == 64) {
-    if (n_seg != (seq + Cfg<64>::kSeg - 1) / Cfg<64>::kSeg)
-      return static_cast<int>(cudaErrorInvalidValue);
-    a.dv = static_cast<float*>(dv);
-    return launch<64>(a, static_cast<float*>(du), nullptr, batch, st);
-  }
-  if (hd == 128) {
-    if (dv_part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    if (n_seg != (seq + Cfg<128>::kSeg - 1) / Cfg<128>::kSeg)
-      return static_cast<int>(cudaErrorInvalidValue);
-    a.dv = static_cast<float*>(dv_part);
-    return launch<128>(a, static_cast<float*>(du), static_cast<float*>(dv),
-                       batch, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// kSeg at head size hd (0 for a head size the kernel does not take): the
-// caller sizes the checkpoint scratch by it.
-extern "C" int wkv6_bwd_seg(int hd) {
-  return hd == 32 ? Cfg<32>::kSeg : hd == 64 ? Cfg<64>::kSeg
-                                  : hd == 128 ? Cfg<128>::kSeg : 0;
+  int rc;
+  if (hd == 32 && slab == 32)
+    rc = launch_serial<32>(a, batch, st);
+  else if (hd == 64 && slab == 64)
+    rc = launch_chunked<CCfg<64, 64>>(a, batch, st);
+  else if (hd == 64 && slab == 32)
+    rc = launch_chunked<CCfg<64, 32>>(a, batch, st);
+  else if (hd == 128 && slab == 32)
+    rc = launch_chunked<CCfg<128, 32>>(a, batch, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rc != 0) return rc;
+  wkv6_bwd_du_kernel<<<n_heads, hd, 0, st>>>(
+      static_cast<const float*>(du_part), static_cast<float*>(du), batch,
+      n_heads, hd / slab, hd);
+  return static_cast<int>(cudaGetLastError());
 }

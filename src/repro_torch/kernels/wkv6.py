@@ -10,7 +10,10 @@ shapes and ``stack`` alone).  ``launches`` counts the launches of both,
 The kernels are bound by bytes (see the source's note).
 
 :func:`wkv6_bwd` is the backward (``csrc/wkv6_bwd.cu``), which training
-runs through ``models.rwkv.WKV6Fn``; no TPU kernel has it.
+runs through ``models.rwkv.WKV6Fn``; no TPU kernel has it.  Head sizes
+64 and 128 take its chunked kernel (16-step chunks, the products on the
+tensor cores, :func:`bwd_slab` columns of the state a CTA), head size 32
+its serial one.
 """
 from __future__ import annotations
 
@@ -124,8 +127,20 @@ wkv6.launches = 0
 wkv6.route_launches = {"serial": 0, "chunked": 0}
 
 
-_BWD_ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
+_BWD_ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
+N_SMS = 132                 # the H100's SMs: one chunked CTA an SM
+
+
+def bwd_slab(batch: int, n_heads: int, hd: int) -> int:
+    """Columns of the state one CTA of ``wkv6_bwd`` owns: the whole head
+    at head size 32 (the serial kernel); at head size 64 two 32-column
+    slabs a head while they fit in one wave of the card's SMs, else the
+    whole head (a second wave costs more than a slab saves); head size
+    128 always 32 (4 CTAs a head)."""
+    if hd == 32 or (hd == 64 and 2 * batch * n_heads > N_SMS):
+        return hd
+    return 32
 
 
 def wkv6_bwd(r, k, v, w, u, s0, dy, ds_fin=None):
@@ -136,7 +151,8 @@ def wkv6_bwd(r, k, v, w, u, s0, dy, ds_fin=None):
     the model's transposed views stay views); dy may have strides of its
     own with a contiguous last dimension.  On CPU tensors the plain
     version (:func:`repro_torch.kernels.ref.wkv6_bwd_ref`); on CUDA
-    tensors the kernel of ``csrc/wkv6_bwd.cu`` or an error."""
+    tensors the kernels of ``csrc/wkv6_bwd.cu`` (chunked at head sizes 64
+    and 128, serial at 32) or an error."""
     _check_inputs(r, k, v, w, u, s0, dy, ds_fin)
     b, h, s, hd = r.shape
     _build.require(dy.shape == r.shape and (
@@ -150,25 +166,33 @@ def wkv6_bwd(r, k, v, w, u, s0, dy, ds_fin=None):
                    and r.stride(3) == 1 and dy.stride(3) == 1,
                    "r/k/v/w must share strides; every last dim contiguous")
     _build.check_contiguous(u=u, s0=s0, ds_fin=ds_fin)
+    if hd in CHUNKED_HEAD_DIMS:
+        _build.require(all(t.data_ptr() % 16 == 0 for t in (r, k, v, w))
+                       and all(st % 4 == 0 for st in _strides(r)[:-1]),
+                       "the chunked wkv6_bwd needs 16-byte aligned rows")
+        if dy.data_ptr() % 16 or any(st % 4 for st in _strides(dy)[:-1]):
+            dy = dy.contiguous()
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     _build.require(_strides(dr) == _strides(r),
                    "r must be dense to lay out its gradient alike")
     seg = _build.bind("wkv6_bwd", "wkv6_bwd_seg", [ctypes.c_int])(hd)
-    n_seg = -(-s // seg)      # the checkpoints, kSeg steps apart
+    n_seg = -(-s // seg)      # the checkpoints, seg steps apart
+    slab = bwd_slab(b, h, hd)
     dev = r.device
     du = torch.empty((h, hd), dtype=torch.float32, device=dev)
     ds0 = torch.empty_like(s0)
     ckpt = torch.empty((b, h, n_seg, hd, hd), dtype=torch.float32,
                        device=dev)
-    du_part = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
-    dv_part = (torch.empty((hd // 64, b, h, s, hd), dtype=torch.float32,
-                           device=dev) if hd > 64 else None)
+    du_part = torch.empty((b, h, hd // slab, hd), dtype=torch.float32,
+                          device=dev)
+    part = (torch.empty((hd // slab, 3, b, h, s, hd), dtype=torch.float32,
+                        device=dev) if slab < hd else None)
     fn = _build.bind("wkv6_bwd", "wkv6_bwd", _BWD_ARGS)
     rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), s0.data_ptr(), dy.data_ptr(), _build.ptr(ds_fin),
             dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
             du.data_ptr(), ds0.data_ptr(), ckpt.data_ptr(),
-            du_part.data_ptr(), _build.ptr(dv_part), b, h, s, hd, n_seg,
+            du_part.data_ptr(), _build.ptr(part), b, h, s, hd, slab, n_seg,
             r.stride(0), r.stride(1), r.stride(2), dy.stride(0),
             dy.stride(1), dy.stride(2), _build.stream_ptr(r))
     _build.check(rc, "wkv6_bwd")

@@ -4,11 +4,13 @@ on the CPU, and the backward kernel's products emulated in PyTorch:
 * (a) the plain ``moe_ffn_bwd_ref`` against ``jax.vjp`` of the JAX
   package's ``repro.kernels.ref.moe_ffn_ref`` (swiglu and the
   tanh-approximate gelu; ragged shapes);
-* (b) ``csrc/moe_ffn_bwd.cu``'s eight steps as its table states them
-  (each product read from its operands' stored layouts, K-major or
-  MN-major, into its output's layout, rounded once to the inputs' dtype;
-  the elementwise step in place) against the plain version, in f32 and
-  in bf16;
+* (b) ``csrc/moe_ffn_bwd.cu``'s launches as its tables state them
+  (bf16: g and u in one launch, dh with the elementwise step in its
+  epilogue, dX, then the three weight gradients; f32: eight steps; each
+  product read from its operands' stored layouts, K-major or MN-major,
+  rounded once to the inputs' dtype) against the plain version, in f32
+  and in bf16, and the bf16 launches' tile order (``tile_at``), which
+  must cover every tile of every product and expert exactly once;
 * (c) ``torch.autograd.gradcheck`` in f64 through ``MoEFFNFn``;
 * (d) the MoE layer runs ``moe_ffn`` in every phase, and ``moe_ffn_bwd``
   where a gradient is taken, decided by the device alone;
@@ -73,9 +75,11 @@ def test_moe_ffn_bwd_ref_matches_jax_vjp(e, c, d, f, activation):
 # ---------------------------------------------------------------------------
 # (b) the kernel's steps
 
-# csrc/moe_ffn_bwd.cu's table (keep the two in step): (A operands, B
-# operands, ta, tb, out, M, N, out_mn); ta: A stored (K, M), else (M, K);
-# tb: B stored (K, N), else (N, K); out_mn: out stored (M, N), else (N, M)
+# csrc/moe_ffn_bwd.cu's tables (keep them in step).  f32 (the exact
+# CUDA-core route): eight steps of (A operands, B operands, ta, tb, out,
+# M, N, out_mn); ta: A stored (K, M), else (M, K); tb: B stored (K, N),
+# else (N, K); out_mn: out stored (M, N), else (N, M); the elementwise
+# step in place between the two tables
 STEPS_BEFORE = ((("wg",), ("x",), 1, 0, "g", "f", "c", 0),
                 (("wu",), ("x",), 1, 0, "u", "f", "c", 0),
                 (("wd",), ("dy",), 0, 0, "dh", "f", "c", 0))
@@ -83,31 +87,89 @@ STEPS_AFTER = ((("wg", "wu"), ("g", "u"), 0, 0, "dbuf", "d", "c", 0),
                (("x",), ("g",), 1, 1, "dwg", "d", "f", 1),
                (("x",), ("u",), 1, 1, "dwu", "d", "f", 1),
                (("dh",), ("dy",), 1, 1, "dwd", "f", "d", 1))
+# bf16 (run_bf16): four launches of (ta, tb, mode, tile width N, products)
+# with a product (A operands, B operands, outputs, M, N), every output
+# stored (M, N).  "gated": the two B operands share the K steps; from
+# the accumulators g and u and the stored dh, dg, du and h are written in
+# place (over the workspaces g, u and dh's)
+BF16_LAUNCHES = (
+    (0, 0, "store", 256, ((("dy",), ("wd",), ("h",), "c", "f"),)),
+    (0, 1, "gated", 128, ((("x",), ("wg", "wu"), ("g", "u", "h"), "c",
+                           "f"),)),
+    (0, 0, "store", 256, ((("g", "u"), ("wg", "wu"), ("dbuf",), "c",
+                           "d"),)),
+    (1, 1, "store", 256, ((("x",), ("g",), ("dwg",), "d", "f"),
+                          (("x",), ("u",), ("dwu",), "d", "f"),
+                          (("h",), ("dy",), ("dwd",), "f", "d"))))
+BM = 128                    # a tile's rows
+
+
+def tile_at(jobs, t):
+    """``tile_at`` of the source: tile t of a launch whose products have
+    (experts, row tiles, column tiles, M, N) ``jobs`` -> (product, expert,
+    row tile, column tile); products in order, then experts, and within
+    one the row tiles fastest where M <= N (A the smaller operand), else
+    the column tiles."""
+    j = 0
+    while j + 1 < len(jobs) and t >= jobs[j][0] * jobs[j][1] * jobs[j][2]:
+        t -= jobs[j][0] * jobs[j][1] * jobs[j][2]
+        j += 1
+    _, mt, nt, m_len, n_len = jobs[j]
+    e, r = divmod(t, mt * nt)
+    m, n = (r % mt, r // mt) if m_len <= n_len else (r // nt, r % nt)
+    return j, e, m, n
+
+
+def launch_jobs(e, c, d, f):
+    """Per bf16 launch, (experts, row tiles, column tiles, M, N) per
+    product."""
+    size = dict(c=c, d=d, f=f)
+    return [[(e, -(-size[m] // BM), -(-size[n] // bn), size[m], size[n])
+             for *_, m, n in prods]
+            for _, _, _, bn, prods in BF16_LAUNCHES]
+
+
+def _product(t, a_name, b_name, ta, tb):
+    """A B per expert in f32, (E, M, N), from the stored operands."""
+    a, b = t[a_name].float(), t[b_name].float()
+    a = a.transpose(1, 2) if ta else a               # (E, M, K)
+    b = b if tb else b.transpose(1, 2)               # (E, K, N)
+    return torch.bmm(a, b)
 
 
 def moe_ffn_bwd_emulation(buf, wg, wu, wd, dy, activation):
-    """The eight steps: each product summed in f32 from the stored
-    operands and rounded once to the inputs' dtype; the elementwise step
-    in place (g -> dg, u -> du, dh -> h) in f32 from the stored values."""
+    """The launches of the inputs' dtype: each product summed in f32 from
+    the stored operands and rounded once to that dtype.  f32: the eight
+    steps, the elementwise step in place from the stored g, u, dh.  bf16:
+    the four launches, the elementwise step from g and u's f32
+    accumulators and the stored dh."""
     dt = buf.dtype
     t = dict(x=buf, wg=wg, wu=wu, wd=wd, dy=dy)
+    if dt == torch.float32:
+        def run(steps):
+            for a_names, b_names, ta, tb, out, _, _, out_mn in steps:
+                acc = sum(_product(t, an, bn, ta, tb)
+                          for an, bn in zip(a_names, b_names))
+                t[out] = (acc if out_mn else acc.transpose(1, 2)).to(dt)
 
-    def run(steps):
-        for a_names, b_names, ta, tb, out, _, _, out_mn in steps:
-            acc = 0
-            for an, bn in zip(a_names, b_names):
-                a, b = t[an].float(), t[bn].float()
-                a = a.transpose(1, 2) if ta else a           # (E, M, K)
-                b = b if tb else b.transpose(1, 2)           # (E, K, N)
-                acc = acc + torch.bmm(a, b)
-            t[out] = (acc if out_mn else acc.transpose(1, 2)).to(dt)
-
-    run(STEPS_BEFORE)
-    g, u, dh = t["g"].float(), t["u"].float(), t["dh"].float()
-    a, da = ref.ffn_act_grad(g, activation)
-    t["g"], t["u"], t["dh"] = ((dh * u * da).to(dt), (dh * a).to(dt),
-                               (a * u).to(dt))
-    run(STEPS_AFTER)
+        run(STEPS_BEFORE)
+        a, da = ref.ffn_act_grad(t["g"], activation)
+        t["g"], t["u"], t["dh"] = (t["dh"] * t["u"] * da, t["dh"] * a,
+                                   a * t["u"])
+        run(STEPS_AFTER)
+        return t["dbuf"], t["dwg"], t["dwu"], t["dwd"]
+    for ta, tb, mode, _, prods in BF16_LAUNCHES:
+        for a_names, b_names, outs, _, _ in prods:
+            if mode == "gated":
+                g, u = (_product(t, a_names[0], bn, ta, tb) for bn in b_names)
+                a, da = ref.ffn_act_grad(g, activation)
+                dh = t["h"].float()
+                t["g"], t["u"], t["h"] = ((dh * u * da).to(dt),
+                                          (dh * a).to(dt), (a * u).to(dt))
+                continue
+            acc = sum(_product(t, an, bn, ta, tb)
+                      for an, bn in zip(a_names, b_names))
+            t[outs[0]] = acc.to(dt)
     return t["dbuf"], t["dwg"], t["dwu"], t["dwd"]
 
 
@@ -127,6 +189,46 @@ def test_moe_ffn_bwd_kernel_steps_match_the_plain_version(e, c, d, f,
         else:
             err = float((g.float() - w).abs().max())
             assert err <= BF16_TOL * float(w.abs().max()), err
+
+
+@pytest.mark.parametrize("e,c,d,f", [(8, 2049, 4096, 14336),
+                                     (4, 37, 72, 104), (2, 1, 64, 64)])
+def test_bf16_tile_order_covers_every_tile_once(e, c, d, f):
+    """Mixtral-8x7B at 5t-m's shape, a ragged one (F padded to 104) and
+    one token: each launch's tiles, walked by ``tile_at``, are every
+    (product, expert, row tile, column tile) exactly once."""
+    for jobs in launch_jobs(e, c, d, f):
+        total = sum(n * mt * nt for n, mt, nt, *_ in jobs)
+        seen = [tile_at(jobs, t) for t in range(total)]
+        want = {(j, x, m, n) for j, (n_e, mt, nt, *_) in enumerate(jobs)
+                for x in range(n_e) for m in range(mt) for n in range(nt)}
+        assert len(seen) == len(want) and set(seen) == want
+
+
+def test_bf16_tile_order_keeps_a_wave_on_few_tiles_of_the_larger_operand():
+    """At 5t-m's shape the 132 tiles in flight at one time (one CTA an
+    SM) sweep the smaller operand against few tiles of the larger one:
+    dWg's wave covers all 32 row tiles of D (X, 16.8 MB an expert, stays
+    in L2) against 5 column tiles of F (dg, 59 MB an expert, read about
+    once); dWd's the other way round; dX's all 17 token tiles of dg / du
+    against 8 of Wg / Wu's 16 column tiles, though D has fewer tiles;
+    launch 1's 17 token tiles against 8 tiles of F."""
+    launches = launch_jobs(8, 2049, 4096, 14336)
+    first_wave = lambda jobs, t0: [tile_at(jobs, t)
+                                   for t in range(t0, t0 + 132)]
+    dw = launches[3]
+    wave = first_wave(dw, 0)
+    assert {m for _, _, m, _ in wave} == set(range(32))
+    assert len({n for _, _, _, n in wave}) == 5
+    dwd0 = 2 * 8 * 32 * 56                 # dWd's first tile
+    wave = first_wave(dw, dwd0)
+    assert {j for j, *_ in wave} == {2}
+    assert {n for *_, n in wave} == set(range(16))
+    assert len({m for _, _, m, _ in wave}) == 9
+    for launch in (launches[1], launches[2]):
+        wave = first_wave(launch, 0)
+        assert {m for _, _, m, _ in wave} == set(range(17))
+        assert len({n for *_, n in wave}) == 8
 
 
 # ---------------------------------------------------------------------------

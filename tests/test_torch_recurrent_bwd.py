@@ -5,11 +5,15 @@ emulated in PyTorch:
 * (a) the plain ``wkv6_bwd_ref`` against ``jax.vjp`` of the JAX
   package's ``repro.kernels.ref.wkv6_ref`` (S 1, 17, 64, 130; head sizes
   64 and 128; nonzero s0 and final-state gradient; the model's decays
-  with w == 0 and w = 1 - 1e-7 channels), and an emulation of
-  ``csrc/wkv6_bwd.cu``'s order (checkpoints every ``kSeg`` steps, a
-  segment's sub-checkpoints every ``kSub`` steps, the per-step states
-  re-formed forward, the reverse recurrence, row sums by column group in
-  order) against the plain version;
+  with w == 0 and w = 1 - 1e-7 channels); an emulation of
+  ``csrc/wkv6_bwd.cu``'s chunked kernel (head sizes 64 and 128: pass 1's
+  state before every 16-step chunk, pass 2's chunks in reverse with the
+  decays inside a chunk as running products, column slabs added in
+  order) in f64 and f32 against the plain version and ``jax.vjp``; and
+  of its serial kernel at head size 32 (checkpoints every ``kSeg``
+  steps, a segment's sub-checkpoints every ``kSub`` steps, the per-step
+  states re-formed forward, the reverse recurrence, row sums by column
+  group in order);
 * (b) the port's ``models.rglru._rglru_scan`` (the gate products, then
   ``RGLRUScanFn`` whose backward is ``rglru_gated_scan_bwd_ref`` on the
   CPU) against ``jax.vjp`` of ``repro.models.rglru._rglru_scan`` over
@@ -94,10 +98,10 @@ def test_wkv6_bwd_ref_matches_jax_vjp(s, hd):
         _close(g.numpy(), np.asarray(j))
 
 
-# csrc/wkv6_bwd.cu's Cfg by head size (keep the two in step): (kSeg,
-# kSub), the spacing of the checkpoints in device memory and of a
+# csrc/wkv6_bwd.cu's serial Cfg at head size 32 (keep the two in step):
+# (kSeg, kSub), the spacing of the checkpoints in device memory and of a
 # segment's sub-checkpoints in shared memory
-BWD_LAYOUT = {32: (128, 16), 64: (64, 8), 128: (16, 4)}
+BWD_LAYOUT = {32: (128, 16)}
 
 
 def wkv6_bwd_emulation(r, k, v, w, u, s0, dy, ds_fin):
@@ -170,16 +174,171 @@ def wkv6_bwd_emulation(r, k, v, w, u, s0, dy, ds_fin):
     return dr, dk, dv, dw, du_sum, g
 
 
-@pytest.mark.parametrize("hd,s", [(64, 1), (64, 64), (64, 65), (64, 200),
-                                  (128, 16), (128, 37), (32, 129)])
+@pytest.mark.parametrize("hd,s", [(32, 1), (32, 129), (32, 300)])
 def test_wkv6_bwd_emulation_matches_the_plain_backward(hd, s):
-    """Across checkpoint and sub-checkpoint boundaries, and a ragged last
-    segment (64 steps a segment at hd 64, 16 at hd 128, 128 at hd 32)."""
+    """The serial kernel (head size 32): across checkpoint and
+    sub-checkpoint boundaries, and a ragged last segment (128 steps a
+    segment)."""
     args = tuple(map(torch.from_numpy, _wkv6_inputs(2, 2, s, hd, seed=7)))
     got = wkv6_bwd_emulation(*args)
     want = ref.wkv6_bwd_ref(*args)
     for g, w_ in zip(got, want):
         _close(g.numpy(), w_.numpy())
+
+
+# csrc/wkv6_bwd.cu's chunked kernel (keep the two in step): steps a chunk
+CHUNK = 16
+
+
+def wkv6_bwd_chunked_emulation(r, k, v, w, u, s0, dy, ds_fin, slab):
+    """``csrc/wkv6_bwd.cu``'s chunked order over (B, H) at once, one
+    column slab of S and G at a time.  Pass 1: the state before every
+    chunk, S <- tot S + (k Q)^T V with Q_s the product of w after s in
+    the chunk.  Pass 2, the chunks in reverse: S_in dy_t, G v_t and B[s][t]
+    = v_s . dy_t over the slab; per step t and channel the running decay
+    products alpha_s = D_ts k_s (s < t), beta_s = E_ts r_s (s > t) and
+    gamma_x = sum_s alpha_s B[s][x], which give dr, dk, dw and A's row;
+    then dv = (k Q') G + A^T dy and G <- tot G + (r P)^T dy.  A ragged last
+    chunk is padded with r = k = v = dy = 0 and w = 1.  dr / dk / dw of
+    the slabs are added in order, du over the chunks, then the batch and
+    the slabs in order."""
+    b, h, s, hd = r.shape
+    n_ch, dt = -(-s // CHUNK), r.dtype
+    pad = n_ch * CHUNK - s
+    padded = lambda x, fill=0.0: torch.cat(
+        [x, torch.full((b, h, pad, hd), fill, dtype=dt)], 2)
+    rp, kp, vp, wp, dyp = (padded(r), padded(k), padded(v), padded(w, 1.0),
+                           padded(dy))
+    n_sl = hd // slab
+    parts = torch.zeros((n_sl, 3, b, h, n_ch * CHUNK, hd), dtype=dt)
+    dv = torch.zeros((b, h, n_ch * CHUNK, hd), dtype=dt)
+    du_part = torch.zeros((b, h, n_sl, hd), dtype=dt)
+    ds0 = torch.zeros_like(s0)
+    for sl in range(n_sl):
+        cols = slice(sl * slab, (sl + 1) * slab)
+        st, ckpt = s0[..., cols].clone(), []
+        for c in range(n_ch):
+            ckpt.append(st.clone())
+            steps = slice(c * CHUNK, (c + 1) * CHUNK)
+            wc, kc = wp[:, :, steps], kp[:, :, steps]
+            q, kq = torch.ones((b, h, hd), dtype=dt), torch.empty_like(kc)
+            for t in range(CHUNK - 1, -1, -1):
+                kq[:, :, t] = kc[:, :, t] * q
+                q = q * wc[:, :, t]
+            st = q[..., None] * st + torch.einsum(
+                "bhsi,bhsj->bhij", kq, vp[:, :, steps, cols])
+        g = (ds_fin[..., cols].clone() if ds_fin is not None
+             else torch.zeros((b, h, hd, slab), dtype=dt))
+        du = torch.zeros((b, h, hd), dtype=dt)
+        for c in range(n_ch - 1, -1, -1):
+            steps = slice(c * CHUNK, (c + 1) * CHUNK)
+            rc, kc, wc = rp[:, :, steps], kp[:, :, steps], wp[:, :, steps]
+            vc, dyc = vp[:, :, steps, cols], dyp[:, :, steps, cols]
+            s_in = ckpt[c]
+            sdy = torch.einsum("bhtj,bhij->bhti", dyc, s_in)
+            gv = torch.einsum("bhtj,bhij->bhti", vc, g)
+            bm = torch.einsum("bhsj,bhtj->bhst", vc, dyc)
+            rowdot = (g * s_in).sum(-1)
+            p, qp = torch.empty_like(rc), torch.empty_like(rc)
+            a_mat = torch.zeros((b, h, CHUNK, CHUNK), dtype=dt)
+            for t in range(CHUNK):
+                alpha, beta = torch.zeros_like(rc), torch.zeros_like(rc)
+                dd, ee = torch.ones_like(rowdot), torch.ones_like(rowdot)
+                for x in range(t - 1, -1, -1):
+                    alpha[:, :, x] = dd * kc[:, :, x]
+                    dd = dd * wc[:, :, x]
+                for x in range(t + 1, CHUNK):
+                    beta[:, :, x] = ee * rc[:, :, x]
+                    ee = ee * wc[:, :, x]
+                p[:, :, t], qp[:, :, t] = dd, ee
+                gam = torch.einsum("bhsi,bhsx->bhxi", alpha, bm)
+                btt = bm[:, :, t, t, None]
+                uq = u * btt
+                row = parts[sl][:, :, :, c * CHUNK + t]
+                row[0] = dd * sdy[:, :, t] + gam[:, :, t] + uq * kc[:, :, t]
+                row[1] = (ee * gv[:, :, t]
+                          + (beta * bm[:, :, t, :, None]).sum(2)
+                          + uq * rc[:, :, t])
+                row[2] = (dd * ee * rowdot + ee * (alpha * gv).sum(2)
+                          + dd * (beta * sdy).sum(2) + (beta * gam).sum(2))
+                a_mat[:, :, t] = torch.einsum("bhi,bhsi->bhs", rc[:, :, t],
+                                              alpha)
+                a_mat[:, :, t, t] = (rc[:, :, t] * u * kc[:, :, t]).sum(-1)
+                du = du + rc[:, :, t] * kc[:, :, t] * btt
+            dv[:, :, steps, cols] = (
+                torch.einsum("bhti,bhij->bhtj", kc * qp, g)
+                + torch.einsum("bhst,bhsj->bhtj", a_mat, dyc))
+            tot = p[:, :, -1] * wc[:, :, -1]
+            g = tot[..., None] * g + torch.einsum("bhti,bhtj->bhij",
+                                                  rc * p, dyc)
+        ds0[..., cols] = g
+        du_part[:, :, sl] = du
+    out = parts[0]
+    for sl in range(1, n_sl):
+        out = out + parts[sl]
+    du_sum = du_part[0, :, 0]
+    for bi in range(b):
+        for sl in range(n_sl):
+            if bi or sl:
+                du_sum = du_sum + du_part[bi, :, sl]
+    dr, dk, dw = out[:, :, :, :s]
+    return dr, dk, dv[:, :, :s], dw, du_sum, ds0
+
+
+@pytest.mark.parametrize("hd,s,b,h,ds_fin,dtype,slabs", [
+    (64, 1, 2, 2, True, "float64", (32, 64)),
+    (64, 16, 2, 2, True, "float64", (64,)),
+    (64, 17, 1, 3, False, "float64", (32, 64)),
+    (64, 50, 1, 2, True, "float32", (64,)),
+    (64, 40, 2, 1, False, "float32", (32,)),
+    (128, 33, 2, 2, True, "float64", (32,)),
+    (128, 37, 1, 2, False, "float32", (32,)),
+    (128, 20, 1, 1, True, "float64", (32,))])
+def test_wkv6_bwd_chunked_emulation_matches_plain_and_jax(hd, s, b, h,
+                                                          ds_fin, dtype,
+                                                          slabs):
+    """Head sizes 64 (whole heads and 32-column slabs) and 128 (four
+    slabs): one step, one whole chunk, a ragged last chunk (17, 20, 33,
+    37, 40, 50), no final-state gradient; the model's decays with w == 0
+    and w = 1 - 1e-7 channels.  f64 against the plain version to 1e-12
+    of each output's largest magnitude; f32 also against ``jax.vjp``."""
+    args = list(_wkv6_inputs(b, h, s, hd, seed=s + hd, dtype=dtype))
+    if not ds_fin:
+        args[7] = None
+    ts = [None if x is None else torch.from_numpy(x) for x in args]
+    want = ref.wkv6_bwd_ref(*(None if x is None else x.double() for x in ts))
+    for slab in slabs:
+        got = wkv6_bwd_chunked_emulation(*ts, slab)
+        for g, w_ in zip(got, want):
+            assert g.shape == w_.shape and g.dtype == ts[0].dtype
+            if dtype == "float64":
+                err = float((g - w_).abs().max())
+                assert err <= 1e-12 * float(w_.abs().max()), err
+            else:
+                _close(g.numpy(), w_.numpy())
+    if dtype == "float32":
+        jargs = [jnp.asarray(x) for x in args[:6]]
+        _, vjp = jax.vjp(jref.wkv6_ref, *jargs)
+        dsf = (jnp.asarray(args[7]) if ds_fin
+               else jnp.zeros_like(jnp.asarray(args[5])))
+        for g, j in zip(got, vjp((jnp.asarray(args[6]), dsf))):
+            _close(g.numpy(), np.asarray(j))
+
+
+def test_chunked_backward_slabs_follow_the_heads():
+    """Head size 64: two 32-column slabs a head while they fit in one
+    wave of the card's 132 SMs (B x H up to 66: RWKV-6-7B at B 1), the
+    whole head past that (5t-k: B 2, H 64); always 32-column slabs at
+    head size 128; the serial kernel's head size 32 whole."""
+    assert wk.bwd_slab(2, 64, 64) == 64
+    assert wk.bwd_slab(2, 40, 64) == 64
+    assert wk.bwd_slab(1, 67, 64) == 64
+    assert wk.bwd_slab(1, 66, 64) == 32
+    assert wk.bwd_slab(1, 64, 64) == 32
+    assert wk.bwd_slab(2, 8, 64) == 32
+    assert wk.bwd_slab(1, 32, 128) == 32
+    assert wk.bwd_slab(2, 64, 128) == 32
+    assert wk.bwd_slab(1, 1, 32) == 32
 
 
 def test_head_size_32_runs_the_serial_kernel():

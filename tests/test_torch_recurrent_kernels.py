@@ -449,11 +449,12 @@ def test_profile_groups_name_every_kernel_of_its_source():
            "moe_ffn_bwd": "moe_ffn_bwd kernels"}
     # two kernels a source; the flash backward's five (the row sums D,
     # then dK/dV and dQ, each on wgmma and in exact f32); the wkv6
-    # backward's three (the recurrence, the slabs' dv, the batch's du);
-    # the expert FFN backward's three (the products on wgmma and in exact
-    # f32, the elementwise step)
+    # backward's four (the chunked kernel, the serial one of head size
+    # 32, the slabs' dr / dk / dw, the batch's du); the expert FFN
+    # backward's three (the products on wgmma and in exact f32, f32's
+    # elementwise step)
     n_kernels = dict.fromkeys(own, 2) | {"flash_attention_bwd": 5,
-                                         "wkv6_bwd": 3, "moe_ffn_bwd": 3}
+                                         "wkv6_bwd": 4, "moe_ffn_bwd": 3}
     seen = dict.fromkeys(own, 0)
     for path in sorted(glob.glob(os.path.join(_build.CSRC, "*.cu"))):
         src = os.path.basename(path)[:-3]
