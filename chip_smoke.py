@@ -169,12 +169,15 @@ on its own lines with its wall seconds:
    the recurrences' backward kernels against their plain versions in f64
    (``wkv6_bwd`` at 5t-k's shape with the device time of each of its
    launches, head size 128, ragged S and one step;
-   ``rglru_gated_scan_bwd`` at 5t-r's shape in bf16 and f32, an odd S,
-   widths 100 and 102, one step; each output within ``TOL_BWD`` of its
-   largest magnitude, ``wkv6_bwd`` printing each output's err/max, the
-   main cases bitwise equal twice; ``wkv6_bwd`` at head size 64 with
-   32-column slabs and whole heads, B x H 32 to 128, timed side by
-   side: the readings behind ``bwd_slab``), the expert
+   ``rglru_gated_scan_bwd`` at 5t-r's shape in bf16 and f32, an odd
+   S, B 8 x S 4096, B 1 x S 16384, S a multiple of the chunk and one
+   step past it, partial slabs, widths 100 and 102 (the sequence
+   route), one step; each output within
+   ``TOL_BWD`` of its largest magnitude, each printing each output's
+   err/max, the main cases bitwise equal twice with the device time of
+   each launch; ``wkv6_bwd`` at head size 64 with 32-column slabs and
+   whole heads, B x H 32 to 128, timed side by side: the readings behind
+   ``bwd_slab``), the expert
    FFN's backward kernels (``moe_ffn_bwd`` at 5t-m's shape in bf16,
    twice, with the device time of each of its launches and the library
    yardstick ``moe_bwd_library``, seven ``bmm`` and a ``baddbmm``;
@@ -1132,17 +1135,13 @@ def recurrent_bwd_cases(bench, gen) -> dict:
     nonzero s0 and final-state gradient, called twice (bitwise equal);
     head size 128; S not a multiple of the checkpoint spacing; one step.
     ``rglru_gated_scan_bwd``: RecurrentGemma-2B's (5t-r: B 2, S 4096, W
-    2560), x bf16 and f32, an odd S, widths 100 and 102.  Returns the main
-    cases' numbers by wrapper name."""
+    2560) and the rest of ``rglru_bwd_cases``.  Returns the main cases'
+    numbers by wrapper name."""
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import wkv6 as wk
 
-    dev = "cuda"
-    rn = lambda *s, dt=torch.float32: torch.randn(
-        s, generator=gen, device=dev).to(dt)
     main = {}
 
     def wkv6_bwd_case(label, b, h, s, hd, ds_fin=True, twice=False):
@@ -1191,16 +1190,46 @@ def recurrent_bwd_cases(bench, gen) -> dict:
     wkv6_bwd_case("ragged b1 h4 s37 hd128", 1, 4, 37, 128)
     wkv6_bwd_case("one step b2 h4 s1 hd64", 2, 4, 1, 64)
 
-    def rglru_bwd_case(label, b, s, w, x_dt=torch.bfloat16, twice=False):
-        xa, xi = rn(b, s, w), rn(b, s, w)
-        x = rn(b, s, w, dt=x_dt)
-        b_a, b_i = rn(w) * 0.5, rn(w) * 0.5
-        uu = 0.9 + 0.099 * torch.rand((w,), generator=gen, device=dev)
-        a_param = torch.log(torch.expm1(-torch.log(uu) / 8.0))
-        a_param[:3] = 25.0
-        h0, dh = rn(b, w), rn(b, s, w)
-        h_all = rg.rglru_gated_scan(xa, xi, x, b_a, b_i, a_param, h0)
-        args = (xa, xi, x, b_a, b_i, a_param, h0, h_all, dh)
+    main.update(rglru_bwd_cases(bench, gen))
+    torch.cuda.empty_cache()
+    return main
+
+
+def _rglru_bwd_args(gen, b, s, w, x_dt) -> tuple:
+    """``rglru_gated_scan_bwd``'s inputs on the card: RecurrentGemma's
+    decays (a in [0.9, 0.999]) with three channels past softplus's
+    threshold, h_all from the forward kernel."""
+    import torch
+
+    from repro_torch.kernels import rglru_scan as rg
+    rn = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    xa, xi, x = rn(b, s, w), rn(b, s, w), rn(b, s, w).to(x_dt)
+    b_a, b_i = rn(w) * 0.5, rn(w) * 0.5
+    uu = 0.9 + 0.099 * torch.rand((w,), generator=gen, device="cuda")
+    a_param = torch.log(torch.expm1(-torch.log(uu) / 8.0))
+    a_param[:3] = 25.0
+    h0, dh = rn(b, w), rn(b, s, w)
+    h_all = rg.rglru_gated_scan(xa, xi, x, b_a, b_i, a_param, h0)
+    return (xa, xi, x, b_a, b_i, a_param, h0, h_all, dh)
+
+
+def rglru_bwd_cases(bench, gen) -> dict:
+    """``rglru_gated_scan_bwd`` against its plain version in f64: 5t-r's
+    shape (B 2, S 4096, W 2560) with x in bf16 (twice: bitwise equal, and
+    the device time of each launch) and in f32, 5t-eq-r's odd S, the
+    chained cases (B 8 x S 4096; B 1 x S 16384, the longest carry chain,
+    twice; S a multiple of the chunk and one step past it), widths whose
+    last slab is partial (100 in f32, 104) and widths the tensor maps
+    cannot take (100 in bf16, 102: the sequence route), one step (the
+    forward at 5t-r's shape is ``kernel_cases``' "5t-r train" case).
+    Returns the main case's numbers."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+
+    def case(label, b, s, w, x_dt=torch.bfloat16, twice=False):
+        args = _rglru_bwd_args(gen, b, s, w, x_dt)
         call = lambda: rg.rglru_gated_scan_bwd(*args)
         got = call()
         if twice:
@@ -1208,34 +1237,55 @@ def recurrent_bwd_cases(bench, gen) -> dict:
             torch.cuda.synchronize()
             assert all(torch.equal(x_, y) for x_, y in zip(got, again)), (
                 f"rglru_gated_scan_bwd {label}: two calls differ")
+            del again
         want = ref.rglru_gated_scan_bwd_ref(*(t.double() for t in args))
         torch.cuda.synchronize()
         names = ("dxa", "dxi", "dx", "db_a", "db_i", "da_param", "dh0")
         # dx in bf16 is held to bf16's rounding (TOL) elementwise
-        err = max(_check("rglru_gated_scan_bwd", f"{label} {n}", g, y,
-                         "bfloat16") if g.dtype == torch.bfloat16
-                  else _check_scaled("rglru_gated_scan_bwd", f"{label} {n}",
-                                     g, y)
-                  for n, g, y in zip(names, got, want))
-        # ~48 f32 operations an element (the source's note)
-        bound = _bound(_nbytes(*args, *got), 48.0 * b * s * w, "float32")
+        errs = [_check("rglru_gated_scan_bwd", f"{label} {n}", g, y,
+                       "bfloat16") if g.dtype == torch.bfloat16
+                else _check_scaled("rglru_gated_scan_bwd", f"{label} {n}",
+                                   g, y)
+                for n, g, y in zip(names, got, want)]
+        err = max(errs)
+        print(f"  rglru_gated_scan_bwd {label}: err/max of each output "
+              f"(TOL_BWD {TOL_BWD:g}; bf16 dx elementwise to TOL): "
+              + ", ".join(f"{n} {e / float(y.abs().max()):.3e}"
+                          for n, e, y in zip(names, errs, want)), flush=True)
+        del want
+        torch.cuda.empty_cache()
+        # 52 f32 operations an element on the chunked route (the source's
+        # note); each input read once, each output written once
+        bound = _bound(_nbytes(*args, *got), 52.0 * b * s * w, "float32")
+        route = rg.bwd_route(w, x_dt, *args[:3], *args[7:])
+        if route == "chunked":
+            route = f"chunked, T {rg.BWD_CHUNK[x_dt]}"
+        if twice:
+            _print_launches("rglru_gated_scan_bwd", label, call)
         res = (err, bench.ms(call), bound,
                bench.ms(lambda: ref.rglru_gated_scan_bwd_ref(*args),
                         budget_ms=1.0), None)
         _report("rglru_gated_scan_bwd", label,
                 f"x {str(x_dt).split('.')[1]}", *res,
-                path="bitwise equal twice" if twice else "")
+                path=route + (", bitwise equal twice" if twice else ""))
+        del args, got
+        torch.cuda.empty_cache()
         return res
 
-    main["rglru_gated_scan_bwd"] = rglru_bwd_case(
-        "5t-r b2 s4096 w2560", 2, 4096, 2560, twice=True)
-    rglru_bwd_case("5t-r b2 s4096 w2560 f32", 2, 4096, 2560, torch.float32)
-    rglru_bwd_case("odd b2 s257 w2560 f32 (5t-eq-r)", 2, 257, 2560,
-                   torch.float32)
-    rglru_bwd_case("b2 s40 w100", 2, 40, 100)
-    rglru_bwd_case("b1 s1001 w102 (one channel a thread)", 1, 1001, 102)
-    rglru_bwd_case("one step b2 s1 w2560", 2, 1, 2560)
-    torch.cuda.empty_cache()
+    main = {"rglru_gated_scan_bwd": case("5t-r b2 s4096 w2560", 2, 4096,
+                                         2560, twice=True)}
+    case("5t-r b2 s4096 w2560 f32", 2, 4096, 2560, torch.float32)
+    case("odd b2 s257 w2560 f32 (5t-eq-r)", 2, 257, 2560, torch.float32)
+    case("stress b8 s4096 w2560", 8, 4096, 2560)
+    case("longest chain b1 s16384 w2560", 1, 16384, 2560, twice=True)
+    case("one past T b2 s4097 w2560", 2, 4097, 2560)
+    case("T x 32 b2 s3584 w2560 f32", 2, 3584, 2560, torch.float32)
+    case("one past T b2 s3585 w2560 f32", 2, 3585, 2560, torch.float32)
+    case("partial slab b2 s300 w100 f32", 2, 300, 100, torch.float32)
+    case("partial slab b1 s1001 w104", 1, 1001, 104)
+    case("b2 s40 w100", 2, 40, 100)
+    case("b1 s1001 w102 (one channel a thread)", 1, 1001, 102)
+    case("one step b2 s1 w2560", 2, 1, 2560)
     return main
 
 
@@ -3229,6 +3279,7 @@ def ptxas_report(_build) -> None:
                       ("rglru_scan", "rglru_parallel_kernel"),
                       ("wkv6_bwd", "wkv6_bwd_kernel"),
                       ("wkv6_bwd", "wkv6_bwd_chunked_kernel"),
+                      ("rglru_scan_bwd", "rglru_bwd_chunked_kernel"),
                       ("rglru_scan_bwd", "rglru_bwd_kernel"),
                       ("moe_ffn_bwd", "moe_bwd_wgmma_kernel"),
                       ("moe_ffn_bwd", "moe_bwd_f32_kernel")):
@@ -3242,11 +3293,19 @@ def ptxas_report(_build) -> None:
         if kern == "decode_mma_kernel":
             d240 += [f"(beside {kern}<{a}> {r} regs, spills {ss}/{sl} B)"
                      for a, r, sm, ss, sl in usage if a == "256,10"]
-        if kern in ("moe_bwd_wgmma_kernel", "wkv6_bwd_chunked_kernel"):
+        if kern in ("moe_bwd_wgmma_kernel", "wkv6_bwd_chunked_kernel",
+                    "rglru_bwd_chunked_kernel"):
             # the backward kernels redesigned for the card: every
             # instantiation built, nothing spilled
             assert usage and all(ss == sl == 0
                                  for a, r, sm, ss, sl in usage), usage
+        if kern == "rglru_bwd_chunked_kernel":
+            # one chunk length a dtype of x: <88,1> (bf16) and <64,0>
+            import torch
+            from repro_torch.kernels import rglru_scan as rg
+            assert sorted(a for a, *_ in usage) == sorted(
+                f"{t},{int(dt == torch.bfloat16)}"
+                for dt, t in rg.BWD_CHUNK.items()), usage
         if kern in ("bwd_dkdv_wgmma_kernel", "bwd_dq_wgmma_kernel"):
             # the backward's bf16 route: every head dim, nothing spilled
             assert sorted(int(a) for a, *_ in usage) == [32, 64, 128, 240,

@@ -17,13 +17,17 @@ route's in ``route_launches``.  The kernels
 are bound by bytes (see the source's note).
 
 :func:`rglru_gated_scan_bwd` is the fused entry's backward
-(``csrc/rglru_scan_bwd.cu``, on the time-parallel layout at every step
-count), which training runs through ``models.rglru.RGLRUScanFn``; no TPU
-kernel has it.
+(``csrc/rglru_scan_bwd.cu``), which training runs through
+``models.rglru.RGLRUScanFn``; no TPU kernel has it.  :func:`bwd_route`
+picks its kernel from the shape: time chunks across CTAs joined by an
+ordered carry, with tiles staged by TMA (``chunked``), or, where TMA
+cannot take the rows, the time-parallel layout over a whole sequence
+(``sequence``).
 """
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 
@@ -130,7 +134,37 @@ rglru_gated_scan.launches = 0
 rglru_gated_scan.route_launches = {"serial": 0, "parallel": 0}
 
 
-_BWD_ARGS = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# csrc/rglru_scan_bwd.cu's chunked route, which the scratch is sized
+# from (keep in step): the steps of a chunk by x's dtype (kChunkSteps)
+# and the channels of a slab (kSlab, one 128-byte row of f32)
+BWD_CHUNK = types.MappingProxyType({torch.bfloat16: 88, torch.float32: 64})
+BWD_SLAB = 32
+
+
+_SYNC: dict = {}     # (device, stream) -> the chunked route's sync words
+
+
+def _sync_words(n: int, device, stream: int) -> torch.Tensor:
+    """At least ``n`` zeroed int64 words for the chunked route's ticket,
+    slab counts and carries on ``stream``: the kernel leaves them zero, so
+    one buffer a stream is zeroed once, when it is made or grown (the
+    stream orders the calls that share it)."""
+    words = _SYNC.get((device, stream))
+    if words is None or words.numel() < n:
+        words = torch.zeros(n, dtype=torch.int64, device=device)
+        _SYNC[(device, stream)] = words
+    return words
+
+
+def bwd_route(w: int, x_dtype, *tensors) -> str:
+    """"chunked" where TMA can load every (B, S, W) operand (rows of a
+    multiple of 16 bytes in f32 and in x's dtype, each tensor 16-byte
+    aligned), else "sequence"."""
+    rows = all(w * torch.finfo(dt).bits // 8 % 16 == 0
+               for dt in (torch.float32, x_dtype))
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    return "chunked" if rows and aligned else "sequence"
 
 
 def rglru_gated_scan_bwd(xa, xi, x, b_a, b_i, a_param, h0, h_all, dh):
@@ -156,13 +190,21 @@ def rglru_gated_scan_bwd(xa, xi, x, b_a, b_i, a_param, h0, h_all, dh):
     dxa, dxi, dx = (torch.empty_like(t) for t in (xa, xi, x))
     dh0 = torch.empty_like(h0)
     db_a, db_i, da_param = (torch.empty_like(p) for p in (b_a, b_i, a_param))
-    part = torch.empty((b, 3, w), dtype=torch.float32, device=xa.device)
     _, vec = _launch_shape(PARALLEL_MIN_STEPS, w, xa, xi, x, h0, h_all, dh,
                            dxa, dxi, dx, dh0)
+    chunked = bwd_route(w, x.dtype, xa, xi, x, h_all, dh) == "chunked"
+    rows, sync = b, None
     fn = _build.bind("rglru_scan_bwd", "rglru_gated_scan_bwd", _BWD_ARGS)
+    stream = _build.stream_ptr(xa)
+    if chunked:
+        rows = b * -(-s // BWD_CHUNK[x.dtype])
+        n_slabs = -(-w // BWD_SLAB)
+        sync = _sync_words(1 + n_slabs * (1 + rows * BWD_SLAB), xa.device,
+                           stream)
+    part = torch.empty((rows, 3, w), dtype=torch.float32, device=xa.device)
     rc = fn(*(t.data_ptr() for t in (*args, dxa, dxi, dx, dh0, db_a, db_i,
-                                     da_param, part)),
-            b, s, w, _build.DTYPE_CODE[x.dtype], vec, _build.stream_ptr(xa))
+                                     da_param, part)), _build.ptr(sync),
+            b, s, w, _build.DTYPE_CODE[x.dtype], vec, int(chunked), stream)
     _build.check(rc, "rglru_gated_scan_bwd")
     rglru_gated_scan_bwd.launches += 1
     return dxa, dxi, dx, db_a, db_i, da_param, dh0

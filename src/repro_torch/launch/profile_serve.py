@@ -55,7 +55,7 @@ GROUPS = (("moe_ffn_bwd kernels", r"moe_bwd_(act|wgmma|f32)_kernel"),
           ("paged_decode_attention kernel", r"paged_decode_(mma_)?kernel"),
           ("decode_attention kernel", r"decode_(mma_)?kernel"),
           ("rglru_scan kernels", r"rglru_(scan|serial|parallel)_kernel"),
-          ("rglru_scan_bwd kernels", r"rglru_bwd_(sum_)?kernel"),
+          ("rglru_scan_bwd kernels", r"rglru_bwd_(chunked_|sum_)?kernel"),
           ("wkv6_bwd kernels", r"wkv6_bwd_(chunked_|slab_sum_|du_)?kernel"),
           ("wkv6 kernels", r"wkv6_(chunked_)?kernel"),
           ("flash_attention kernel", r"flash_fwd_(wgmma_)?kernel"),

@@ -18,10 +18,12 @@ emulated in PyTorch:
   ``RGLRUScanFn`` whose backward is ``rglru_gated_scan_bwd_ref`` on the
   CPU) against ``jax.vjp`` of ``repro.models.rglru._rglru_scan`` over
   every parameter, x and h0 (S 1, 16, 17, 300; x f32 and bf16), the
-  plain backward against the port's autograd of the plain forward, and
-  the reverse time-parallel scan of ``csrc/rglru_scan_bwd.cu``
-  (segments of ``LAYOUT``, tiles from the last) against the plain
-  reverse scan;
+  plain backward against the port's autograd of the plain forward, the
+  reverse time-parallel scan of ``csrc/rglru_scan_bwd.cu``'s sequence
+  route (segments of ``LAYOUT``, tiles from the last) against the plain
+  reverse scan, and its chunked route (runs of a chunk, the ordered
+  carry between chunks, the partial sums) against the plain reverse
+  scan and the plain backward, its route by shape and its scratch;
 * (c) ``torch.autograd.gradcheck`` in f64 through ``WKV6Fn`` and
   ``RGLRUScanFn``;
 * (d) the MoE layer under a gradient (``MoEFFNFn``, whose backward is
@@ -35,6 +37,9 @@ emulated in PyTorch:
 Tolerances as ROADMAP section 3 states them: gradients f32 atol 1e-5
 plus rtol 5e-5, the atol times the gradient's largest magnitude where
 that passes 1 (bf16 x: its rounding, 1e-2 on dx)."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -496,6 +501,264 @@ def test_reverse_rglru_scan_emulation_matches_the_plain_reverse_scan(b, s,
         want[:, t] = carry
     got = rglru_reverse_scan_emulation(a, dh)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# csrc/rglru_scan_bwd.cu's chunked route (keep in step): kCWarps, the runs
+# of T / kCWarps steps a chunk of T (``rg.BWD_CHUNK``) is cut into
+RGLRU_CHUNK_WARPS = 8
+
+
+def rglru_chunked_reverse_scan(a, dh, chunk):
+    """``csrc/rglru_scan_bwd.cu``'s chunked reverse scan dH_t = dh_t +
+    a_{t+1} dH_{t+1}: chunks of ``chunk`` steps, the latest first; in a
+    chunk, run w (``RGLRU_CHUNK_WARPS`` runs) composed from its last live
+    step down into (prod A, dH from 0) with A = a_{t+1} (1 past the end);
+    the runs composed from the latest into the chunk's aggregate; the
+    carry into a chunk the inclusive carry the chunk after it published
+    (its aggregate applied to its own carry); each run's carry the runs
+    after it composed onto the chunk's, then the run re-walked.  Returns
+    dH (B, S, W)."""
+    b, s, w = a.shape
+    run_len = chunk // RGLRU_CHUNK_WARPS
+    one, zero = torch.ones((b, w), dtype=a.dtype), torch.zeros(
+        (b, w), dtype=a.dtype)
+    decay = lambda t: a[:, t] if t < s else one
+    out, carry = torch.empty_like(dh), zero
+    for t0 in range(chunk * ((s - 1) // chunk), -1, -chunk):
+        bounds = [(lo, min(lo + run_len, s - t0))
+                  for lo in range(0, chunk, run_len)]
+        runs = []
+        for lo, top in bounds:
+            big_a, big_h = one, zero
+            for j in range(top - 1, lo - 1, -1):
+                big_h = decay(t0 + j + 1) * big_h + dh[:, t0 + j]
+                big_a = big_a * decay(t0 + j + 1)
+            runs.append((big_a, big_h))
+        agg_a, agg_h = one, zero
+        for big_a, big_h in reversed(runs):
+            agg_h = big_a * agg_h + big_h
+            agg_a = agg_a * big_a
+        for wi, (lo, top) in enumerate(bounds):
+            x = carry
+            for big_a, big_h in reversed(runs[wi + 1:]):
+                x = big_a * x + big_h
+            for j in range(top - 1, lo - 1, -1):
+                x = decay(t0 + j + 1) * x + dh[:, t0 + j]
+                out[:, t0 + j] = x
+        carry = agg_a * carry + agg_h
+    return out
+
+
+def rglru_bwd_chunked_emulation(xa, xi, x, b_a, b_i, a_param, h0, h_all,
+                                dh, chunk):
+    """The chunked route's outputs in its order: the tiles as TMA stages
+    them (rows past S zero; h_all from step max(t0 - 1, 0), step t
+    reading h_{t-1} at row t - 1 - that), the reverse scan above, each
+    step's gradients as the source forms them, the sums each run's steps
+    from its last, then the runs in order into a (sequence, chunk)
+    partial; the partials (sequence major) added by the slab's last CTA,
+    warp k the rows k, k + 8, ..., then the warps in order."""
+    b, s, w = xa.shape
+    n_chunks = -(-s // chunk)
+    pad = lambda t: torch.cat([t, torch.zeros(
+        (b, n_chunks * chunk + 1 - s, w), dtype=t.dtype)], 1)
+    xa_p, xi_p, x_p, h_p, dh_p = map(pad, (xa, xi, x.to(xa.dtype), h_all,
+                                           dh))
+    c = -8.0 * torch.nn.functional.softplus(a_param)
+    r_all = torch.sigmoid(xa_p + b_a)
+    a_all = torch.exp(c * r_all)
+    d_h = rglru_chunked_reverse_scan(a_all[:, :s], dh, chunk)
+    run_len = chunk // RGLRU_CHUNK_WARPS
+    dxa, dxi, dx = (torch.empty_like(xa) for _ in range(3))
+    dh0, parts = torch.empty_like(h0), []
+    for bi_ in range(b):
+        for t0 in range(0, n_chunks * chunk, chunk):
+            h_row0 = max(t0 - 1, 0)
+            h_tile = h_p[bi_, h_row0:h_row0 + chunk]
+            sums = []
+            for lo in range(0, chunk, run_len):
+                acc = [torch.zeros(w, dtype=xa.dtype) for _ in range(3)]
+                for j in range(min(lo + run_len, s - t0) - 1, lo - 1, -1):
+                    t = t0 + j
+                    xv, X = x_p[bi_, t], d_h[bi_, t]
+                    r = r_all[bi_, t]
+                    i = torch.sigmoid(xi_p[bi_, t] + b_i)
+                    log_a = c * r
+                    a = torch.exp(log_a)
+                    m = -torch.expm1(2.0 * log_a)
+                    e2 = 1.0 - m
+                    sq = torch.sqrt(torch.clamp(m, 1e-6, 1.0))
+                    hp = h_tile[t - 1 - h_row0] if t > 0 else h0[bi_]
+                    gx = X * sq * i
+                    gxi = gx * xv * (1.0 - i)
+                    dm = torch.where((m >= 1e-6) & (m <= 1.0),
+                                     X * i * xv / (2.0 * sq),
+                                     torch.zeros_like(m))
+                    dlog = X * hp * a - 2.0 * e2 * dm
+                    gxa = dlog * c * r * (1.0 - r)
+                    acc = [acc[0] + gxa, acc[1] + gxi, acc[2] + dlog * r]
+                    dxa[bi_, t], dxi[bi_, t], dx[bi_, t] = gxa, gxi, gx
+                    if t == 0:
+                        dh0[bi_] = a * X
+                sums.append(acc)
+            part = sums[0]
+            for run in sums[1:]:
+                part = [part[k] + run[k] for k in range(3)]
+            parts.append(part)
+    by_warp = []          # warp k adds the rows k, k + 8, ...
+    for k in range(RGLRU_CHUNK_WARPS):
+        acc = [torch.zeros(w, dtype=xa.dtype) for _ in range(3)]
+        for part in parts[k::RGLRU_CHUNK_WARPS]:
+            acc = [acc[q] + part[q] for q in range(3)]
+        by_warp.append(acc)
+    total = by_warp[0]
+    for acc in by_warp[1:]:
+        total = [total[q] + acc[q] for q in range(3)]
+    da_param = total[2] * -8.0 * torch.sigmoid(a_param)
+    return dxa, dxi, dx.to(x.dtype), total[0], total[1], da_param, dh0
+
+
+def _rglru_bwd_inputs(b, s, w, seed, dtype=torch.float32):
+    """RecurrentGemma's decays (a in [0.9, 0.999]) with two channels past
+    softplus's threshold, whose decays and products underflow."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape)).to(dtype)
+    xa, xi, x, dh = f(b, s, w), f(b, s, w), f(b, s, w), f(b, s, w)
+    b_a, b_i, h0 = f(w) * 0.5, f(w) * 0.5, f(b, w)
+    u = rng.uniform(0.9, 0.999, w)
+    a_param = torch.from_numpy(np.log(np.expm1(-np.log(u) / 8.0))).to(dtype)
+    a_param[:2] = 25.0
+    h_all = ref.rglru_gated_scan_ref(xa, xi, x, b_a, b_i, a_param, h0)
+    return xa, xi, x, b_a, b_i, a_param, h0, h_all, dh
+
+
+# (chunk, S, W): one step, a chunk less one, one chunk, one past it,
+# several chunks with a ragged last one and a width that is no multiple
+# of the 32-channel slab, whole chunks only
+RGLRU_CHUNK_CASES = [(t, s, w) for t in sorted(set(rg.BWD_CHUNK.values()))
+                     for s, w in ((1, 36), (t - 1, 36), (t, 64), (t + 1, 100),
+                                  (3 * t + 5, 40), (4 * t, 32))]
+
+
+@pytest.mark.parametrize("chunk,s,w", RGLRU_CHUNK_CASES)
+def test_rglru_chunked_reverse_scan_matches_the_plain_reverse_scan(chunk,
+                                                                   s, w):
+    """RecurrentGemma's decays with two channels whose products
+    underflow; f32 to 1e-5."""
+    rng = np.random.default_rng(s + w)
+    a = rng.uniform(0.9, 0.999, (2, s, w)).astype(np.float32)
+    a[..., :2] = np.float32(1e-30)
+    dh = rng.standard_normal((2, s, w)).astype(np.float32)
+    a, dh = torch.from_numpy(a), torch.from_numpy(dh)
+    want, carry = torch.empty_like(dh), torch.zeros((2, w))
+    for t in range(s - 1, -1, -1):
+        carry = dh[:, t] + (a[:, t + 1] * carry if t + 1 < s else 0)
+        want[:, t] = carry
+    got = rglru_chunked_reverse_scan(a, dh, chunk)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# (chunk, S, W) at the lengths the kernel builds: one step, one past a
+# chunk (a ragged last one of a step), several chunks with a ragged last
+# one at a width that is no multiple of the slab
+RGLRU_BWD_CHUNK_CASES = [(t, s, w) for t in sorted(set(rg.BWD_CHUNK.values()))
+                         for s, w in ((1, 36), (t + 1, 40), (2 * t + 5, 36))]
+
+
+@pytest.mark.parametrize("chunk,s,w", RGLRU_BWD_CHUNK_CASES)
+def test_rglru_bwd_chunked_emulation_matches_the_plain_backward(chunk, s, w):
+    """Every output of the chunked route's order against the plain
+    backward, in f64 to 1e-12 of each output's largest magnitude and in
+    f32 within ``GRAD_TOL``."""
+    for dtype in (torch.float64, torch.float32):
+        args = _rglru_bwd_inputs(2, s, w, seed=s, dtype=dtype)
+        got = rglru_bwd_chunked_emulation(*args, chunk)
+        want = ref.rglru_gated_scan_bwd_ref(*args)
+        for g, y in zip(got, want):
+            if dtype == torch.float64:
+                scale = max(1.0, float(y.abs().max()))
+                torch.testing.assert_close(g, y, rtol=0, atol=1e-12 * scale)
+            else:
+                _close(g.numpy(), y.numpy())
+
+
+def test_rglru_bwd_route_is_chosen_by_shape():
+    """The chunked route where TMA takes every row (16-byte rows in f32
+    and in x's dtype, 16-byte aligned tensors), else the sequence route."""
+    z = torch.zeros(64)
+    assert rg.bwd_route(2560, torch.bfloat16, z) == "chunked"
+    assert rg.bwd_route(100, torch.float32, z) == "chunked"
+    assert rg.bwd_route(100, torch.bfloat16, z) == "sequence"
+    assert rg.bwd_route(102, torch.float32, z) == "sequence"
+    assert rg.bwd_route(2560, torch.float32, z, z[1:]) == "sequence"
+
+
+def test_rglru_bwd_chunk_lengths_follow_the_source():
+    """The wrapper sizes the scratch from ``BWD_CHUNK``, which must name
+    the source's kChunkSteps for each x dtype, each a whole number of
+    runs; it is no setting."""
+    src = (Path(rg.__file__).resolve().parents[1] / "csrc"
+           / "rglru_scan_bwd.cu").read_text()
+    bf16, f32 = map(int, re.search(
+        r"constexpr int kChunkSteps = kBF16 \? (\d+) : (\d+);", src).groups())
+    assert dict(rg.BWD_CHUNK) == {torch.bfloat16: bf16, torch.float32: f32}
+    assert all(t % RGLRU_CHUNK_WARPS == 0 for t in rg.BWD_CHUNK.values())
+    with pytest.raises(TypeError):
+        rg.BWD_CHUNK[torch.float32] = 0
+
+
+@pytest.mark.parametrize("x_dtype,w,s", [(torch.bfloat16, 64, 300),
+                                         (torch.float32, 100, 113),
+                                         (torch.bfloat16, 102, 40)])
+def test_rglru_bwd_wrapper_sizes_its_scratch(monkeypatch, x_dtype, w, s):
+    """What the wrapper hands the C entry on each route: the route flag
+    (1 chunked, 0 sequence), partial rows B ceil(S / chunk) with the
+    chunk ``BWD_CHUNK`` names for x's dtype (B on the sequence route)
+    and, on the chunked route, zeroed words for the ticket, a count a
+    slab and a (value, flag) word a channel of every slab and chunk, one
+    buffer a stream."""
+    seen = {}
+
+    def entry(*a):
+        seen["args"] = a
+        return 0
+    monkeypatch.setattr(_build, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(_build, "bind", lambda src, fn, args: entry)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    made = []
+    real_empty, real_zeros = torch.empty, torch.zeros
+
+    def spy(real):
+        def make(*a, **k):
+            t = real(*a, **k)
+            made.append(t)
+            return t
+        return make
+    monkeypatch.setattr(torch, "empty", spy(real_empty))
+    monkeypatch.setattr(torch, "zeros", spy(real_zeros))
+    z = real_zeros((2, s, w))
+    rg.rglru_gated_scan_bwd(z, z, z.to(x_dtype), *[real_zeros(w)] * 3,
+                            real_zeros((2, w)), z, z)
+    a = seen["args"]
+    part_ptr, sync_ptr, chunked = a[16], a[17], a[23]
+    by_ptr = {t.data_ptr(): t for t in made}
+    route = rg.bwd_route(w, x_dtype, z)
+    assert chunked == (1 if route == "chunked" else 0)
+    chunk = rg.BWD_CHUNK[x_dtype] if chunked else 0
+    rows = 2 * -(-s // chunk) if chunk else 2
+    assert by_ptr[part_ptr].shape == (rows, 3, w)
+    if chunk:
+        sync = rg._SYNC[(z.device, 0)]
+        assert sync.data_ptr() == sync_ptr
+        assert sync.dtype == torch.int64 and not sync.any()
+        n_slabs = -(-w // rg.BWD_SLAB)
+        assert sync.numel() >= 1 + n_slabs * (1 + rows * rg.BWD_SLAB)
+        rg.rglru_gated_scan_bwd(z, z, z.to(x_dtype), *[real_zeros(w)] * 3,
+                                real_zeros((2, w)), z, z)
+        assert seen["args"][17] == sync_ptr       # the same buffer again
+    else:
+        assert sync_ptr is None
 
 
 # ---------------------------------------------------------------------------

@@ -452,9 +452,11 @@ def test_profile_groups_name_every_kernel_of_its_source():
     # backward's four (the chunked kernel, the serial one of head size
     # 32, the slabs' dr / dk / dw, the batch's du); the expert FFN
     # backward's three (the products on wgmma and in exact f32, f32's
-    # elementwise step)
+    # elementwise step); the RG-LRU backward's three (the chunked route,
+    # the sequence route, the partials' sum)
     n_kernels = dict.fromkeys(own, 2) | {"flash_attention_bwd": 5,
-                                         "wkv6_bwd": 4, "moe_ffn_bwd": 3}
+                                         "wkv6_bwd": 4, "moe_ffn_bwd": 3,
+                                         "rglru_scan_bwd": 3}
     seen = dict.fromkeys(own, 0)
     for path in sorted(glob.glob(os.path.join(_build.CSRC, "*.cu"))):
         src = os.path.basename(path)[:-3]
