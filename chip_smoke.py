@@ -190,7 +190,27 @@ on its own lines with its wall seconds:
    cross attention, head dim 32, partial tiles at S 100, Sq != Skv), the
    library yardstick being the backward of
    ``scaled_dot_product_attention``;
-6. the kernels as one JSON object; 7. the device as one JSON object.
+6. (a) the four ``examples/torch_*.py`` in this process on the card at
+   their defaults, through their ``main``: each one's printed lines, wall
+   and launches (the quickstart must launch ``flash_attention`` and
+   ``decode_attention`` and print its ``lossless ... [OK]`` line, the
+   serving example ``flash_attention``, ``paged_decode_attention`` and
+   ``moe_ffn`` and ``fused compiles=1``, the training example
+   ``flash_attention`` and ``flash_attention_bwd`` over 200 steps and
+   ``training OK``, the planner demo nothing), no kernel's plain
+   version; (b) the MoE layer's mesh modes at Mixtral-8x7B's widths (E
+   8, D 4096, F 14336, top-2), each rank a process of a gloo group on
+   this card: ``ep`` on a (1, 2) mesh at B 1 x S 512 and ``tp`` on (1,
+   7) in f32 and bf16, ``ep_psum`` on (1, 2) at B 4 x S 1 in f32, each
+   against the single-process layer on the same weights (f32 within
+   ``TOL_MESH`` of the output's largest magnitude, bf16 to ``TOL``),
+   each rank launching ``moe_ffn`` in ``ep`` and ``tp``; (c) prefill
+   (``ep``) and 8 greedy ``decode_step``s (``ep_psum``) of Mixtral-8x7B's
+   widths at 2 layers, f32, dropless, on the (1, 2) mesh, each rank
+   holding its ``shard_moe_layers`` shards: logits within
+   ``TOL_MESH_LOGITS`` of their largest magnitude and greedy tokens equal
+   to the single process's, the walls printed beside each other;
+7. the kernels as one JSON object; 8. the device as one JSON object.
 
 The families' cases of phase 2: flash at head dim 240 (Gemma-3-12B's 16
 / 8 heads: 256-wide tiles, zero columns past 240) causal at s512 in bf16
@@ -1043,6 +1063,22 @@ def kernel_cases(bench) -> dict:
     wkv6_case("model decay prefill hd128 b1 h32 s512", 1, 32, 512, 128,
               False, "model")
     wkv6_case("model decay decode b4 h64 s1", 4, 64, 1, 64, False, "model")
+    # the examples' reduced configs (phase 6a), f32: the quickstart's
+    # prefill (B 4, S 16) and its target's and draft's verify / decode
+    # over 128-slot caches at head dim 32; the serving example's draft
+    # prefill at head dim 16 (a prompt of up to 24 tokens, window 64) and
+    # its target's paged verify (B 2, m 4) at head dim 32
+    f32 = torch.float32
+    flash_case("quickstart prefill b4 s16 d32 (6a)", 4, 4, 2, 16, 32, True,
+               None, f32, model_layout=True)
+    flash_case("serve example draft prefill s24 d16 w64 (6a)", 1, 4, 2, 24,
+               16, True, 64, f32, model_layout=True)
+    decode_case("quickstart verify b4 m5 s128 d32 (6a)", 4, 4, 2, 5, 128, 32,
+                [21, 30, 42, 77], f32, model_layout=True)
+    decode_case("quickstart draft b4 hq2 hkv1 m1 s128 d32 (6a)", 4, 2, 1, 1,
+                128, 32, [17, 26, 39, 71], f32, model_layout=True)
+    paged_case("serve example verify b2 m4 d32 (6a)", 2, 4, 2, 4, 16, 32,
+               [28, 41], f32, capacity=64, model_layout=True)
     torch.cuda.empty_cache()
     main.update(recurrent_bwd_cases(bench, gen))
     wkv6_bwd_slab_readings(bench, gen)
@@ -2742,8 +2778,9 @@ LAUNCHER_ARCHS = (None, "mixtral-8x7b", "recurrentgemma-2b", "rwkv6-7b")
 class _PlainAttentionCounter:
     """Counts calls of the plain versions while it is entered: the
     model's ``attention_direct`` / ``attention_chunked``, the flash plain
-    versions and those of ``wkv6``, the RG-LRU and ``moe_ffn`` (forward
-    and backward): the training runs on the card must make none."""
+    versions, the verify kernels' and those of ``wkv6``, the RG-LRU and
+    ``moe_ffn`` (forward and backward): the training runs on the card
+    must make none."""
 
     def __enter__(self):
         from repro_torch.kernels import ref
@@ -2759,7 +2796,9 @@ class _PlainAttentionCounter:
                           (ref, "rglru_scan_ref"),
                           (ref, "rglru_gated_scan_ref"),
                           (ref, "rglru_gated_scan_bwd_ref"),
-                          (ref, "moe_ffn_ref"), (ref, "moe_ffn_bwd_ref")):
+                          (ref, "moe_ffn_ref"), (ref, "moe_ffn_bwd_ref"),
+                          (ref, "decode_attention_ref"),
+                          (ref, "paged_decode_attention_ref")):
             fn = getattr(mod, name)
             self.saved.append((mod, name, fn))
 
@@ -3254,6 +3293,322 @@ def eq_readings(seeds=(1, 2, 3, 4)) -> None:
         _free()
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the examples, and the MoE layer's mesh modes
+
+# 6a: each example at its defaults: (script under examples/, the kernels
+# it must launch, a line it must print)
+EXAMPLES = (
+    ("torch_quickstart", ("flash_attention", "decode_attention"),
+     "lossless: speculative output == target greedy decoding  [OK]"),
+    ("torch_serve_spec_offload",
+     ("flash_attention", "paged_decode_attention", "moe_ffn"),
+     "fused compiles=1"),
+    ("torch_train_small", ("flash_attention", "flash_attention_bwd"),
+     "training OK: loss fell >2x"),
+    ("torch_planner_demo", (), "give it to the draft model instead."))
+# 6b: Mixtral-8x7B's expert layer (E, D, F, top-k, activation); each
+# mode's mesh, B, S and dtypes.  tp on 7 ranks: 8 experts do not split
+# over 7, F 14336 = 7 x 2048 does
+MESH_MOE = (8, 4096, 14336, 2, "swiglu")
+MESH_CASES = {(1, 2): (("ep", 1, 512, ("float32", "bfloat16")),
+                       ("ep_psum", 4, 1, ("float32",))),
+              (1, 7): (("tp", 1, 512, ("float32", "bfloat16")),)}
+TOL_MESH = 1e-5            # f32: of the output's largest magnitude
+# 6c: Mixtral-8x7B's widths at 2 layers, f32, dropless (at a finite
+# capacity ep's per-rank capacity drops other tokens than one process's);
+# B 2 prompts, then greedy decode steps
+MESH_DECODE = (2, 2, 256, 8)          # layers, B, prompt, steps
+TOL_MESH_LOGITS = 1e-4     # of the logits' largest magnitude
+MESH_JOIN_S = 300          # a hung group fails within this
+
+
+def _load_example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase() -> dict:
+    """6a: each example's ``main`` in this process on the card, its
+    printed lines, wall and launches.  No kernel's plain version may run;
+    the model's plain attention only where the JAX package's model runs
+    it too (the serving example's sliding-window draft rings)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    runs = {}
+    for name, must, line in EXAMPLES:
+        mod = _load_example(name)
+        text = io.StringIO()
+        _free()
+        reset_launches()
+        t0 = time.perf_counter()
+        with _PlainAttentionCounter() as plain, \
+                contextlib.redirect_stdout(text):
+            mod.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        for row in text.getvalue().splitlines():
+            print(f"  [6a {name}] | {row}")
+        ring = plain.calls.pop("attention_direct", 0)
+        print(f"  [6a {name}] wall {wall:.2f}s, launches: "
+              + (", ".join(f"{k} {v}" for k, v in counts.items()) or "none")
+              + (f"; the draft rings' plain attention: {ring} calls"
+                 if ring else ""), flush=True)
+        assert line in text.getvalue(), f"{name} did not print {line!r}"
+        for k in must:
+            assert counts.get(k, 0) > 0, f"{name} never launched {k}"
+        if not must:
+            assert not counts, f"{name} launched {counts}"
+        assert not plain.calls, f"{name}: plain versions ran: {plain.calls}"
+        assert not ring or name == "torch_serve_spec_offload", name
+        runs[name] = counts
+    return runs
+
+
+def _mesh_rank(rank, world, shape, store, out_dir, job, args):
+    """One rank of a gloo group on the card (NCCL refuses two ranks on
+    one device): its mesh, then ``job(mesh, *args)``, pickled."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_JOIN_S))
+    try:
+        res = job(make_mesh(shape, device_type="cuda"), *args)
+        with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_mesh(shape, job, *args) -> list:
+    """``job`` on every rank of a ``shape`` mesh, all on this card; the
+    ranks' results in rank order.  A rank that raises stops the others;
+    a group that hangs is killed after ``MESH_JOIN_S``."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+    world = int(np.prod(shape))
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            _mesh_rank, args=(world, shape, os.path.join(tmp, "store"), tmp,
+                              job, args),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_JOIN_S
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                    p.join()
+                raise AssertionError(f"mesh {shape}: the ranks did not "
+                                     f"finish in {MESH_JOIN_S} s")
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def _moe_inputs(b, s, dname):
+    """Mixtral-8x7B's expert layer and x (B, S, D), drawn from seed 0 an
+    expert at a time, the same in every process."""
+    import torch
+    e, d, f, _, _ = MESH_MOE
+    dt = getattr(torch, dname)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    p = {"router": rn(d, e) * d ** -0.5}
+    for name, (rows, cols) in (("w_gate", (d, f)), ("w_up", (d, f)),
+                               ("w_down", (f, d))):
+        p[name] = torch.empty((e, rows, cols), dtype=dt, device="cuda")
+        for i in range(e):
+            p[name][i] = (rn(rows, cols) * rows ** -0.5).to(dt)
+    return p, rn(b, s, d).to(dt)
+
+
+def _mesh_moe(params, x, mesh):
+    """The MoE layer, dropless; (output on the host, moe_ffn launches,
+    seconds)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import moe
+    e, _, _, k, act = MESH_MOE
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    y = moe.apply_moe(params, x, n_experts=e, top_k=k, activation=act,
+                      mesh=mesh, capacity_factor=float("inf"))
+    torch.cuda.synchronize()
+    return (y.float().cpu().numpy(), launch_counts()["moe_ffn"],
+            time.perf_counter() - t0)
+
+
+def _mesh_moe_job(mesh, cases):
+    """Each case's layer on this rank's ``shard_moe_params`` shard."""
+    import torch
+
+    from repro_torch.models import moe
+    out = {}
+    for mode, b, s, dname in cases:
+        params, x = _moe_inputs(b, s, dname)
+        assert moe.select_moe_mode(MESH_MOE[0], s, mesh) == mode, mode
+        shard = moe.shard_moe_params(params, mesh)
+        del params
+        torch.cuda.empty_cache()
+        out[mode, dname] = _mesh_moe(shard, x, mesh)
+    return out
+
+
+def _mesh_decode(mesh=None) -> dict:
+    """6c: prefill and greedy decode of Mixtral-8x7B's widths at
+    ``MESH_DECODE``; on a mesh each rank holds its ``shard_moe_layers``
+    shards.  Logits and tokens on the host, walls, launches."""
+    import torch
+
+    from repro_torch.configs import MIXTRAL_8X7B
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.params import init_params
+
+    layers, b, prompt, steps = MESH_DECODE
+    cfg = dataclasses.replace(MIXTRAL_8X7B, n_layers=layers,
+                              dtype="float32", moe_dropless=True)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    if mesh is not None:
+        params = moe.shard_moe_layers(params, cfg, mesh)
+        torch.cuda.empty_cache()
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    cache = init_cache(cfg, b, prompt + steps + 1, "cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    lg, cache = M.prefill(params, cfg, tokens, cache, mesh)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = {k: v for k, v in launch_counts().items() if v}
+    reset_launches()
+    logits, toks, step_s = [lg], [], []
+    for _ in range(steps):
+        tok = torch.argmax(lg, -1)
+        toks.append(tok)
+        t0 = time.perf_counter()
+        lg, cache = M.decode_step(params, cfg, cache, tok[:, None], mesh)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        logits.append(lg)
+    return {"logits": torch.stack(logits, 1).cpu().numpy(),
+            "tokens": torch.stack(toks, 1).cpu().numpy(),
+            "prefill_s": prefill_s, "step_s": step_s,
+            "prefill_launches": prefill_launches,
+            "decode_launches": {k: v for k, v in launch_counts().items()
+                                if v}}
+
+
+def _mesh_pair_job(mesh, cases):
+    """The (1, 2) mesh's work: its MoE cases, then 6c's decode."""
+    import torch
+    out = _mesh_moe_job(mesh, cases)
+    torch.cuda.empty_cache()
+    out["decode"] = _mesh_decode(mesh)
+    return out
+
+
+def mesh_phase(smi: str) -> None:
+    """6b and 6c: every rank a process of a gloo group on this card.
+    Each case against the single-process layer (or model) on the same
+    card, weights and inputs."""
+    import torch
+
+    refs = {}
+    for shape, cases in MESH_CASES.items():
+        for mode, b, s, dnames in cases:
+            for dname in dnames:
+                params, x = _moe_inputs(b, s, dname)
+                refs[mode, dname] = _mesh_moe(params, x, None)
+                del params, x
+                _free()
+    single = _mesh_decode()
+    _free()
+    for shape, cases in MESH_CASES.items():
+        flat = [(mode, b, s, dn) for mode, b, s, dns in cases for dn in dns]
+        t0 = time.perf_counter()
+        job = _mesh_pair_job if shape == (1, 2) else _mesh_moe_job
+        ranks = _spawn_mesh(shape, job, flat)
+        print(f"  [6b] mesh {shape}: {len(ranks)} ranks on cuda:0 (gloo), "
+              f"wall {time.perf_counter() - t0:.1f}s", flush=True)
+        for mode, b, s, dname in flat:
+            want, ref_launches, ref_s = refs[mode, dname]
+            scale = float(np.abs(want).max())
+            errs, launches, secs = [], [], []
+            for res in ranks:
+                got, n, sec = res[mode, dname]
+                assert got.shape == want.shape
+                errs.append(float(np.abs(got - want).max()))
+                launches.append(n)
+                secs.append(sec)
+                if dname == "bfloat16":
+                    _check("moe mesh", f"{mode} {shape}", torch.as_tensor(got),
+                           torch.as_tensor(want), dname)
+            print(f"  [6b] {mode} mesh {shape} B {b} x S {s} {dname}: max "
+                  f"abs err {max(errs):.3e} (max |out| {scale:.3e}, err/max "
+                  f"{max(errs) / scale:.2e}), moe_ffn launches a rank "
+                  f"{launches} (one process: {ref_launches}), seconds a rank "
+                  + ", ".join(f"{t:.3f}" for t in secs)
+                  + f" (one process {ref_s:.3f})", flush=True)
+            if dname == "float32":
+                assert max(errs) <= TOL_MESH * scale, (mode, errs, scale)
+            if mode in ("ep", "tp"):
+                assert all(n > 0 for n in launches), (mode, launches)
+        if shape == (1, 2):
+            pair = ranks
+    want = single
+    scale = float(np.abs(want["logits"]).max())
+    for rank, res in enumerate(pair):
+        got = res["decode"]
+        err = float(np.abs(got["logits"] - want["logits"]).max())
+        same = bool(np.array_equal(got["tokens"], want["tokens"]))
+        print(f"  [6c] rank {rank}: logits max abs err {err:.3e} (max "
+              f"|logit| {scale:.3e}), greedy tokens equal the single "
+              f"process's: {same}; prefill launches "
+              f"{got['prefill_launches']}, decode launches "
+              f"{got['decode_launches']}", flush=True)
+        assert err <= TOL_MESH_LOGITS * scale, (rank, err, scale)
+        assert same, (got["tokens"], want["tokens"])
+    mesh_run = pair[0]["decode"]
+    layers, b, prompt, steps = MESH_DECODE
+    print(f"  [6c] Mixtral-8x7B widths, {layers} layers, f32, B {b} x "
+          f"{prompt}: prefill {mesh_run['prefill_s']:.3f}s on the (1, 2) "
+          f"mesh (ep) / {want['prefill_s']:.3f}s in one process; decode "
+          f"step median {1e3 * np.median(mesh_run['step_s']):.1f} ms "
+          f"(ep_psum) / {1e3 * np.median(want['step_s']):.1f} ms, for the "
+          f"record only ({smi})", flush=True)
+
+
 def ptxas_report(_build) -> None:
     """What ``-Xptxas -v`` said of the tensor-core, verify and recurrence
     kernels, and of every head dim 240 instantiation apart (beside the d
@@ -3368,6 +3723,11 @@ def main() -> int:
     print("== 5. training", flush=True)
     train_runs = train_phase()
     phases["5"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    print("== 6. the examples, and the MoE layer's mesh modes", flush=True)
+    examples_phase()
+    mesh_phase(smi)
+    phases["6"] = time.perf_counter() - t0
     print("  phase wall seconds: " + ", ".join(
         f"{k}={v:.1f}" for k, v in phases.items())
         + f", total {time.perf_counter() - t_all:.1f}")
@@ -3391,7 +3751,7 @@ def main() -> int:
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": lib_ms})
-    print("== 6. kernels")
+    print("== 7. kernels")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

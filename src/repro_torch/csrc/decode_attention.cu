@@ -24,7 +24,9 @@
 // 3-stage cp.async ring), f32 the exact CUDA-core body.  The cache is read
 // through (batch, head, slot) strides, and q and the output through their
 // own, so the model passes its (B, S, Hkv, d) cache and (B, S, H, d)
-// queries as transposed views with no copy.
+// queries as transposed views with no copy.  Head dims: 64, 128, 240 and
+// 256 on both bodies; 32 (the reduced configs of the examples, f32) on
+// the CUDA-core body only.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -143,6 +145,7 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                              static_cast<const float*>(v), strides[6],
                              strides[7], strides[8], n_slots};
     switch (d) {
+      case 32: return launch_f32<32>(a, kv, batch, st);
       case 64: return launch_f32<64>(a, kv, batch, st);
       case 128: return launch_f32<128>(a, kv, batch, st);
       case 240: return launch_f32<240>(a, kv, batch, st);

@@ -58,7 +58,8 @@
 // KV tiles from f32 shared-memory tiles, each thread a (BQ/16) x 4 block
 // of scores and a (BQ/16) x (d/16) block of the output in registers; BQ =
 // 32 at d = 240 and 256 (162 and 169 KB of shared memory), 64 otherwise.  It takes
-// contiguous (B, H, S, d) tensors.
+// contiguous (B, H, S, d) tensors.  It alone also runs d = 16 (the reduced
+// Mistral draft of the serving example), one output column a thread.
 #include "common.cuh"
 #include "flash_tma.cuh"
 #include "hopper.cuh"
@@ -534,6 +535,11 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   float* lse_f = static_cast<float*>(lse);
   switch (d) {
+    case 16:                       // the exact kernel only (NC = 1)
+      return dtype == kF32
+                 ? launch_f32<16>(q, k, v, out, lse_f, batch, hq, hkv, sq,
+                                  skv, scale, causal, window, st)
+                 : static_cast<int>(cudaErrorInvalidValue);
     REPRO_FLASH_D(32) REPRO_FLASH_D(64) REPRO_FLASH_D(128) REPRO_FLASH_D(240)
     REPRO_FLASH_D(256)
     default:

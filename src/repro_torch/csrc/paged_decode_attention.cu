@@ -24,6 +24,8 @@
 // 0) as its 16-byte chunks are queued.  bf16 pools run the tensor-core
 // body (mma.sync, 3-stage cp.async ring); f32 and int8 pools run the
 // exact CUDA-core body, int8 dequantized to f32 as the TPU kernel does.
+// Head dims: 64, 128, 240 and 256 on both bodies; 32 (the reduced configs
+// of the examples) on the CUDA-core body only.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -135,6 +137,7 @@ int dispatch_d(int d, const DecodeArgs& a, const PagedKV<KT>& kv, int batch,
     }
   } else {
     switch (d) {
+      case 32: return launch_core<QT, KT, 32>(a, kv, batch, stream);
       case 64: return launch_core<QT, KT, 64>(a, kv, batch, stream);
       case 128: return launch_core<QT, KT, 128>(a, kv, batch, stream);
       case 240: return launch_core<QT, KT, 240>(a, kv, batch, stream);

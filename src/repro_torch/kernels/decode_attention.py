@@ -19,7 +19,10 @@ from repro_torch.kernels import _build, ref
 
 _ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float]
          + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-HEAD_DIMS = (64, 128, 240, 256)
+HEAD_DIMS = (64, 128, 240, 256)     # both bodies
+# the exact CUDA-core body (f32 here, f32 and int8 pools in the paged
+# kernel) also takes the reduced configs' head dim 32
+CORE_HEAD_DIMS = (32,) + HEAD_DIMS
 _SMEM_FLOATS = 232_448 // 4          # a CTA's shared memory on Hopper
 _TILE = 32                           # kDecodeTile in common.cuh
 KEY_TILE = 64                        # kKeyTile in common.cuh: split unit
@@ -139,7 +142,8 @@ def decode_attention(q, k, v, lengths, *, scale=None, window=None,
         return ref.decode_attention_ref(q, k, v, lengths, scale=scale,
                                         window=window, anc_mask=anc)
 
-    _build.require(d in HEAD_DIMS, f"head dim must be one of {HEAD_DIMS}")
+    dims = CORE_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS
+    _build.require(d in dims, f"head dim must be one of {dims} in {q.dtype}")
     _build.require(lengths.dtype == torch.int32, "lengths must be int32")
     if anc_bits is not None:
         _build.require(anc_bits.dtype == torch.int32, "anc_bits must be int32")

@@ -28,6 +28,8 @@ _ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
          + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 # 240 and 32: the 256- and 64-wide tiles, zero-filled past d
 HEAD_DIMS = (32, 64, 128, 240, 256)
+# the exact f32 kernel also takes head dim 16 (a reduced Mistral's)
+F32_HEAD_DIMS = (16,) + HEAD_DIMS
 
 
 def _strides(t) -> list:
@@ -63,7 +65,8 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None,
         return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
                                        window=window, return_lse=return_lse)
 
-    _build.require(d in HEAD_DIMS, f"head dim must be one of {HEAD_DIMS}")
+    dims = F32_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS
+    _build.require(d in dims, f"head dim must be one of {dims} in {q.dtype}")
     if q.dtype == torch.float32:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)

@@ -18,7 +18,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.decode_attention import (HEAD_DIMS, n_split,
+from repro_torch.kernels.decode_attention import (CORE_HEAD_DIMS,
+                                                  HEAD_DIMS, n_split,
                                                   row_groups,
                                                   split_workspace,
                                                   token_strides)
@@ -73,7 +74,10 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
             q, k_pool, v_pool, block_tables, lengths, k_scale=k_scale,
             v_scale=v_scale, scale=scale, anc_bits=anc_bits)
 
-    _build.require(d in HEAD_DIMS, f"head dim must be one of {HEAD_DIMS}")
+    dims = (HEAD_DIMS if q.dtype == k_pool.dtype == torch.bfloat16
+            else CORE_HEAD_DIMS)
+    _build.require(d in dims, f"head dim must be one of {dims} with "
+                   f"{q.dtype} q and a {k_pool.dtype} pool")
     _build.require(block_tables.dtype == torch.int32
                    and lengths.dtype == torch.int32,
                    "block_tables and lengths must be int32")

@@ -74,11 +74,14 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens, cache: dict,
-            encoder_frames=None):
+            mesh=None, encoder_frames=None):
     """Process the prompt (B, L); fill the cache in place.  An
     encoder-decoder config first runs the encoder over
     ``encoder_frames`` (B, T, D) and stores each layer's cross K/V in the
-    cache.
+    cache.  With a ``mesh`` (:mod:`repro_torch.launch.mesh`) the MoE
+    layers run distributed (``params`` then holds this rank's
+    :func:`repro_torch.models.moe.shard_moe_layers` shards); every rank
+    gets the whole result.
 
     Returns (last-position logits (B, V) f32, cache with pos=L).
     """
@@ -88,7 +91,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens, cache: dict,
     if cfg.encoder_decoder:
         enc_out = apply_encoder(params["encoder"], cfg, encoder_frames)
     h, cache, _ = forward_decoder(params, cfg, x, phase="prefill",
-                                  cache=cache, enc_out=enc_out)
+                                  cache=cache, mesh=mesh, enc_out=enc_out)
     logits = logits_from_hidden(params, cfg, h[:, -1:])[:, 0]
     cache["pos"] = torch.full((b,), length, dtype=torch.int64,
                               device=tokens.device)
@@ -96,18 +99,20 @@ def prefill(params: dict, cfg: ModelConfig, tokens, cache: dict,
 
 
 def decode(params: dict, cfg: ModelConfig, cache: dict, tokens,
-           spec_tree: dict | None = None):
+           mesh=None, spec_tree: dict | None = None):
     """Decode/verify ``m`` new tokens (B, m) at positions cache['pos'].
 
     Writes the cache in place and returns (logits (B, m, V), cache,
     pendings); call :func:`commit` with the accepted counts to finalize.
     ``spec_tree`` marks ``tokens`` as speculation-tree nodes (depth-based
     positions and ancestor masking; see
-    :func:`repro_torch.core.spec_decode.tree_spec`).
+    :func:`repro_torch.core.spec_decode.tree_spec`).  ``mesh`` as in
+    :func:`prefill`.
     """
     x = _embed(params, cfg, tokens)
     h, cache, pendings = forward_decoder(params, cfg, x, phase="decode",
-                                         cache=cache, spec_tree=spec_tree)
+                                         cache=cache, mesh=mesh,
+                                         spec_tree=spec_tree)
     return logits_from_hidden(params, cfg, h), cache, pendings
 
 
@@ -117,9 +122,10 @@ def commit(cfg: ModelConfig, cache: dict, pendings, n_commit,
     return commit_cache(cfg, cache, pendings, n_commit, sq)
 
 
-def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens):
+def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens,
+                mesh=None):
     """One committed autoregressive step (B, 1) -> (logits (B, V), cache)."""
-    logits, cache, pendings = decode(params, cfg, cache, tokens)
+    logits, cache, pendings = decode(params, cfg, cache, tokens, mesh)
     b = tokens.shape[0]
     ones = torch.ones((b,), dtype=torch.int64, device=tokens.device)
     cache = commit(cfg, cache, pendings, ones, 1)

@@ -52,9 +52,11 @@ def _set_state(cache: dict | None, new_state: dict) -> None:
 def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
                 pos, phase: str, use_moe: bool = False,
                 block_tables=None, spec_tree: dict | None = None,
-                enc_out=None):
+                enc_out=None, mesh=None):
     """Returns (x, cache, pending).  ``spec_tree`` reaches the attention
-    layers only (see :func:`apply_attention`).  An encoder-decoder
+    layers only (see :func:`apply_attention`); ``mesh`` the MoE FFN only
+    (:func:`repro_torch.models.moe.apply_moe`: the layer's ``ffn`` is
+    then this rank's shard, every other layer runs whole on each rank).  An encoder-decoder
     attention layer (``xattn`` in ``params``) attends over the encoder
     after its self-attention: prefill computes the cross K/V from
     ``enc_out`` and stores them in the cache's ``ck`` / ``cv`` (in
@@ -115,7 +117,7 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
               else cfg.capacity_factor)
         f = moe_lib.apply_moe(params["ffn"], h, n_experts=cfg.n_experts,
                               top_k=cfg.top_k, activation=cfg.activation,
-                              capacity_factor=cf)
+                              mesh=mesh, capacity_factor=cf)
     else:
         f = apply_mlp(params["ffn"], h, cfg.activation)
     x = x + f
@@ -318,12 +320,13 @@ def _forward_train(params: dict, cfg: ModelConfig, x, enc_out):
 
 
 def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
-                    cache: dict | None = None,
+                    cache: dict | None = None, mesh=None,
                     spec_tree: dict | None = None, enc_out=None):
     """Run the decoder over embedded inputs x (B, S, D): a loop over
     layers.  ``spec_tree`` (decode only) marks x as a speculation-tree
     buffer; ``enc_out`` is the encoder output of an encoder-decoder
-    config (read in prefill and training).  Returns (hidden, cache,
+    config (read in prefill and training); ``mesh`` (prefill and decode)
+    distributes the MoE layers (:func:`apply_layer`).  Returns (hidden, cache,
     pendings); phase ``train`` takes no cache and returns (hidden, None,
     [])."""
     if phase == "train":
@@ -339,7 +342,8 @@ def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
                                  x, layer_cache, pos, phase,
                                  use_moe=cfg.layer_is_moe(l),
                                  block_tables=block_tables,
-                                 spec_tree=spec_tree, enc_out=enc_out)
+                                 spec_tree=spec_tree, enc_out=enc_out,
+                                 mesh=mesh)
         pendings.append(pend)
     return x, cache, pendings
 

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, a kernel wrapper
+``chip_smoke.py`` nor ``examples/torch_*.py``) imports JAX or the JAX
+package, a kernel wrapper
 given a CUDA tensor launches its kernel or raises (never the plain
 version), and entry points refuse to guess a device."""
 import ast
@@ -55,7 +56,8 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.training.optimizer",
             "repro_torch.training.train_loop",
             "repro_torch.training.checkpoint", "repro_torch.data.pipeline",
-            "repro_torch.launch.train", "repro_torch.tree"} <= set(_modules())
+            "repro_torch.launch.train", "repro_torch.launch.mesh",
+            "repro_torch.tree"} <= set(_modules())
 
 
 def _imports(path):
@@ -67,8 +69,34 @@ def _imports(path):
             yield node.module
 
 
+def _examples():
+    ex = os.path.join(ROOT, "examples")
+    return sorted(os.path.join(ex, n) for n in os.listdir(ex)
+                  if n.startswith("torch_") and n.endswith(".py"))
+
+
+def test_importing_the_examples_loads_no_jax():
+    """Each ``examples/torch_*.py`` loaded as a module (its ``main`` not
+    run) pulls in neither JAX nor the JAX package."""
+    code = (
+        "import importlib.util, sys\n"
+        f"paths = {_examples()!r}\n"
+        "for i, p in enumerate(paths):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len(paths))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == 4
+
+
 def test_no_source_names_jax_or_the_jax_package():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")] + _examples()
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     for f in files:
