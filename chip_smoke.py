@@ -55,11 +55,13 @@ on its own lines with its wall seconds:
    PyTorch call computes the same function;
 3. serve, bf16, weights from a seed, ``max_batch=4``, ``n_cand=4``,
    Poisson requests (prompt 512, gen 32-64), every kernel's launch count
-   read around each run: (a) paged, Mixtral-8x7B / Mistral-7B widths, 4
-   layers each, 12 requests; (b) contiguous (``paged=False``),
-   RWKV-6-7B at full width and depth (32 layers) with a 2-layer
+   read around each run: (a) paged, Mixtral-8x7B / Mistral-7B widths,
+   ``SERVE_LAYERS`` (2) layers each, 12 requests; (b) contiguous
+   (``paged=False``),
+   RWKV-6-7B at full width, 16 of its 32 layers
+   (``RECURRENT_SERVE_LAYERS``), with a 2-layer
    Mistral-7B-width draft, 8 requests; (c) contiguous,
-   RecurrentGemma-2B at full width and depth (27 layers), the same kind
+   RecurrentGemma-2B at full width, 15 of its 27 layers, the same kind
    of draft, 8 requests (the RG-LRU through its fused entry, never the
    bare scan); (d) contiguous, the widths of (a), 8 requests; (e) paged
    tree speculation, tree (3, 2), the widths of (a) with the draft made
@@ -67,8 +69,9 @@ on its own lines with its wall seconds:
    round through ``paged_decode_attention`` with ``anc_bits`` (those
    launches counted apart from the causal ones), and the histogram of
    accepted path lengths; and, run first, while the host's memory is
-   untouched: (f) Mixtral-8x7B at its full width and depth (32 layers,
-   86.5 GiB in bf16), drawn from seed 0 layer by layer into page-locked
+   untouched: (f) Mixtral-8x7B at its full width, 16 of its 32 layers
+   (``OFFLOAD_LAYERS``; 43.3 GiB in bf16), drawn from seed 0 layer by
+   layer into page-locked
    host memory, B 2 prompts of 512 tokens prefilled and 8 greedy decode
    + commit steps, every pass streamed through two device slots: per
    pass its wall, link seconds and bytes (and GB/s beside phase 1's bare
@@ -76,12 +79,13 @@ on its own lines with its wall seconds:
    the layer's last kernel, host dispatch waits included) and the rest
    of the wall as its idle share, peak device memory (held under
    resident + 3 layers + KV + 2 GiB) and launches
-   (``flash_attention`` and ``moe_ffn`` 32 in the prefill,
-   ``decode_attention`` and ``moe_ffn`` 32 a step, no paged launch), and
+   (``flash_attention`` and ``moe_ffn`` one a layer in the prefill,
+   ``decode_attention`` and ``moe_ffn`` one a layer a step, no paged
+   launch), and
    the planner's per-layer stream time for the H100 spec beside the
    measured one, and one more decode step under ``torch.profiler`` for
    the device's own kernel time in a pass; (f-eq) the same tier at
-   Mixtral-8x7B widths and 4 layers (more than its 2 device slots): the
+   Mixtral-8x7B widths and 3 layers (more than its 2 device slots): the
    weights drawn layer by layer equal ``init_params``'s, the streamed
    prefill and 8 greedy decode steps give the resident model's logits
    bit for bit, and ``host_attention_direct`` over host KV agrees with
@@ -207,9 +211,26 @@ on its own lines with its wall seconds:
    each rank launching ``moe_ffn`` in ``ep`` and ``tp``; (c) prefill
    (``ep``) and 8 greedy ``decode_step``s (``ep_psum``) of Mixtral-8x7B's
    widths at 2 layers, f32, dropless, on the (1, 2) mesh, each rank
-   holding its ``shard_moe_layers`` shards: logits within
-   ``TOL_MESH_LOGITS`` of their largest magnitude and greedy tokens equal
-   to the single process's, the walls printed beside each other;
+   holding its ``shard_model`` blocks (every layer over the mesh: 16 of
+   the 32 heads a rank): logits within ``TOL_MESH_LOGITS`` of their
+   largest magnitude and greedy tokens equal to the single process's,
+   the walls printed beside each other; (d) the main path on the (1, 2)
+   mesh: ``SpecOffloadEngine(mesh=).generate`` with Mixtral-8x7B
+   (dropless) and a Mistral-7B draft at full width, 2 layers each, f32,
+   4 prompts of 128
+   tokens, 16 generated each at ``n_cand`` 4 (``MESH_ENGINE``): every
+   rank's streams equal to the one-process engine's, one fused shape
+   signature, each rank's ``decode_attention``, ``flash_attention`` and
+   ``moe_ffn`` launches (16 of 32 heads, 4 of 8 experts) required and
+   printed, the generate walls for the record only; (e) one AdamW step
+   of Mixtral-8x7B's widths at 1 layer, f32, dropless, B 2 x 256
+   (``MESH_TRAIN``) on (1, 2) (tensor parallel and ``ep``) and (2, 1)
+   (FSDP, the batch split): each rank also runs the same step in one
+   process and keeps its blocks of the result; the loss within
+   ``TOL_MESH_LOSS`` and every block under the first-step rule (within
+   1e-6 where the gradient's magnitude passes 1e-4, within 2 lr
+   anywhere), ``flash_attention_bwd`` and ``moe_ffn_bwd`` launched on
+   every rank, its peak memory printed;
 7. the kernels as one JSON object; 8. the device as one JSON object.
 
 The families' cases of phase 2: flash at head dim 240 (Gemma-3-12B's 16
@@ -224,7 +245,8 @@ rows), and Llama-3-405B under tree (3, 2), 160 rows in two row groups
 (bitwise equal twice); ``moe_ffn`` at Phi-3.5-MoE (E 16, F 6400) and
 Llama-4 Maverick (E 128, D 5120, F 8192) widths at verify C 20 and at a
 512-token prompt's prefill capacity.  Phase 3 ends with (h) Gemma-3-12B
-at full width and depth (48 layers, 25.3 GB in bf16) beside a 2-layer
+at full width, 24 of its 48 layers (``GEMMA_SERVE_LAYERS``: 20
+sliding-window and 4 global) beside a 2-layer
 Mistral-7B-width draft, paged chain, 8 requests with prompts of 512 and
 1280 in turn (the 1024-token window binds, the rings wrap), every target
 flash and paged verify launch at head dim 240; (i) Chameleon-34B,
@@ -260,11 +282,19 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TOL_RGLRU, TOL_WKV6 = 1e-5, 2e-4      # tests/test_kernels.py:153,169-171
 TREE = (3, 2)                         # the served speculation tree
 DRAFT_NOISE = 0.05                    # 4e/4f: the draft's weight noise
-# 3f: Mixtral-8x7B streamed from host memory at its own depth (fixed here,
-# never chosen at run time), B 2 prompts of 512 tokens, 8 decode steps
-OFFLOAD_LAYERS, OFFLOAD_B, OFFLOAD_PROMPT, OFFLOAD_STEPS = 32, 2, 512, 8
+# 3a / 3d / 3e / 3g / 3g-tr: Mixtral-8x7B and its Mistral-7B-width draft
+# at 2 layers each (cut from 4 to pay for phase 6's mesh runs)
+SERVE_LAYERS = 2
+# 3b / 3c: RWKV-6-7B and RecurrentGemma-2B at 16 of 32 and 15 (five
+# groups of the pattern) of 27 layers (the same cut, from whole models)
+RECURRENT_SERVE_LAYERS = (16, 15)
+# 3f: Mixtral-8x7B streamed from host memory at a depth fixed here (never
+# chosen at run time): 16 of its 32 layers, cut from 32 to pay for phase
+# 6's mesh runs (6d, 6e), B 2 prompts of 512 tokens, 8 decode steps
+OFFLOAD_LAYERS, OFFLOAD_B, OFFLOAD_PROMPT, OFFLOAD_STEPS = 16, 2, 512, 8
 OFFLOAD_MAX_LEN = OFFLOAD_PROMPT + OFFLOAD_STEPS + 8   # + the traced step
-OFFLOAD_EQ_LAYERS = 4                 # 3f-eq: more layers than the 2 slots
+# 3f-eq: more layers than the 2 slots (cut from 4, the same cut)
+OFFLOAD_EQ_LAYERS = 3
 COPY_BYTES = int(2.7 * 2**30)         # phase 1's bare copy: one layer's size
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:297",
@@ -1934,30 +1964,32 @@ def serve_phase(rates) -> dict:
     from repro_torch.configs import (MIXTRAL_8X7B, RECURRENTGEMMA_2B,
                                      RWKV6_7B, SWA, draft_for)
 
-    # 3f first: it page-locks 86.5 GiB of the host's memory, before any
+    # 3f first: it page-locks 43.3 GiB of the host's memory, before any
     # other run has touched the host
     runs = {"3f": offload_run("3f", rates)}
     offload_eq_run("3f-eq")
-    mix = dataclasses.replace(MIXTRAL_8X7B, n_layers=4)
-    mis = draft_for(mix, 4)
+    mix = dataclasses.replace(MIXTRAL_8X7B, n_layers=SERVE_LAYERS)
+    mis = draft_for(mix, SERVE_LAYERS)
     runs["3a"] = serve_run("3a", mix, mis, True, 12,
                            ("paged_decode_attention", "flash_attention",
                             "moe_ffn"))
-    rw_draft = draft_for(RWKV6_7B, 2)
-    runs["3b"] = serve_run("3b", RWKV6_7B, rw_draft, False, 8,
+    rwkv = dataclasses.replace(RWKV6_7B, n_layers=RECURRENT_SERVE_LAYERS[0])
+    rw_draft = draft_for(rwkv, 2)
+    runs["3b"] = serve_run("3b", rwkv, rw_draft, False, 8,
                            ("wkv6", "wkv6 serial", "wkv6 chunked",
                             "flash_attention"))
     # RWKV has no attention: every flash launch is the draft's prefill
     assert runs["3b"]["flash_attention"] == 2 * (8 + 2)
-    rg_draft = draft_for(RECURRENTGEMMA_2B, 2)
-    runs["3c"] = serve_run("3c", RECURRENTGEMMA_2B, rg_draft, False, 8,
+    rgem = dataclasses.replace(RECURRENTGEMMA_2B,
+                               n_layers=RECURRENT_SERVE_LAYERS[1])
+    rg_draft = draft_for(rgem, 2)
+    runs["3c"] = serve_run("3c", rgem, rg_draft, False, 8,
                            ("rglru_gated_scan", "rglru_gated_scan serial",
                             "rglru_gated_scan parallel", "flash_attention"),
                            ("rglru_scan",))
     # one flash launch per attention layer per prefill (8 requests + the 2
     # parked dummies): the target's SWA layers run it at head dim 256
-    n_swa = sum(RECURRENTGEMMA_2B.layer_kind(l) == SWA
-                for l in range(RECURRENTGEMMA_2B.n_layers))
+    n_swa = sum(rgem.layer_kind(l) == SWA for l in range(rgem.n_layers))
     assert runs["3c"]["flash_attention"] == (n_swa + 2) * (8 + 2)
     print(f"  [3c] flash launches at head dim 256 (target SWA prefill): "
           f"{n_swa * (8 + 2)} of {runs['3c']['flash_attention']}")
@@ -1966,7 +1998,8 @@ def serve_phase(rates) -> dict:
                            ("paged_decode_attention",))
     # tree speculation needs an all-attention draft (as the JAX serving
     # bench makes it)
-    mis_attn = dataclasses.replace(mis, layer_pattern=("attn",) * 4)
+    mis_attn = dataclasses.replace(mis,
+                                   layer_pattern=("attn",) * mis.n_layers)
     runs["3e"] = serve_run("3e", mix, mis_attn, True, 8,
                            ("paged_decode_attention", "flash_attention",
                             "moe_ffn", "paged_decode_attention tree"),
@@ -1983,16 +2016,23 @@ def serve_phase(rates) -> dict:
 # phase 3: the other model families
 
 
+# 3h: Gemma-3-12B's depth cut from 48 to 24 layers (4 groups of the
+# pattern) to pay for phase 6's mesh runs (6d, 6e)
+GEMMA_SERVE_LAYERS = 24
+
+
 def gemma_run(label) -> dict:
-    """Gemma-3-12B at full width and depth (48 layers: 40 sliding-window
-    layers of window 1024 and 8 global ones, 16 / 8 heads of 240, F
-    15360, vocabulary 262144), bf16, weights from a seed, beside a
+    """Gemma-3-12B at full width, ``GEMMA_SERVE_LAYERS`` of its 48 layers
+    (20 sliding-window layers of window 1024 and 4 global ones, 16 / 8
+    heads of 240, F 15360, vocabulary 262144), bf16, weights from a
+    seed, beside a
     2-layer Mistral-7B-width draft: 8 Poisson requests, prompts of 512
     and 1280 in turn (the window binds, and the rings wrap in prefill and
     in verify), paged chain.  Every flash launch of the target and every
     paged verify launch is at head dim 240."""
     from repro_torch.configs import ATTN, GEMMA3_12B, draft_for
-    tcfg, dcfg = GEMMA3_12B, draft_for(GEMMA3_12B, 2)
+    tcfg = dataclasses.replace(GEMMA3_12B, n_layers=GEMMA_SERVE_LAYERS)
+    dcfg = draft_for(tcfg, 2)
     n = 8
     launches = serve_run(label, tcfg, dcfg, True, n,
                          ("paged_decode_attention", "flash_attention"),
@@ -2000,8 +2040,8 @@ def gemma_run(label) -> dict:
                          prompt_lens=(512, 1280))
     rounds = RUN_STATS[label]["rounds"]
     n_attn = sum(tcfg.layer_kind(l) == ATTN for l in range(tcfg.n_layers))
-    # one flash launch per attention layer per prefill: the target's 48
-    # at head dim 240, the draft's 2 at 128
+    # one flash launch per attention layer per prefill: the target's at
+    # head dim 240, the draft's 2 at 128
     assert launches["flash_attention"] == (tcfg.n_layers + dcfg.n_layers) * n
     # every verify round: one launch per global layer (the draft has none)
     paged = launches["paged_decode_attention"]
@@ -2160,8 +2200,8 @@ def async_run(label) -> None:
     from repro_torch.sim.hardware import H100
 
     t_run = time.perf_counter()
-    mix = dataclasses.replace(MIXTRAL_8X7B, n_layers=4)
-    mis = draft_for(mix, 4)
+    mix = dataclasses.replace(MIXTRAL_8X7B, n_layers=SERVE_LAYERS)
+    mis = draft_for(mix, SERVE_LAYERS)
     config = SchedulerConfig(
         max_batch=4, n_cand=4, clock="real", qos=True, preempt=True,
         preempt_min_remaining=4,
@@ -2267,8 +2307,8 @@ def traced_run(label, steady=5) -> None:
     from repro_torch.serving.trace import poisson_requests
 
     t_run = time.perf_counter()
-    mix = dataclasses.replace(MIXTRAL_8X7B, n_layers=4)
-    mis = draft_for(mix, 4)
+    mix = dataclasses.replace(MIXTRAL_8X7B, n_layers=SERVE_LAYERS)
+    mis = draft_for(mix, SERVE_LAYERS)
     eng = _engine(mix, mis, SchedulerConfig(
         max_batch=4, n_cand=4, trace=True, trace_fence=True,
         trace_annotations=True), seed=0)
@@ -2762,8 +2802,9 @@ TRAIN_FAMILIES = (
     ("5t-k", "rwkv6-7b", 8, 2, ("wkv6 kernels", "wkv6_bwd kernels")))
 TRAIN_FAMILY_STEPS = 4
 # 5t-eq-m / -r / -k: f32, B 2 x 257 (S - 1 = 256: one loss chunk), card
-# against CPU; Mixtral 2 layers, RecurrentGemma one group (3), RWKV 2
-TRAIN_EQ_FAMILIES = (("5t-eq-m", "mixtral-8x7b", 2),
+# against CPU; Mixtral 1 layer (cut from 2 to pay for phase 6's mesh
+# runs), RecurrentGemma one group (3), RWKV 2
+TRAIN_EQ_FAMILIES = (("5t-eq-m", "mixtral-8x7b", 1),
                      ("5t-eq-r", "recurrentgemma-2b", 3),
                      ("5t-eq-k", "rwkv6-7b", 2))
 TRAIN_EQ_FAMILY_S = 257
@@ -3294,7 +3335,7 @@ def eq_readings(seeds=(1, 2, 3, 4)) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the examples, and the MoE layer's mesh modes
+# phase 6: the examples, and the model on a mesh
 
 # 6a: each example at its defaults: (script under examples/, the kernels
 # it must launch, a line it must print)
@@ -3321,6 +3362,20 @@ TOL_MESH = 1e-5            # f32: of the output's largest magnitude
 MESH_DECODE = (2, 2, 256, 8)          # layers, B, prompt, steps
 TOL_MESH_LOGITS = 1e-4     # of the logits' largest magnitude
 MESH_JOIN_S = 300          # a hung group fails within this
+# 6d: the SpecOffload engine on the (1, 2) mesh: Mixtral-8x7B with a
+# Mistral-7B draft at full width, 2 layers each, f32, weights from a seed,
+# dropless (as 6c: ep's per-rank capacity drops other prefill tokens than
+# one process's); 4 prompts of 128 tokens, 16 generated each, 4
+# candidates a round
+MESH_ENGINE = (2, 4, 128, 16, 4)      # layers, prompts, length, gen, n_cand
+# 6e: one AdamW step of Mixtral-8x7B's widths at 1 layer, f32, dropless,
+# B 2 x 256, on (1, 2) (tensor parallel, ep) and (2, 1) (FSDP, the batch
+# split; a second mesh over the same two ranks), against the same step in
+# one process (each rank runs that step too and keeps its blocks of the
+# result)
+MESH_TRAIN = (1, 2, 256, 1e-3)        # layers, B, S, lr
+MESH_TRAIN_SHAPES = ((1, 2), (2, 1))
+TOL_MESH_LOSS = 1e-5       # relative
 
 
 def _load_example(name):
@@ -3464,15 +3519,18 @@ def _mesh_moe(params, x, mesh):
 
 
 def _mesh_moe_job(mesh, cases):
-    """Each case's layer on this rank's ``shard_moe_params`` shard."""
+    """Each case's layer on this rank's at-rest shard
+    (``moe_storage_specs``)."""
     import torch
 
+    from repro_torch.launch.mesh import axis_size, shard_params
     from repro_torch.models import moe
     out = {}
     for mode, b, s, dname in cases:
         params, x = _moe_inputs(b, s, dname)
         assert moe.select_moe_mode(MESH_MOE[0], s, mesh) == mode, mode
-        shard = moe.shard_moe_params(params, mesh)
+        shard = shard_params(params, moe.moe_storage_specs(
+            MESH_MOE[4], MESH_MOE[0], axis_size(mesh, "model")), mesh)
         del params
         torch.cuda.empty_cache()
         out[mode, dname] = _mesh_moe(shard, x, mesh)
@@ -3481,14 +3539,13 @@ def _mesh_moe_job(mesh, cases):
 
 def _mesh_decode(mesh=None) -> dict:
     """6c: prefill and greedy decode of Mixtral-8x7B's widths at
-    ``MESH_DECODE``; on a mesh each rank holds its ``shard_moe_layers``
-    shards.  Logits and tokens on the host, walls, launches."""
+    ``MESH_DECODE``; on a mesh each rank holds its ``shard_model``
+    blocks.  Logits and tokens on the host, walls, launches."""
     import torch
 
     from repro_torch.configs import MIXTRAL_8X7B
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models import model as M
-    from repro_torch.models import moe
     from repro_torch.models.transformer import init_cache
     from repro_torch.params import init_params
 
@@ -3498,12 +3555,12 @@ def _mesh_decode(mesh=None) -> dict:
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     if mesh is not None:
-        params = moe.shard_moe_layers(params, cfg, mesh)
+        params = M.shard_model(params, cfg, mesh)
         torch.cuda.empty_cache()
     tokens = torch.randint(0, cfg.vocab_size, (b, prompt), device="cuda",
                            generator=torch.Generator(device="cuda")
                            .manual_seed(1))
-    cache = init_cache(cfg, b, prompt + steps + 1, "cuda")
+    cache = init_cache(cfg, b, prompt + steps + 1, "cuda", mesh)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -3530,18 +3587,126 @@ def _mesh_decode(mesh=None) -> dict:
 
 
 def _mesh_pair_job(mesh, cases):
-    """The (1, 2) mesh's work: its MoE cases, then 6c's decode."""
-    import torch
+    """The two ranks' work: on the (1, 2) mesh its MoE cases, 6c's
+    decode, 6d's engine and 6e's step, then 6e's step on a (2, 1) mesh
+    over the same two ranks."""
+    from repro_torch.launch.mesh import make_mesh
     out = _mesh_moe_job(mesh, cases)
-    torch.cuda.empty_cache()
+    _free()
     out["decode"] = _mesh_decode(mesh)
+    _free()
+    out["engine"] = _mesh_engine(mesh)
+    out["train"] = {}
+    for shape in MESH_TRAIN_SHAPES:
+        _free()
+        out["train"][shape] = _mesh_train(
+            mesh if shape == (1, 2) else make_mesh(shape, device_type="cuda"))
     return out
 
 
+def _mesh_engine(mesh=None) -> dict:
+    """6d: ``SpecOffloadEngine.generate`` at ``MESH_ENGINE``, over
+    ``mesh`` (``load`` lays each rank's blocks out) or in one process:
+    streams, rounds, the fused round's shape signatures, launches, wall."""
+    import torch
+
+    from repro_torch.configs import MIXTRAL_8X7B, draft_for
+    from repro_torch.core.pipeline import SpecOffloadEngine
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    layers, n, length, gen, n_cand = MESH_ENGINE
+    tcfg = dataclasses.replace(MIXTRAL_8X7B, n_layers=layers,
+                               dtype="float32", moe_dropless=True)
+    eng = SpecOffloadEngine(tcfg, draft_for(tcfg, layers), device="cuda",
+                            mesh=mesh)
+    eng.init_from_seed(0)
+    _free()
+    prompts = np.random.default_rng(1).integers(
+        0, tcfg.vocab_size, (n, length)).astype(np.int32)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, gen, n_cand=n_cand)
+    torch.cuda.synchronize()
+    return {"tokens": res.tokens, "rounds": res.rounds,
+            "fused": eng._pipe.trace_counts["fused"],
+            "wall": time.perf_counter() - t0,
+            "launches": {k: v for k, v in launch_counts().items() if v}}
+
+
+def _mesh_train(mesh) -> dict:
+    """6e on one rank: the one-process step first (its result and its
+    gradient's clear entries kept as this rank's blocks), then the mesh
+    step from the same seed; the first-step rule on every block."""
+    import torch
+
+    from repro_torch.configs import MIXTRAL_8X7B
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.mesh import shard_params
+    from repro_torch.models import model as M
+    from repro_torch.params import init_params
+    from repro_torch.training import adamw_init, make_train_step
+    from repro_torch.training.train_loop import loss_and_grads
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    layers, b, s, lr = MESH_TRAIN
+    cfg = dataclasses.replace(MIXTRAL_8X7B, n_layers=layers,
+                              dtype="float32", moe_dropless=True)
+    batch = {"tokens": np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    specs = M.mesh_specs(cfg, mesh)
+    # this rank's blocks of the one-process result, kept in host memory
+    # (the mesh step's gathers need the card's room on (2, 1))
+    blocks = lambda tree: [t.detach().cpu() for t in tree_leaves(  # noqa: E731
+        shard_params(tree, specs, mesh))]
+
+    def whole():
+        return init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+
+    params = whole()
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    _, grads = loss_and_grads(params, cfg, {
+        "tokens": torch.as_tensor(batch["tokens"], device="cuda").long()})
+    clear = blocks(tree_unflatten(params, [g.abs() > 1e-4 for g in grads]))
+    del grads
+    _free()
+    ref_step = make_train_step(cfg, None, lr)
+    params, state, ref_loss = ref_step(params, adamw_init(params), batch)
+    ref = blocks(params)
+    ref_loss = float(ref_loss)
+    del params, state, ref_step
+    _free()
+
+    params = shard_params(whole(), specs, mesh)
+    _free()
+    state = adamw_init(params)
+    step = make_train_step(cfg, mesh, lr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    params, state, loss = step(params, state, batch)
+    loss = float(loss)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    errs = []
+    with torch.no_grad():
+        for got, want, ok in zip(tree_leaves(params), ref, clear):
+            diff = (got.detach().cpu() - want).abs()
+            errs.append((float(diff[ok].max()) if ok.any() else 0.0,
+                         float(diff.max())))
+    return {"loss": loss, "ref_loss": ref_loss, "errs": errs, "wall": wall,
+            "peak": peak, "launches": launches,
+            "grad_norm": float(step.grad_norm)}
+
+
 def mesh_phase(smi: str) -> None:
-    """6b and 6c: every rank a process of a gloo group on this card.
-    Each case against the single-process layer (or model) on the same
-    card, weights and inputs."""
+    """6b-6e: every rank a process of a gloo group on this card.  Each
+    case against the single-process layer, model, engine or step on the
+    same card, weights and inputs."""
     import torch
 
     refs = {}
@@ -3554,6 +3719,12 @@ def mesh_phase(smi: str) -> None:
                 _free()
     single = _mesh_decode()
     _free()
+    engine_ref = _mesh_engine()
+    _free()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  [6] before the spawns this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; the card has "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free", flush=True)
     for shape, cases in MESH_CASES.items():
         flat = [(mode, b, s, dn) for mode, b, s, dns in cases for dn in dns]
         t0 = time.perf_counter()
@@ -3607,6 +3778,55 @@ def mesh_phase(smi: str) -> None:
           f"step median {1e3 * np.median(mesh_run['step_s']):.1f} ms "
           f"(ep_psum) / {1e3 * np.median(want['step_s']):.1f} ms, for the "
           f"record only ({smi})", flush=True)
+    _engine_report(pair, engine_ref, smi)
+    for shape in MESH_TRAIN_SHAPES:
+        _train_report(shape, [res["train"][shape] for res in pair])
+
+
+def _engine_report(ranks, want, smi) -> None:
+    """6d: every rank's streams against the one-process engine's."""
+    layers, n, length, gen, n_cand = MESH_ENGINE
+    for rank, res in enumerate(ranks):
+        got = res["engine"]
+        same = bool(np.array_equal(got["tokens"], want["tokens"]))
+        launch = {k: got["launches"].get(k, 0) for k in
+                  ("decode_attention", "flash_attention", "moe_ffn")}
+        print(f"  [6d] rank {rank}: streams equal the one process's: {same}"
+              f" ({got['rounds']} rounds / {want['rounds']}); fused shape "
+              f"signatures={got['fused']}; launches {launch} (one process "
+              + str({k: want["launches"].get(k, 0) for k in launch})
+              + "; the rank attends over 16 of 32 heads and runs 4 of 8 "
+              "experts)", flush=True)
+        assert same, (rank, got["tokens"], want["tokens"])
+        assert got["rounds"] == want["rounds"] and got["fused"] == 1, got
+        assert all(v > 0 for v in launch.values()), (rank, launch)
+    print(f"  [6d] Mixtral-8x7B + Mistral-7B draft, {layers} layers each, "
+          f"f32, {n} prompts x {length}, {gen} tokens, n_cand {n_cand}: "
+          f"generate {ranks[0]['engine']['wall']:.2f}s over "
+          f"{ranks[0]['engine']['rounds']} rounds on the (1, 2) mesh / "
+          f"{want['wall']:.2f}s in one process, for the record only "
+          f"({smi})", flush=True)
+
+
+def _train_report(shape, ranks) -> None:
+    """6e: each rank's loss and blocks against the one-process step."""
+    lr = MESH_TRAIN[3]
+    for rank, got in enumerate(ranks):
+        rel = abs(got["loss"] - got["ref_loss"]) / abs(got["ref_loss"])
+        clear = max(e[0] for e in got["errs"])
+        worst = max(e[1] for e in got["errs"])
+        print(f"  [6e] mesh {shape} rank {rank}: loss {got['loss']:.6f} / "
+              f"one process {got['ref_loss']:.6f} (relative error "
+              f"{rel:.2e}, tolerance {TOL_MESH_LOSS}); parameters: worst "
+              f"{clear:.2e} where |g| > 1e-4 (limit 1e-6), {worst:.2e} "
+              f"anywhere (limit {2 * lr}); grad norm {got['grad_norm']:.4f};"
+              f" step wall {got['wall']:.2f}s, peak "
+              f"{got['peak'] / 2**30:.2f} GiB; launches {got['launches']}",
+              flush=True)
+        assert rel <= TOL_MESH_LOSS, (shape, rank, rel)
+        assert clear <= 1e-6 and worst <= 2 * lr, (shape, rank, clear, worst)
+        for k in ("flash_attention_bwd", "moe_ffn_bwd"):
+            assert got["launches"].get(k, 0) > 0, (shape, rank, k)
 
 
 def ptxas_report(_build) -> None:
@@ -3724,7 +3944,7 @@ def main() -> int:
     train_runs = train_phase()
     phases["5"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    print("== 6. the examples, and the MoE layer's mesh modes", flush=True)
+    print("== 6. the examples, and the model on a mesh", flush=True)
     examples_phase()
     mesh_phase(smi)
     phases["6"] = time.perf_counter() - t0

@@ -65,7 +65,7 @@ class RoundOutput:
 def fused_verify_and_draft(target_params, target_cfg: ModelConfig,
                            draft_params, draft_cfg: ModelConfig,
                            verify_state: dict, draft_state: dict,
-                           n_cand: int):
+                           n_cand: int, mesh=None):
     """The fused round: the target verifies batch V's drafts while the
     draft model generates candidates for batch D.
 
@@ -76,13 +76,14 @@ def fused_verify_and_draft(target_params, target_cfg: ModelConfig,
     drafts = verify_state["drafts"]
     v_in = torch.cat([verify_state["t_next"][:, None], drafts], dim=1)
     tlogits, tcache, tpend = M.decode(target_params, target_cfg,
-                                      verify_state["target_cache"], v_in)
+                                      verify_state["target_cache"], v_in,
+                                      mesh)
     a, nxt, n_commit = greedy_acceptance(drafts, tlogits)
     tcache = M.commit(target_cfg, tcache, tpend, n_commit, n_cand + 1)
 
     new_drafts, _, dcache, dpend = draft_generate(
         draft_params, draft_cfg, draft_state["draft_cache"],
-        draft_state["t_next"], n_cand)
+        draft_state["t_next"], n_cand, mesh)
 
     verify_out = {"target_cache": tcache,
                   "tokens": emit_slots(drafts, a, nxt), "n_emitted": a + 1,
@@ -95,7 +96,7 @@ def fused_verify_and_draft(target_params, target_cfg: ModelConfig,
 def fused_tree_verify_and_draft(target_params, target_cfg: ModelConfig,
                                 draft_params, draft_cfg: ModelConfig,
                                 verify_state: dict, draft_state: dict,
-                                branching: tuple):
+                                branching: tuple, mesh=None):
     """Tree-mode fused round: the target verifies batch V's speculation
     tree (ancestor-masked, one forward over all ``n_nodes`` buffer rows)
     while the draft expands a fresh tree for batch D.
@@ -109,7 +110,7 @@ def fused_tree_verify_and_draft(target_params, target_cfg: ModelConfig,
     n_nodes = tree_n_nodes(branching)
     tlogits, tcache, _ = M.decode(target_params, target_cfg,
                                   verify_state["target_cache"],
-                                  verify_state["drafts"],
+                                  verify_state["drafts"], mesh,
                                   spec_tree=tree_spec(
                                       branching,
                                       device=verify_state["drafts"].device))
@@ -121,7 +122,7 @@ def fused_tree_verify_and_draft(target_params, target_cfg: ModelConfig,
 
     drafts, _, dcache = draft_tree_generate(
         draft_params, draft_cfg, draft_state["draft_cache"],
-        draft_state["t_next"], branching)
+        draft_state["t_next"], branching, mesh)
     verify_out = {"target_cache": tcache, "draft_cache": vdcache,
                   "tokens": out, "n_emitted": a + 1, "t_next": nxt,
                   "n_accept": a}
@@ -158,14 +159,17 @@ class InterleavedPipeline:
     ``tree`` (a branching tuple) selects tree mode, which needs
     all-attention decoder-only target and draft models; its rounds never
     call the rollback entry.  ``obs`` receives the warmup, verify, draft
-    and rollback spans.
+    and rollback spans.  Over a ``mesh`` (the parameters and caches the
+    rank's, :class:`repro_torch.core.pipeline.SpecOffloadEngine` with a
+    mesh) every rank runs the same rounds on the same tokens.
     """
 
     def __init__(self, target_params, target_cfg, draft_params, draft_cfg,
-                 n_cand: int, tree=None, obs=None):
+                 n_cand: int, tree=None, obs=None, mesh=None):
         self.tp, self.tcfg = target_params, target_cfg
         self.dp, self.dcfg = draft_params, draft_cfg
         self.n_cand = n_cand
+        self.mesh = mesh
         self.obs = obs if obs is not None else NULL_OBS
         self.tree = tuple(tree) if tree is not None else None
         if self.tree is not None:
@@ -213,12 +217,14 @@ class InterleavedPipeline:
             if self.tree is not None:
                 d, _, dc = draft_tree_generate(self.dp, self.dcfg,
                                                state.draft_cache,
-                                               state.t_next, self.tree)
+                                               state.t_next, self.tree,
+                                               self.mesh)
                 pend = None
             else:
                 d, _, dc, pend = draft_generate(self.dp, self.dcfg,
                                                 state.draft_cache,
-                                                state.t_next, self.n_cand)
+                                                state.t_next, self.n_cand,
+                                                self.mesh)
             sp.fence(d)
         state.drafts, state.draft_cache, state.draft_pendings = d, dc, pend
 
@@ -248,11 +254,11 @@ class InterleavedPipeline:
             if self.tree is not None:
                 vout, dout = fused_tree_verify_and_draft(
                     self.tp, self.tcfg, self.dp, self.dcfg, vstate, dstate,
-                    self.tree)
+                    self.tree, self.mesh)
             else:
                 vout, dout = fused_verify_and_draft(
                     self.tp, self.tcfg, self.dp, self.dcfg, vstate, dstate,
-                    self.n_cand)
+                    self.n_cand, self.mesh)
             sp.fence((vout, dout))
         if tr.enabled:
             tr.complete("draft_generate", "draft(fused)", sp.t0, sp.t1,

@@ -17,6 +17,14 @@ streamed target is :class:`repro_torch.core.offload.OffloadedModel`).
 
 ``obs`` (:func:`repro_torch.obs.make_obs`) receives the prefill span
 and reaches the pipeline and the planner, as in the JAX package.
+
+``mesh`` (:mod:`repro_torch.launch.mesh`): :meth:`SpecOffloadEngine.load`
+lays the target and the draft out over it
+(:func:`repro_torch.models.model.shard_model`) and every prefill, round
+and resume runs on it; each rank runs the same host loop on the same
+tokens (the logits every rank reads are the same bits).  The JAX engine
+prefills without its mesh, whose parameters are replicated; the port's
+are sharded, so its prefill takes the mesh too.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from repro_torch.core.interleave import (BatchState, InterleavedPipeline,
 from repro_torch.core.placement import PlacementPlan, plan_placement
 from repro_torch.core.planner import ParaSpecPlanner, Policy, Workload
 from repro_torch.models import model as M
+from repro_torch.models.model import shard_model
 from repro_torch.models.transformer import init_cache
 from repro_torch.obs import NULL_OBS
 from repro_torch.params import init_params
@@ -56,7 +65,7 @@ class GenerationResult:
 class SpecOffloadEngine:
     def __init__(self, target_cfg: ModelConfig, draft_cfg: ModelConfig,
                  hw: HardwareSpec = ENV1, policy: Policy | None = None,
-                 device="cuda", obs=None):
+                 device="cuda", obs=None, mesh=None):
         self.tcfg = target_cfg
         self.dcfg = draft_cfg
         self.hw = hw
@@ -64,12 +73,17 @@ class SpecOffloadEngine:
         self.policy = policy
         self.placement = plan_placement(target_cfg, draft_cfg, hw)
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.tp = None
         self.dp = None
         self._pipe: InterleavedPipeline | None = None
 
     # ------------------------------------------------------------------
     def load(self, target_params, draft_params):
+        """Whole parameters; over the mesh each rank keeps its blocks."""
+        if self.mesh is not None:
+            target_params = shard_model(target_params, self.tcfg, self.mesh)
+            draft_params = shard_model(draft_params, self.dcfg, self.mesh)
         self.tp = target_params
         self.dp = draft_params
         self._pipe = None
@@ -101,8 +115,9 @@ class SpecOffloadEngine:
         last_logits, caches = [], []
         for i in range(0, b, bs_prefill):
             chunk = tokens[i:i + bs_prefill]
-            c = init_cache(cfg, chunk.shape[0], max_len, self.device)
-            lg, c = M.prefill(params, cfg, chunk, c)
+            c = init_cache(cfg, chunk.shape[0], max_len, self.device,
+                           self.mesh)
+            lg, c = M.prefill(params, cfg, chunk, c, self.mesh)
             last_logits.append(lg)
             caches.append(c)
         if len(caches) == 1:
@@ -160,7 +175,8 @@ class SpecOffloadEngine:
                                        (self.dp, self.dcfg, st.draft_cache)):
                 for i in range(0, toks.shape[1], chunk):
                     part = toks[:, i:i + chunk]
-                    lg, cache, pend = M.decode(params, cfg, cache, part)
+                    lg, cache, pend = M.decode(params, cfg, cache, part,
+                                               self.mesh)
                     n = part.shape[1]
                     cache = M.commit(cfg, cache, pend, torch.full(
                         (1,), n, dtype=torch.int64, device=self.device), n)
@@ -183,7 +199,7 @@ class SpecOffloadEngine:
                 or self._pipe.tree != tree):
             self._pipe = InterleavedPipeline(self.tp, self.tcfg, self.dp,
                                              self.dcfg, n_cand, tree=tree,
-                                             obs=self.obs)
+                                             obs=self.obs, mesh=self.mesh)
         return self._pipe
 
     def decode_round(self, verify: BatchState, gen: BatchState,

@@ -186,8 +186,10 @@ def sampled_acceptance(drafts, draft_logits, target_logits, u_accept,
 # chain draft generation with rollback support
 
 
-def draft_generate(params, cfg: ModelConfig, cache, t_next, n_cand: int):
-    """Generate ``n_cand`` greedy drafts, feeding n_cand+1 inputs.
+def draft_generate(params, cfg: ModelConfig, cache, t_next, n_cand: int,
+                   mesh=None):
+    """Generate ``n_cand`` greedy drafts, feeding n_cand+1 inputs (over
+    ``mesh``, :func:`repro_torch.models.model.decode`'s).
 
     Returns (drafts (B, m), draft_logits (B, m, V), cache, step_pendings);
     the cache holds all n_cand+1 inputs (pos advanced) — roll it back
@@ -196,7 +198,7 @@ def draft_generate(params, cfg: ModelConfig, cache, t_next, n_cand: int):
     tok = t_next[:, None]
     drafts, dlogits, step_pendings = [], [], []
     for i in range(n_cand + 1):
-        logits, cache, pend = M.decode(params, cfg, cache, tok)
+        logits, cache, pend = M.decode(params, cfg, cache, tok, mesh)
         cache = {"layers": cache["layers"], "pos": cache["pos"] + 1}
         step_pendings.append(pend)
         if i < n_cand:
@@ -247,7 +249,7 @@ def rollback_draft(cfg: ModelConfig, cache, step_pendings, n_keep):
 
 def spec_round(target_params, target_cfg: ModelConfig, target_cache,
                draft_params, draft_cfg: ModelConfig, draft_cache, t_next,
-               n_cand: int, noise=None, sample: bool = False):
+               n_cand: int, mesh=None, noise=None, sample: bool = False):
     """One draft-then-verify round for one batch.
 
     ``sample=True`` accepts by :func:`sampled_acceptance` with ``noise``,
@@ -257,10 +259,10 @@ def spec_round(target_params, target_cfg: ModelConfig, target_cache,
     n_accept; the caches (updated in place).
     """
     drafts, dlogits, draft_cache, pendings = draft_generate(
-        draft_params, draft_cfg, draft_cache, t_next, n_cand)
+        draft_params, draft_cfg, draft_cache, t_next, n_cand, mesh)
     verify_in = torch.cat([t_next[:, None], drafts], dim=1)
     tlogits, target_cache, tpend = M.decode(target_params, target_cfg,
-                                            target_cache, verify_in)
+                                            target_cache, verify_in, mesh)
     if sample:
         a, nxt, n_commit = sampled_acceptance(drafts, dlogits, tlogits,
                                               *noise)
@@ -607,7 +609,8 @@ def top_k_indices(logits, k: int):
 
 
 def draft_tree_generate(params, cfg: ModelConfig, cache, t_next,
-                        branching: tuple, collect_logits: bool = False):
+                        branching: tuple, mesh=None,
+                        collect_logits: bool = False):
     """Expand the draft's top-k speculation tree level by level.
 
     Feeds the root (``t_next``) then each level's nodes in one masked
@@ -623,7 +626,7 @@ def draft_tree_generate(params, cfg: ModelConfig, cache, t_next,
     feed = t_next[:, None].long()
     toks, dlogits = [feed], []
     for d in range(len(branching) + 1):
-        logits, cache, _ = M.decode(params, cfg, cache, feed,
+        logits, cache, _ = M.decode(params, cfg, cache, feed, mesh,
                                     spec_tree=tree_spec(branching, d,
                                                       device=feed.device))
         cache = dict(cache, pos=cache["pos"] + feed.shape[1])
@@ -699,7 +702,7 @@ def tree_commit_cache(cfg: ModelConfig, cache, path_idx, n_keep,
 
 def spec_round_tree(target_params, target_cfg: ModelConfig, target_cache,
                     draft_params, draft_cfg: ModelConfig, draft_cache,
-                    t_next, branching: tuple, noise=None,
+                    t_next, branching: tuple, mesh=None, noise=None,
                     sample: bool = False):
     """One draft-tree-then-verify round for one batch.
 
@@ -710,10 +713,10 @@ def spec_round_tree(target_params, target_cfg: ModelConfig, target_cache,
     branching = tuple(branching)
     n_nodes = tree_n_nodes(branching)
     tok_buf, dlogits, draft_cache = draft_tree_generate(
-        draft_params, draft_cfg, draft_cache, t_next, branching,
+        draft_params, draft_cfg, draft_cache, t_next, branching, mesh,
         collect_logits=sample)
     tlogits, target_cache, _ = M.decode(target_params, target_cfg,
-                                        target_cache, tok_buf,
+                                        target_cache, tok_buf, mesh,
                                         spec_tree=tree_spec(
                                             branching, device=tok_buf.device))
     if sample:

@@ -1,4 +1,5 @@
-"""Device meshes over ``torch.distributed``.
+"""Device meshes over ``torch.distributed``, the collectives the model
+runs on them, and the layout of a parameter tree over a mesh.
 
 Counterpart of ``repro/launch/mesh.py``.  A mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` with the axes ``("data",
@@ -6,6 +7,39 @@ Counterpart of ``repro/launch/mesh.py``.  A mesh is a
 process group to be initialised first
 (``torch.distributed.init_process_group``, given its address, world size
 and rank).  A collective over one axis runs on ``mesh.get_group(axis)``.
+
+Layouts.  A spec is a tuple with one entry a dim: the mesh axis the dim
+is split over, or None (the JAX package's ``PartitionSpec``).  A rank
+holds its block of each split dim (:func:`block`);
+:func:`shard_params` lays a whole parameter tree out by its specs and
+:func:`gather_params` gathers it back.
+
+Collectives under autograd.  The model keeps one rule: a tensor that is
+whole on every rank of ``"model"`` carries the whole gradient on each of
+them (the ranks of ``"model"`` compute the same loss), while the ranks of
+``"data"`` see different tokens and each holds its part of the gradient.
+So:
+
+* :func:`all_gather` joins blocks; its backward either sums the
+  gradient over the axis and keeps the rank's block (``grad="sum"``: a
+  weight's FSDP gather over ``"data"``, a reduce-scatter) or keeps the
+  rank's block alone (``grad="block"``: whoever reads the whole tensor
+  reads it on every rank alike).
+* :func:`split` takes the rank's block of a whole tensor; its backward
+  gathers the blocks' gradients (Megatron's sequence-parallel scatter).
+* :func:`all_reduce` sums partial results, identity backward, and
+  :func:`all_reduce_grad` is the identity whose backward sums: the two
+  operators Megatron puts after a row-parallel product and before a
+  column-parallel one (``torch.distributed.nn.functional.all_reduce``
+  would sum the gradient again in its backward, ``m`` times too large
+  where every rank holds it already).
+* :func:`all_to_all` exchanges equal blocks of dim 0; it is its own
+  inverse, so its backward is the same exchange.
+
+Every collective adds the bytes this rank hands it to
+:func:`collective_bytes` (by operation; forward and backward alike), the
+count a test reads to see what one decode step moves.  A collective
+failure is never caught.
 
 Two functions of the JAX module have no counterpart here:
 
@@ -20,10 +54,14 @@ from __future__ import annotations
 
 import math
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
+from repro_torch.tree import tree_flatten, tree_unflatten
+
 AXES = ("data", "model")
+_BYTES: dict = {}
 
 
 def make_mesh(shape, axes=AXES, device_type: str = "cuda"):
@@ -62,3 +100,236 @@ def batch_axes(mesh) -> tuple:
 
 def mesh_devices(mesh) -> int:
     return math.prod(mesh.shape)
+
+
+def is_spec(node) -> bool:
+    """A spec tree's leaves are tuples (the trees hold no other tuple)."""
+    return isinstance(node, tuple)
+
+
+# ---------------------------------------------------------------------------
+# collectives (every one counted in collective_bytes)
+
+
+def collective_bytes() -> dict:
+    """{operation: bytes this rank handed to it} since the last reset."""
+    return dict(_BYTES)
+
+
+def reset_collective_bytes() -> None:
+    _BYTES.clear()
+
+
+def _count(op: str, t: torch.Tensor) -> None:
+    _BYTES[op] = _BYTES.get(op, 0) + t.numel() * t.element_size()
+
+
+def block(t, mesh, axis: str, dim: int):
+    """This rank's block of ``t`` along ``dim``, split over ``axis``."""
+    size = axis_size(mesh, axis)
+    if size == 1:
+        return t
+    if t.shape[dim] % size:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over the {size} ranks of axis {axis!r}")
+    n = t.shape[dim] // size
+    return t.narrow(dim, axis_index(mesh, axis) * n, n)
+
+
+def _gather(t, mesh, axis: str, dim: int):
+    t = t.contiguous()
+    _count("all_gather", t)
+    parts = [torch.empty_like(t) for _ in range(axis_size(mesh, axis))]
+    dist.all_gather(parts, t, group=mesh.get_group(axis))
+    return torch.cat(parts, dim=dim)
+
+
+def _sum(t, mesh, axis: str):
+    t = t.clone(memory_format=torch.contiguous_format)
+    _count("all_reduce", t)
+    dist.all_reduce(t, group=mesh.get_group(axis))
+    return t
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim, grad):
+        ctx.args = (mesh, axis, dim, grad)
+        return _gather(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        mesh, axis, dim, grad = ctx.args
+        if grad == "sum":
+            dy = _sum(dy, mesh, axis)
+        # a copy: a view of the block would keep the whole gradient alive
+        return block(dy, mesh, axis, dim).clone(), None, None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return block(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        mesh, axis, dim = ctx.args
+        return _gather(dy, mesh, axis, dim), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return _sum(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None, None
+
+
+class _AllReduceGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.args = (mesh, axis)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _sum(dy, *ctx.args), None, None
+
+
+def _exchange(t, mesh, axis: str):
+    t = t.contiguous()
+    _count("all_to_all", t)
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=mesh.get_group(axis))
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.args = (mesh, axis)
+        return _exchange(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _exchange(dy, *ctx.args), None, None
+
+
+def all_gather(t, mesh, axis: str, dim: int, grad: str = "block"):
+    """The blocks of ``t`` over ``axis`` joined along ``dim``.  Backward:
+    ``grad="block"`` keeps the rank's block of the gradient, ``"sum"``
+    sums it over the axis first (a reduce-scatter)."""
+    if axis_size(mesh, axis) == 1:
+        return t
+    return _AllGather.apply(t, mesh, axis, dim, grad)
+
+
+def split(t, mesh, axis: str, dim: int):
+    """This rank's block of a whole ``t``; backward gathers the blocks'
+    gradients."""
+    if axis_size(mesh, axis) == 1:
+        return t
+    return _Split.apply(t, mesh, axis, dim)
+
+
+def all_reduce(t, mesh, axis: str):
+    """The sum of ``t`` over ``axis``, a new tensor; identity backward."""
+    if axis_size(mesh, axis) == 1:
+        return t
+    return _AllReduce.apply(t, mesh, axis)
+
+
+def all_reduce_grad(t, mesh, axis: str):
+    """``t`` itself; backward sums the gradient over ``axis``."""
+    if axis_size(mesh, axis) == 1:
+        return t
+    return _AllReduceGrad.apply(t, mesh, axis)
+
+
+def all_to_all(t, mesh, axis: str):
+    """Rank ``r``'s ``j``-th block of dim 0 goes to rank ``j``, into its
+    ``r``-th block (``all_to_all_single``); backward the same."""
+    if axis_size(mesh, axis) == 1:
+        return t
+    return _AllToAll.apply(t, mesh, axis)
+
+
+def reshard(t, mesh, src: tuple, dst: tuple):
+    """An activation from layout ``src`` to ``dst``: gather each dim split
+    in ``src`` but not in ``dst`` (backward: the rank's block), split
+    each dim split in ``dst`` but not in ``src`` (backward: gather)."""
+    for dim, (a, b) in enumerate(zip(src, dst)):
+        if a == b:
+            continue
+        if a is not None:
+            t = all_gather(t, mesh, a, dim)
+        if b is not None:
+            t = split(t, mesh, b, dim)
+    return t
+
+
+def gather_param(t, mesh, spec: tuple, keep: tuple | None = None):
+    """A parameter block gathered over every axis of ``spec`` that
+    ``keep`` (default: none) does not keep on the same dim.  Its
+    gradient is summed over the batch axes, whose ranks saw different
+    tokens, and only blocked over ``"model"``, whose ranks computed the
+    same thing."""
+    keep = keep or (None,) * len(spec)
+    for dim, (a, b) in enumerate(zip(spec, keep)):
+        if a is not None and a != b:
+            grad = "sum" if a in ("pod", "data") else "block"
+            t = all_gather(t, mesh, a, dim, grad)
+    return t
+
+
+def gather_tree(params, specs, mesh):
+    """``params`` (this rank's blocks) gathered whole by ``specs``, under
+    :func:`gather_param`'s gradients."""
+    return tree_unflatten(params, [
+        gather_param(v, mesh, spec) for v, spec in
+        zip(tree_flatten(params).values(), leaf_specs(params, specs))])
+
+
+# ---------------------------------------------------------------------------
+# a parameter tree at rest
+
+
+def shard_params(params, specs, mesh):
+    """This rank's at-rest blocks of whole ``params`` under ``specs`` (a
+    tree of the same structure whose leaves are specs).  Each block is a
+    copy, so the whole tensors can be freed.  A dim that does not split
+    over its axis raises, naming the leaf."""
+    flat = tree_flatten(specs, is_leaf=is_spec)
+    out = []
+    for path, leaf in tree_flatten(params).items():
+        spec = flat[path]
+        if len(spec) != leaf.dim():
+            raise ValueError(f"{path}: spec {spec} for a {leaf.dim()}-d "
+                             "leaf")
+        for dim, axis in enumerate(spec):
+            if axis is not None and leaf.shape[dim] % axis_size(mesh, axis):
+                raise ValueError(
+                    f"{path}: dim {dim} of {tuple(leaf.shape)} does not "
+                    f"split over the {axis_size(mesh, axis)} ranks of axis "
+                    f"{axis!r}")
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                leaf = block(leaf, mesh, axis, dim)
+        out.append(leaf.clone())
+    return tree_unflatten(params, out)
+
+
+def gather_params(params, specs, mesh):
+    """The whole tree back from every rank's :func:`shard_params`
+    blocks (no gradient)."""
+    with torch.no_grad():
+        return gather_tree(params, specs, mesh)
+
+
+def leaf_specs(params, specs) -> list:
+    """The spec of each leaf of ``params``, in ``tree_leaves`` order."""
+    flat = tree_flatten(specs, is_leaf=is_spec)
+    return [flat[path] for path in tree_flatten(params)]

@@ -23,6 +23,18 @@ kernels mask only the last m rows and cannot see a partial buffer).
 The ring-buffer decode of sliding-window layers has no TPU kernel and
 stays plain PyTorch on both devices.
 
+Over a mesh (``mesh``; the weights the rank's blocks at rest,
+:func:`attention_specs`) q/k/v are column products and ``wo`` a row
+product (:mod:`repro_torch.models.layers`: weight-stationary in decode,
+the ``"data"`` blocks gathered for a prefill or training call).  Where
+``n_heads`` and ``n_kv_heads`` both split over ``"model"``
+(:func:`heads_split`) each rank attends over its own heads and its
+caches hold its kv heads; otherwise the rank gathers the q/k/v
+activations over ``"model"``, attends over every head and keeps every
+kv head.  The same kernels run either way, on fewer heads when split.
+With the batch split over ``"data"`` (a prefill) the rows written to a
+cache are gathered first: every rank holds the whole batch's cache.
+
 Training (``phase="train"``, no cache) and any attention call whose
 inputs need a gradient go through :class:`FlashAttentionFn`: the
 forward kernel with its log-sum-exp, then the backward kernel
@@ -41,7 +53,60 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fb
 from repro_torch.kernels import paged_decode_attention as _pd
 from repro_torch.kernels.ref import NEG_INF, gather_paged_kv_ref
-from repro_torch.models.layers import apply_rope, rope_table
+from repro_torch.launch.mesh import all_gather, axis_size, block
+from repro_torch.models.layers import (COL, ROW, apply_rope, col_product,
+                                       model_input, rope_table, row_product)
+
+
+def attention_specs() -> dict:
+    return {"wq": COL, "wk": COL, "wv": COL, "wo": ROW}
+
+
+def kv_cache_specs(batch_spec, seq_spec, quant: bool = False) -> dict:
+    spec = (batch_spec, seq_spec, None, None)
+    out = {"k": spec, "v": spec}
+    if quant:
+        out["k_scale"] = spec
+        out["v_scale"] = spec
+    return out
+
+
+def heads_split(n_heads: int, n_kv_heads: int, mesh) -> bool:
+    """Whether each rank of ``mesh`` attends over its own block of the
+    heads (both counts split over ``"model"``), rather than over all."""
+    if mesh is None:
+        return True
+    m = axis_size(mesh, "model")
+    return n_heads % m == 0 and n_kv_heads % m == 0
+
+
+def local_kv_heads(n_heads: int, n_kv_heads: int, mesh) -> int:
+    """The kv heads a rank's caches hold."""
+    if mesh is None or not heads_split(n_heads, n_kv_heads, mesh):
+        return n_kv_heads
+    return n_kv_heads // axis_size(mesh, "model")
+
+
+def _heads_in(xin, ws, mesh, stationary, gather, head_dim):
+    """Column products of ``xin`` by each of ``ws``, as (B, S, heads,
+    d): the rank's heads, or, with ``gather``, every head (the flat
+    outputs gathered over ``"model"``; backward a reduce-scatter)."""
+    out = []
+    for w in ws:
+        y = col_product(xin, w, mesh, stationary)
+        if gather:
+            y = all_gather(y, mesh, "model", -1, grad="sum")
+        out.append(y.reshape(*y.shape[:2], -1, head_dim))
+    return out
+
+
+def _heads_out(out, wo, mesh, stationary, gather):
+    """The attention output (B, S, heads*d) times ``wo``: with
+    ``gather`` the rank keeps its ``"model"`` block of the flat heads
+    first."""
+    if gather:
+        out = block(out, mesh, "model", -1)
+    return row_product(out, wo, mesh, stationary)
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +433,8 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
                     head_dim: int, rope_theta: float, use_rope: bool = True,
                     window: int | None = None, cache: dict | None = None,
                     pos=None, phase: str = "prefill",
-                    block_tables=None, spec_tree: dict | None = None) -> tuple:
+                    block_tables=None, spec_tree: dict | None = None,
+                    mesh=None, batch_split: bool = False) -> tuple:
     """One attention layer; returns (out, cache, saved).
 
     phase="prefill": x is the whole prompt at positions [0, S); a given
@@ -385,12 +451,20 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
     ``[pos, pos + Sq)`` but each node's RoPE position is ``pos - prev +
     depth``, and visibility inside the buffer follows the ancestor mask.
     It needs full attention (``window`` None).
+
+    ``mesh``: see the module's docstring; ``batch_split`` says that x
+    holds the rank's ``"data"`` block of the batch (a prefill), whose
+    cache rows are then gathered before they are written.
     """
     b, sq, _ = x.shape
     scale = head_dim ** -0.5
-    q = (x @ params["wq"]).reshape(b, sq, n_heads, head_dim)
-    k = (x @ params["wk"]).reshape(b, sq, n_kv_heads, head_dim)
-    v = (x @ params["wv"]).reshape(b, sq, n_kv_heads, head_dim)
+    stationary = phase == "decode"
+    gather = not heads_split(n_heads, n_kv_heads, mesh)
+    if mesh is not None and block_tables is not None:
+        raise ValueError("the paged pool serves off the mesh")
+    q, k, v = _heads_in(model_input(x, mesh, stationary),
+                        (params["wq"], params["wk"], params["wv"]), mesh,
+                        stationary, gather, head_dim)
     if pos is None:
         pos = torch.zeros((b,), dtype=torch.int64, device=x.device)
     q_positions = pos.long()[:, None] + torch.arange(sq, device=x.device)
@@ -426,6 +500,9 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
             qp = q_positions[0]
             out = attention_chunked(q, k, v, qp, qp, scale, window=window)
         if cache is not None:
+            if batch_split:
+                k = all_gather(k, mesh, "data", 0)
+                v = all_gather(v, mesh, "data", 0)
             if window is not None and cache["k"].shape[1] < sq:
                 _prefill_ring(cache, k, v, window)
             else:                        # bulk write of the prefix at 0
@@ -514,7 +591,8 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
                 out = attention_direct(q, k_read, v_read, mask, scale)
     else:
         raise ValueError(phase)
-    return out @ params["wo"], cache, saved
+    out = _heads_out(out, params["wo"], mesh, stationary, gather)
+    return out, cache, saved
 
 
 # ---------------------------------------------------------------------------
@@ -522,29 +600,36 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
 
 
 def precompute_cross_kv(params: dict, enc_out, *, n_kv_heads: int,
-                        head_dim: int) -> dict:
-    """K/V of the encoder states (B, T, D): ``{"ck", "cv"}`` (B, T, Hkv, d)."""
-    b, s, _ = enc_out.shape
-    k = (enc_out @ params["wk"]).reshape(b, s, n_kv_heads, head_dim)
-    v = (enc_out @ params["wv"]).reshape(b, s, n_kv_heads, head_dim)
+                        head_dim: int, n_heads: int = 0,
+                        mesh=None) -> dict:
+    """K/V of the encoder states (B, T, D): ``{"ck", "cv"}`` (B, T, Hkv, d),
+    over a ``mesh`` the rank's kv heads where the heads split (see
+    :func:`apply_attention`; ``n_heads`` decides)."""
+    gather = not heads_split(n_heads or n_kv_heads, n_kv_heads, mesh)
+    k, v = _heads_in(model_input(enc_out, mesh, False),
+                     (params["wk"], params["wv"]), mesh, False, gather,
+                     head_dim)
     return {"ck": k, "cv": v}
 
 
 def apply_cross_attention(params: dict, x, cross_kv: dict, *, n_heads: int,
-                          head_dim: int) -> torch.Tensor:
+                          head_dim: int, n_kv_heads: int = 0, mesh=None,
+                          stationary: bool = False) -> torch.Tensor:
     """x (B, Sq, D) attends, unmasked, over every encoder row of
     ``cross_kv``: on CUDA tensors, and wherever a gradient is needed,
     through the flash kernel with ``causal=False`` (Sq = the prompt in
     prefill or training, the m new tokens in decode, over Skv = T), on
     CPU tensors without a gradient through ``attention_direct`` with a
     zero mask, as the JAX package computes it."""
-    b, sq, _ = x.shape
+    sq = x.shape[1]
     scale = head_dim ** -0.5
-    q = (x @ params["wq"]).reshape(b, sq, n_heads, head_dim)
+    gather = not heads_split(n_heads, n_kv_heads or n_heads, mesh)
+    q, = _heads_in(model_input(x, mesh, stationary), (params["wq"],), mesh,
+                   stationary, gather, head_dim)
     k, v = cross_kv["ck"].to(q.dtype), cross_kv["cv"].to(q.dtype)
     if x.is_cuda or needs_grad(q, k, v):
         out = flash_bshd(q, k, v, scale, causal=False)
     else:
         mask = torch.zeros((sq, k.shape[1]), device=x.device)
         out = attention_direct(q, k, v, mask, scale)
-    return out @ params["wo"]
+    return _heads_out(out, params["wo"], mesh, stationary, gather)

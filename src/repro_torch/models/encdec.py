@@ -11,21 +11,38 @@ final norm.  The JAX package stacks the layers for a ``lax.scan``; here
 with ``causal=False`` (T 1500, head dim 64 at Whisper-base), and in
 training its backward kernel through ``FlashAttentionFn`` (the plain
 versions on CPU tensors); on CPU tensors without a gradient the plain
-``attention_chunked``.
+``attention_chunked``.  Over a mesh the encoder's blocks
+(:func:`encoder_specs`) are gathered whole for each call and the rank
+encodes its rows of the batch.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models.attention import (attention_chunked, flash_bshd,
-                                         needs_grad)
-from repro_torch.models.layers import (apply_mlp, apply_norm,
-                                       sinusoidal_positions)
+from repro_torch.launch.mesh import gather_tree
+from repro_torch.models.attention import (attention_chunked,
+                                          attention_specs, flash_bshd,
+                                          needs_grad)
+from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_specs,
+                                       norm_specs, sinusoidal_positions)
 
 
-def apply_encoder(params: dict, cfg: ModelConfig, frames) -> torch.Tensor:
+def encoder_specs(cfg: ModelConfig) -> dict:
+    """At rest over a mesh (``repro/models/encdec.py:41``, its layer axis
+    dropped: one entry a layer)."""
+    one = lambda: {"ln1": norm_specs(cfg.norm),  # noqa: E731
+                   "attn": attention_specs(), "ln2": norm_specs(cfg.norm),
+                   "mlp": mlp_specs(cfg.activation)}
+    return {"layers": [one() for _ in range(cfg.n_encoder_layers)],
+            "final_norm": norm_specs(cfg.norm)}
+
+
+def apply_encoder(params: dict, cfg: ModelConfig, frames,
+                  mesh=None) -> torch.Tensor:
     """frames (B, T, D) stub embeddings -> encoder states (B, T, D)."""
+    if mesh is not None:
+        params = gather_tree(params, encoder_specs(cfg), mesh)
     b, t, d = frames.shape
     x = frames + sinusoidal_positions(t, d, frames.device).to(frames.dtype)
     scale = cfg.head_dim ** -0.5

@@ -10,9 +10,9 @@ where a gradient is needed it goes through :class:`MoEFFNFn`, whose
 backward is the ``moe_ffn_bwd`` kernel (the JAX package differentiates
 its three ``einsum`` products, ``repro/models/moe.py:160-167``).
 
-Distribution modes (:func:`select_moe_mode`), each over a
-:mod:`repro_torch.launch.mesh` mesh with the axes ``("data", "model")``
-and the JAX package's rules:
+Distribution modes (:func:`select_moe_mode`, and for decode steps
+:func:`stationary_moe_mode`), each over a :mod:`repro_torch.launch.mesh`
+mesh with the axes ``("data", "model")`` and the JAX package's rules:
 
 * ``local``: no mesh, or a ``model`` axis of size 1.
 * ``ep``: expert parallel.  The experts are split over ``model``, the
@@ -28,22 +28,32 @@ and the JAX package's rules:
 * ``tp``: tensor parallel (``E % m != 0``).  Every rank holds all the
   experts with F split over ``model``; the expert FFN's output is a
   partial sum that an all-reduce over ``model`` completes.
+* ``tp_psum``: ``tp``'s storage in a decode step, weight-stationary as
+  ``ep_psum`` is (the JAX package's decode gathers the ``data`` rows
+  there; the port moves no expert weight in a decode step).
 
-The parameters live on each rank as :func:`shard_moe_params` lays them
-out (``moe_storage_specs``); each mode gathers the view its body needs
-(``_view_specs``) with explicit collectives on ``mesh.get_group(axis)``,
-where the JAX package lets ``shard_map`` reshard.  Every rank holds the
-whole ``x`` and gets the whole output.  Forward only.
+The parameters live on each rank as ``moe_storage_specs`` lays them out
+(:func:`repro_torch.launch.mesh.shard_params`); each mode gathers the
+view its body needs (``_view_specs``) with explicit collectives on
+``mesh.get_group(axis)``, where the JAX package lets ``shard_map``
+reshard.  ``x`` comes in the layout ``x_spec`` names (whole, or the
+rank's rows of the batch in a prefill or training step) and the output
+leaves in it.  Under a gradient the collectives are
+:mod:`repro_torch.launch.mesh`'s autograd ones: ``ep``'s exchange runs
+back in reverse, ``tp``'s all-reduce has an identity backward and its
+input a summing one, and ``ep``'s router sums its gradient over
+``model``, whose ranks route different tokens.
 """
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import moe_ffn as _mf
 from repro_torch.kernels.ref import ffn_act
-from repro_torch.launch.mesh import axis_index, axis_size
+from repro_torch.launch.mesh import (all_reduce, all_reduce_grad, all_to_all,
+                                     axis_index, axis_size, block,
+                                     gather_param, mesh_devices, reshard)
 from repro_torch.models.attention import needs_grad
 
 
@@ -161,6 +171,9 @@ def _view_specs(activation: str, mode: str) -> dict:
     if mode == "ep_psum":            # the storage itself: nothing moves
         w, wd = ("model", "data", None), ("model", None, "data")
         router = ("data", None)
+    elif mode == "tp_psum":          # tp's storage itself
+        w, wd = (None, "data", "model"), (None, "model", "data")
+        router = ("data", None)
     elif mode == "ep":
         w, wd = ("model", None, None), ("model", None, None)
         router = (None, None)
@@ -175,75 +188,22 @@ def _view_specs(activation: str, mode: str) -> dict:
 
 def _x_spec(mode: str) -> tuple:
     """Which block of x (B, S, D) a rank computes: ep splits the batch
-    over ``data`` and the sequence over ``model``, ep_psum the features
-    over ``data``, tp the batch over ``data``."""
+    over ``data`` and the sequence over ``model``, the stationary modes
+    the features over ``data``, tp the batch over ``data``."""
     return {"ep": ("data", "model", None), "ep_psum": (None, None, "data"),
-            "tp": ("data", None, None)}[mode]
+            "tp_psum": (None, None, "data"), "tp": ("data", None, None)}[mode]
 
 
-def _all_gather(t, mesh, axis: str, dim: int):
-    size = axis_size(mesh, axis)
-    if size == 1:
-        return t
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(size)]
-    dist.all_gather(parts, t, group=mesh.get_group(axis))
-    return torch.cat(parts, dim=dim)
-
-
-def _all_reduce(t, mesh, axis: str):
-    if axis_size(mesh, axis) > 1:
-        t = t.contiguous()
-        dist.all_reduce(t, group=mesh.get_group(axis))
-    return t
-
-
-def _block(t, mesh, axis: str, dim: int):
-    """This rank's block of ``t`` along ``dim``, split over ``axis``."""
-    size = axis_size(mesh, axis)
-    if size == 1:
-        return t
-    if t.shape[dim] % size:
-        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
-                         f"over the {size} ranks of axis {axis!r}")
-    n = t.shape[dim] // size
-    return t.narrow(dim, axis_index(mesh, axis) * n, n)
-
-
-def _reshard(t, mesh, src: tuple, dst: tuple):
-    """From layout ``src`` to ``dst``: gather each dim split in ``src``
-    but not in ``dst``, take this rank's block of each dim split in
-    ``dst`` but not in ``src``."""
+def _param_view(t, mesh, src: tuple, dst: tuple):
+    """A parameter from its storage ``src`` to a body's view ``dst``:
+    the axes ``dst`` drops gathered (:func:`gather_param`), those it
+    adds taken as the rank's block (the router's D rows in the
+    stationary modes)."""
+    t = gather_param(t, mesh, src, keep=dst)
     for dim, (a, b) in enumerate(zip(src, dst)):
-        if a == b:
-            continue
-        if a is not None:
-            t = _all_gather(t, mesh, a, dim)
-        if b is not None:
-            t = _block(t, mesh, b, dim)
+        if a is None and b is not None:
+            t = block(t, mesh, b, dim)
     return t
-
-
-def shard_moe_params(params: dict, mesh) -> dict:
-    """This rank's at-rest shard of whole MoE parameters
-    (``moe_storage_specs``): with ``E % model == 0`` the experts split
-    over ``model`` and their D rows over ``data``, else F over ``model``
-    and D over ``data``; the router whole.  Each shard is a copy, so the
-    whole tensors can be freed."""
-    gated = "swiglu" if "w_gate" in params else "gelu"   # keys w_gate
-    specs = moe_storage_specs(gated, params["w_up"].shape[0],
-                              axis_size(mesh, "model"))
-    return {k: _reshard(v, mesh, (None,) * v.ndim, specs[k]).clone()
-            for k, v in params.items()}
-
-
-def shard_moe_layers(params: dict, cfg, mesh) -> dict:
-    """The model's parameters with each MoE layer's FFN replaced by this
-    rank's :func:`shard_moe_params` shard (the rest shared, whole)."""
-    layers = [dict(p, ffn=shard_moe_params(p["ffn"], mesh))
-              if cfg.layer_is_moe(l) else p
-              for l, p in enumerate(params["layers"])]
-    return dict(params, layers=layers)
 
 
 # ---------------------------------------------------------------------------
@@ -258,51 +218,61 @@ def _moe_ep_body(params, x_flat, mesh, *, n_experts, top_k,
     m = axis_size(mesh, "model")
     e_loc = n_experts // m
     cap = _capacity(n, top_k, n_experts, capacity_factor)
-    idx, gate = _route(params["router"], x_flat, n_experts, top_k)
+    router = all_reduce_grad(params["router"], mesh, "model")
+    idx, gate = _route(router, x_flat, n_experts, top_k)
     buf, slot = _dispatch(x_flat, idx, n_experts, cap)      # (E, C, D)
     # the JAX package's tiled all_to_all (split E, concatenate C): rank
     # j's expert block goes to rank j, and rank i's rows land in C-block
     # i; all_to_all_single splits and concatenates dim 0, so permute
-    group = mesh.get_group("model")
-    recv = torch.empty_like(buf)
-    dist.all_to_all_single(recv, buf, group=group)          # (m, E/m, C, D)
+    recv = all_to_all(buf, mesh, "model")                   # (m, E/m, C, D)
     buf = recv.view(m, e_loc, cap, d).transpose(0, 1).reshape(
         e_loc, m * cap, d)
     y = _expert_ffn(params, buf, activation)                # (E/m, C*m, D)
     send = y.view(e_loc, m, cap, d).transpose(0, 1).contiguous()
-    back = torch.empty_like(send)
-    dist.all_to_all_single(back, send, group=group)
+    back = all_to_all(send, mesh, "model")
     return _combine(back.view(n_experts, cap, d), idx, slot, gate)
 
 
-def _moe_ep_psum_body(params, x_flat, mesh, *, n_experts, top_k,
-                      capacity_factor, activation):
-    """Weight-stationary decode: x_flat (N, D/d), the experts' D rows
-    as at rest.  The partial up / gate products (f32, as the JAX
-    package's ``preferred_element_type``) are summed over ``data``
-    before the activation, which makes the sum exact; each rank projects
-    its experts down to its D shard, and a sum over ``model`` joins the
-    experts."""
+def _f32_bmm(a, w):
+    """``a @ w`` per expert with an f32 result, as the JAX package's
+    ``preferred_element_type``: f32 operands go to one ``bmm``; bf16 ones
+    are cast one expert at a time, so no f32 copy of the rank's whole
+    shard is ever made."""
+    if a.dtype == w.dtype == torch.float32:
+        return torch.bmm(a, w)
+    return torch.stack([a[e].float() @ w[e].float()
+                        for e in range(w.shape[0])])
+
+
+def _moe_psum_body(params, x_flat, mesh, *, n_experts, top_k,
+                   capacity_factor, activation):
+    """Weight-stationary decode (``ep_psum``, ``tp_psum``): x_flat (N,
+    D/d), the experts' D rows as at rest.  The partial up / gate
+    products (f32) are summed over ``data`` before the activation,
+    which makes the sum exact; each rank projects down to its D shard,
+    and a sum over ``model`` joins the ranks' experts (``ep_psum``: E/m
+    experts a rank) or F blocks (``tp_psum``: every expert, F/m)."""
     n = x_flat.shape[0]
-    e_loc = n_experts // axis_size(mesh, "model")
+    e_loc = params["w_up"].shape[0]
     cap = _capacity(n, top_k, n_experts, capacity_factor)
-    idx, gate = _top_k(_all_reduce(x_flat.float() @ params["router"],
-                                   mesh, "data"), top_k)
+    idx, gate = _top_k(all_reduce(x_flat.float() @ params["router"],
+                                  mesh, "data"), top_k)
     buf, slot = _dispatch(x_flat, idx, n_experts, cap)      # (E, C, D/d)
-    lo = axis_index(mesh, "model") * e_loc
-    buf_loc = buf[lo:lo + e_loc].float()
+    lo = axis_index(mesh, "model") * e_loc if e_loc < n_experts else 0
+    buf_loc = buf[lo:lo + e_loc]
 
     def up(w):
-        return _all_reduce(torch.bmm(buf_loc, w.float()), mesh, "data")
+        return all_reduce(_f32_bmm(buf_loc, w), mesh, "data")
 
     hu = up(params["w_up"])
     h = (ffn_act(up(params["w_gate"]), activation) * hu
          if "w_gate" in params else ffn_act(hu, activation))
-    y_loc = torch.bmm(h.to(x_flat.dtype), params["w_down"])  # (E/m, C, D/d)
-    y = torch.zeros((n_experts, cap, x_flat.shape[-1]), dtype=y_loc.dtype,
-                    device=y_loc.device)
-    y[lo:lo + e_loc] = y_loc
-    return _combine(_all_reduce(y, mesh, "model"), idx, slot, gate)
+    y = torch.bmm(h.to(x_flat.dtype), params["w_down"])     # (E_loc, C, D/d)
+    if e_loc < n_experts:
+        y_loc, y = y, torch.zeros((n_experts, cap, x_flat.shape[-1]),
+                                  dtype=y.dtype, device=y.device)
+        y[lo:lo + e_loc] = y_loc
+    return _combine(all_reduce(y, mesh, "model"), idx, slot, gate)
 
 
 def _moe_tp_body(params, x_flat, mesh, *, n_experts, top_k,
@@ -313,12 +283,13 @@ def _moe_tp_body(params, x_flat, mesh, *, n_experts, top_k,
     cap = _capacity(n, top_k, n_experts, capacity_factor)
     idx, gate = _route(params["router"], x_flat, n_experts, top_k)
     buf, slot = _dispatch(x_flat, idx, n_experts, cap)
-    y = _all_reduce(_expert_ffn(params, buf, activation), mesh, "model")
+    buf = all_reduce_grad(buf, mesh, "model")
+    y = all_reduce(_expert_ffn(params, buf, activation), mesh, "model")
     return _combine(y, idx, slot, gate)
 
 
-_BODIES = {"ep": _moe_ep_body, "ep_psum": _moe_ep_psum_body,
-           "tp": _moe_tp_body}
+_BODIES = {"ep": _moe_ep_body, "ep_psum": _moe_psum_body,
+           "tp_psum": _moe_psum_body, "tp": _moe_tp_body}
 
 
 # ---------------------------------------------------------------------------
@@ -338,13 +309,25 @@ def select_moe_mode(n_experts: int, seq_len: int, mesh) -> str:
     return "tp"
 
 
+def stationary_moe_mode(n_experts: int, mesh) -> str:
+    """A decode step's mode: no expert weight moves, whatever S is."""
+    if mesh is None or mesh_devices(mesh) == 1:
+        return "local"
+    return ("ep_psum" if n_experts % axis_size(mesh, "model") == 0
+            else "tp_psum")
+
+
 def apply_moe(params: dict, x, *, n_experts: int, top_k: int,
-              activation: str, mesh=None, capacity_factor: float = 2.0):
+              activation: str, mesh=None, capacity_factor: float = 2.0,
+              stationary: bool = False, x_spec: tuple = (None, None, None)):
     """MoE FFN over x (B, S, D).  With a ``mesh``, ``params`` is this
-    rank's :func:`shard_moe_params` shard and ``x`` the whole input,
-    the same on every rank; every rank returns the whole output."""
+    rank's shard (``moe_storage_specs``) and ``x`` the rank's block
+    under ``x_spec`` (default: whole, the same on every rank), as is
+    the output; ``stationary`` (a decode step) picks the
+    weight-stationary mode."""
     b, s, d = x.shape
-    mode = select_moe_mode(n_experts, s, mesh)
+    mode = (stationary_moe_mode(n_experts, mesh) if stationary
+            else select_moe_mode(n_experts, s, mesh))
     kw = dict(n_experts=n_experts, top_k=top_k,
               capacity_factor=capacity_factor, activation=activation)
     if mesh is not None:
@@ -352,11 +335,11 @@ def apply_moe(params: dict, x, *, n_experts: int, top_k: int,
                                     axis_size(mesh, "model"))
         view = (_view_specs(activation, mode) if mode != "local" else
                 {k: (None,) * len(v) for k, v in storage.items()})
-        params = {k: _reshard(v, mesh, storage[k], view[k])
+        params = {k: _param_view(v, mesh, storage[k], view[k])
                   for k, v in params.items()}
     if mode == "local":
         return _moe_local(params, x.reshape(-1, d), **kw).reshape(b, s, d)
     spec = _x_spec(mode)
-    xx = _reshard(x, mesh, (None,) * 3, spec)
+    xx = reshard(x, mesh, x_spec, spec)
     out = _BODIES[mode](params, xx.reshape(-1, xx.shape[-1]), mesh, **kw)
-    return _reshard(out.reshape(xx.shape), mesh, spec, (None,) * 3)
+    return reshard(out.reshape(xx.shape), mesh, spec, x_spec)

@@ -26,6 +26,21 @@ from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.models.attention import needs_grad
 
 
+def rglru_specs() -> dict:
+    """At rest over a mesh (``repro/models/rglru.py:52``); the layer
+    gathers them whole for each call."""
+    return {"w_y": ("data", "model"), "w_x": ("data", "model"),
+            "w_out": ("model", "data"),
+            "conv_w": (None, "model"), "conv_b": ("model",),
+            "w_a": ("data", "model"), "b_a": ("model",),
+            "w_i": ("data", "model"), "b_i": ("model",),
+            "a_param": ("model",)}
+
+
+def rglru_state_specs(batch_spec) -> dict:
+    return {"h": (batch_spec, "model"), "conv": (batch_spec, None, "model")}
+
+
 def init_rglru_state(batch: int, width: int, conv_width: int, dtype,
                      device) -> dict:
     return {"h": torch.zeros((batch, width), device=device),

@@ -30,6 +30,28 @@ from repro_torch.kernels import wkv6 as _wk
 from repro_torch.models.attention import needs_grad
 
 
+def tmix_specs() -> dict:
+    """At rest over a mesh (``repro/models/rwkv.py:56``); the block
+    gathers them whole for each call, as :func:`cmix_specs`."""
+    col, row = ("data", "model"), ("model", "data")
+    return {"mu_r": (None,), "mu_k": (None,), "mu_v": (None,),
+            "mu_g": (None,), "mu_w": (None,),
+            "w_r": col, "w_k": col, "w_v": col, "w_g": col, "w_o": row,
+            "w0": ("model",), "w_lora_a": ("data", None),
+            "w_lora_b": (None, "model"), "u": ("model",),
+            "ln_x": ("model",)}
+
+
+def cmix_specs() -> dict:
+    return {"mu_k": (None,), "mu_r": (None,), "w_k": ("data", "model"),
+            "w_v": ("model", "data"), "w_r": ("data", "model")}
+
+
+def rwkv_state_specs(batch_spec) -> dict:
+    return {"S": (batch_spec, "model", None, None),
+            "ts_a": (batch_spec, None), "ts_c": (batch_spec, None)}
+
+
 def init_rwkv_state(batch: int, d_model: int, head_size: int, dtype,
                     device) -> dict:
     h = d_model // head_size

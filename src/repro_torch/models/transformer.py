@@ -19,6 +19,18 @@ undo the writes of rejected tokens: saved ring rows, recurrent state
 stacks) and ``train`` (no cache; the layers run in groups of the
 pattern, each group under ``torch.utils.checkpoint`` when ``cfg.remat``,
 as the JAX package's scan body runs under ``jax.checkpoint``).
+
+Over a mesh (``mesh``, :mod:`repro_torch.launch.mesh`) every layer's
+parameters are the rank's blocks under :func:`decoder_param_specs`
+(one spec a layer: the JAX package's group axis dropped).  Decode steps
+take the whole token block on every rank and move no attention, MLP or
+MoE weight; prefill and training take the rank's rows of the batch
+(``batch_split``) and gather each weight's ``"data"`` blocks for the
+layer's call.  The norms are replicated; the recurrent mixers
+(RG-LRU ``rec``, RWKV ``tmix`` / ``cmix``) and the encoder are gathered
+whole for each call.  Caches hold the whole batch on every rank and,
+where the heads split over ``"model"``, only the rank's kv heads
+(:func:`init_cache` with the mesh).
 """
 from __future__ import annotations
 
@@ -32,14 +44,73 @@ from repro_torch.configs import (ATTN, RGLRU, RWKV, SWA, ModelConfig,
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.launch.mesh import all_gather, axis_size, block, gather_tree
 from repro_torch.models.attention import (apply_attention,
                                           apply_cross_attention,
-                                          init_kv_cache, init_paged_kv_pool,
-                                          paged_row_indices,
+                                          attention_specs, init_kv_cache,
+                                          init_paged_kv_pool, kv_cache_specs,
+                                          local_kv_heads, paged_row_indices,
                                           precompute_cross_kv, quantize_rows,
                                           restore_rejected_rows)
 from repro_torch.models.layers import (apply_mlp, apply_norm,
-                                       unembed)
+                                       embedding_specs, mlp_specs,
+                                       norm_specs, unembed)
+
+
+# ---------------------------------------------------------------------------
+# specs (the JAX package's PartitionSpecs as tuples, one entry a layer)
+
+
+def layer_specs(cfg: ModelConfig, kind: str, model_size: int,
+                use_moe: bool = False) -> dict:
+    p = {"ln1": norm_specs(cfg.norm), "ln2": norm_specs(cfg.norm)}
+    if kind in (ATTN, SWA):
+        p["attn"] = attention_specs()
+        if cfg.encoder_decoder:
+            p["xattn"] = attention_specs()
+            p["ln_x"] = norm_specs(cfg.norm)
+        p["ffn"] = (moe_lib.moe_storage_specs(cfg.activation, cfg.n_experts,
+                                              model_size) if use_moe
+                    else mlp_specs(cfg.activation))
+    elif kind == RGLRU:
+        p["rec"] = rglru_lib.rglru_specs()
+        p["ffn"] = mlp_specs(cfg.activation)
+    elif kind == RWKV:
+        p["tmix"] = rwkv_lib.tmix_specs()
+        p["cmix"] = rwkv_lib.cmix_specs()
+    return p
+
+
+def decoder_param_specs(cfg: ModelConfig, model_size: int = 16,
+                        data_size: int = 16) -> dict:
+    """The decoder's specs (``data_size`` decides the embedding's D,
+    the JAX package's default 16 unless a mesh says otherwise)."""
+    return {"embed": embedding_specs(cfg.tie_embeddings, cfg.vocab_size,
+                                     cfg.d_model, model_size, data_size),
+            "layers": [layer_specs(cfg, cfg.layer_kind(l), model_size,
+                                   cfg.layer_is_moe(l))
+                       for l in range(cfg.n_layers)],
+            "final_norm": norm_specs(cfg.norm)}
+
+
+def cache_specs(cfg: ModelConfig, batch_spec, seq_spec) -> dict:
+    """Specs matching :func:`init_cache`'s layout, one entry a layer."""
+    layers = []
+    for l in range(cfg.n_layers):
+        kind = cfg.layer_kind(l)
+        if kind in (ATTN, SWA):
+            one = kv_cache_specs(batch_spec, seq_spec,
+                                 quant=(kind == ATTN
+                                        and cfg.kv_cache_dtype == "int8"))
+            if cfg.encoder_decoder and kind == ATTN:
+                one["ck"] = (batch_spec, None, None, None)
+                one["cv"] = (batch_spec, None, None, None)
+        elif kind == RGLRU:
+            one = rglru_lib.rglru_state_specs(batch_spec)
+        else:
+            one = rwkv_lib.rwkv_state_specs(batch_spec)
+        layers.append(one)
+    return {"layers": layers, "pos": (None,)}
 
 
 def _set_state(cache: dict | None, new_state: dict) -> None:
@@ -49,21 +120,46 @@ def _set_state(cache: dict | None, new_state: dict) -> None:
             cache[key].copy_(val)
 
 
+def _rows(state: dict, mesh, batch_split: bool) -> dict:
+    """A state's rows for the rank's block of the batch."""
+    if not batch_split:
+        return state
+    return {k: block(v, mesh, "data", 0) for k, v in state.items()}
+
+
+def _whole(state: dict, mesh, batch_split: bool) -> dict:
+    """A state of the rank's rows gathered over the batch."""
+    if not batch_split:
+        return state
+    return {k: all_gather(v, mesh, "data", 0) for k, v in state.items()}
+
+
 def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
                 pos, phase: str, use_moe: bool = False,
                 block_tables=None, spec_tree: dict | None = None,
-                enc_out=None, mesh=None):
+                enc_out=None, mesh=None, batch_split: bool = False):
     """Returns (x, cache, pending).  ``spec_tree`` reaches the attention
-    layers only (see :func:`apply_attention`); ``mesh`` the MoE FFN only
-    (:func:`repro_torch.models.moe.apply_moe`: the layer's ``ffn`` is
-    then this rank's shard, every other layer runs whole on each rank).  An encoder-decoder
-    attention layer (``xattn`` in ``params``) attends over the encoder
-    after its self-attention: prefill computes the cross K/V from
-    ``enc_out`` and stores them in the cache's ``ck`` / ``cv`` (in
-    place), decode reads them from there."""
+    layers only (see :func:`apply_attention`).  With a ``mesh`` the
+    layer's parameters are the rank's blocks (see the module's
+    docstring) and ``batch_split`` says that x holds the rank's rows of
+    the batch (prefill, training), while the cache holds them all.  An
+    encoder-decoder attention layer (``xattn`` in ``params``) attends
+    over the encoder after its self-attention: prefill computes the
+    cross K/V from ``enc_out`` and stores them in the cache's ``ck`` /
+    ``cv`` (in place), decode reads them from there."""
     norm = lambda p, z: apply_norm(p, z, cfg.norm)
+    stationary = phase == "decode"
+    if mesh is not None and kind == RGLRU:
+        params = dict(params, rec=gather_tree(params["rec"],
+                                              rglru_lib.rglru_specs(), mesh))
+    if mesh is not None and kind == RWKV:
+        params = dict(params,
+                      tmix=gather_tree(params["tmix"], rwkv_lib.tmix_specs(),
+                                       mesh),
+                      cmix=gather_tree(params["cmix"], rwkv_lib.cmix_specs(),
+                                       mesh))
     if kind == RGLRU:
-        state = (cache if cache is not None else
+        state = (_rows(cache, mesh, batch_split) if cache is not None else
                  rglru_lib.init_rglru_state(x.shape[0], cfg.rnn_width,
                                             cfg.conv_width, x.dtype,
                                             x.device))
@@ -71,18 +167,18 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
             params["rec"], norm(params["ln1"], x), state)
         x = x + out
         x = x + apply_mlp(params["ffn"], norm(params["ln2"], x),
-                          cfg.activation)
-        _set_state(cache, new_state)
+                          cfg.activation, mesh, stationary)
+        _set_state(cache, _whole(new_state, mesh, batch_split))
         return x, cache, ({"stack": stack} if phase == "decode" else {})
     if kind == RWKV:
-        state = (cache if cache is not None else
+        state = (_rows(cache, mesh, batch_split) if cache is not None else
                  rwkv_lib.init_rwkv_state(x.shape[0], cfg.d_model,
                                           cfg.rwkv_head_size, x.dtype,
                                           x.device))
         x, new_state, stack = rwkv_lib.apply_rwkv_block(
             params["tmix"], params["cmix"], params["ln1"], params["ln2"], x,
             state, cfg.rwkv_head_size, norm)
-        _set_state(cache, new_state)
+        _set_state(cache, _whole(new_state, mesh, batch_split))
         return x, cache, ({"stack": stack} if phase == "decode" else {})
     if kind not in (ATTN, SWA):
         raise ValueError(kind)
@@ -93,22 +189,24 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
         head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
         use_rope=cfg.use_rope, window=window, cache=cache, pos=pos,
         phase=phase, block_tables=block_tables if kind == ATTN else None,
-        spec_tree=spec_tree)
+        spec_tree=spec_tree, mesh=mesh, batch_split=batch_split)
     x = x + out
     if "xattn" in params:
+        heads = dict(n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim)
         if phase == "prefill" or cache is None or "ck" not in cache:
             cross = precompute_cross_kv(params["xattn"], enc_out,
-                                        n_kv_heads=cfg.n_kv_heads,
-                                        head_dim=cfg.head_dim)
+                                        n_heads=cfg.n_heads, mesh=mesh,
+                                        **heads)
             if cache is not None and "ck" in cache:
-                cache["ck"].copy_(cross["ck"])
-                cache["cv"].copy_(cross["cv"])
+                whole = _whole(cross, mesh, batch_split)
+                cache["ck"].copy_(whole["ck"])
+                cache["cv"].copy_(whole["cv"])
         else:
             cross = {"ck": cache["ck"], "cv": cache["cv"]}
         x = x + apply_cross_attention(params["xattn"],
                                       norm(params["ln_x"], x), cross,
-                                      n_heads=cfg.n_heads,
-                                      head_dim=cfg.head_dim)
+                                      n_heads=cfg.n_heads, mesh=mesh,
+                                      stationary=stationary, **heads)
     h = apply_norm(params["ln2"], x, cfg.norm)
     if use_moe:
         # decode steps are few-token: dropless dispatch keeps speculative
@@ -117,9 +215,12 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
               else cfg.capacity_factor)
         f = moe_lib.apply_moe(params["ffn"], h, n_experts=cfg.n_experts,
                               top_k=cfg.top_k, activation=cfg.activation,
-                              mesh=mesh, capacity_factor=cf)
+                              mesh=mesh, capacity_factor=cf,
+                              stationary=stationary,
+                              x_spec=("data" if batch_split else None,
+                                      None, None))
     else:
-        f = apply_mlp(params["ffn"], h, cfg.activation)
+        f = apply_mlp(params["ffn"], h, cfg.activation, mesh, stationary)
     x = x + f
     pending = {"saved": saved} if phase == "decode" else {}
     return x, cache, pending
@@ -130,22 +231,24 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
 
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     device) -> dict:
+                     device, mesh=None) -> dict:
     """One layer's cache; an encoder-decoder ATTN layer also holds the
-    cross K/V ``ck`` / ``cv`` (B, encoder_len, Hkv, d)."""
+    cross K/V ``ck`` / ``cv`` (B, encoder_len, Hkv, d).  Over a ``mesh``
+    the attention caches hold the rank's kv heads
+    (:func:`repro_torch.models.attention.local_kv_heads`)."""
+    hkv = local_kv_heads(cfg.n_heads, cfg.n_kv_heads, mesh)
     if kind == ATTN:
-        c = init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
+        c = init_kv_cache(batch, max_len, hkv, cfg.head_dim,
                           cfg.torch_dtype, device,
                           quant=cfg.kv_cache_dtype == "int8")
         if cfg.encoder_decoder:
-            shape = (batch, cfg.encoder_len, cfg.n_kv_heads, cfg.head_dim)
+            shape = (batch, cfg.encoder_len, hkv, cfg.head_dim)
             c["ck"] = torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
             c["cv"] = torch.zeros_like(c["ck"])
         return c
     if kind == SWA:
         return init_kv_cache(batch, min(cfg.sliding_window, max_len),
-                             cfg.n_kv_heads, cfg.head_dim, cfg.torch_dtype,
-                             device)
+                             hkv, cfg.head_dim, cfg.torch_dtype, device)
     if kind == RGLRU:
         return rglru_lib.init_rglru_state(batch, cfg.rnn_width,
                                           cfg.conv_width, cfg.torch_dtype,
@@ -158,10 +261,10 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda") -> dict:
+               device="cuda", mesh=None) -> dict:
     device = resolve_device(device)
     return {"layers": [init_layer_cache(cfg, cfg.layer_kind(l), batch,
-                                        max_len, device)
+                                        max_len, device, mesh)
                        for l in range(cfg.n_layers)],
             "pos": torch.zeros((batch,), dtype=torch.int64, device=device)}
 
@@ -268,17 +371,20 @@ def _sqrt_factor(n: int, threshold: int = 8) -> int:
     return next(k for k in range(math.isqrt(n), 0, -1) if n % k == 0)
 
 
-def _train_group(params: dict, cfg: ModelConfig, group: int, x, enc_out):
-    """The layers of pattern group ``group`` over x, phase ``train``."""
+def _train_group(params: dict, cfg: ModelConfig, group: int, x, enc_out,
+                 mesh):
+    """The layers of pattern group ``group`` over x, phase ``train``
+    (over a ``mesh``, x the rank's rows of the batch)."""
     p = len(cfg.layer_pattern)
     for l in range(group * p, (group + 1) * p):
         x, _, _ = apply_layer(params["layers"][l], cfg, cfg.layer_kind(l), x,
                               None, None, "train",
-                              use_moe=cfg.layer_is_moe(l), enc_out=enc_out)
+                              use_moe=cfg.layer_is_moe(l), enc_out=enc_out,
+                              mesh=mesh, batch_split=mesh is not None)
     return x
 
 
-def _forward_train(params: dict, cfg: ModelConfig, x, enc_out):
+def _forward_train(params: dict, cfg: ModelConfig, x, enc_out, mesh=None):
     """The cache-less training forward (``repro/models/transformer.py:
     520-560``): one group of the pattern at a time.  With ``cfg.remat``
     each group is a checkpoint (only its input is kept; the backward
@@ -291,7 +397,8 @@ def _forward_train(params: dict, cfg: ModelConfig, x, enc_out):
     once instead of n_groups."""
     ckpt = lambda fn, z: checkpoint(fn, z, use_reentrant=False,
                                     preserve_rng_state=False)
-    group = lambda g: (lambda z: _train_group(params, cfg, g, z, enc_out))
+    group = lambda g: (lambda z: _train_group(params, cfg, g, z, enc_out,
+                                              mesh))
     n = cfg.n_groups
     if not cfg.remat:
         for g in range(n):
@@ -321,17 +428,19 @@ def _forward_train(params: dict, cfg: ModelConfig, x, enc_out):
 
 def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
                     cache: dict | None = None, mesh=None,
-                    spec_tree: dict | None = None, enc_out=None):
+                    spec_tree: dict | None = None, enc_out=None,
+                    batch_split: bool = False):
     """Run the decoder over embedded inputs x (B, S, D): a loop over
     layers.  ``spec_tree`` (decode only) marks x as a speculation-tree
     buffer; ``enc_out`` is the encoder output of an encoder-decoder
-    config (read in prefill and training); ``mesh`` (prefill and decode)
-    distributes the MoE layers (:func:`apply_layer`).  Returns (hidden, cache,
-    pendings); phase ``train`` takes no cache and returns (hidden, None,
-    [])."""
+    config (read in prefill and training); ``mesh`` distributes every
+    layer, and ``batch_split`` (prefill) says x holds the rank's rows
+    of the batch (:func:`apply_layer`; training always splits it).
+    Returns (hidden, cache, pendings); phase ``train`` takes no cache
+    and returns (hidden, None, [])."""
     if phase == "train":
         assert cache is None, "the training forward takes no cache"
-        return _forward_train(params, cfg, x, enc_out), None, []
+        return _forward_train(params, cfg, x, enc_out, mesh), None, []
     pos = cache["pos"] if (cache is not None and phase == "decode") else None
     block_tables = (cache.get("block_tables")
                     if (cache is not None and phase == "decode") else None)
@@ -343,14 +452,24 @@ def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
                                  use_moe=cfg.layer_is_moe(l),
                                  block_tables=block_tables,
                                  spec_tree=spec_tree, enc_out=enc_out,
-                                 mesh=mesh)
+                                 mesh=mesh, batch_split=batch_split)
         pendings.append(pend)
     return x, cache, pendings
 
 
-def logits_from_hidden(params: dict, cfg: ModelConfig, x):
+def logits_from_hidden(params: dict, cfg: ModelConfig, x, mesh=None,
+                       stationary: bool = False):
     h = apply_norm(params["final_norm"], x, cfg.norm)
-    return unembed(params["embed"], h)
+    return unembed(params["embed"], h, mesh, embed_specs(cfg, mesh),
+                   stationary)
+
+
+def embed_specs(cfg: ModelConfig, mesh) -> dict | None:
+    """The embedding's specs at ``mesh``'s sizes (None off a mesh)."""
+    if mesh is None:
+        return None
+    return embedding_specs(cfg.tie_embeddings, cfg.vocab_size, cfg.d_model,
+                           axis_size(mesh, "model"), axis_size(mesh, "data"))
 
 
 def commit_cache(cfg: ModelConfig, cache: dict, pendings, n_commit,

@@ -24,12 +24,22 @@ stacks the tensors of each pattern position (and the encoder's layers,
 which the JAX package stacks too) before it factors them, and writes the
 result back to each layer: the init takes the config for the pattern.
 AdamW is elementwise and needs no stacking.
+
+Over a mesh the parameters, gradients and states are the rank's blocks
+(:func:`opt_state_specs` lays the states out as the parameters are:
+AdamW's moments mirror them, Adafactor's factors drop one dim each).
+AdamW needs nothing more; Adafactor's means over a dim that is split,
+and its RMS clip over the whole leaf, sum over the ranks that hold the
+leaf's other blocks (``mesh`` and the parameters' ``specs``).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import all_reduce, axis_size, is_spec
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 
@@ -86,27 +96,34 @@ def adamw_update(grads, state, params, lr, *, b1=0.9, b2=0.95, eps=1e-8,
 # Adafactor (factored second moment; no momentum)
 
 
-def stacked_leaves(params, n_positions: int) -> dict:
+def stacked_leaves(params, n_positions: int, is_leaf=None) -> dict:
     """{JAX leaf path: [the port's tensors it stacks, in group order] or
     a single tensor}.  Decoder layer ``l`` is group ``l // P``, position
     ``l % P`` (``P = n_positions``, the pattern's length); encoder layers
-    stack all together."""
+    stack all together.  ``is_leaf`` as in :func:`tree_flatten` (a spec
+    tree)."""
+    flat = lambda t: tree_flatten(t, is_leaf=is_leaf)  # noqa: E731
     out = {}
     for key, val in params.items():
         if key == "layers":
             layers = val
             for i in range(n_positions):
                 group = layers[i::n_positions]
-                for path in tree_flatten(group[0]):
-                    out[f"layers/[{i}]/{path}"] = [
-                        tree_flatten(layer)[path] for layer in group]
+                for path in flat(group[0]):
+                    out[f"layers/[{i}]/{path}"] = [flat(layer)[path]
+                                                   for layer in group]
         elif key == "encoder":
-            for path, leaf in stacked_leaves(val, 1).items():
+            for path, leaf in stacked_leaves(val, 1, is_leaf).items():
                 out[f"encoder/{path}"] = leaf
         else:
-            for path, leaf in tree_flatten(val).items():
+            for path, leaf in flat(val).items():
                 out[f"{key}/{path}"] = leaf
     return out
+
+
+def _stacked_spec(spec) -> tuple:
+    """A stacked leaf's spec: the group axis whole."""
+    return (None,) + spec[0] if isinstance(spec, list) else spec
 
 
 def _shape(leaf) -> tuple:
@@ -133,22 +150,37 @@ def adafactor_init(params, cfg) -> dict:
 
 
 def adafactor_update(grads, state, params, lr, *, decay=0.8, eps=1e-30,
-                     clip=1.0):
+                     clip=1.0, mesh=None, specs=None):
+    """``mesh`` and ``specs`` (the parameters' spec tree) when the trees
+    hold the rank's blocks: each mean then sums over the axis its dim is
+    split over."""
     t = _next_step(state)
     beta = float(_f32(1) - t ** _f32(-decay))
     n_pos = _n_positions(state)
     gl = stacked_leaves(grads, n_pos)
+    sl = (stacked_leaves(specs, n_pos, is_spec) if mesh is not None
+          else {})
+
+    def mean(x, dim, axis, keepdim=False):
+        """``x.mean(dim)`` over the whole dim, split over ``axis``."""
+        if mesh is None or axis is None:
+            return x.mean(dim, keepdim=keepdim)
+        return all_reduce(x.sum(dim, keepdim=keepdim), mesh, axis) / (
+            x.shape[dim] * axis_size(mesh, axis))
+
     with torch.no_grad():
         for path, p in stacked_leaves(params, n_pos).items():
             g, v = gl[path], state["v"][path]
             stacked = isinstance(p, list)
+            spec = (_stacked_spec(sl[path]) if mesh is not None
+                    else (None,) * 2)
             g = (torch.stack([x.float() for x in g]) if stacked
                  else g.float())
             g2 = g.square() + eps
             if g.dim() >= 2:
-                v["row"].mul_(beta).add_((1 - beta) * g2.mean(-1))
-                v["col"].mul_(beta).add_((1 - beta) * g2.mean(-2))
-                denom = v["row"].mean(-1, keepdim=True)
+                v["row"].mul_(beta).add_((1 - beta) * mean(g2, -1, spec[-1]))
+                v["col"].mul_(beta).add_((1 - beta) * mean(g2, -2, spec[-2]))
+                denom = mean(v["row"], -1, spec[-2], keepdim=True)
                 rfac = (v["row"] / torch.clamp_min(denom, eps))[..., None]
                 update = g * torch.rsqrt(torch.clamp_min(
                     rfac * v["col"][..., None, :], eps))
@@ -156,7 +188,10 @@ def adafactor_update(grads, state, params, lr, *, decay=0.8, eps=1e-30,
                 v["v"].mul_(beta).add_((1 - beta) * g2)
                 update = g * torch.rsqrt(torch.clamp_min(v["v"], eps))
             del g, g2
-            norm = torch.sqrt(torch.mean(torch.square(update)))
+            if mesh is None:
+                norm = torch.sqrt(torch.mean(torch.square(update)))
+            else:
+                norm = _leaf_mean(torch.square(update), spec, mesh).sqrt()
             update = update / torch.clamp_min(norm / clip, 1.0)
             if stacked:
                 for i, pi in enumerate(p):
@@ -175,6 +210,38 @@ def _n_positions(state: dict) -> int:
 
 
 # ---------------------------------------------------------------------------
+
+
+def _leaf_mean(x, spec: tuple, mesh):
+    """The mean of a leaf whose rank holds block ``x`` under ``spec``."""
+    axes = [a for a in dict.fromkeys(spec) if a is not None]
+    total = x.sum()
+    for axis in axes:
+        total = all_reduce(total, mesh, axis)
+    return total / (x.numel() * math.prod(axis_size(mesh, a) for a in axes))
+
+
+def opt_state_specs(kind: str, param_specs, cfg=None) -> dict:
+    """The state's specs, mirroring ``param_specs``
+    (``repro/training/optimizer.py:142``): AdamW's moments take the
+    parameters' specs; Adafactor's ``row`` drops the last dim's axis and
+    ``col`` the second-to-last, keyed by its stacked leaves as
+    :func:`adafactor_init` (hence ``cfg``, for the pattern) keys them.
+    ``step`` is a scalar."""
+    if kind == "adamw":
+        return {"mu": param_specs, "nu": param_specs, "step": ()}
+    if kind != "adafactor":
+        raise ValueError(kind)
+
+    def factors(spec):
+        if len(spec) >= 2:
+            return {"row": spec[:-1], "col": spec[:-2] + spec[-1:]}
+        return {"v": spec}
+
+    return {"v": {path: factors(_stacked_spec(spec)) for path, spec in
+                  stacked_leaves(param_specs, len(cfg.layer_pattern),
+                                 is_spec).items()},
+            "step": ()}
 
 
 def make_optimizer(kind: str):

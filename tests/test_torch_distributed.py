@@ -9,7 +9,7 @@ at 2.0 within 1e-5 of JAX's own ``apply_moe`` under 8 host devices (its
 capacity is per rank, so its drops differ from the local ones), which a
 subprocess computes once.  A reduced MoE model (2 layers, d 64, E 8,
 f32) prefills (``ep``) and decodes 4 steps (``ep_psum``) on the mesh,
-each rank holding its ``shard_moe_layers`` shards; its logits are held
+each rank holding its ``shard_model`` blocks; its logits are held
 within 1e-4 of JAX's single-device ``prefill`` / ``decode_step`` and its
 greedy tokens equal.  The model is dropless (``moe_dropless``): at a
 finite capacity the ``ep`` prefill drops by each rank's token count,
@@ -98,9 +98,16 @@ def _moe_params(w, e):
     return {k: torch.from_numpy(np.array(v)) for k, v in w[f"moe{e}"].items()}
 
 
+def _shard_moe(params, mesh):
+    """The rank's at-rest shard of a whole MoE layer."""
+    specs = tmoe.moe_storage_specs("swiglu", params["w_up"].shape[0],
+                                   tmesh.axis_size(mesh, "model"))
+    return tmesh.shard_params(params, specs, mesh)
+
+
 def _model_run(params, cfg, mesh, tokens):
     """Prefill, then ``STEPS`` greedy decode steps: (logits, tokens)."""
-    cache = init_cache(cfg, B, L + STEPS + 1, "cpu")
+    cache = init_cache(cfg, B, L + STEPS + 1, "cpu", mesh)
     lg, cache = TM.prefill(params, cfg, tokens, cache, mesh)
     logits, toks = [lg], []
     for _ in range(STEPS):
@@ -125,7 +132,7 @@ def _mesh_ranks(rank, weights):
     for case, (e, _) in CASES.items():
         x = torch.from_numpy(np.array(w[f"x_{case}"]))
         out["modes"][case] = tmoe.select_moe_mode(e, x.shape[1], mesh)
-        shard = tmoe.shard_moe_params(_moe_params(w, e), mesh)
+        shard = _shard_moe(_moe_params(w, e), mesh)
         if case == "ep":
             out["shard_shapes"] = {k: tuple(v.shape)
                                    for k, v in shard.items()}
@@ -135,8 +142,7 @@ def _mesh_ranks(rank, weights):
                                capacity_factor=cf)
             out["moe"][case, cf_name] = y.numpy()
     cfg = ModelConfig(**MODEL)
-    params = tmoe.shard_moe_layers(from_jax(w["model"], cfg, "cpu"), cfg,
-                                   mesh)
+    params = TM.shard_model(from_jax(w["model"], cfg, "cpu"), cfg, mesh)
     out["model"] = _model_run(params, cfg, mesh,
                               torch.from_numpy(w["tokens"]).long())
     return out
@@ -147,7 +153,7 @@ def _host_ranks(rank, weights):
         w = pickle.load(f)
     mesh = tmesh.make_host_mesh("cpu")
     x = torch.from_numpy(np.array(w["x_ep"]))
-    p = tmoe.shard_moe_params(_moe_params(w, 8), mesh)
+    p = _shard_moe(_moe_params(w, 8), mesh)
     kw = dict(n_experts=8, top_k=TOPK, activation="swiglu",
               capacity_factor=2.0)
     cfg = ModelConfig(**MODEL)
@@ -155,7 +161,7 @@ def _host_ranks(rank, weights):
     tokens = torch.from_numpy(w["tokens"]).long()
     return {"moe": (tmoe.apply_moe(p, x, mesh=mesh, **kw).numpy(),
                     tmoe.apply_moe(_moe_params(w, 8), x, **kw).numpy()),
-            "model": (_model_run(tmoe.shard_moe_layers(params, cfg, mesh),
+            "model": (_model_run(TM.shard_model(params, cfg, mesh),
                                  cfg, mesh, tokens),
                       _model_run(params, cfg, None, tokens))}
 
