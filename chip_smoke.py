@@ -58,10 +58,10 @@ on its own lines with its wall seconds:
    read around each run: (a) paged, Mixtral-8x7B / Mistral-7B widths,
    ``SERVE_LAYERS`` (2) layers each, 12 requests; (b) contiguous
    (``paged=False``),
-   RWKV-6-7B at full width, 16 of its 32 layers
+   RWKV-6-7B at full width, 8 of its 32 layers
    (``RECURRENT_SERVE_LAYERS``), with a 2-layer
    Mistral-7B-width draft, 8 requests; (c) contiguous,
-   RecurrentGemma-2B at full width, 15 of its 27 layers, the same kind
+   RecurrentGemma-2B at full width, 9 of its 27 layers, the same kind
    of draft, 8 requests (the RG-LRU through its fused entry, never the
    bare scan); (d) contiguous, the widths of (a), 8 requests; (e) paged
    tree speculation, tree (3, 2), the widths of (a) with the draft made
@@ -69,8 +69,8 @@ on its own lines with its wall seconds:
    round through ``paged_decode_attention`` with ``anc_bits`` (those
    launches counted apart from the causal ones), and the histogram of
    accepted path lengths; and, run first, while the host's memory is
-   untouched: (f) Mixtral-8x7B at its full width, 16 of its 32 layers
-   (``OFFLOAD_LAYERS``; 43.3 GiB in bf16), drawn from seed 0 layer by
+   untouched: (f) Mixtral-8x7B at its full width, 8 of its 32 layers
+   (``OFFLOAD_LAYERS``; 21.6 GiB in bf16), drawn from seed 0 layer by
    layer into page-locked
    host memory, B 2 prompts of 512 tokens prefilled and 8 greedy decode
    + commit steps, every pass streamed through two device slots: per
@@ -193,7 +193,11 @@ on its own lines with its wall seconds:
    10) under a window of 2048 at S 4096, Whisper's encoder, decoder and
    cross attention, head dim 32, partial tiles at S 100, Sq != Skv), the
    library yardstick being the backward of
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``; both flash kernels with a query
+   offset (``FLASH_OFFSET``: a context-parallel rank's 1024 queries at
+   offsets 1024 and 3072 over 4096 keys, global and window 1024, head
+   dims 128, 240 and 256, bf16, and two f32 cases), and ``q_offset=0``
+   bitwise equal to the call without it;
 6. (a) the four ``examples/torch_*.py`` in this process on the card at
    their defaults, through their ``main``: each one's printed lines, wall
    and launches (the quickstart must launch ``flash_attention`` and
@@ -230,7 +234,20 @@ on its own lines with its wall seconds:
    ``TOL_MESH_LOSS`` and every block under the first-step rule (within
    1e-6 where the gradient's magnitude passes 1e-4, within 2 lr
    anywhere), ``flash_attention_bwd`` and ``moe_ffn_bwd`` launched on
-   every rank, its peak memory printed;
+   every rank, its peak memory printed; (f) / (g) sequence parallelism
+   under the default profile on one (1, 2) spawn (``MESH_SEQ``):
+   RecurrentGemma-2B at full width, 3 layers (context-parallel attention,
+   the RG-LRU on 1280 channels a rank) and RWKV-6-7B at full width, 2
+   layers (32 heads a rank), f32, B 2 x S 512: prefill and 8 greedy
+   steps against one process (as (c)), one AdamW step against one
+   process (as (e)), the launches each rank must make (6f:
+   ``flash_attention`` -- with a nonzero ``q_offset`` on rank 1, whose
+   block of the queries starts at 256 --, ``flash_attention_bwd``,
+   ``rglru_gated_scan``, ``rglru_gated_scan_bwd``; 6g: ``wkv6``,
+   ``wkv6_bwd``), and the bytes a rank holds when the step starts, which
+   must equal the dry run's argument bytes for the same step and mesh
+   (``launch/dryrun.py`` in a process of its own), the two peaks
+   printed side by side;
 7. the kernels as one JSON object; 8. the device as one JSON object.
 
 The families' cases of phase 2: flash at head dim 240 (Gemma-3-12B's 16
@@ -245,8 +262,8 @@ rows), and Llama-3-405B under tree (3, 2), 160 rows in two row groups
 (bitwise equal twice); ``moe_ffn`` at Phi-3.5-MoE (E 16, F 6400) and
 Llama-4 Maverick (E 128, D 5120, F 8192) widths at verify C 20 and at a
 512-token prompt's prefill capacity.  Phase 3 ends with (h) Gemma-3-12B
-at full width, 24 of its 48 layers (``GEMMA_SERVE_LAYERS``: 20
-sliding-window and 4 global) beside a 2-layer
+at full width, 12 of its 48 layers (``GEMMA_SERVE_LAYERS``: 10
+sliding-window and 2 global) beside a 2-layer
 Mistral-7B-width draft, paged chain, 8 requests with prompts of 512 and
 1280 in turn (the 1024-token window binds, the rings wrap), every target
 flash and paged verify launch at head dim 240; (i) Chameleon-34B,
@@ -285,13 +302,15 @@ DRAFT_NOISE = 0.05                    # 4e/4f: the draft's weight noise
 # 3a / 3d / 3e / 3g / 3g-tr: Mixtral-8x7B and its Mistral-7B-width draft
 # at 2 layers each (cut from 4 to pay for phase 6's mesh runs)
 SERVE_LAYERS = 2
-# 3b / 3c: RWKV-6-7B and RecurrentGemma-2B at 16 of 32 and 15 (five
-# groups of the pattern) of 27 layers (the same cut, from whole models)
-RECURRENT_SERVE_LAYERS = (16, 15)
+# 3b / 3c: RWKV-6-7B and RecurrentGemma-2B at 8 of 32 and 9 (three
+# groups of the pattern) of 27 layers (whole models until PR 25, 16 / 15
+# to pay for 6d / 6e, 8 / 9 to pay for 6f / 6g)
+RECURRENT_SERVE_LAYERS = (8, 9)
 # 3f: Mixtral-8x7B streamed from host memory at a depth fixed here (never
-# chosen at run time): 16 of its 32 layers, cut from 32 to pay for phase
-# 6's mesh runs (6d, 6e), B 2 prompts of 512 tokens, 8 decode steps
-OFFLOAD_LAYERS, OFFLOAD_B, OFFLOAD_PROMPT, OFFLOAD_STEPS = 16, 2, 512, 8
+# chosen at run time): 8 of its 32 layers, cut from 32 to 16 to pay for
+# phase 6's mesh runs (6d, 6e) and to 8 for 6f / 6g, B 2 prompts of 512
+# tokens, 8 decode steps
+OFFLOAD_LAYERS, OFFLOAD_B, OFFLOAD_PROMPT, OFFLOAD_STEPS = 8, 2, 512, 8
 OFFLOAD_MAX_LEN = OFFLOAD_PROMPT + OFFLOAD_STEPS + 8   # + the traced step
 # 3f-eq: more layers than the 2 slots (cut from 4, the same cut)
 OFFLOAD_EQ_LAYERS = 3
@@ -605,6 +624,7 @@ def kernel_cases(bench) -> dict:
         flash_case("launcher d32 b8 hq4 hkv2 s64 w64 (5t-l)", 8, 4, 2, 64, 32,
                    True, 64, dt, model_layout=True)
     main["flash_attention_bwd"] = flash_bwd_cases(bench, rn)
+    flash_offset_cases(bench, rn)
 
     # -- paged decode attention --------------------------------------------
     def split_note(name, b, hkv, capacity, rows=None, d=128):
@@ -1495,6 +1515,100 @@ def moe_bwd_cases(bench, gen) -> dict:
     return main
 
 
+# phase 2's flash cases with a query offset (context parallelism: a
+# rank's block of Sq queries at positions offset + i over all Skv keys):
+# (Sq, Skv, offsets, head dims, windows, heads q / kv)
+FLASH_OFFSET = (1024, 4096, (1024, 3072), (128, 240, 256), (None, 1024),
+                (8, 2))
+
+
+def flash_offset_cases(bench, rn) -> None:
+    """``flash_attention`` and ``flash_attention_bwd`` with ``q_offset``
+    against their plain versions at ``FLASH_OFFSET`` (bf16, the model's
+    (B, S, H, d) views; two f32 cases for the exact kernels), within
+    ``TOL``; each line times the kernel, its bound (its visible pairs,
+    ``ref.visible_pairs``), the plain version and the library call on the
+    same rows (``scaled_dot_product_attention`` under the block's mask).
+    Then ``q_offset = 0`` against the call without it, bitwise, forward
+    and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ref
+
+    sq, skv, offsets, dims, windows, (hq, hkv) = FLASH_OFFSET
+
+    def case(d, off, window, dt):
+        dname = str(dt).split(".")[1]
+        label = f"sq{sq} at {off} skv{skv} d{d} w{window}"
+        q = rn(1, sq, hq, d, dt=dt).transpose(1, 2)
+        k, v = (rn(1, skv, hkv, d, dt=dt).transpose(1, 2) for _ in range(2))
+        dout = rn(1, sq, hq, d, dt=dt).transpose(1, 2)
+        kw = dict(causal=True, window=window, q_offset=off)
+        got, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        want, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True,
+                                                 **kw)
+        torch.cuda.synchronize()
+        err = _check("flash_attention q_offset", label, got, want, dname)
+        _check("flash_attention q_offset lse", label, lse, want_lse,
+               "float32")
+        pairs = ref.visible_pairs(sq, skv, True, window, off)
+        i = off + torch.arange(sq, device="cuda")[:, None]
+        j = torch.arange(skv, device="cuda")[None, :]
+        okm = (j <= i) & ((j > i - window) if window else True)
+        ke, ve = (t.repeat_interleave(hq // hkv, 1) for t in (k, v))
+        lib = lambda: F.scaled_dot_product_attention(q, ke, ve,  # noqa: E731
+                                                     attn_mask=okm)
+        _report("flash_attention q_offset", label, dname, err,
+                bench.ms(lambda: fa.flash_attention(q, k, v, **kw)),
+                _bound(_nbytes(q, k, v, got), 4.0 * hq * d * pairs, dname),
+                bench.ms(lambda: ref.flash_attention_ref(q, k, v, **kw)),
+                bench.ms(lib), path=_tc_path(dt))
+        out = want.transpose(1, 2).contiguous().transpose(1, 2)
+        gb = fb.flash_attention_bwd(q, k, v, out, want_lse, dout, **kw)
+        wb = ref.flash_attention_bwd_ref(q, k, v, out, want_lse, dout, **kw)
+        torch.cuda.synchronize()
+        err = max(_check("flash_attention_bwd q_offset", f"{label} {n}", g,
+                         w, dname) for n, g, w in zip(("dq", "dk", "dv"),
+                                                      gb, wb))
+        ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                      for t in (q, ke, ve))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=okm)
+        _report("flash_attention_bwd q_offset", label, dname, err,
+                bench.ms(lambda: fb.flash_attention_bwd(
+                    q, k, v, out, want_lse, dout, **kw)),
+                _bound(_nbytes(q, k, v, out, dout, want_lse, *gb),
+                       10.0 * hq * d * pairs, dname),
+                bench.ms(lambda: ref.flash_attention_bwd_ref(
+                    q, k, v, out, want_lse, dout, **kw)),
+                bench.ms(lambda: torch.autograd.grad(
+                    lib_out, (ql, kl, vl), dout, retain_graph=True)),
+                path=_tc_path(dt))
+        del ql, kl, vl, lib_out
+        # q_offset 0 against the call without it, bitwise
+        kw0 = dict(causal=True, window=window)
+        a, la = fa.flash_attention(q, k, v, return_lse=True, **kw0)
+        b, lb = fa.flash_attention(q, k, v, return_lse=True, q_offset=0,
+                                   **kw0)
+        ga = fb.flash_attention_bwd(q, k, v, a, la, dout, **kw0)
+        gz = fb.flash_attention_bwd(q, k, v, a, la, dout, q_offset=0, **kw0)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b) and torch.equal(la, lb) and all(
+            torch.equal(x, y) for x, y in zip(ga, gz)), label
+
+    for d in dims:
+        for off in offsets:
+            for window in windows:
+                case(d, off, window, torch.bfloat16)
+    for d in (128, 256):             # the exact kernels
+        case(d, offsets[-1], windows[-1], torch.float32)
+    print(f"  flash q_offset 0 == no offset, bitwise: True "
+          f"({len(dims) * len(offsets) * len(windows) + 2} cases)",
+          flush=True)
+
+
 def flash_bwd_cases(bench, rn):
     """The flash backward kernel against ``flash_attention_bwd_ref`` on the
     same q, k, v, output, log-sum-exp (the plain forward's) and output
@@ -1964,7 +2078,7 @@ def serve_phase(rates) -> dict:
     from repro_torch.configs import (MIXTRAL_8X7B, RECURRENTGEMMA_2B,
                                      RWKV6_7B, SWA, draft_for)
 
-    # 3f first: it page-locks 43.3 GiB of the host's memory, before any
+    # 3f first: it page-locks 21.6 GiB of the host's memory, before any
     # other run has touched the host
     runs = {"3f": offload_run("3f", rates)}
     offload_eq_run("3f-eq")
@@ -2017,13 +2131,14 @@ def serve_phase(rates) -> dict:
 
 
 # 3h: Gemma-3-12B's depth cut from 48 to 24 layers (4 groups of the
-# pattern) to pay for phase 6's mesh runs (6d, 6e)
-GEMMA_SERVE_LAYERS = 24
+# pattern) to pay for phase 6's mesh runs (6d, 6e), to 12 (2 groups) for
+# 6f / 6g
+GEMMA_SERVE_LAYERS = 12
 
 
 def gemma_run(label) -> dict:
     """Gemma-3-12B at full width, ``GEMMA_SERVE_LAYERS`` of its 48 layers
-    (20 sliding-window layers of window 1024 and 4 global ones, 16 / 8
+    (10 sliding-window layers of window 1024 and 2 global ones, 16 / 8
     heads of 240, F 15360, vocabulary 262144), bf16, weights from a
     seed, beside a
     2-layer Mistral-7B-width draft: 8 Poisson requests, prompts of 512
@@ -3376,6 +3491,15 @@ MESH_ENGINE = (2, 4, 128, 16, 4)      # layers, prompts, length, gen, n_cand
 MESH_TRAIN = (1, 2, 256, 1e-3)        # layers, B, S, lr
 MESH_TRAIN_SHAPES = ((1, 2), (2, 1))
 TOL_MESH_LOSS = 1e-5       # relative
+# 6f / 6g (PR 27): sequence parallelism under the default profile on
+# (1, 2): RecurrentGemma-2B at full width, 3 layers (RG-LRU, RG-LRU, SWA:
+# one group of the pattern; its window of 2048 does not bind at S 512:
+# context-parallel attention, the RG-LRU channel-parallel at 1280 of 2560
+# channels a rank), and RWKV-6-7B at full width, 2 layers (32 of 64 heads
+# a rank); f32, weights from a seed; prefill, greedy decode steps and one
+# AdamW step, each against one process on the same card
+MESH_SEQ = {"6f": ("recurrentgemma-2b", 3), "6g": ("rwkv6-7b", 2)}
+MESH_SEQ_RUN = (2, 512, 8, 1e-3)      # B, S, decode steps, lr
 
 
 def _load_example(name):
@@ -3586,6 +3710,190 @@ def _mesh_decode(mesh=None) -> dict:
                                 if v}}
 
 
+def _seq_cfg(label):
+    from repro_torch.configs import get_config
+    name, layers = MESH_SEQ[label]
+    return dataclasses.replace(get_config(name), n_layers=layers,
+                               dtype="float32")
+
+
+def _seq_decode(label, mesh=None) -> dict:
+    """6f / 6g: prefill and greedy decode at ``MESH_SEQ_RUN``; on a mesh
+    each rank holds its ``shard_model`` blocks.  Logits and tokens on
+    the host, launches, the recurrent state's channels a rank."""
+    import torch
+
+    from repro_torch.configs import RGLRU, RWKV
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.params import init_params
+
+    b, prompt, steps, _ = MESH_SEQ_RUN
+    cfg = _seq_cfg(label)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    if mesh is not None:
+        params = M.shard_model(params, cfg, mesh)
+        torch.cuda.empty_cache()
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    cache = init_cache(cfg, b, prompt + steps + 1, "cuda", mesh)
+    state = {}
+    for l in range(cfg.n_layers):
+        kind = cfg.layer_kind(l)
+        if kind == RGLRU:
+            state["rglru width"] = cache["layers"][l]["h"].shape[-1]
+        elif kind == RWKV:
+            state["wkv6 heads"] = cache["layers"][l]["S"].shape[1]
+    torch.cuda.synchronize()
+    reset_launches()
+    lg, cache = M.prefill(params, cfg, tokens, cache, mesh)
+    torch.cuda.synchronize()
+    prefill_launches = {k: v for k, v in launch_counts().items() if v}
+    reset_launches()
+    logits, toks = [lg], []
+    for _ in range(steps):
+        tok = torch.argmax(lg, -1)
+        toks.append(tok)
+        lg, cache = M.decode_step(params, cfg, cache, tok[:, None], mesh)
+        logits.append(lg)
+    torch.cuda.synchronize()
+    return {"logits": torch.stack(logits, 1).cpu().numpy(),
+            "tokens": torch.stack(toks, 1).cpu().numpy(),
+            "prefill_launches": prefill_launches, "state": state,
+            "decode_launches": {k: v for k, v in launch_counts().items()
+                                if v}}
+
+
+def _mesh_seq_job(mesh):
+    """6f / 6g on one rank: each model's decode and step."""
+    out = {}
+    for label in MESH_SEQ:
+        b, s, _, lr = MESH_SEQ_RUN
+        _free()
+        out[label] = {"decode": _seq_decode(label, mesh)}
+        _free()
+        out[label]["train"] = _mesh_train(mesh, _seq_cfg(label), b, s, lr)
+    return out
+
+
+def _seq_dry_run(label):
+    """The dry run of 6f / 6g's training step on the same (1, 2) mesh
+    (``launch/dryrun.run_one`` in a process of its own, a fake group):
+    its Popen, read by :func:`_dry_record`."""
+    code = ("import json, sys\n"
+            "from repro_torch.configs import InputShape, ModelConfig\n"
+            "from repro_torch.launch.dryrun import run_one\n"
+            "cfg = ModelConfig(**json.loads(sys.argv[1]))\n"
+            "print(json.dumps(run_one(cfg, InputShape(*json.loads("
+            "sys.argv[2])), (1, 2))))\n")
+    b, s, _, _ = MESH_SEQ_RUN
+    return subprocess.Popen(
+        [sys.executable, "-c", code,
+         json.dumps(dataclasses.asdict(_seq_cfg(label))),
+         json.dumps([label, s, b, "train"])], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+
+
+def _dry_record(proc) -> dict:
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err[-3000:]
+    return json.loads(out.splitlines()[-1])
+
+
+def _seq_report(label, ranks, single, dry, smi) -> None:
+    """6f / 6g: every rank against one process, its launches, and its
+    argument bytes against the dry run's."""
+    b, s, steps, lr = MESH_SEQ_RUN
+    name, layers = MESH_SEQ[label]
+    scale = float(np.abs(single["logits"]).max())
+    for rank, res in enumerate(ranks):
+        got = res[label]["decode"]
+        err = float(np.abs(got["logits"] - single["logits"]).max())
+        same = bool(np.array_equal(got["tokens"], single["tokens"]))
+        print(f"  [{label}] {name} {layers} layers f32 rank {rank}: logits "
+              f"max abs err {err:.3e} (max |logit| {scale:.3e}), greedy "
+              f"tokens equal the single process's: {same}; state a rank "
+              f"{got['state']} (one process {single['state']}); prefill "
+              f"launches {got['prefill_launches']}, decode launches "
+              f"{got['decode_launches']}", flush=True)
+        assert err <= TOL_MESH_LOGITS * scale, (label, rank, err, scale)
+        assert same, (label, rank)
+        pre, dec = got["prefill_launches"], got["decode_launches"]
+        if label == "6f":
+            assert got["state"]["rglru width"] == 1280, got["state"]
+            assert pre.get("rglru_gated_scan", 0) > 0, pre
+            assert pre.get("flash_attention", 0) > 0, pre
+            # rank 0's block of the queries starts at position 0
+            assert (pre.get("flash_attention q_offset", 0) > 0) == (
+                rank > 0), pre
+            assert dec.get("rglru_gated_scan", 0) > 0, dec
+        else:
+            assert got["state"]["wkv6 heads"] == 32, got["state"]
+            assert pre.get("wkv6", 0) > 0 and dec.get("wkv6", 0) > 0
+        tr = res[label]["train"]
+        rel = abs(tr["loss"] - tr["ref_loss"]) / abs(tr["ref_loss"])
+        clear = max(e[0] for e in tr["errs"])
+        worst = max(e[1] for e in tr["errs"])
+        print(f"  [{label}] step rank {rank}: loss {tr['loss']:.6f} / one "
+              f"process {tr['ref_loss']:.6f} (relative error {rel:.2e}); "
+              f"parameters worst {clear:.2e} where |g| > 1e-4, {worst:.2e} "
+              f"anywhere; step wall {tr['wall']:.2f}s; launches "
+              f"{tr['launches']}", flush=True)
+        print(f"  [{label}] rank {rank} holds {tr['args']} bytes at the "
+              f"step's start (parameter + AdamW blocks + tokens); the dry "
+              f"run of the same step and mesh: {dry['argument_bytes']} "
+              f"bytes; peak {tr['peak'] / 2**30:.2f} GiB on the card "
+              f"(its CUDA caching allocator's, both ranks on one card) / "
+              f"{dry['peak_bytes'] / 2**30:.2f} GiB in the dry run; "
+              f"collectives {dry['collectives']} ({smi})", flush=True)
+        assert tr["args"] == dry["argument_bytes"], (label, rank)
+        assert rel <= TOL_MESH_LOSS, (label, rank, rel)
+        assert clear <= 1e-6 and worst <= 2 * lr, (label, rank, clear, worst)
+        want = (("flash_attention_bwd", "rglru_gated_scan_bwd") if
+                label == "6f" else ("wkv6_bwd",))
+        for k in want:
+            assert tr["launches"].get(k, 0) > 0, (label, rank, k)
+        if label == "6f":
+            assert (tr["launches"].get("flash_attention_bwd q_offset", 0)
+                    > 0) == (rank > 0), tr["launches"]
+
+
+def seq_phase(smi: str) -> None:
+    """6f / 6g: the one-process references, then one (1, 2) spawn for
+    both models, then the dry runs of the two steps."""
+    singles = {}
+    for label in MESH_SEQ:
+        singles[label] = _seq_decode(label)
+        _free()
+    t0 = time.perf_counter()
+    dry = {label: _seq_dry_run(label) for label in MESH_SEQ}  # on the host
+    try:
+        ranks = _spawn_mesh((1, 2), _mesh_seq_job)
+    except BaseException:
+        for proc in dry.values():
+            proc.kill()
+            proc.wait()
+        raise
+    print(f"  [6f/6g] mesh (1, 2): 2 ranks on cuda:0 (gloo), wall "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    for label in MESH_SEQ:
+        rec = _dry_record(dry[label])
+        print(f"  [{label}] dry run of the step on a fake (1, 2) group, "
+              f"beside the spawn: {rec['seconds']:.1f}s, "
+              f"{rec['flops']:.3e} flops ({rec['kernel_flops']})",
+              flush=True)
+        _seq_report(label, ranks, singles[label], rec, smi)
+
+
 def _mesh_pair_job(mesh, cases):
     """The two ranks' work: on the (1, 2) mesh its MoE cases, 6c's
     decode, 6d's engine and 6e's step, then 6e's step on a (2, 1) mesh
@@ -3634,14 +3942,17 @@ def _mesh_engine(mesh=None) -> dict:
             "launches": {k: v for k, v in launch_counts().items() if v}}
 
 
-def _mesh_train(mesh) -> dict:
-    """6e on one rank: the one-process step first (its result and its
-    gradient's clear entries kept as this rank's blocks), then the mesh
-    step from the same seed; the first-step rule on every block."""
+def _mesh_train(mesh, cfg=None, b=None, s=None, lr=None) -> dict:
+    """6e (6f / 6g: ``cfg``, B, S, lr) on one rank: the one-process step
+    first (its result and its gradient's clear entries kept as this
+    rank's blocks), then the mesh step from the same seed; the
+    first-step rule on every block.  Also the bytes the rank holds when
+    the step starts (parameter and optimizer blocks, the token batch)."""
     import torch
 
     from repro_torch.configs import MIXTRAL_8X7B
     from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.launch.mesh import shard_params
     from repro_torch.models import model as M
     from repro_torch.params import init_params
@@ -3649,9 +3960,10 @@ def _mesh_train(mesh) -> dict:
     from repro_torch.training.train_loop import loss_and_grads
     from repro_torch.tree import tree_leaves, tree_unflatten
 
-    layers, b, s, lr = MESH_TRAIN
-    cfg = dataclasses.replace(MIXTRAL_8X7B, n_layers=layers,
-                              dtype="float32", moe_dropless=True)
+    if cfg is None:
+        layers, b, s, lr = MESH_TRAIN
+        cfg = dataclasses.replace(MIXTRAL_8X7B, n_layers=layers,
+                                  dtype="float32", moe_dropless=True)
     batch = {"tokens": np.random.default_rng(2).integers(
         0, cfg.vocab_size, (b, s)).astype(np.int32)}
     specs = M.mesh_specs(cfg, mesh)
@@ -3682,6 +3994,7 @@ def _mesh_train(mesh) -> dict:
     params = shard_params(whole(), specs, mesh)
     _free()
     state = adamw_init(params)
+    args = tree_bytes(params) + tree_bytes(state) + b * s * 8  # int64 tokens
     step = make_train_step(cfg, mesh, lr)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3699,7 +4012,7 @@ def _mesh_train(mesh) -> dict:
             errs.append((float(diff[ok].max()) if ok.any() else 0.0,
                          float(diff.max())))
     return {"loss": loss, "ref_loss": ref_loss, "errs": errs, "wall": wall,
-            "peak": peak, "launches": launches,
+            "peak": peak, "launches": launches, "args": args,
             "grad_norm": float(step.grad_norm)}
 
 
@@ -3781,6 +4094,8 @@ def mesh_phase(smi: str) -> None:
     _engine_report(pair, engine_ref, smi)
     for shape in MESH_TRAIN_SHAPES:
         _train_report(shape, [res["train"][shape] for res in pair])
+    _free()
+    seq_phase(smi)
 
 
 def _engine_report(ranks, want, smi) -> None:

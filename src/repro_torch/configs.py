@@ -228,6 +228,25 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# The input shapes of the production layouts (``repro/configs/base.py:
+# 227-239``; ``launch/specs.py`` and ``launch/dryrun.py`` read them)
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    phase: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
 # The paper's own models (Mixtral target + Mistral draft).
 MIXTRAL_8X7B = ModelConfig(
     name="mixtral-8x7b", arch_type="moe", n_layers=32, d_model=4096,
@@ -408,11 +427,12 @@ def get_config(name: str) -> ModelConfig:
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on.  ``"cuda"`` (the default) needs
     a card: without one this raises instead of quietly running the plain
-    versions on the CPU — pass ``device="cpu"`` for that."""
+    versions on the CPU — pass ``device="cpu"`` for that.  ``"meta"``
+    (shapes without data) serves ``launch/dryrun.py``."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the port's plain versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

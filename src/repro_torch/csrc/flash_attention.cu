@@ -3,8 +3,10 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (pallas_call at line 111, body _kernel at lines 28-72):
 // q (B, Hq, Sq, d) against k/v (B, Hkv, Skv, d), causal, bidirectional or
-// sliding-window, the KV head of query head hq being hq // g.  Query and
-// key positions both start at 0; keys past Skv never attend.
+// sliding-window, the KV head of query head hq being hq // g.  Key
+// positions start at 0 and query row i sits at position q_offset + i (a
+// rank's block of the queries under context parallelism: its rows over
+// the whole K/V); keys past Skv never attend.
 //
 // Bound on this card: operations.  At prefill Sq == Skv and every KV tile
 // is reused by every query tile, so the work grows as Sq^2 * d and the
@@ -98,13 +100,14 @@ __device__ __forceinline__ void consume(
     uint64_t* bar_q, uint64_t* full, uint64_t* empty, int w,
     __nv_bfloat16* __restrict__ out, int64_t out_off, int64_t oss,
     float* __restrict__ lse, int q0, int sq, int skv, int k_first,
-    int n_tiles, float scale_log2, int causal, int window) {
+    int n_tiles, float scale_log2, int causal, int window, int qoff) {
   using C = FlashCfg<D>;
   constexpr int kBKV = C::kBKV, kDB = C::kDB, kDT = C::kDT;
   auto k_tile = [&](int s) { return k_base + 2 * s * C::kKVBytes; };
   auto v_tile = [&](int s) { return v_base + 2 * s * C::kKVBytes; };
   const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
   const int row_lo = q0 + w * 64;                     // this warpgroup's rows
+  const int pos_lo = row_lo + qoff;                   // ... their first position
   const int row0 = row_lo + warp * 16 + lane / 4;     // + 8 for the second
 
   float o[kDT / 2];
@@ -137,15 +140,15 @@ __device__ __forceinline__ void consume(
     // and online softmax; accumulator i sits at row row0 + 8 * ((i / 2) % 2),
     // key k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2
     const bool whole = k0 + kBKV <= skv &&
-                       (!causal || k0 + kBKV - 1 <= row_lo) &&
-                       (window <= 0 || k0 > row_lo + 63 - window);
+                       (!causal || k0 + kBKV - 1 <= pos_lo) &&
+                       (window <= 0 || k0 > pos_lo + 63 - window);
     float mx[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
 #pragma unroll
     for (int i = 0; i < kBKV / 2; ++i) {
       float x = sc[i] * scale_log2;
       if (!whole) {
         const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-        const int qpos = row0 + 8 * ((i / 2) % 2);
+        const int qpos = row0 + 8 * ((i / 2) % 2) + qoff;
         bool ok = kpos < skv;
         if (causal) ok = ok && kpos <= qpos;
         if (window > 0) ok = ok && kpos > qpos - window;
@@ -225,7 +228,7 @@ __global__ void __launch_bounds__(FlashCfg<D>::kThreads, 1)
                            int64_t osh, int64_t oss,
                            float* __restrict__ lse, int n_q_heads,
                            int n_kv_heads, int sq, int skv, float scale_log2,
-                           int causal, int window) {
+                           int causal, int window, int qoff) {
   using C = FlashCfg<D>;
   constexpr int kBQ = C::kBQ, kBKV = C::kBKV, kDB = C::kDB;
   extern __shared__ uint8_t smem_raw[];
@@ -242,8 +245,8 @@ __global__ void __launch_bounds__(FlashCfg<D>::kThreads, 1)
   const int b = bh / n_q_heads, hq = bh % n_q_heads;
   const int hk = hq / (n_q_heads / n_kv_heads);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest tiles first
-  const int kv_end = causal ? min(skv, q0 + kBQ) : skv;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int kv_end = causal ? min(skv, qoff + q0 + kBQ) : skv;
+  const int kv_begin = window > 0 ? max(0, qoff + q0 - window + 1) : 0;
   const int k_first = (kv_begin / kBKV) * kBKV;
   const int n_tiles = kv_end > k_first ? (kv_end - k_first + kBKV - 1) / kBKV
                                        : 0;
@@ -290,14 +293,15 @@ __global__ void __launch_bounds__(FlashCfg<D>::kThreads, 1)
     consume<D>(qs, k_tile(0), v_tile(0), bar_q, full, empty, wg - 1, out,
                b * osb + hq * osh, oss,
                lse == nullptr ? nullptr : lse + static_cast<int64_t>(bh) * sq,
-               q0, sq, skv, k_first, n_tiles, scale_log2, causal, window);
+               q0, sq, skv, k_first, n_tiles, scale_log2, causal, window,
+               qoff);
   }
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 float* lse, const int64_t* st, int batch, int hq, int hkv, int sq,
-                int skv, float scale, int causal, int window,
+                int skv, float scale, int causal, int window, int qoff,
                 cudaStream_t stream) {
   using C = FlashCfg<D>;
   // st: q, k, v, out strides (b, h, s) in elements
@@ -316,7 +320,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   kern<<<grid, C::kThreads, C::kSmem, stream>>>(
       mq.map, mk.map, mv.map, mq.heads_first, mk.heads_first, mv.heads_first,
       static_cast<__nv_bfloat16*>(out), st[9], st[10], st[11], lse, hq, hkv,
-      sq, skv, scale * 1.4426950408889634f, causal, window);
+      sq, skv, scale * 1.4426950408889634f, causal, window, qoff);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -358,7 +362,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, float* __restrict__ lse, int n_q_heads,
-    int n_kv_heads, int sq, int skv, float scale, int causal, int window) {
+    int n_kv_heads, int sq, int skv, float scale, int causal, int window,
+    int qoff) {
   constexpr int NC = D / 16;       // output columns per thread
   constexpr int kBQ = query_tile<D>();
   constexpr int RQ = kBQ / 16;     // query rows per thread
@@ -386,8 +391,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  const int kv_end = causal ? min(skv, q0 + kBQ) : skv;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int kv_end = causal ? min(skv, qoff + q0 + kBQ) : skv;
+  const int kv_begin = window > 0 ? max(0, qoff + q0 - window + 1) : 0;
   for (int k0 = (kv_begin / kBK) * kBK; k0 < kv_end; k0 += kBK) {
     __syncthreads();                         // previous tile fully used
     load_rows<T, D>(ks, k + kv_off, k0, kBK, skv, tid);
@@ -427,7 +432,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     // mask + online softmax; a row's 64 keys live in 16 lanes of a warp
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
-      const int qpos = q0 + ty * RQ + i;
+      const int qpos = qoff + q0 + ty * RQ + i;
       float mx = REPRO_NEG_INF;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -492,7 +497,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                float* lse, int batch, int hq, int hkv, int sq, int skv, float scale,
-               int causal, int window, cudaStream_t stream) {
+               int causal, int window, int qoff, cudaStream_t stream) {
   using T = float;
   const size_t smem = smem_floats<D>() * sizeof(float);
   static unsigned smem_set = 0;
@@ -504,7 +509,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, hq, hkv, sq, skv,
-      scale, causal, window);
+      scale, causal, window, qoff);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -513,24 +518,26 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 // q/k/v/out (B, H, S, d).  f32: contiguous; bf16: any strides with a
 // contiguous last dim, given in `strides` as (b, h, s) element strides of
 // q, k, v and out, each a multiple of 8 with 16-byte-aligned bases.
-// window <= 0 means no sliding window.  lse, when not null, receives each
+// window <= 0 means no sliding window; query row i sits at position
+// q_offset + i (q_offset >= 0).  lse, when not null, receives each
 // query row's log-sum-exp (B, Hq, Sq) f32 (contiguous) for the backward.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, void* lse, const int64_t* strides,
                                int batch,
                                int hq, int hkv, int sq, int skv, int d,
-                               float scale, int causal, int window, int dtype,
-                               void* stream) {
+                               float scale, int causal, int window,
+                               int q_offset, int dtype, void* stream) {
   using namespace repro;
-  if (hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (hq % hkv != 0 || q_offset < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_D(D)                                                     \
   case D:                                                                    \
     return dtype == kF32                                                     \
                ? launch_f32<D>(q, k, v, out, lse_f, batch, hq, hkv, sq, skv, \
-                               scale, causal, window, st)                    \
+                               scale, causal, window, q_offset, st)          \
                : launch_bf16<D>(q, k, v, out, lse_f, strides, batch, hq, hkv,\
-                                sq, skv, scale, causal, window, st);
+                                sq, skv, scale, causal, window, q_offset, st);
   if (dtype != kF32 && dtype != kBF16)
     return static_cast<int>(cudaErrorInvalidValue);
   float* lse_f = static_cast<float*>(lse);
@@ -538,7 +545,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     case 16:                       // the exact kernel only (NC = 1)
       return dtype == kF32
                  ? launch_f32<16>(q, k, v, out, lse_f, batch, hq, hkv, sq,
-                                  skv, scale, causal, window, st)
+                                  skv, scale, causal, window, q_offset, st)
                  : static_cast<int>(cudaErrorInvalidValue);
     REPRO_FLASH_D(32) REPRO_FLASH_D(64) REPRO_FLASH_D(128) REPRO_FLASH_D(240)
     REPRO_FLASH_D(256)

@@ -12,8 +12,9 @@
 //   dQ = dS K,    dK = dS^T Q,
 // dK and dV summed over the g query heads of each KV head, under the
 // forward's masks (causal, sliding window, bidirectional; Sq != Skv; keys
-// and queries past the lengths masked) and head dims (32, 64, 128, 240,
-// 256).  It never materialises an (Sq, Skv) matrix.
+// and queries past the lengths masked; query row i at position q_offset +
+// i, a rank's block of the queries under context parallelism) and head
+// dims (32, 64, 128, 240, 256).  It never materialises an (Sq, Skv) matrix.
 //
 // Bound on this card: operations.  Five products of 2 * Sq * Skv_live * d
 // per (b, q head) against q, k, v, o, dO, lse read once and dq, dk, dv
@@ -120,6 +121,7 @@ struct BwdArgs {
   int hq, hkv, sq, skv;
   float scale;
   int causal, window;
+  int qoff;                        // query row i sits at position qoff + i
 };
 
 enum { kQ = 0, kK, kV, kO, kDO, kDQ, kDK, kDV };
@@ -131,38 +133,39 @@ __device__ __forceinline__ int64_t row_off(const BwdArgs& a, int t, int b,
 
 __device__ __forceinline__ bool visible(const BwdArgs& a, int i, int j) {
   bool ok = i < a.sq && j < a.skv;
-  if (a.causal) ok = ok && j <= i;
-  if (a.window > 0) ok = ok && j > i - a.window;
+  if (a.causal) ok = ok && j <= i + a.qoff;
+  if (a.window > 0) ok = ok && j > i + a.qoff - a.window;
   return ok;
 }
 
 // the live query rows [lo, hi) of keys [k0, k0 + rows)
 __device__ __forceinline__ void q_range(const BwdArgs& a, int k0, int rows,
                                         int* lo, int* hi) {
-  *lo = a.causal ? k0 : 0;
-  *hi = a.window > 0 ? min(a.sq, k0 + rows - 1 + a.window) : a.sq;
+  *lo = a.causal ? max(0, k0 - a.qoff) : 0;
+  *hi = a.window > 0 ? min(a.sq, k0 + rows - 1 + a.window - a.qoff) : a.sq;
 }
 
 // the live keys [lo, hi) of query rows [q0, q0 + rows)
 __device__ __forceinline__ void kv_range(const BwdArgs& a, int q0, int rows,
                                          int* lo, int* hi) {
-  *lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  *hi = a.causal ? min(a.skv, q0 + rows) : a.skv;
+  *lo = a.window > 0 ? max(0, q0 + a.qoff - a.window + 1) : 0;
+  *hi = a.causal ? min(a.skv, q0 + a.qoff + rows) : a.skv;
 }
 
 // every (query, key) pair of the tile visible: no per-element mask
 __device__ __forceinline__ bool whole_tile(const BwdArgs& a, int q0, int nq,
                                            int k0, int nk) {
   return q0 + nq <= a.sq && k0 + nk <= a.skv &&
-         (!a.causal || k0 + nk - 1 <= q0) &&
-         (a.window <= 0 || k0 > q0 + nq - 1 - a.window);
+         (!a.causal || k0 + nk - 1 <= q0 + a.qoff) &&
+         (a.window <= 0 || k0 > q0 + a.qoff + nq - 1 - a.window);
 }
 
 // some (query, key) pair of the tile may be visible (false: none is)
 __device__ __forceinline__ bool live_tile(const BwdArgs& a, int q0, int nq,
                                           int k0, int nk) {
-  return q0 < a.sq && k0 < a.skv && (!a.causal || k0 <= q0 + nq - 1) &&
-         (a.window <= 0 || q0 < k0 + nk - 1 + a.window);
+  return q0 < a.sq && k0 < a.skv &&
+         (!a.causal || k0 <= q0 + a.qoff + nq - 1) &&
+         (a.window <= 0 || q0 + a.qoff < k0 + nk - 1 + a.window);
 }
 
 // 64-row chunks of a head's packed rows (lse * log2 e, D): Sq rounded up
@@ -1007,16 +1010,17 @@ int launch(const BwdArgs& a, int batch, int dtype, cudaStream_t st) {
 // `strides`: (b, h, s) element strides of q, k, v, out, dout, dq, dk, dv
 // (24 int64, last dims contiguous).  lse (B, Hq, Sq) f32 from the forward;
 // delta an f32 workspace of B * Hq * 256 * ceil(Sq / 128) floats,
-// 16-byte aligned.  window <= 0: no sliding window.
+// 16-byte aligned.  window <= 0: no sliding window.  Query row i sits at
+// position q_offset + i (q_offset >= 0), keys at 0, 1, ...
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* out, const void* dout,
                                    const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, const int64_t* strides,
                                    int batch, int hq, int hkv, int sq, int skv,
                                    int d, float scale, int causal, int window,
-                                   int dtype, void* stream) {
+                                   int q_offset, int dtype, void* stream) {
   using namespace repro;
-  if (hq % hkv != 0 || (dtype != kF32 && dtype != kBF16))
+  if (hq % hkv != 0 || q_offset < 0 || (dtype != kF32 && dtype != kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a;
   a.q = q; a.k = k; a.v = v; a.o = out; a.dout = dout;
@@ -1026,7 +1030,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   for (int t = 0; t < 8; ++t)
     for (int i = 0; i < 3; ++i) a.st[t][i] = strides[3 * t + i];
   a.hq = hq; a.hkv = hkv; a.sq = sq; a.skv = skv;
-  a.scale = scale; a.causal = causal; a.window = window;
+  a.scale = scale; a.causal = causal; a.window = window; a.qoff = q_offset;
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32: return launch<32>(a, batch, dtype, st);

@@ -24,13 +24,17 @@ def wrappers() -> tuple:
 
 
 def launch_counts() -> dict:
-    """{wrapper name: launches}, and {"<name> <route>": launches} for each
-    route of a wrapper that picks between kernels (``route_launches``)."""
+    """{wrapper name: launches}, {"<name> <route>": launches} for each
+    route of a wrapper that picks between kernels (``route_launches``),
+    and {"<name> q_offset": launches} of the flash kernels' launches with
+    a nonzero query offset (``offset_launches``: context parallelism)."""
     counts = {}
     for fn in wrappers():
         counts[fn.__name__] = fn.launches
         for route, n in getattr(fn, "route_launches", {}).items():
             counts[f"{fn.__name__} {route}"] = n
+        if hasattr(fn, "offset_launches"):
+            counts[f"{fn.__name__} q_offset"] = fn.offset_launches
     return counts
 
 
@@ -39,3 +43,5 @@ def reset_launches() -> None:
         fn.launches = 0
         for route in getattr(fn, "route_launches", {}):
             fn.route_launches[route] = 0
+        if hasattr(fn, "offset_launches"):
+            fn.offset_launches = 0

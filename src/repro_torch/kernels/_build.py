@@ -168,6 +168,23 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
 
 
+#: {kernel: FLOPs} its wrapper stood for on meta tensors since the last
+#: reset (``launch/dryrun.py`` adds them to what ``FlopCounterMode``
+#: counts of the PyTorch operations around the kernels)
+meta_flops: dict = {}
+
+
+def on_meta(*tensors) -> bool:
+    """Whether a wrapper was called on meta tensors (the dry run): it then
+    launches nothing and returns empty meta outputs of the kernel's
+    shapes, counting the kernel's FLOPs in :data:`meta_flops`."""
+    return any(t is not None and t.is_meta for t in tensors)
+
+
+def count_meta(name: str, flops) -> None:
+    meta_flops[name] = meta_flops.get(name, 0) + int(flops)
+
+
 def use_kernel(*tensors) -> bool:
     """Route of a wrapper call: True for CUDA tensors (the kernel), False
     for CPU tensors (the plain version).  Mixed or other devices raise."""

@@ -136,6 +136,9 @@ def decode_attention(q, k, v, lengths, *, scale=None, window=None,
     if anc_bits is not None:
         _build.require(anc_bits.shape == (m,) and window is None,
                        "anc_bits must be (m,), with no window")
+    if _build.on_meta(q, k, v, lengths, anc_bits):   # every slot counted
+        _build.count_meta("decode_attention", 4 * b * hq * m * k.shape[2] * d)
+        return torch.empty_like(q)
     if not _build.use_kernel(q, k, v, lengths, anc_bits):
         anc = (None if anc_bits is None
                else ref.anc_mask_from_bits(anc_bits, m))

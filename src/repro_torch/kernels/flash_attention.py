@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
-         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 # 240 and 32: the 256- and 64-wide tiles, zero-filled past d
 HEAD_DIMS = (32, 64, 128, 240, 256)
 # the exact f32 kernel also takes head dim 16 (a reduced Mistral's)
@@ -43,13 +43,15 @@ def _strides(t) -> list:
 
 
 def flash_attention(q, k, v, *, scale=None, causal=True, window=None,
-                    return_lse=False):
+                    return_lse=False, q_offset=0):
     """q (B, Hq, Sq, d); k/v (B, Hkv, Skv, d) -> (B, Hq, Sq, d), and with
     ``return_lse`` also the log-sum-exp (B, Hq, Sq) f32.
 
-    Query and key positions both start at 0; ``causal`` masks keys after
-    the query, ``window`` keys at or before ``q_pos - window``.  The
-    output has q's strides where q is dense (``torch.empty_like``).
+    Key positions start at 0 and query row i sits at ``q_pos = q_offset
+    + i`` (a rank's block of the queries under context parallelism);
+    ``causal`` masks keys after the query, ``window`` keys at or before
+    ``q_pos - window``.  The output has q's strides where q is dense
+    (``torch.empty_like``).
     """
     b, hq, sq, d = q.shape
     _build.require(k.dim() == 4 and k.shape[0] == b and k.shape[3] == d
@@ -61,9 +63,16 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None,
                    and k.dtype == q.dtype and v.dtype == q.dtype,
                    "q/k/v must share a float32 or bfloat16 dtype")
     _build.require(window is None or window > 0, "window must be positive")
+    _build.require(q_offset >= 0, "q_offset must be >= 0")
+    if _build.on_meta(q, k, v):
+        _build.count_meta("flash_attention", 4 * b * hq * d * ref.visible_pairs(
+            sq, skv, causal, window, q_offset))
+        lse = torch.empty((b, hq, sq), dtype=torch.float32, device="meta")
+        return (torch.empty_like(q), lse) if return_lse else torch.empty_like(q)
     if not _build.use_kernel(q, k, v):
         return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
-                                       window=window, return_lse=return_lse)
+                                       window=window, return_lse=return_lse,
+                                       q_offset=q_offset)
 
     dims = F32_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS
     _build.require(d in dims, f"head dim must be one of {dims} in {q.dtype}")
@@ -81,11 +90,13 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _build.ptr(lse), ctypes.addressof(strides), b, hq, hkv, sq, skv, d,
             float(d ** -0.5 if scale is None else scale), int(causal),
-            0 if window is None else int(window),
+            0 if window is None else int(window), int(q_offset),
             _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.offset_launches += q_offset > 0
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention.offset_launches = 0     # those with a nonzero q_offset

@@ -25,7 +25,7 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 
 _ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float]
-         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _strides(t, name: str, bf16: bool) -> list:
@@ -43,11 +43,12 @@ def _strides(t, name: str, bf16: bool) -> list:
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, scale=None, causal=True,
-                        window=None):
+                        window=None, q_offset=0):
     """Gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` given its
     output ``out``, its log-sum-exp ``lse`` (B, Hq, Sq) f32 and the
     output's gradient ``dout``.  q/out/dout (B, Hq, Sq, d), k/v (B, Hkv,
-    Skv, d) in one dtype (f32 or bf16); masks as the forward's."""
+    Skv, d) in one dtype (f32 or bf16); masks and ``q_offset`` as the
+    forward's."""
     b, hq, sq, d = q.shape
     _build.require(k.dim() == 4 and k.shape[0] == b and k.shape[3] == d
                    and v.shape == k.shape,
@@ -62,11 +63,17 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale=None, causal=True,
     _build.require(lse.shape == (b, hq, sq) and lse.dtype == torch.float32,
                    "lse must be (B, Hq, Sq) float32")
     _build.require(window is None or window > 0, "window must be positive")
+    _build.require(q_offset >= 0, "q_offset must be >= 0")
     scale = d ** -0.5 if scale is None else scale
+    if _build.on_meta(q, k, v, out, lse, dout):     # five products a pair
+        _build.count_meta("flash_attention_bwd", 10 * b * hq * d *
+                          ref.visible_pairs(sq, k.shape[2], causal, window,
+                                            q_offset))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if not _build.use_kernel(q, k, v, out, lse, dout):
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                            scale=scale, causal=causal,
-                                           window=window)
+                                           window=window, q_offset=q_offset)
 
     _build.require(d in HEAD_DIMS, f"head dim must be one of {HEAD_DIMS}")
     lse = lse.contiguous()
@@ -85,11 +92,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale=None, causal=True,
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides), b, hq,
             hkv, sq, k.shape[2], d, float(scale), int(causal),
-            0 if window is None else int(window),
+            0 if window is None else int(window), int(q_offset),
             _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
     _build.check(rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.offset_launches += q_offset > 0
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.offset_launches = 0   # those with a nonzero q_offset

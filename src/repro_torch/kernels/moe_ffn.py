@@ -76,6 +76,9 @@ def moe_ffn(buf, w_gate, w_up, w_down, *, activation="swiglu"):
     _check_dtypes(buf, w_gate, w_up, w_down)
     _build.require(activation in _ACT, f"activation must be one of "
                    f"{sorted(_ACT)}")
+    if _build.on_meta(buf, w_gate, w_up, w_down):
+        _build.count_meta("moe_ffn", 2 * e * c * d * f * 3)
+        return torch.empty_like(buf)
     if not _build.use_kernel(buf, w_gate, w_up, w_down):
         return ref.moe_ffn_ref(buf, w_gate, w_up, w_down,
                                activation=activation)
@@ -119,6 +122,10 @@ def moe_ffn_bwd(buf, w_gate, w_up, w_down, dy, *, activation="swiglu"):
     _check_dtypes(buf, w_gate, w_up, w_down, dy)
     _build.require(activation in _ACT, f"activation must be one of "
                    f"{sorted(_ACT)}")
+    if _build.on_meta(buf, w_gate, w_up, w_down, dy):   # 2 recomputed + 4
+        _build.count_meta("moe_ffn_bwd", 2 * buf.shape[0] * buf.shape[1]
+                          * buf.shape[2] * w_gate.shape[2] * 6)
+        return tuple(torch.empty_like(t) for t in (buf, w_gate, w_up, w_down))
     if not _build.use_kernel(buf, w_gate, w_up, w_down, dy):
         return ref.moe_ffn_bwd_ref(buf, w_gate, w_up, w_down, dy,
                                    activation=activation)

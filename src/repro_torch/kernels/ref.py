@@ -17,14 +17,15 @@ NEG_INF = -1e30
 RGLRU_C, RGLRU_EPS = 8.0, 1e-6       # repro/models/rglru.py's _C, _EPS
 
 
-def _flash_scores(q, k, scale, causal, window):
+def _flash_scores(q, k, scale, causal, window, q_offset=0):
     """Masked f32 scores (B, Hkv, g, Sq, Skv) of the flash functions,
-    masked entries at NEG_INF (as the JAX package adds its mask)."""
+    masked entries at NEG_INF (as the JAX package adds its mask); query
+    row i sits at position ``q_offset + i``, key j at j."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, sq, d).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
-    qp = torch.arange(sq, device=q.device)[:, None]
+    qp = q_offset + torch.arange(sq, device=q.device)[:, None]
     kp = torch.arange(skv, device=q.device)[None, :]
     ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
@@ -34,15 +35,24 @@ def _flash_scores(q, k, scale, causal, window):
     return torch.where(ok, s, torch.full_like(s, NEG_INF))
 
 
+def visible_pairs(sq: int, skv: int, causal: bool, window, q_offset=0) -> int:
+    """How many (query, key) pairs the flash masks leave visible: the
+    work of one (batch, head) that the flash kernels do."""
+    i = q_offset + torch.arange(sq, dtype=torch.int64)
+    hi = torch.clamp(i + 1, max=skv) if causal else torch.full_like(i, skv)
+    lo = torch.clamp(i - window + 1, min=0) if window else torch.zeros_like(i)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
 def flash_attention_ref(q, k, v, *, scale=None, causal=True, window=None,
-                        return_lse=False):
+                        return_lse=False, q_offset=0):
     """q (B,Hq,Sq,d), k/v (B,Hkv,Skv,d) -> (B,Hq,Sq,d); with
     ``return_lse`` also the rows' log-sum-exp (B,Hq,Sq) f32, ``m +
     log(max(l, 1e-30))`` as the JAX package's ``_flash_forward`` forms
-    it."""
+    it.  Query row i sits at position ``q_offset + i``."""
     b, hq, sq, d = q.shape
     scale = d ** -0.5 if scale is None else scale
-    s = _flash_scores(q, k, scale, causal, window)
+    s = _flash_scores(q, k, scale, causal, window, q_offset)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     out = o.reshape(b, hq, sq, d).to(q.dtype)
@@ -55,15 +65,16 @@ def flash_attention_ref(q, k, v, *, scale=None, causal=True, window=None,
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, scale=None,
-                            causal=True, window=None):
+                            causal=True, window=None, q_offset=0):
     """The flash backward from the saved log-sum-exp, step for step the
     JAX package's ``_flash_bwd_rule`` (``repro/models/attention.py:231``):
     ``D = rowsum(dO * O)`` (O in its own dtype, cast to f32), ``P =
     exp(S - lse)``, ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P (dP - D)
     scale``, ``dQ = dS K``, ``dK = dS^T Q``, all in f32, dK and dV summed
     over the g query heads of each KV head.  q/out/dout (B,Hq,Sq,d), k/v
-    (B,Hkv,Skv,d), lse (B,Hq,Sq) f32.  Returns (dq, dk, dv) in the
-    inputs' dtypes."""
+    (B,Hkv,Skv,d), lse (B,Hq,Sq) f32, masks as
+    :func:`flash_attention_ref`'s.  Returns (dq, dk, dv) in the inputs'
+    dtypes."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     g = hq // hkv
@@ -71,7 +82,7 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, scale=None,
     grp = lambda t: t.reshape(b, hkv, g, sq, d).float()
     qg, do, og = grp(q), grp(dout), grp(out)
     delta = (do * og).sum(-1)                                  # (b,h,g,q)
-    s = _flash_scores(q, k, scale, causal, window)
+    s = _flash_scores(q, k, scale, causal, window, q_offset)
     p = torch.exp(s - lse.reshape(b, hkv, g, sq)[..., None].float())
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, do)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", do, v.float())

@@ -69,6 +69,9 @@ def rglru_scan(a, gated, h0):
     _build.require(h0.shape == (b, w), "h0 must be (B, W)")
     _build.require(all(t.dtype == torch.float32 for t in (a, gated, h0)),
                    "a, gated and h0 must be float32")
+    if _build.on_meta(a, gated, h0):
+        _build.count_meta("rglru_scan", 2 * a.numel())
+        return torch.empty_like(a)
     if not _build.use_kernel(a, gated, h0):
         return ref.rglru_scan_ref(a, gated, h0)
 
@@ -112,6 +115,9 @@ def rglru_gated_scan(xa, xi, x, b_a, b_i, a_param, h0):
         p.shape == (w,) for p in (b_a, b_i, a_param)),
         "h0 must be (B, W) and b_a/b_i/a_param (W,)")
     _check_gate_dtypes(xa, xi, x, b_a, b_i, a_param, h0)
+    if _build.on_meta(xa, xi, x, b_a, b_i, a_param, h0):   # ~12 an element
+        _build.count_meta("rglru_gated_scan", 12 * x.numel())
+        return torch.empty(x.shape, dtype=torch.float32, device="meta")
     if not _build.use_kernel(xa, xi, x, b_a, b_i, a_param, h0):
         return ref.rglru_gated_scan_ref(xa, xi, x, b_a, b_i, a_param, h0)
 
@@ -182,6 +188,9 @@ def rglru_gated_scan_bwd(xa, xi, x, b_a, b_i, a_param, h0, h_all, dh):
         "h0 must be (B, W) and b_a/b_i/a_param (W,)")
     _check_gate_dtypes(xa, xi, x, b_a, b_i, a_param, h0, h_all, dh)
     args = (xa, xi, x, b_a, b_i, a_param, h0, h_all, dh)
+    if _build.on_meta(*args):
+        _build.count_meta("rglru_gated_scan_bwd", 30 * x.numel())
+        return tuple(torch.empty_like(t) for t in args[:7])
     if not _build.use_kernel(*args):
         return ref.rglru_gated_scan_bwd_ref(*args)
 

@@ -81,6 +81,14 @@ def wkv6(r, k, v, w, u, s0, *, stack: bool = False):
     """
     _check_inputs(r, k, v, w, u, s0)
     b, h, s, hd = r.shape
+    if _build.on_meta(r, k, v, w, u, s0):     # the state's update and read
+        _build.count_meta("wkv6", 6 * b * h * s * hd * hd)
+        y = torch.empty((b, h, s, hd), dtype=torch.float32, device="meta")
+        if stack:
+            states = torch.empty((b, s + 1, h, hd, hd), dtype=torch.float32,
+                                 device="meta")
+            return y, states[:, -1], states
+        return y, torch.empty_like(s0)
     if not _build.use_kernel(r, k, v, w, u, s0):
         return ref.wkv6_ref(r, k, v, w, u, s0, stack=stack)
 
@@ -158,6 +166,11 @@ def wkv6_bwd(r, k, v, w, u, s0, dy, ds_fin=None):
     _build.require(dy.shape == r.shape and (
         ds_fin is None or ds_fin.shape == s0.shape),
         "dy must be (B, H, S, hd) and ds_fin (B, H, hd, hd)")
+    if _build.on_meta(r, k, v, w, u, s0, dy, ds_fin):
+        _build.count_meta("wkv6_bwd", 18 * b * h * s * hd * hd)
+        return (*(torch.empty_like(t) for t in (r, k, v, w)),
+                torch.empty((h, hd), dtype=torch.float32, device="meta"),
+                torch.empty_like(s0))
     if not _build.use_kernel(r, k, v, w, u, s0, dy, ds_fin):
         return ref.wkv6_bwd_ref(r, k, v, w, u, s0, dy, ds_fin)
 

@@ -35,20 +35,27 @@ So:
   where every rank holds it already).
 * :func:`all_to_all` exchanges equal blocks of dim 0; it is its own
   inverse, so its backward is the same exchange.
+* :func:`reduce_scatter` sums partial results and keeps the rank's
+  block; its backward gathers the blocks' gradients (each rank's partial
+  fed every block).
+
+Axes.  An axis is a mesh dim's name or a tuple of names, split over the
+product of their sizes in row-major order (the JAX package's
+``("pod", "data")`` entries).  On a mesh with a ``"pod"`` axis,
+``"data"`` names the product ``("pod", "data")``: the axes the batch and
+the weights' FSDP blocks split over (the JAX package's ``podify_specs``
+and ``batch_axes``), so the model's specs and code read the same on the
+(16, 16) and the (2, 16, 16) mesh.
 
 Every collective adds the bytes this rank hands it to
 :func:`collective_bytes` (by operation; forward and backward alike), the
 count a test reads to see what one decode step moves.  A collective
 failure is never caught.
 
-Two functions of the JAX module have no counterpart here:
-
-* ``activate_mesh``: torch has no ambient mesh.  The code that
-  distributes takes the mesh as an argument, as the JAX package's
-  ``apply_moe(..., mesh=)`` and the model entry points already take it.
-* ``make_production_mesh``: its (16, 16) and (2, 16, 16) shapes are TPU
-  v5e pods, and its users are ``launch/specs.py`` and
-  ``launch/dryrun.py``; it comes with their port.
+One function of the JAX module has no counterpart here:
+``activate_mesh``: torch has no ambient mesh.  The code that distributes
+takes the mesh as an argument, as the JAX package's ``apply_moe(...,
+mesh=)`` and the model entry points already take it.
 """
 from __future__ import annotations
 
@@ -81,15 +88,56 @@ def make_host_mesh(device_type: str = "cuda"):
     return make_mesh((1, 1), AXES, device_type)
 
 
-def axis_size(mesh, axis: str) -> int:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The JAX package's production layouts: (16, 16) over ``("data",
+    "model")``, or (2, 16, 16) over ``("pod", "data", "model")``, over a
+    process group of 256 or 512 ranks (a layout, not a claim about the
+    hardware under it; ``launch/dryrun.py`` builds it over a ``"fake"``
+    group in one process)."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"), device_type)
+    return make_mesh((16, 16), AXES, device_type)
+
+
+def _names(mesh, axis) -> tuple:
+    """The mesh dims ``axis`` spans, in mesh order: a name or a tuple of
+    names (dims the mesh lacks dropped); ``"data"`` also spans ``"pod"``
+    where the mesh has one."""
+    have = tuple(mesh.mesh_dim_names or ())
+    want = (axis,) if isinstance(axis, str) else tuple(axis)
+    if "data" in want and "pod" in have:
+        want = want + ("pod",)
+    return tuple(a for a in have if a in want)
+
+
+def axis_size(mesh, axis) -> int:
     """The size of ``axis`` (1 for an axis the mesh does not have)."""
-    names = tuple(mesh.mesh_dim_names or ())
-    return mesh.shape[names.index(axis)] if axis in names else 1
+    have = tuple(mesh.mesh_dim_names or ())
+    return math.prod(mesh.shape[have.index(a)] for a in _names(mesh, axis))
 
 
-def axis_index(mesh, axis: str) -> int:
-    """This rank's coordinate along ``axis``."""
-    return mesh.get_local_rank(axis) if axis_size(mesh, axis) > 1 else 0
+def axis_index(mesh, axis) -> int:
+    """This rank's coordinate along ``axis`` (row-major over a
+    product)."""
+    have = tuple(mesh.mesh_dim_names or ())
+    idx = 0
+    for a in _names(mesh, axis):
+        n = mesh.shape[have.index(a)]
+        idx = idx * n + (mesh.get_local_rank(a) if n > 1 else 0)
+    return idx
+
+
+def group(mesh, axis):
+    """The process group of ``axis``: a mesh dim's own, or one over the
+    product of several (made once a mesh, in rank order)."""
+    names = _names(mesh, axis)
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    cache = mesh.__dict__.setdefault("_repro_groups", {})
+    if names not in cache:
+        cache[names] = mesh[names]._flatten("_".join(names)).get_group()
+    return cache[names]
 
 
 def batch_axes(mesh) -> tuple:
@@ -124,7 +172,7 @@ def _count(op: str, t: torch.Tensor) -> None:
     _BYTES[op] = _BYTES.get(op, 0) + t.numel() * t.element_size()
 
 
-def block(t, mesh, axis: str, dim: int):
+def block(t, mesh, axis, dim: int):
     """This rank's block of ``t`` along ``dim``, split over ``axis``."""
     size = axis_size(mesh, axis)
     if size == 1:
@@ -136,18 +184,18 @@ def block(t, mesh, axis: str, dim: int):
     return t.narrow(dim, axis_index(mesh, axis) * n, n)
 
 
-def _gather(t, mesh, axis: str, dim: int):
+def _gather(t, mesh, axis, dim: int):
     t = t.contiguous()
     _count("all_gather", t)
     parts = [torch.empty_like(t) for _ in range(axis_size(mesh, axis))]
-    dist.all_gather(parts, t, group=mesh.get_group(axis))
+    dist.all_gather(parts, t, group=group(mesh, axis))
     return torch.cat(parts, dim=dim)
 
 
-def _sum(t, mesh, axis: str):
+def _sum(t, mesh, axis, op: str = "all_reduce"):
     t = t.clone(memory_format=torch.contiguous_format)
-    _count("all_reduce", t)
-    dist.all_reduce(t, group=mesh.get_group(axis))
+    _count(op, t)
+    dist.all_reduce(t, group=group(mesh, axis))
     return t
 
 
@@ -199,11 +247,26 @@ class _AllReduceGrad(torch.autograd.Function):
         return _sum(dy, *ctx.args), None, None
 
 
-def _exchange(t, mesh, axis: str):
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        # a sum then the rank's block: gloo has no reduce-scatter on
+        # every release; counted as the reduce-scatter it stands for
+        return block(_sum(t, mesh, axis, "reduce_scatter"), mesh, axis,
+                     dim).clone()
+
+    @staticmethod
+    def backward(ctx, dy):
+        mesh, axis, dim = ctx.args
+        return _gather(dy, mesh, axis, dim), None, None, None
+
+
+def _exchange(t, mesh, axis):
     t = t.contiguous()
     _count("all_to_all", t)
     out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=mesh.get_group(axis))
+    dist.all_to_all_single(out, t, group=group(mesh, axis))
     return out
 
 
@@ -218,7 +281,7 @@ class _AllToAll(torch.autograd.Function):
         return _exchange(dy, *ctx.args), None, None
 
 
-def all_gather(t, mesh, axis: str, dim: int, grad: str = "block"):
+def all_gather(t, mesh, axis, dim: int, grad: str = "block"):
     """The blocks of ``t`` over ``axis`` joined along ``dim``.  Backward:
     ``grad="block"`` keeps the rank's block of the gradient, ``"sum"``
     sums it over the axis first (a reduce-scatter)."""
@@ -227,7 +290,7 @@ def all_gather(t, mesh, axis: str, dim: int, grad: str = "block"):
     return _AllGather.apply(t, mesh, axis, dim, grad)
 
 
-def split(t, mesh, axis: str, dim: int):
+def split(t, mesh, axis, dim: int):
     """This rank's block of a whole ``t``; backward gathers the blocks'
     gradients."""
     if axis_size(mesh, axis) == 1:
@@ -235,26 +298,34 @@ def split(t, mesh, axis: str, dim: int):
     return _Split.apply(t, mesh, axis, dim)
 
 
-def all_reduce(t, mesh, axis: str):
+def all_reduce(t, mesh, axis):
     """The sum of ``t`` over ``axis``, a new tensor; identity backward."""
     if axis_size(mesh, axis) == 1:
         return t
     return _AllReduce.apply(t, mesh, axis)
 
 
-def all_reduce_grad(t, mesh, axis: str):
+def all_reduce_grad(t, mesh, axis):
     """``t`` itself; backward sums the gradient over ``axis``."""
     if axis_size(mesh, axis) == 1:
         return t
     return _AllReduceGrad.apply(t, mesh, axis)
 
 
-def all_to_all(t, mesh, axis: str):
+def all_to_all(t, mesh, axis):
     """Rank ``r``'s ``j``-th block of dim 0 goes to rank ``j``, into its
     ``r``-th block (``all_to_all_single``); backward the same."""
     if axis_size(mesh, axis) == 1:
         return t
     return _AllToAll.apply(t, mesh, axis)
+
+
+def reduce_scatter(t, mesh, axis, dim: int):
+    """The rank's block along ``dim`` of the sum of ``t`` over ``axis``;
+    backward gathers the blocks' gradients."""
+    if axis_size(mesh, axis) == 1:
+        return t
+    return _ReduceScatter.apply(t, mesh, axis, dim)
 
 
 def reshard(t, mesh, src: tuple, dst: tuple):
@@ -280,9 +351,16 @@ def gather_param(t, mesh, spec: tuple, keep: tuple | None = None):
     keep = keep or (None,) * len(spec)
     for dim, (a, b) in enumerate(zip(spec, keep)):
         if a is not None and a != b:
-            grad = "sum" if a in ("pod", "data") else "block"
+            grad = "sum" if is_batch_axis(a) else "block"
             t = all_gather(t, mesh, a, dim, grad)
     return t
+
+
+def is_batch_axis(axis) -> bool:
+    """Whether ``axis`` (a name or a tuple) is one the batch splits over,
+    whose ranks see other tokens."""
+    names = (axis,) if isinstance(axis, str) else tuple(axis)
+    return all(a in ("pod", "data") for a in names)
 
 
 def gather_tree(params, specs, mesh):

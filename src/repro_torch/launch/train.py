@@ -6,7 +6,9 @@ It trains the reduced config (``--d-model``) on the synthetic LM stream
 and prints the loss every tenth of the run, then ``loss a -> b
 (LEARNED)`` when the last loss is under 0.7 of the first.  With
 ``--production-plan`` it prints the JAX launcher's three lines about the
-full config and trains nothing.
+full config, then ``train_4k``'s layout and accumulation steps on both
+production meshes from :mod:`repro_torch.launch.specs`, and trains
+nothing.
 """
 from __future__ import annotations
 
@@ -42,6 +44,16 @@ def main(argv=None):
               f"accum=per launch/specs.pick_accum")
         print("multi-pod : batch=P(('pod','data')), weights podified "
               "(FSDP over pod+data)")
+        from repro_torch.configs import INPUT_SHAPES
+        from repro_torch.launch.specs import pick_accum, train_layout
+        shape = INPUT_SHAPES["train_4k"]
+        for kind, axes, sizes in (("single-pod", ("data", "model"), (16, 16)),
+                                  ("multi-pod ", ("pod", "data", "model"),
+                                   (2, 16, 16))):
+            mesh = argparse.Namespace(mesh_dim_names=axes, shape=sizes)
+            print(f"{kind}: train_4k (batch, seq, seq-parallel axis)="
+                  f"{train_layout(full, shape, mesh)} "
+                  f"accum={pick_accum(full, shape, mesh)}")
         return
 
     device = resolve_device(args.device)

@@ -35,6 +35,21 @@ kv head.  The same kernels run either way, on fewer heads when split.
 With the batch split over ``"data"`` (a prefill) the rows written to a
 cache are gathered first: every rank holds the whole batch's cache.
 
+Context parallelism (``repro/models/attention.py:587-598``): in prefill
+and training under the sequence-parallel profile (``seq``, see
+:func:`repro_torch.models.layers.sequence_sharding`), where the heads do
+not split, each rank attends its own block of the queries, at their
+positions, over the whole K/V, instead of every rank attending every
+query.  The rank's column block of q for the whole sequence is
+exchanged (``all_to_all``) into its sequence block of every head, k and
+v are gathered over ``"model"`` as on the gathered route, and the flash
+kernel runs with ``q_offset`` at the block's first position.  After it
+the output is exchanged back into the rank's column block of the whole
+sequence for the ``wo`` row product.  Only activations move; each
+rank's queries give a partial dK / dV, which the gather's backward sums
+over ``"model"``.  A prefill whose length does not split over the axis
+takes the gathered route; a training sequence that does not raises.
+
 Training (``phase="train"``, no cache) and any attention call whose
 inputs need a gradient go through :class:`FlashAttentionFn`: the
 forward kernel with its log-sum-exp, then the backward kernel
@@ -53,7 +68,8 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fb
 from repro_torch.kernels import paged_decode_attention as _pd
 from repro_torch.kernels.ref import NEG_INF, gather_paged_kv_ref
-from repro_torch.launch.mesh import all_gather, axis_size, block
+from repro_torch.launch.mesh import (all_gather, all_to_all, axis_index,
+                                     axis_size, block)
 from repro_torch.models.layers import (COL, ROW, apply_rope, col_product,
                                        model_input, rope_table, row_product)
 
@@ -98,6 +114,24 @@ def _heads_in(xin, ws, mesh, stationary, gather, head_dim):
             y = all_gather(y, mesh, "model", -1, grad="sum")
         out.append(y.reshape(*y.shape[:2], -1, head_dim))
     return out
+
+
+def _seq_blocks(y, mesh, axis):
+    """(B, S, n) the rank's column block over the whole sequence ->
+    (B, S/m, m n): its sequence block of every column (``all_to_all``)."""
+    m = axis_size(mesh, axis)
+    b, s, n = y.shape
+    y = all_to_all(y.reshape(b, m, s // m, n).transpose(0, 1), mesh, axis)
+    return y.permute(1, 2, 0, 3).reshape(b, s // m, m * n)
+
+
+def _col_blocks(o, mesh, axis):
+    """The inverse of :func:`_seq_blocks`: (B, S/m, N) -> (B, S, N/m)."""
+    m = axis_size(mesh, axis)
+    b, sl, n = o.shape
+    o = all_to_all(o.reshape(b, sl, m, n // m).permute(2, 0, 1, 3), mesh,
+                   axis)
+    return o.transpose(0, 1).reshape(b, m * sl, n // m)
 
 
 def _heads_out(out, wo, mesh, stationary, gather):
@@ -236,26 +270,36 @@ class FlashAttentionFn(torch.autograd.Function):
     forward runs ``flash_attention`` with ``return_lse`` and saves q, k,
     v, the output and the log-sum-exp; the backward runs
     ``flash_attention_bwd`` on them.  On CUDA tensors both are kernels,
-    on CPU tensors both wrappers return their plain versions."""
+    on CPU tensors both wrappers return their plain versions.
+    ``q_offset`` places query row i at position ``q_offset + i``
+    (context parallelism)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, window):
+    def forward(ctx, q, k, v, scale, causal, window, q_offset=0):
         out, lse = _fa.flash_attention(q, k, v, scale=scale, causal=causal,
-                                       window=window, return_lse=True)
+                                       window=window, return_lse=True,
+                                       q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask = (scale, causal, window)
+        ctx.mask = (scale, causal, window, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        scale, causal, window = ctx.mask
+        scale, causal, window, q_offset = ctx.mask
         if dout.stride(-1) != 1:
             dout = dout.contiguous()
         dq, dk, dv = _fb.flash_attention_bwd(q, k, v, out, lse, dout,
                                              scale=scale, causal=causal,
-                                             window=window)
-        return dq, dk, dv, None, None, None
+                                             window=window, q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None
+
+
+def on_card(x) -> bool:
+    """Whether a call takes the kernels' route: CUDA tensors, or meta ones
+    (``launch/dryrun.py``, where each kernel wrapper stands for its
+    kernel); CPU tensors take the plain paths."""
+    return x.is_cuda or x.is_meta
 
 
 def needs_grad(*tensors) -> bool:
@@ -264,19 +308,20 @@ def needs_grad(*tensors) -> bool:
 
 
 def flash_bshd(q, k, v, scale: float, causal: bool,
-               window: int | None = None) -> torch.Tensor:
+               window: int | None = None, q_offset: int = 0) -> torch.Tensor:
     """The ``flash_attention`` kernel over the model's (B, S, H, d) q and
     k/v, handed over as transposed views (the kernel reads them, and
     writes the output, through their strides), through
-    :class:`FlashAttentionFn` when a gradient is needed.  Returns (B, Sq,
-    Hq*d)."""
+    :class:`FlashAttentionFn` when a gradient is needed; query row i at
+    position ``q_offset + i``.  Returns (B, Sq, Hq*d)."""
     b, sq, hq, d = q.shape
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if needs_grad(q, k, v):
-        out = FlashAttentionFn.apply(qt, kt, vt, scale, causal, window)
+        out = FlashAttentionFn.apply(qt, kt, vt, scale, causal, window,
+                                     q_offset)
     else:
         out = _fa.flash_attention(qt, kt, vt, scale=scale, causal=causal,
-                                  window=window)
+                                  window=window, q_offset=q_offset)
     return out.transpose(1, 2).reshape(b, sq, hq * d)
 
 
@@ -434,7 +479,8 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
                     window: int | None = None, cache: dict | None = None,
                     pos=None, phase: str = "prefill",
                     block_tables=None, spec_tree: dict | None = None,
-                    mesh=None, batch_split: bool = False) -> tuple:
+                    mesh=None, batch_split: bool = False,
+                    seq=None) -> tuple:
     """One attention layer; returns (out, cache, saved).
 
     phase="prefill": x is the whole prompt at positions [0, S); a given
@@ -454,7 +500,9 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
 
     ``mesh``: see the module's docstring; ``batch_split`` says that x
     holds the rank's ``"data"`` block of the batch (a prefill), whose
-    cache rows are then gathered before they are written.
+    cache rows are then gathered before they are written; ``seq`` is the
+    sequence-parallel axis of a prefill or training call (context
+    parallelism where the heads do not split; None: none).
     """
     b, sq, _ = x.shape
     scale = head_dim ** -0.5
@@ -462,9 +510,18 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
     gather = not heads_split(n_heads, n_kv_heads, mesh)
     if mesh is not None and block_tables is not None:
         raise ValueError("the paged pool serves off the mesh")
-    q, k, v = _heads_in(model_input(x, mesh, stationary),
-                        (params["wq"], params["wk"], params["wv"]), mesh,
-                        stationary, gather, head_dim)
+    cp = (gather and seq is not None and phase in ("prefill", "train")
+          and (phase == "train" or sq % axis_size(mesh, seq) == 0))
+    xin = model_input(x, mesh, stationary)
+    if cp:
+        q = _seq_blocks(col_product(xin, params["wq"], mesh, False), mesh,
+                        seq)
+        q = q.reshape(*q.shape[:2], -1, head_dim)
+        k, v = _heads_in(xin, (params["wk"], params["wv"]), mesh, False,
+                         True, head_dim)
+    else:
+        q, k, v = _heads_in(xin, (params["wq"], params["wk"], params["wv"]),
+                            mesh, stationary, gather, head_dim)
     if pos is None:
         pos = torch.zeros((b,), dtype=torch.int64, device=x.device)
     q_positions = pos.long()[:, None] + torch.arange(sq, device=x.device)
@@ -483,22 +540,31 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
         q_positions = t_base[:, None] + t_depths[None, :]
     # the verify kernels take a whole tree buffer (with its ancestor
     # bitmasks), never a level fed after part of the buffer
-    kernel_ok = x.is_cuda and (not tree or t_prev == 0)
+    kernel_ok = on_card(x) and (not tree or t_prev == 0)
     anc_bits = t_anc if tree else None
+    kv_positions = q_positions
+    q_off = 0
+    if cp:                           # the rank's block of the queries
+        q_off = axis_index(mesh, seq) * q.shape[1]
+        q_positions = q_positions[:, q_off:q_off + q.shape[1]]
     if use_rope:
         sin, cos = rope_table(q_positions, head_dim, rope_theta)
         q = apply_rope(q, sin, cos)
+        if cp:
+            sin, cos = rope_table(kv_positions, head_dim, rope_theta)
         k = apply_rope(k, sin, cos)
 
     saved = {}
     if phase == "train":
-        out = flash_bshd(q, k, v, scale, causal=True, window=window)
+        out = flash_bshd(q, k, v, scale, causal=True, window=window,
+                         q_offset=q_off)
     elif phase == "prefill":
-        if x.is_cuda:
-            out = flash_bshd(q, k, v, scale, causal=True, window=window)
+        if on_card(x):
+            out = flash_bshd(q, k, v, scale, causal=True, window=window,
+                             q_offset=q_off)
         else:
-            qp = q_positions[0]
-            out = attention_chunked(q, k, v, qp, qp, scale, window=window)
+            out = attention_chunked(q, k, v, q_positions[0],
+                                    kv_positions[0], scale, window=window)
         if cache is not None:
             if batch_split:
                 k = all_gather(k, mesh, "data", 0)
@@ -591,7 +657,11 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
                 out = attention_direct(q, k_read, v_read, mask, scale)
     else:
         raise ValueError(phase)
-    out = _heads_out(out, params["wo"], mesh, stationary, gather)
+    if cp:
+        out = row_product(_col_blocks(out, mesh, seq), params["wo"], mesh,
+                          False)
+    else:
+        out = _heads_out(out, params["wo"], mesh, stationary, gather)
     return out, cache, saved
 
 
@@ -627,7 +697,7 @@ def apply_cross_attention(params: dict, x, cross_kv: dict, *, n_heads: int,
     q, = _heads_in(model_input(x, mesh, stationary), (params["wq"],), mesh,
                    stationary, gather, head_dim)
     k, v = cross_kv["ck"].to(q.dtype), cross_kv["cv"].to(q.dtype)
-    if x.is_cuda or needs_grad(q, k, v):
+    if on_card(x) or needs_grad(q, k, v):
         out = flash_bshd(q, k, v, scale, causal=False)
     else:
         mask = torch.zeros((sq, k.shape[1]), device=x.device)

@@ -23,7 +23,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.launch.mesh import gather_tree
 from repro_torch.models.attention import (attention_chunked,
                                           attention_specs, flash_bshd,
-                                          needs_grad)
+                                          needs_grad, on_card)
 from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_specs,
                                        norm_specs, sinusoidal_positions)
 
@@ -53,7 +53,7 @@ def apply_encoder(params: dict, cfg: ModelConfig, frames,
         q = (h @ attn["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
         k = (h @ attn["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
         v = (h @ attn["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-        if x.is_cuda or needs_grad(q, k, v):
+        if on_card(x) or needs_grad(q, k, v):
             out = flash_bshd(q, k, v, scale, causal=False)
         else:
             out = attention_chunked(q, k, v, positions, positions, scale,

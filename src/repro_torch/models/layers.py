@@ -21,14 +21,77 @@ same ones from its hints):
   reduce-scatter); a column product gives the rank's ``"model"`` block
   of N, a row product a partial sum that an all-reduce over ``"model"``
   completes (Megatron's two operators).
+
+The sequence-parallel profile (``repro/models/layers.py:22-110``):
+:class:`sequence_sharding` selects the mesh axis the sequence of
+prefill and training activations splits over, ``"model"`` by default
+(the JAX package's default), or None.  Torch has no ambient mesh, so the
+profile is read only by code that is handed a mesh, once a call (the
+model's entry points pass the value down, so a recomputation in the
+backward sees the same one), and decode steps never read it.  The JAX
+package's two hints become explicit reshards: ``seq_hint`` is
+:func:`seq_split` (the rank's block of the sequence, dim 1) and
+``gather_seq`` is :func:`seq_gather` (an all-gather along dim 1).
 """
 from __future__ import annotations
+
+import contextvars
 
 import torch
 
 from repro_torch.kernels.ref import ffn_act
 from repro_torch.launch.mesh import (all_gather, all_reduce, all_reduce_grad,
-                                     axis_index, block, gather_param)
+                                     axis_index, axis_size, block,
+                                     gather_param, split)
+
+_SEQ_AXIS = contextvars.ContextVar("seq_axis", default="model")
+
+
+class sequence_sharding:
+    """Context manager selecting the sequence-parallel axis (``"model"``)
+    or None (no sequence parallelism)."""
+
+    def __init__(self, axis):
+        if axis not in (None, "model"):
+            raise ValueError(f"the sequence splits over 'model' or nothing, "
+                             f"not {axis!r}")
+        self.axis = axis
+
+    def __enter__(self):
+        self._tok = _SEQ_AXIS.set(self.axis)
+        return self
+
+    def __exit__(self, *exc):
+        _SEQ_AXIS.reset(self._tok)
+        return False
+
+
+def seq_axis():
+    """The profile's sequence axis (``"model"`` or None)."""
+    return _SEQ_AXIS.get()
+
+
+def active_seq_axis(mesh):
+    """The profile's sequence axis where it splits anything on ``mesh``
+    (None off a mesh, under ``sequence_sharding(None)``, or where the
+    axis has one rank)."""
+    ax = seq_axis()
+    if mesh is None or ax is None or axis_size(mesh, ax) == 1:
+        return None
+    return ax
+
+
+def seq_split(x, mesh, seq):
+    """The rank's block of ``x``'s sequence (dim 1) over ``seq``; a
+    sequence that does not split raises.  Backward: gather."""
+    return x if seq is None else split(x, mesh, seq, 1)
+
+
+def seq_gather(x, mesh, seq):
+    """``x``'s sequence blocks over ``seq`` joined (dim 1); backward
+    keeps the rank's block (the gathered tensor is read alike on every
+    rank of ``seq``, whose gradients are then whole)."""
+    return x if seq is None else all_gather(x, mesh, seq, 1)
 
 COL = ("data", "model")           # a column-parallel weight at rest
 ROW = ("model", "data")           # a row-parallel one

@@ -17,6 +17,17 @@ does; a prefill whose batch does not split runs it whole on every
 rank); decode steps run the whole token block on every rank.  The
 training loss is the global mean: each rank's sum over its rows, summed
 over ``"data"``.
+
+Prefill and training run under the sequence-parallel profile in force
+when they are called (:class:`repro_torch.models.layers.
+sequence_sharding`, ``"model"`` by default, as the JAX package's
+``launch/specs.build_step`` wraps them): the training carry between
+layer groups is the rank's block of the sequence and attention is
+context-parallel where the heads do not split
+(:mod:`repro_torch.models.transformer`).  The decoder's output is
+gathered whole before the loss, so the loss is the unsharded one; a
+training sequence that does not split over ``"model"`` raises.  Decode
+ignores the profile.
 """
 from __future__ import annotations
 

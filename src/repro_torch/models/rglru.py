@@ -16,6 +16,15 @@ whose backward is the ``rglru_gated_scan_bwd`` kernel.
 State: ``{"h": (B, W) f32, "conv": (B, conv_width-1, W)}``.  A
 multi-token decode (S <= 16) also returns the per-step state stack that
 ``commit`` selects from, index 0 being the state before the first step.
+
+Over a mesh the block runs channel-parallel (``repro/models/rglru.py:
+95-129``): ``w_y``, ``w_x``, ``w_a`` and ``w_i`` are column products
+giving the rank's W/m channels, the conv, ``a_param``, the gates and the
+scan are per channel (the kernel runs at width W/m), and ``w_out`` is a
+row product.  The gate products read the conv output of every channel,
+gathered over ``"model"`` (an activation).  Decode moves no weight
+(:mod:`repro_torch.models.layers`' stationary products); the state and
+its rollback stack hold the rank's channels (:func:`rglru_state_specs`).
 """
 from __future__ import annotations
 
@@ -23,12 +32,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import rglru_scan as _rg
+from repro_torch.launch.mesh import all_gather
 from repro_torch.models.attention import needs_grad
+from repro_torch.models.layers import col_product, model_input, row_product
 
 
 def rglru_specs() -> dict:
-    """At rest over a mesh (``repro/models/rglru.py:52``); the layer
-    gathers them whole for each call."""
+    """At rest over a mesh (``repro/models/rglru.py:52``)."""
     return {"w_y": ("data", "model"), "w_x": ("data", "model"),
             "w_out": ("model", "data"),
             "conv_w": (None, "model"), "conv_b": ("model",),
@@ -79,30 +89,42 @@ class RGLRUScanFn(torch.autograd.Function):
         return _rg.rglru_gated_scan_bwd(*ctx.saved_tensors, dh.contiguous())
 
 
-def _rglru_scan(params: dict, x, h0):
+def _rglru_scan(params: dict, x, h0, mesh=None, stationary=False):
     """The RG-LRU over x (B,S,W) from h0 (B,W) f32: the gate products in
     f32, then the gates and the recurrence in one kernel (through
     :class:`RGLRUScanFn` when a gradient is needed).  Returns h_all
-    (B,S,W) f32 (the output is the state)."""
+    (B,S,W) f32 (the output is the state).  Over a ``mesh`` x and h0
+    hold the rank's channels, and the gate products read x's channels
+    gathered over ``"model"``."""
     xf = x.float()
-    args = (xf @ params["w_a"].float(), xf @ params["w_i"].float(), x,
+    if mesh is not None:
+        xf = model_input(all_gather(xf, mesh, "model", -1), mesh, stationary)
+    gate = lambda w: col_product(xf, w.float(), mesh, stationary)  # noqa: E731
+    args = (gate(params["w_a"]), gate(params["w_i"]), x,
             params["b_a"], params["b_i"], params["a_param"], h0)
     if needs_grad(*args):
         return RGLRUScanFn.apply(*args)
     return _rg.rglru_gated_scan(*args)
 
 
-def apply_rglru_block(params: dict, x, state: dict):
+def apply_rglru_block(params: dict, x, state: dict, mesh=None,
+                      stationary: bool = False):
     """Full recurrent block over x (B,S,D).  Returns (out (B,S,D),
     new_state, state_stack); ``state_stack`` (S <= 16 only, else None)
-    is ``{"h": (B,S+1,W), "conv": (B,S+1,cw-1,W)}``."""
-    y_branch = F.gelu(x @ params["w_y"], approximate="tanh")
-    xb = x @ params["w_x"]
+    is ``{"h": (B,S+1,W), "conv": (B,S+1,cw-1,W)}``.  Over a ``mesh``
+    the parameters and the state are the rank's blocks (W its W/m
+    channels) and ``stationary`` picks the decode products (see the
+    module's docstring)."""
+    xin = model_input(x, mesh, stationary)
+    y_branch = F.gelu(col_product(xin, params["w_y"], mesh, stationary),
+                      approximate="tanh")
+    xb = col_product(xin, params["w_x"], mesh, stationary)
     cw = params["conv_w"].shape[0]
     conv_out, conv_final = _conv1d_causal(xb, state["conv"], params["conv_w"],
                                           params["conv_b"])
-    h_all = _rglru_scan(params, conv_out, state["h"])
-    out = (h_all.to(x.dtype) * y_branch) @ params["w_out"]
+    h_all = _rglru_scan(params, conv_out, state["h"], mesh, stationary)
+    out = row_product(h_all.to(x.dtype) * y_branch, params["w_out"], mesh,
+                      stationary)
     new_state = {"h": h_all[:, -1], "conv": conv_final}
 
     s = x.shape[1]

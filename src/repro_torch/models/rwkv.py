@@ -20,6 +20,17 @@ State per layer: ``{"S": (B,H,hd,hd) f32, "ts_a": (B,D), "ts_c": (B,D)}``
 (the last inputs of the time-mix and channel-mix token shifts).  A
 multi-token decode (S <= 16) also returns the per-step state stack that
 ``commit`` selects from, index 0 being the state before the first step.
+
+Over a mesh the block runs channel-parallel (``repro/models/rwkv.py:
+113-130``), on the rank's H/m heads: r/k/v/g are column products, ``w0``,
+``u``, ``ln_x`` and ``w_lora_b`` are the rank's channel blocks, the
+per-head group norm is local and ``w_o`` is a row product; the
+``wkv6`` kernel runs on H/m heads.  The channel mix's ``w_k`` is a
+column product and ``w_v`` a row product whose output's rank block
+(a reduce-scatter over D) meets the ``w_r`` column product's, then is
+gathered.  Decode moves no weight (the stationary products of
+:mod:`repro_torch.models.layers`); ``S`` and its rollback stack hold the
+rank's heads, the token-shift inputs are whole (:func:`rwkv_state_specs`).
 """
 from __future__ import annotations
 
@@ -27,12 +38,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import wkv6 as _wk
+from repro_torch.launch.mesh import (all_gather, all_reduce_grad, block,
+                                     gather_param, reduce_scatter)
 from repro_torch.models.attention import needs_grad
+from repro_torch.models.layers import (ROW, col_product, model_input,
+                                       row_product)
 
 
 def tmix_specs() -> dict:
-    """At rest over a mesh (``repro/models/rwkv.py:56``); the block
-    gathers them whole for each call, as :func:`cmix_specs`."""
+    """At rest over a mesh (``repro/models/rwkv.py:56``), as
+    :func:`cmix_specs`."""
     col, row = ("data", "model"), ("model", "data")
     return {"mu_r": (None,), "mu_k": (None,), "mu_v": (None,),
             "mu_g": (None,), "mu_w": (None,),
@@ -53,8 +68,10 @@ def rwkv_state_specs(batch_spec) -> dict:
 
 
 def init_rwkv_state(batch: int, d_model: int, head_size: int, dtype,
-                    device) -> dict:
-    h = d_model // head_size
+                    device, shards: int = 1) -> dict:
+    """The zero state; ``S`` holds ``1 / shards`` of the heads (a rank's
+    over a mesh)."""
+    h = d_model // head_size // shards
     return {"S": torch.zeros((batch, h, head_size, head_size),
                              device=device),
             "ts_a": torch.zeros((batch, d_model), dtype=dtype, device=device),
@@ -68,6 +85,13 @@ def _token_shift(x, prev):
 
 def _lerp(x, x_prev, mu):
     return x + (x_prev - x) * mu
+
+
+def _mix_col(params, x, xp, mu: str, w: str, mesh, stationary: bool):
+    """The token-shift mix ``params[mu]`` of x times the column-parallel
+    ``params[w]`` (over a ``mesh``: the rank's block of its outputs)."""
+    z = model_input(_lerp(x, xp, params[mu]), mesh, stationary)
+    return col_product(z, params[w], mesh, stationary)
 
 
 class WKV6Fn(torch.autograd.Function):
@@ -97,21 +121,31 @@ class WKV6Fn(torch.autograd.Function):
         return _wk.wkv6_bwd(r, k, v, w, u, s0, dy, ds_fin)
 
 
-def apply_rwkv_tmix(params: dict, x, state_S, ts_prev, head_size: int):
+def apply_rwkv_tmix(params: dict, x, state_S, ts_prev, head_size: int,
+                    mesh=None, stationary: bool = False):
     """Time mix over x (B,S,D).  Returns (out, S_stack, new ts (B,D)):
     ``S_stack`` is (B,S+1,H,hd,hd) — every state, index 0 = ``state_S`` —
-    for S <= 16, else the final state as (B,1,H,hd,hd)."""
-    b, s, d = x.shape
-    h = d // head_size
+    for S <= 16, else the final state as (B,1,H,hd,hd).  Over a ``mesh``
+    the heads are the rank's (see the module's docstring)."""
+    b, s, _ = x.shape
     xp = _token_shift(x, ts_prev)
-    r = _lerp(x, xp, params["mu_r"]) @ params["w_r"]
-    k = _lerp(x, xp, params["mu_k"]) @ params["w_k"]
-    v = _lerp(x, xp, params["mu_v"]) @ params["w_v"]
-    g = F.silu(_lerp(x, xp, params["mu_g"]) @ params["w_g"])
+    col = lambda mu, w: _mix_col(params, x, xp, mu, w, mesh,  # noqa: E731
+                                 stationary)
+    r, k, v = col("mu_r", "w_r"), col("mu_k", "w_k"), col("mu_v", "w_v")
+    g = F.silu(col("mu_g", "w_g"))
     xw = _lerp(x, xp, params["mu_w"]).float()
-    w_log = (params["w0"]
-             + torch.tanh(xw @ params["w_lora_a"]) @ params["w_lora_b"])
+    # the low-rank decay: its (B,S,R) middle is whole on every rank, and
+    # its gradient there is summed over "model" (each rank's channels
+    # give a part), not the gradient of xw a second time
+    lora = torch.tanh(col_product(model_input(xw, mesh, True) if stationary
+                                  else xw, params["w_lora_a"], mesh,
+                                  stationary))
+    if mesh is not None and not stationary:
+        lora = all_reduce_grad(lora, mesh, "model")
+    w_log = params["w0"] + lora @ params["w_lora_b"]
     w = torch.exp(-torch.exp(w_log))                  # (B,S,D) in (0, 1)
+    d = r.shape[-1]                                   # the rank's channels
+    h = d // head_size
 
     def heads(z):                                     # -> (B,H,S,hd) view
         return z.reshape(b, s, h, head_size).float().transpose(1, 2)
@@ -133,20 +167,32 @@ def apply_rwkv_tmix(params: dict, x, state_S, ts_prev, head_size: int):
     var = y.square().mean(-1, keepdim=True)
     y = y * torch.rsqrt(var + 1e-6)
     y = (y.reshape(b, s, d) * params["ln_x"]).to(x.dtype)
-    out = (y * g) @ params["w_o"]
+    out = row_product(y * g, params["w_o"], mesh, stationary)
     return out, S_stack, x[:, -1]
 
 
-def apply_rwkv_cmix(params: dict, x, ts_prev):
+def apply_rwkv_cmix(params: dict, x, ts_prev, mesh=None,
+                    stationary: bool = False):
     xp = _token_shift(x, ts_prev)
-    k = _lerp(x, xp, params["mu_k"]) @ params["w_k"]
-    kv = torch.square(torch.relu(k)) @ params["w_v"]
-    r = torch.sigmoid(_lerp(x, xp, params["mu_r"]) @ params["w_r"])
-    return r * kv, x[:, -1]
+    col = lambda mu, w: _mix_col(params, x, xp, mu, w, mesh,  # noqa: E731
+                                 stationary)
+    hk = torch.square(torch.relu(col("mu_k", "w_k")))
+    r = torch.sigmoid(col("mu_r", "w_r"))
+    if mesh is None:
+        return r * (hk @ params["w_v"]), x[:, -1]
+    if stationary:     # whole on every rank, then the rank's channels
+        kv = block(row_product(hk, params["w_v"], mesh, True), mesh, "model",
+                   -1)
+    else:
+        kv = reduce_scatter(
+            hk @ gather_param(params["w_v"], mesh, ROW, keep=("model", None)),
+            mesh, "model", -1)
+    return all_gather(r * kv, mesh, "model", -1), x[:, -1]
 
 
 def apply_rwkv_block(tmix: dict, cmix: dict, ln1, ln2, x, state: dict,
-                     head_size: int, norm_fn):
+                     head_size: int, norm_fn, mesh=None,
+                     stationary: bool = False):
     """Full RWKV layer (pre-norm residual twice).  Returns (out,
     new_state, state_stack|None); ``state_stack`` (S <= 16 only) holds
     the per-step S and token-shift inputs, index 0 the state before the
@@ -154,10 +200,12 @@ def apply_rwkv_block(tmix: dict, cmix: dict, ln1, ln2, x, state: dict,
     s = x.shape[1]
     a_in = norm_fn(ln1, x)
     a_out, S_stack, ts_a = apply_rwkv_tmix(tmix, a_in, state["S"],
-                                           state["ts_a"], head_size)
+                                           state["ts_a"], head_size, mesh,
+                                           stationary)
     x = x + a_out
     c_in = norm_fn(ln2, x)
-    c_out, ts_c = apply_rwkv_cmix(cmix, c_in, state["ts_c"])
+    c_out, ts_c = apply_rwkv_cmix(cmix, c_in, state["ts_c"], mesh,
+                                  stationary)
     x = x + c_out
     new_state = {"S": S_stack[:, -1], "ts_a": ts_a, "ts_c": ts_c}
     stack = None

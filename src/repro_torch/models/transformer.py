@@ -23,14 +23,26 @@ as the JAX package's scan body runs under ``jax.checkpoint``).
 Over a mesh (``mesh``, :mod:`repro_torch.launch.mesh`) every layer's
 parameters are the rank's blocks under :func:`decoder_param_specs`
 (one spec a layer: the JAX package's group axis dropped).  Decode steps
-take the whole token block on every rank and move no attention, MLP or
-MoE weight; prefill and training take the rank's rows of the batch
-(``batch_split``) and gather each weight's ``"data"`` blocks for the
-layer's call.  The norms are replicated; the recurrent mixers
-(RG-LRU ``rec``, RWKV ``tmix`` / ``cmix``) and the encoder are gathered
-whole for each call.  Caches hold the whole batch on every rank and,
-where the heads split over ``"model"``, only the rank's kv heads
-(:func:`init_cache` with the mesh).
+take the whole token block on every rank and move no weight; prefill
+and training take the rank's rows of the batch (``batch_split``) and
+gather each weight's ``"data"`` blocks for the layer's call.  The norms
+are replicated.  The recurrent mixers run channel-parallel in every
+phase (``repro/models/rglru.py:95-129``, ``repro/models/rwkv.py:
+113-130``): the RG-LRU on the rank's W/m channels, RWKV on its H/m heads
+(an RWKV layer whose heads do not split over ``"model"`` is gathered
+whole for each call, as the encoder is).  Caches hold the whole batch on
+every rank; where the heads split over ``"model"`` the attention caches
+hold the rank's kv heads, and the recurrent states hold the rank's
+channels (:func:`init_cache` with the mesh; the state specs
+``rglru_state_specs`` / ``rwkv_state_specs``).
+
+Under the sequence-parallel profile (``seq``, read once a call by
+:func:`forward_decoder`) the training carry between layer groups is
+the rank's block of the sequence over ``"model"``
+(``repro/models/transformer.py:526-531``): each group gathers it at its
+start (``:130-136``) and keeps its block at its end, so remat keeps
+1/m of each group's input; attention is context-parallel in prefill and
+training where the heads do not split (:mod:`.attention`).
 """
 from __future__ import annotations
 
@@ -52,9 +64,10 @@ from repro_torch.models.attention import (apply_attention,
                                           local_kv_heads, paged_row_indices,
                                           precompute_cross_kv, quantize_rows,
                                           restore_rejected_rows)
-from repro_torch.models.layers import (apply_mlp, apply_norm,
-                                       embedding_specs, mlp_specs,
-                                       norm_specs, unembed)
+from repro_torch.models.layers import (active_seq_axis, apply_mlp,
+                                       apply_norm, embedding_specs, mlp_specs,
+                                       norm_specs, seq_gather, seq_split,
+                                       unembed)
 
 
 # ---------------------------------------------------------------------------
@@ -134,10 +147,21 @@ def _whole(state: dict, mesh, batch_split: bool) -> dict:
     return {k: all_gather(v, mesh, "data", 0) for k, v in state.items()}
 
 
+def _state_shards(cfg: ModelConfig, kind: str, mesh) -> int:
+    """Over how many ranks a recurrent layer's channels split: the
+    RG-LRU's over ``"model"``, RWKV's where its heads split over it (1:
+    the layer is gathered whole)."""
+    m = axis_size(mesh, "model") if mesh is not None else 1
+    if kind == RWKV and (cfg.d_model // cfg.rwkv_head_size) % m:
+        return 1
+    return m
+
+
 def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
                 pos, phase: str, use_moe: bool = False,
                 block_tables=None, spec_tree: dict | None = None,
-                enc_out=None, mesh=None, batch_split: bool = False):
+                enc_out=None, mesh=None, batch_split: bool = False,
+                seq=None):
     """Returns (x, cache, pending).  ``spec_tree`` reaches the attention
     layers only (see :func:`apply_attention`).  With a ``mesh`` the
     layer's parameters are the rank's blocks (see the module's
@@ -146,13 +170,14 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
     encoder-decoder attention layer (``xattn`` in ``params``) attends
     over the encoder after its self-attention: prefill computes the
     cross K/V from ``enc_out`` and stores them in the cache's ``ck`` /
-    ``cv`` (in place), decode reads them from there."""
+    ``cv`` (in place), decode reads them from there.  ``seq``: the
+    sequence-parallel axis of a prefill or training call (context
+    parallelism, see :func:`repro_torch.models.attention.apply_attention`)."""
     norm = lambda p, z: apply_norm(p, z, cfg.norm)
     stationary = phase == "decode"
-    if mesh is not None and kind == RGLRU:
-        params = dict(params, rec=gather_tree(params["rec"],
-                                              rglru_lib.rglru_specs(), mesh))
-    if mesh is not None and kind == RWKV:
+    shards = _state_shards(cfg, kind, mesh)
+    rec_mesh = mesh if shards > 1 else None      # channel-parallel mixers
+    if mesh is not None and kind == RWKV and rec_mesh is None:
         params = dict(params,
                       tmix=gather_tree(params["tmix"], rwkv_lib.tmix_specs(),
                                        mesh),
@@ -160,11 +185,13 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
                                        mesh))
     if kind == RGLRU:
         state = (_rows(cache, mesh, batch_split) if cache is not None else
-                 rglru_lib.init_rglru_state(x.shape[0], cfg.rnn_width,
+                 rglru_lib.init_rglru_state(x.shape[0],
+                                            cfg.rnn_width // shards,
                                             cfg.conv_width, x.dtype,
                                             x.device))
         out, new_state, stack = rglru_lib.apply_rglru_block(
-            params["rec"], norm(params["ln1"], x), state)
+            params["rec"], norm(params["ln1"], x), state, rec_mesh,
+            stationary)
         x = x + out
         x = x + apply_mlp(params["ffn"], norm(params["ln2"], x),
                           cfg.activation, mesh, stationary)
@@ -174,10 +201,10 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
         state = (_rows(cache, mesh, batch_split) if cache is not None else
                  rwkv_lib.init_rwkv_state(x.shape[0], cfg.d_model,
                                           cfg.rwkv_head_size, x.dtype,
-                                          x.device))
+                                          x.device, shards))
         x, new_state, stack = rwkv_lib.apply_rwkv_block(
             params["tmix"], params["cmix"], params["ln1"], params["ln2"], x,
-            state, cfg.rwkv_head_size, norm)
+            state, cfg.rwkv_head_size, norm, rec_mesh, stationary)
         _set_state(cache, _whole(new_state, mesh, batch_split))
         return x, cache, ({"stack": stack} if phase == "decode" else {})
     if kind not in (ATTN, SWA):
@@ -189,7 +216,7 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
         head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
         use_rope=cfg.use_rope, window=window, cache=cache, pos=pos,
         phase=phase, block_tables=block_tables if kind == ATTN else None,
-        spec_tree=spec_tree, mesh=mesh, batch_split=batch_split)
+        spec_tree=spec_tree, mesh=mesh, batch_split=batch_split, seq=seq)
     x = x + out
     if "xattn" in params:
         heads = dict(n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim)
@@ -235,8 +262,10 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     """One layer's cache; an encoder-decoder ATTN layer also holds the
     cross K/V ``ck`` / ``cv`` (B, encoder_len, Hkv, d).  Over a ``mesh``
     the attention caches hold the rank's kv heads
-    (:func:`repro_torch.models.attention.local_kv_heads`)."""
+    (:func:`repro_torch.models.attention.local_kv_heads`) and the
+    recurrent states the rank's channels."""
     hkv = local_kv_heads(cfg.n_heads, cfg.n_kv_heads, mesh)
+    shards = _state_shards(cfg, kind, mesh)
     if kind == ATTN:
         c = init_kv_cache(batch, max_len, hkv, cfg.head_dim,
                           cfg.torch_dtype, device,
@@ -250,13 +279,13 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         return init_kv_cache(batch, min(cfg.sliding_window, max_len),
                              hkv, cfg.head_dim, cfg.torch_dtype, device)
     if kind == RGLRU:
-        return rglru_lib.init_rglru_state(batch, cfg.rnn_width,
+        return rglru_lib.init_rglru_state(batch, cfg.rnn_width // shards,
                                           cfg.conv_width, cfg.torch_dtype,
                                           device)
     if kind == RWKV:
         return rwkv_lib.init_rwkv_state(batch, cfg.d_model,
                                         cfg.rwkv_head_size, cfg.torch_dtype,
-                                        device)
+                                        device, shards)
     raise ValueError(kind)
 
 
@@ -372,19 +401,23 @@ def _sqrt_factor(n: int, threshold: int = 8) -> int:
 
 
 def _train_group(params: dict, cfg: ModelConfig, group: int, x, enc_out,
-                 mesh):
+                 mesh, seq=None):
     """The layers of pattern group ``group`` over x, phase ``train``
-    (over a ``mesh``, x the rank's rows of the batch)."""
+    (over a ``mesh``, x the rank's rows of the batch; with ``seq``, its
+    block of the sequence, gathered here and split again at the end)."""
     p = len(cfg.layer_pattern)
+    x = seq_gather(x, mesh, seq)
     for l in range(group * p, (group + 1) * p):
         x, _, _ = apply_layer(params["layers"][l], cfg, cfg.layer_kind(l), x,
                               None, None, "train",
                               use_moe=cfg.layer_is_moe(l), enc_out=enc_out,
-                              mesh=mesh, batch_split=mesh is not None)
-    return x
+                              mesh=mesh, batch_split=mesh is not None,
+                              seq=seq)
+    return seq_split(x, mesh, seq)
 
 
-def _forward_train(params: dict, cfg: ModelConfig, x, enc_out, mesh=None):
+def _forward_train(params: dict, cfg: ModelConfig, x, enc_out, mesh=None,
+                   seq=None):
     """The cache-less training forward (``repro/models/transformer.py:
     520-560``): one group of the pattern at a time.  With ``cfg.remat``
     each group is a checkpoint (only its input is kept; the backward
@@ -394,18 +427,36 @@ def _forward_train(params: dict, cfg: ModelConfig, x, enc_out, mesh=None):
     ``group_carry`` to ``pinned_host``; otherwise past 8 groups
     sqrt-remat checkpoints superblocks of ``n_groups / n_outer`` groups
     around the group checkpoints, so n_outer + n_inner carries live at
-    once instead of n_groups."""
+    once instead of n_groups.  With ``seq`` the carries are the rank's
+    blocks of the sequence; the result is gathered whole."""
+    x = seq_split(x, mesh, seq)
+    return seq_gather(_train_groups(params, cfg, x, enc_out, mesh, seq),
+                      mesh, seq)
+
+
+def _offloaded(x):
+    """``save_on_cpu`` for the saved group carries; on meta tensors (the
+    dry run, which has no data to copy) saved tensors that keep only
+    their shapes, as the host copy frees the card's."""
+    if not x.is_meta:
+        return torch.autograd.graph.save_on_cpu(pin_memory=x.is_cuda)
+    return torch.autograd.graph.saved_tensors_hooks(
+        lambda t: (t.shape, t.dtype),
+        lambda s: torch.empty(s[0], dtype=s[1], device="meta"))
+
+
+def _train_groups(params: dict, cfg: ModelConfig, x, enc_out, mesh, seq):
     ckpt = lambda fn, z: checkpoint(fn, z, use_reentrant=False,
                                     preserve_rng_state=False)
     group = lambda g: (lambda z: _train_group(params, cfg, g, z, enc_out,
-                                              mesh))
+                                              mesh, seq))
     n = cfg.n_groups
     if not cfg.remat:
         for g in range(n):
             x = group(g)(x)
         return x
     if cfg.offload_carries:
-        with torch.autograd.graph.save_on_cpu(pin_memory=x.is_cuda):
+        with _offloaded(x):
             for g in range(n):
                 x = ckpt(group(g), x)
         return x
@@ -436,11 +487,14 @@ def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
     config (read in prefill and training); ``mesh`` distributes every
     layer, and ``batch_split`` (prefill) says x holds the rank's rows
     of the batch (:func:`apply_layer`; training always splits it).
-    Returns (hidden, cache, pendings); phase ``train`` takes no cache
-    and returns (hidden, None, [])."""
+    Prefill and training read the sequence-parallel profile here, once
+    (:func:`repro_torch.models.layers.sequence_sharding`); decode never
+    does.  Returns (hidden, cache, pendings); phase ``train`` takes no
+    cache and returns (hidden, None, [])."""
+    seq = active_seq_axis(mesh) if phase != "decode" else None
     if phase == "train":
         assert cache is None, "the training forward takes no cache"
-        return _forward_train(params, cfg, x, enc_out, mesh), None, []
+        return _forward_train(params, cfg, x, enc_out, mesh, seq), None, []
     pos = cache["pos"] if (cache is not None and phase == "decode") else None
     block_tables = (cache.get("block_tables")
                     if (cache is not None and phase == "decode") else None)
@@ -452,7 +506,7 @@ def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
                                  use_moe=cfg.layer_is_moe(l),
                                  block_tables=block_tables,
                                  spec_tree=spec_tree, enc_out=enc_out,
-                                 mesh=mesh, batch_split=batch_split)
+                                 mesh=mesh, batch_split=batch_split, seq=seq)
         pendings.append(pend)
     return x, cache, pendings
 

@@ -25,7 +25,7 @@ import time
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.launch.mesh import all_reduce, leaf_specs
+from repro_torch.launch.mesh import all_reduce, is_batch_axis, leaf_specs
 from repro_torch.models import model as M
 from repro_torch.training.optimizer import make_optimizer
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -40,7 +40,10 @@ def _to_device(batch: dict, cfg: ModelConfig, device) -> dict:
 
 
 def _pinned_like(t: torch.Tensor) -> torch.Tensor:
-    return torch.empty(t.shape, dtype=t.dtype, device="cpu",
+    """A host buffer for ``t`` (page-locked for a card's tensor; a meta
+    tensor's stays meta, for the dry run)."""
+    return torch.empty(t.shape, dtype=t.dtype,
+                       device="meta" if t.is_meta else "cpu",
                        pin_memory=t.is_cuda)
 
 
@@ -48,7 +51,8 @@ def _sum_over_data(grads: list, specs: list, mesh) -> list:
     """Each gradient of a leaf not split over ``"data"`` summed over it
     (one all-reduce a dtype)."""
     grads = list(grads)
-    todo = [i for i, s in enumerate(specs) if "data" not in s]
+    todo = [i for i, s in enumerate(specs)
+            if not any(a is not None and is_batch_axis(a) for a in s)]
     for dt in dict.fromkeys(grads[i].dtype for i in todo):
         sel = [i for i in todo if grads[i].dtype == dt]
         flat = all_reduce(torch.cat([grads[i].reshape(-1) for i in sel]),

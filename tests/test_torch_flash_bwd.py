@@ -197,8 +197,8 @@ def test_train_phase_attention_matches_jax(window):
 # -- the bf16 kernels' tile walks, emulated (csrc/flash_attention_bwd.cu:
 # q_range, kv_range, live_tile, whole_tile and the loops over them) --------
 
-def _ranges_mask(sq, skv, causal, window):
-    i = np.arange(sq)[:, None]
+def _ranges_mask(sq, skv, causal, window, qoff=0):
+    i = qoff + np.arange(sq)[:, None]
     j = np.arange(skv)[None, :]
     ok = np.ones((sq, skv), bool)
     if causal:
@@ -208,34 +208,36 @@ def _ranges_mask(sq, skv, causal, window):
     return ok
 
 
-def _walks(sq, skv, d, causal, window):
+def _walks(sq, skv, d, causal, window, qoff=0):
     """[(kernel, q0, nq, k0, nk, whole)] of every (query tile, key tile) a
-    consumer warpgroup computes, as the two bf16 kernels walk them."""
+    consumer warpgroup computes, as the two bf16 kernels walk them (query
+    row i at position ``qoff + i``)."""
     w = window or 0
     wide = (d + 63) // 64 * 64 > 128
     bkv, bkvq = (64, 32) if wide else (128, 128)
 
     def live(q0, nq, k0, nk):
-        return (q0 < sq and k0 < skv and (not causal or k0 <= q0 + nq - 1)
-                and (w <= 0 or q0 < k0 + nk - 1 + w))
+        return (q0 < sq and k0 < skv
+                and (not causal or k0 <= q0 + qoff + nq - 1)
+                and (w <= 0 or q0 + qoff < k0 + nk - 1 + w))
 
     def whole(q0, nq, k0, nk):
         return (q0 + nq <= sq and k0 + nk <= skv
-                and (not causal or k0 + nk - 1 <= q0)
-                and (w <= 0 or k0 > q0 + nq - 1 - w))
+                and (not causal or k0 + nk - 1 <= q0 + qoff)
+                and (w <= 0 or k0 > q0 + qoff + nq - 1 - w))
 
     out = []
     for k0 in range(0, skv, bkv):              # dK / dV: a CTA's keys
-        lo = k0 if causal else 0
-        hi = min(sq, k0 + bkv - 1 + w) if w > 0 else sq
+        lo = max(0, k0 - qoff) if causal else 0
+        hi = min(sq, k0 + bkv - 1 + w - qoff) if w > 0 else sq
         for t in range(lo // 64, -(-hi // 64) if hi > lo else 0):
             for kw0 in range(k0, k0 + bkv, 64):    # d <= 128: 2 warpgroups
                 if live(64 * t, 64, kw0, 64):
                     out.append(("dkdv", 64 * t, 64, kw0, 64,
                                 whole(64 * t, 64, kw0, 64)))
     for q0 in range(0, sq, 128):               # dQ: 128 query rows a CTA
-        lo = max(0, q0 - w + 1) if w > 0 else 0
-        hi = min(skv, q0 + 128) if causal else skv
+        lo = max(0, q0 + qoff - w + 1) if w > 0 else 0
+        hi = min(skv, q0 + qoff + 128) if causal else skv
         first = lo // bkvq * bkvq
         for k0 in range(first, hi if hi > first else first, bkvq):
             for qw0 in (q0, q0 + 64):
@@ -266,6 +268,32 @@ def test_tile_walks_cover_every_visible_pair_once(shape, d):
     for kernel in ("dkdv", "dq"):
         seen = np.zeros((sq, skv), int)
         for kern, q0, nq, k0, nk, whole in _walks(sq, skv, d, causal, window):
+            if kern != kernel:
+                continue
+            seen[q0:q0 + nq, k0:k0 + nk] += 1
+            if whole:
+                assert ok[q0:q0 + nq, k0:k0 + nk].all(), (kernel, q0, k0)
+        assert (seen[ok] == 1).all(), kernel
+
+
+# (sq, skv, causal, window, q offset): a rank's block of the queries
+# under context parallelism, offsets on and off the tiles' rows
+WALKS_OFFSET = [(sq, skv, causal, w, off)
+                for sq, skv, off in ((128, 512, 128), (100, 400, 300),
+                                     (64, 256, 37), (200, 300, 100))
+                for causal, w in ((True, None), (True, 60), (False, None))]
+
+
+@pytest.mark.parametrize("d", [128, 240])
+@pytest.mark.parametrize("shape", WALKS_OFFSET, ids=str)
+def test_tile_walks_with_a_query_offset_cover_every_pair_once(shape, d):
+    """As the test above, the queries at positions ``offset + i``."""
+    sq, skv, causal, window, off = shape
+    ok = _ranges_mask(sq, skv, causal, window, off)
+    for kernel in ("dkdv", "dq"):
+        seen = np.zeros((sq, skv), int)
+        for kern, q0, nq, k0, nk, whole in _walks(sq, skv, d, causal, window,
+                                                  off):
             if kern != kernel:
                 continue
             seen[q0:q0 + nq, k0:k0 + nk] += 1

@@ -57,6 +57,7 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.training.train_loop",
             "repro_torch.training.checkpoint", "repro_torch.data.pipeline",
             "repro_torch.launch.train", "repro_torch.launch.mesh",
+            "repro_torch.launch.specs", "repro_torch.launch.dryrun",
             "repro_torch.tree"} <= set(_modules())
 
 
@@ -186,3 +187,25 @@ def test_chip_smoke_refuses_a_machine_without_a_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("which", sorted(set(WRAPPER_CALLS) - {"paged"}))
+def test_meta_call_launches_nothing_and_counts_its_flops(which, monkeypatch):
+    """On meta tensors (the dry run) a wrapper neither launches nor runs
+    its plain version: it returns meta outputs and counts FLOPs."""
+    mod, ref_name, call = WRAPPER_CALLS[which]
+    plain_calls = []
+    monkeypatch.setattr(ref, ref_name,
+                        lambda *a, **k: plain_calls.append(1))
+    for name in ("zeros", "ones", "tensor"):
+        real = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, _r=real, **k: _r(
+            *a, **k).to("meta"))
+    fn = getattr(mod, mod.__name__.rsplit(".", 1)[1])
+    before = fn.launches
+    _build.meta_flops.clear()
+    out = call()
+    outs = out if isinstance(out, tuple) else (out,)
+    assert all(t.is_meta for t in outs)
+    assert plain_calls == [] and fn.launches == before
+    assert sum(_build.meta_flops.values()) > 0, _build.meta_flops

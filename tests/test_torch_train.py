@@ -341,4 +341,10 @@ def test_launcher_trains_on_the_cpu_and_plans_like_jax(monkeypatch):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         jlaunch.main()
-    assert plan == buf.getvalue().splitlines() and len(plan) == 3
+    assert plan[:3] == buf.getvalue().splitlines() and len(plan) == 5
+    # then train_4k's layout and accumulation from the port's specs.py,
+    # which equal the JAX package's (tests/test_torch_specs.py)
+    assert plan[3] == ("single-pod: train_4k (batch, seq, seq-parallel "
+                       "axis)=('data', None, 'model') accum=16")
+    assert plan[4] == ("multi-pod : train_4k (batch, seq, seq-parallel "
+                       "axis)=(('pod', 'data'), None, 'model') accum=8")
