@@ -38,7 +38,12 @@ on its own lines with its wall seconds:
    ``anc_bits`` of tree (3, 2) at m 10 and of (2, 2, 2, 2) at m 31, in
    f32 and bf16, each also with a 64-key tile boundary inside the last m
    rows, with ``scaled_dot_product_attention`` under the equivalent
-   boolean mask as the library yardstick) and of the recurrences (``wkv6`` with
+   boolean mask as the library yardstick; ``decode_attention`` with a
+   key offset and its log-sum-exp at one rank's block of Gemma-3-12B's
+   and Llama-3-405B's ``decode_32k`` caches on the pod, ``DECODE_OFFSET``,
+   a slice before, across and past the sequences' length, bf16 and f32,
+   and a tree buffer half outside its slice; offset 0 with the lse
+   bitwise the call without them) and of the recurrences (``wkv6`` with
    the model's decay range, w = exp(-exp(U[-8, 4])) with channels at
    w == 0 and w = 1 - 1e-7, at the verify, prefill and stress shapes, at
    ragged lengths 100 and 1000 and at head size 128; the RG-LRU with its
@@ -247,7 +252,17 @@ on its own lines with its wall seconds:
    ``wkv6_bwd``), and the bytes a rank holds when the step starts, which
    must equal the dry run's argument bytes for the same step and mesh
    (``launch/dryrun.py`` in a process of its own), the two peaks
-   printed side by side;
+   printed side by side; (h) / (i) decode caches in the production
+   layout on one (2, 2) spawn (``MESH_LAYOUT``): each rank holds its
+   rows of the batch and its slice of the slots, every kv head, and the
+   verify kernel's partials (``decode_attention`` with ``kv_offset`` and
+   ``return_lse``, its ``partial`` route) merge by log-sum-exp;
+   Gemma-3-12B at full width, 6 layers (five windowed, one global), B 2,
+   4096 slots, a 2044-token prompt and 8 greedy steps across slot 2048,
+   and Whisper-base whole (its encoder on its blocks): logits and tokens
+   against one process, the ``partial`` launches (one a global layer a
+   step), and the bytes a rank holds when the decode starts against the
+   dry run of the decode step on the same mesh;
 7. the kernels as one JSON object; 8. the device as one JSON object.
 
 The families' cases of phase 2: flash at head dim 240 (Gemma-3-12B's 16
@@ -625,6 +640,7 @@ def kernel_cases(bench) -> dict:
                    True, 64, dt, model_layout=True)
     main["flash_attention_bwd"] = flash_bwd_cases(bench, rn)
     flash_offset_cases(bench, rn)
+    decode_offset_cases(bench, rn)
 
     # -- paged decode attention --------------------------------------------
     def split_note(name, b, hkv, capacity, rows=None, d=128):
@@ -1607,6 +1623,101 @@ def flash_offset_cases(bench, rn) -> None:
     print(f"  flash q_offset 0 == no offset, bitwise: True "
           f"({len(dims) * len(offsets) * len(windows) + 2} cases)",
           flush=True)
+
+
+# phase 2: decode_attention over one rank's block of a decode_32k cache
+# on the single pod (16, 16): the batch over "data" (8 of 128 rows), the
+# sequence over "model" (2048 of 32768 slots), every kv head; m 1
+DECODE_OFFSET = {"gemma3-12b": (8, 2048, 16, 8, 240),   # B, S_r, Hq, Hkv, d
+                 "llama3-405b": (8, 2048, 128, 8, 128)}
+DECODE_OFFSET_LEN = 5000      # the sequences' length (global)
+DECODE_OFFSETS = ((2048, "ends before the length"), (4096, "straddles it"),
+                  (6144, "wholly past it"))
+
+
+def decode_offset_cases(bench, rn) -> None:
+    """``decode_attention`` with ``kv_offset`` and ``return_lse`` (a
+    rank's slice of a cache split over the sequence) against its plain
+    version, output and log-sum-exp, in bf16 and f32 at
+    ``DECODE_OFFSET``'s two blocks: a slice that ends before the
+    sequences' length, one that straddles it and one wholly past it (no
+    visible key: output 0, lse -inf); one tree at an offset whose buffer
+    lies half outside the slice.  Each bf16 line times the kernel, its
+    bound (the slice's rows that hold keys, read once), the plain
+    version and ``scaled_dot_product_attention`` over the slice under
+    the same mask.  Then offset 0 with its lse against the call without
+    them, bitwise."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+
+    def case(label, b, s_r, hq, hkv, d, m, off, lengths, dt, anc=None,
+             timed=True):
+        dname = str(dt).split(".")[1]
+        lengths = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+        q = rn(b, m, hq, d, dt=dt).transpose(1, 2)
+        k, v = (rn(b, s_r, hkv, d, dt=dt).transpose(1, 2) for _ in range(2))
+        ab = None if anc is None else torch.as_tensor(anc, dtype=torch.int32,
+                                                      device="cuda")
+        amask = None if ab is None else ref.anc_mask_from_bits(ab, m)
+        call = lambda: da.decode_attention(  # noqa: E731
+            q, k, v, lengths, anc_bits=ab, kv_offset=off, return_lse=True)
+        plain = lambda: ref.decode_attention_ref(  # noqa: E731
+            q, k, v, lengths, anc_mask=amask, kv_offset=off, return_lse=True)
+        (got, lse), (want, want_lse) = call(), plain()
+        torch.cuda.synchronize()
+        err = _check("decode_attention offset", label, got, want, dname)
+        empty = torch.isinf(want_lse)
+        assert torch.equal(torch.isinf(lse), empty), label
+        assert bool((got.float()[empty] == 0).all()), label
+        _check("decode_attention offset lse", label,
+               torch.where(empty, 0.0, lse), torch.where(empty, 0.0, want_lse),
+               "float32", tol=TOL[dname])
+        if not timed:
+            print(f"  decode_attention offset  {label:<44} {dname:<8} "
+                  f"err={err:.2e} (lse -inf rows {int(empty.sum())})",
+                  flush=True)
+            return
+        kpos = off + torch.arange(s_r, device="cuda")[None, None, :]
+        ln = lengths.long()[:, None, None]
+        qpos = ln - m + torch.arange(m, device="cuda")[None, :, None]
+        vis = (kpos <= qpos) & (kpos < ln)
+        rows = float((lengths.long() - off).clamp(0, s_r).sum())
+        bound = _bound(2.0 * hkv * d * k.element_size() * rows
+                       + _nbytes(q, got, lse, lengths),
+                       4.0 * hq * d * float(vis.sum()), dname)
+        ke, ve = (t.repeat_interleave(hq // hkv, 1) for t in (k, v))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, ke, ve, attn_mask=vis[:, None])
+        _report("decode_attention offset", label, dname, err, bench.ms(call),
+                bound, bench.ms(plain), bench.ms(lib), path=_tc_path(dt))
+
+    for name, (b, s_r, hq, hkv, d) in DECODE_OFFSET.items():
+        print(f"  decode_attention offset  {name}: grid n_split "
+              f"{da.n_split(b, hkv, s_r)} for S_r {s_r}", flush=True)
+        for off, where in DECODE_OFFSETS:
+            for dt in (torch.bfloat16, torch.float32):
+                case(f"{name} b{b} S_r{s_r} at {off} ({where})", b, s_r, hq,
+                     hkv, d, 1, off, [DECODE_OFFSET_LEN] * b, dt,
+                     timed=dt == torch.bfloat16)
+    for dt in (torch.bfloat16, torch.float32):
+        case("tree m4 at 640, buffer half outside", 2, 640, 4, 2, 64, 4, 640,
+             [1282, 1283], dt, anc=[1, 3, 5, 11], timed=False)
+    # offset 0 with its lse: the output of the call without them, bitwise
+    for dt in (torch.bfloat16, torch.float32):
+        q = rn(4, 5, 32, 128, dt=dt).transpose(1, 2)
+        k, v = (rn(4, 640, 8, 128, dt=dt).transpose(1, 2) for _ in range(2))
+        lengths = torch.tensor([640, 300, 77, 5], dtype=torch.int32,
+                               device="cuda")
+        a = da.decode_attention(q, k, v, lengths)
+        b_, _ = da.decode_attention(q, k, v, lengths, kv_offset=0,
+                                    return_lse=True)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b_), dt
+    print("  decode_attention offset 0 with lse == the call without them, "
+          "bitwise: True (bf16, f32)", flush=True)
 
 
 def flash_bwd_cases(bench, rn):
@@ -3779,23 +3890,27 @@ def _mesh_seq_job(mesh):
     return out
 
 
-def _seq_dry_run(label):
-    """The dry run of 6f / 6g's training step on the same (1, 2) mesh
-    (``launch/dryrun.run_one`` in a process of its own, a fake group):
+def _dry_run(cfg, shape: list, mesh_shape: tuple):
+    """``launch/dryrun.run_one`` of ``cfg`` at ``shape`` (an InputShape's
+    fields) on a fake group of ``mesh_shape``, in a process of its own:
     its Popen, read by :func:`_dry_record`."""
     code = ("import json, sys\n"
             "from repro_torch.configs import InputShape, ModelConfig\n"
             "from repro_torch.launch.dryrun import run_one\n"
             "cfg = ModelConfig(**json.loads(sys.argv[1]))\n"
             "print(json.dumps(run_one(cfg, InputShape(*json.loads("
-            "sys.argv[2])), (1, 2))))\n")
-    b, s, _, _ = MESH_SEQ_RUN
+            "sys.argv[2])), tuple(json.loads(sys.argv[3])))))\n")
     return subprocess.Popen(
-        [sys.executable, "-c", code,
-         json.dumps(dataclasses.asdict(_seq_cfg(label))),
-         json.dumps([label, s, b, "train"])], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True,
+        [sys.executable, "-c", code, json.dumps(dataclasses.asdict(cfg)),
+         json.dumps(shape), json.dumps(list(mesh_shape))],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+
+
+def _seq_dry_run(label):
+    """The dry run of 6f / 6g's training step on the same (1, 2) mesh."""
+    b, s, _, _ = MESH_SEQ_RUN
+    return _dry_run(_seq_cfg(label), [label, s, b, "train"], (1, 2))
 
 
 def _dry_record(proc) -> dict:
@@ -4096,6 +4211,166 @@ def mesh_phase(smi: str) -> None:
         _train_report(shape, [res["train"][shape] for res in pair])
     _free()
     seq_phase(smi)
+    _free()
+    layout_phase(smi)
+
+
+# 6h / 6i: decode caches in the production layout on a (2, 2) mesh (the
+# batch over "data", the sequence over "model", every kv head; the
+# verify kernel's partials merged by log-sum-exp), f32, weights from a
+# seed, against one process: Gemma-3-12B at full width, 6 layers (five
+# sliding-window layers, window 1024, and the global one), B 2, a cache
+# of 4096 slots (2048 a rank: rank 1's global block starts empty) and a
+# 2044-token prompt, 8 greedy steps across slot 2048; Whisper-base whole
+# (the encoder on its blocks, its 8 heads 4 a rank), B 2, 128 slots, a
+# 60-token prompt, 8 steps across slot 64
+# label: (config, layers, B, cache slots, prompt, steps)
+MESH_LAYOUT = {"6h": ("gemma3-12b", 6, 2, 4096, 2044, 8),
+               "6i": ("whisper-base", 6, 2, 128, 60, 8)}
+MESH_LAYOUT_SHAPE = (2, 2)
+
+
+def _layout_cfg(label):
+    from repro_torch.configs import get_config
+    name, layers = MESH_LAYOUT[label][:2]
+    return dataclasses.replace(get_config(name), n_layers=layers,
+                               dtype="float32")
+
+
+def _layout_shape(label):
+    from repro_torch.configs import InputShape
+    _, _, b, slots, _, _ = MESH_LAYOUT[label]
+    return InputShape(label, slots, b, "decode")
+
+
+def _layout_decode(label, mesh=None) -> dict:
+    """6h / 6i on one rank (or in one process, ``mesh`` None): prefill
+    and greedy steps, the cache in the production layout on a mesh;
+    logits and tokens on the host, launches, the bytes the rank holds
+    when the decode steps start (parameter and cache blocks, the (B, 1)
+    tokens) and its global layer's cache block."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.launch.specs import cache_layout
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.params import init_params
+
+    _, _, b, slots, prompt, steps = MESH_LAYOUT[label]
+    cfg = _layout_cfg(label)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    if mesh is not None:
+        params = M.shard_model(params, cfg, mesh)
+        _free()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), device="cuda",
+                           generator=gen)
+    frames = (torch.randn((b, cfg.encoder_len, cfg.d_model), device="cuda",
+                          generator=gen) if cfg.encoder_decoder else None)
+    layout = None if mesh is None else cache_layout(_layout_shape(label),
+                                                    mesh)
+    cache = init_cache(cfg, b, slots, "cuda", mesh, layout=layout)
+    glob = next(l for l in range(cfg.n_layers) if cfg.layer_kind(l) == "attn")
+    block = tuple(cache["layers"][glob]["k"].shape)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    lg, cache = M.prefill(params, cfg, tokens, cache, mesh,
+                          encoder_frames=frames)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = {k: v for k, v in launch_counts().items() if v}
+    args = tree_bytes(params) + tree_bytes(cache) + b * 8
+    reset_launches()
+    logits, toks, step_s = [lg], [], []
+    for _ in range(steps):
+        tok = torch.argmax(lg, -1)
+        toks.append(tok)
+        t0 = time.perf_counter()
+        lg, cache = M.decode_step(params, cfg, cache, tok[:, None], mesh)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        logits.append(lg)
+    return {"logits": torch.stack(logits, 1).cpu().numpy(),
+            "tokens": torch.stack(toks, 1).cpu().numpy(),
+            "prefill_launches": prefill_launches, "args": args,
+            "block": block, "prefill_s": prefill_s, "step_s": step_s,
+            "peak": torch.cuda.max_memory_allocated(),
+            "decode_launches": {k: v for k, v in launch_counts().items()
+                                if v}}
+
+
+def _mesh_layout_job(mesh):
+    out = {}
+    for label in MESH_LAYOUT:
+        _free()
+        out[label] = _layout_decode(label, mesh)
+    return out
+
+
+def layout_phase(smi: str) -> None:
+    """6h / 6i: the one-process references, then one (2, 2) spawn for
+    both models beside their decode steps' dry runs: every rank against
+    one process, its launches (``decode_attention``'s ``partial`` route
+    on the global layers), and its bytes at the decode's start against
+    the dry run's argument bytes."""
+    singles = {}
+    for label in MESH_LAYOUT:
+        singles[label] = _layout_decode(label)
+        _free()
+    t0 = time.perf_counter()
+    dry = {label: _dry_run(_layout_cfg(label), list(dataclasses.astuple(
+        _layout_shape(label))), MESH_LAYOUT_SHAPE) for label in MESH_LAYOUT}
+    try:
+        ranks = _spawn_mesh(MESH_LAYOUT_SHAPE, _mesh_layout_job)
+    except BaseException:
+        for proc in dry.values():
+            proc.kill()
+            proc.wait()
+        raise
+    print(f"  [6h/6i] mesh {MESH_LAYOUT_SHAPE}: {len(ranks)} ranks on "
+          f"cuda:0 (gloo), wall {time.perf_counter() - t0:.1f}s", flush=True)
+    for label, (name, layers, b, slots, prompt, steps) in MESH_LAYOUT.items():
+        rec = _dry_record(dry[label])
+        one = singles[label]
+        scale = float(np.abs(one["logits"]).max())
+        n_glob = sum(_layout_cfg(label).layer_kind(l) == "attn"
+                     for l in range(layers))
+        print(f"  [{label}] {name} {layers} layers f32, B {b}, {slots} "
+              f"slots, prompt {prompt}, {steps} steps; one process: prefill "
+              f"{one['prefill_s']:.2f}s, step median "
+              f"{1e3 * np.median(one['step_s']):.1f} ms, global layer's "
+              f"cache {one['block']}; dry run of the decode step on a fake "
+              f"{MESH_LAYOUT_SHAPE} group: {rec['argument_bytes']} argument "
+              f"bytes, peak {rec['peak_bytes'] / 2**30:.2f} GiB, "
+              f"collectives {rec['collectives']}", flush=True)
+        for rank, res in enumerate(ranks):
+            got = res[label]
+            err = float(np.abs(got["logits"] - one["logits"]).max())
+            same = bool(np.array_equal(got["tokens"], one["tokens"]))
+            pre, dec = got["prefill_launches"], got["decode_launches"]
+            print(f"  [{label}] rank {rank}: logits max abs err {err:.3e} "
+                  f"(max |logit| {scale:.3e}), greedy tokens equal the "
+                  f"single process's: {same}; global layer's cache block "
+                  f"{got['block']}; holds {got['args']} bytes at the decode's "
+                  f"start (the dry run: {rec['argument_bytes']}); prefill "
+                  f"{got['prefill_s']:.2f}s, step median "
+                  f"{1e3 * np.median(got['step_s']):.1f} ms, peak "
+                  f"{got['peak'] / 2**30:.2f} GiB (both for the record, "
+                  f"{smi}); prefill launches {pre}, decode launches {dec}",
+                  flush=True)
+            assert err <= TOL_MESH_LOGITS * scale, (label, rank, err, scale)
+            assert same, (label, rank)
+            assert got["args"] == rec["argument_bytes"], (label, rank)
+            assert pre.get("flash_attention", 0) > 0, pre
+            # one launch a global layer a step, each on the rank's slice
+            assert dec.get("decode_attention partial", 0) == (
+                n_glob * steps), dec
+            assert got["block"][:2] == (b // MESH_LAYOUT_SHAPE[0],
+                                        slots // MESH_LAYOUT_SHAPE[1])
 
 
 def _engine_report(ranks, want, smi) -> None:

@@ -143,6 +143,12 @@ struct DecodeArgs {
   // group_rows, min((rg + 1) * group_rows, g*m)))
   int n_groups, group_rows;
   float scale;
+  // the cache holds slots [kv_offset, kv_offset + n_slots) of the
+  // sequence (lengths and the masks stay global); lse, when not null, gets
+  // each row's log-sum-exp (B, Hq, m), -inf for a row with no visible key.
+  // Both zero where the paged kernel leaves them out.
+  int kv_offset;
+  float* lse;
 };
 
 // The most query rows one CTA holds at head dim d (the wrapper's
@@ -180,18 +186,20 @@ __device__ __forceinline__ RowGroup row_group(const DecodeArgs& a, int rg) {
   return g;
 }
 
-// The keys [k_begin, k_end) of split `split`: the nt whole kKeyTile
-// tiles that hold [first, kv_end) dealt out in order, split s taking
-// tiles [s * nt / n_split, (s + 1) * nt / n_split) (empty when nt <
-// n_split and the share rounds to nothing).
+// The keys [k_begin, k_end) of split `split`, as slots of the cache (slot
+// i holds position off + i): the nt whole kKeyTile tiles that hold
+// [first, kv_end) dealt out in order, split s taking tiles [s * nt /
+// n_split, (s + 1) * nt / n_split) (empty when nt < n_split and the share
+// rounds to nothing).  kv_end is a slot too; first is the window's first
+// position less off, at least 0.
 struct SplitRange {
   int k_begin, k_end;
 };
 
 __device__ __forceinline__ SplitRange split_range(int len, int kv_end, int m,
                                                   int window, int n_split,
-                                                  int split) {
-  const int first = window > 0 ? max(0, len - m - window + 1) : 0;
+                                                  int split, int off) {
+  const int first = window > 0 ? max(0, len - m - window + 1 - off) : 0;
   const int t_lo = first / kKeyTile;
   const int t_hi = (max(kv_end, 0) + kKeyTile - 1) / kKeyTile;
   const int nt = max(t_hi - t_lo, 0);
@@ -334,10 +342,24 @@ __device__ __forceinline__ void split_epilogue(const DecodeArgs& a,
     __syncthreads();
     if (tid == 0) a.counters[bh] = 0;
   }
+  // a row with no visible key kept the masked score as its max: it
+  // writes 0 and reports a log-sum-exp of -inf
   for (int i = tid; i < rows * D; i += nthreads) {
     const int r = i / D, c = i % D;
     out[q_row_off(a, b, h, grp.r0 + r, true) + c] =
-        from_f<QT>(acc[i] / fmaxf(l_s[r], 1e-30f));
+        m_s[r] > 0.5f * REPRO_NEG_INF
+            ? from_f<QT>(acc[i] / fmaxf(l_s[r], 1e-30f))
+            : from_f<QT>(0.f);
+  }
+  if (a.lse != nullptr) {
+    const int g = a.n_q_heads / a.n_kv_heads;
+    for (int r = tid; r < rows; r += nthreads) {
+      const int gr = grp.r0 + r;
+      a.lse[(static_cast<size_t>(b) * a.n_q_heads + h * g + gr / a.m) * a.m
+            + gr % a.m] = m_s[r] > 0.5f * REPRO_NEG_INF
+                              ? m_s[r] + logf(l_s[r])
+                              : __int_as_float(0xff800000);  // -inf
+    }
   }
 }
 
@@ -357,6 +379,8 @@ __device__ __forceinline__ void decode_core_body(
     const DecodeArgs& a, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, int b, int h, int rg, int split,
     int len, int kv_end, RowFn row_of) {
+  // kv_end: the cache's slots that hold keys (at most n_slots); slot i is
+  // position off + i
   static_assert(kDecodeTile == 32, "one KV row per lane in the softmax");
   static_assert(kKeyTile % kDecodeTile == 0, "splits hold whole tiles");
   static_assert(D % 8 == 0, "8-element vector loads");
@@ -365,8 +389,9 @@ __device__ __forceinline__ void decode_core_body(
   const int m = a.m, rows = grp.rows, r0 = grp.r0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const QT* q = static_cast<const QT*>(a.q);
+  const int off = a.kv_offset;
   const SplitRange sr = split_range(len, kv_end, m, a.window, a.n_split,
-                                    split);
+                                    split, off);
 
   extern __shared__ float smem[];
   float* qs = smem;                         // rows x D
@@ -423,7 +448,8 @@ __device__ __forceinline__ void decode_core_body(
       float s = 0.f;
 #pragma unroll 8
       for (int c = 0; c < D; ++c) s += qr[c] * kr[c];
-      const bool ok = key_visible(k0 + kk, mi, len, m, kv_end, a.window,
+      const bool ok = key_visible(off + k0 + kk, mi, len, m, off + kv_end,
+                                  a.window,
                                   a.anc != nullptr,
                                   a.anc != nullptr ? a.anc[mi] : 0);
       ss[i] = ok ? s * a.scale : REPRO_NEG_INF;
@@ -579,8 +605,10 @@ __device__ __forceinline__ void decode_mma_body(const DecodeArgs& a, int b,
   const int gq = lane >> 2, tq = lane & 3;
   const bool has_anc = a.anc != nullptr;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  // slots as in decode_core_body: slot i holds position off + i
+  const int off = a.kv_offset, kv_end_pos = off + kv_end;
   const SplitRange sr = split_range(len, kv_end, m, a.window, a.n_split,
-                                    split);
+                                    split, off);
   const int n_tiles = (sr.k_end - sr.k_begin + kKeyTile - 1) / kKeyTile;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -657,10 +685,10 @@ __device__ __forceinline__ void decode_mma_body(const DecodeArgs& a, int b,
     cp_async_commit();
     const __nv_bfloat16* kt = ring + (t % kDecodeStages) * C::kStageElems;
     const __nv_bfloat16* vt = kt + kKeyTile * kDT;
-    const int k0 = sr.k_begin + t * kKeyTile;
+    const int k0 = off + sr.k_begin + t * kKeyTile;     // a position
     // every key of the tile visible to every query row
     const bool full =
-        k0 + kKeyTile <= kv_end
+        k0 + kKeyTile <= kv_end_pos
         && (has_anc ? k0 + kKeyTile <= len - m
                     : k0 + kKeyTile <= len - m + 1
                           && (a.window <= 0 || k0 > len - 1 - a.window));
@@ -698,8 +726,8 @@ __device__ __forceinline__ void decode_mma_body(const DecodeArgs& a, int b,
 #pragma unroll
             for (int hf = 0; hf < 2; ++hf) {
               float& v = s[mt][2 * hf + e];
-              v = key_visible(k0 + mt * 16 + gq + 8 * hf, mi, len, m, kv_end,
-                              a.window, has_anc, bits[j][e])
+              v = key_visible(k0 + mt * 16 + gq + 8 * hf, mi, len, m,
+                              kv_end_pos, a.window, has_anc, bits[j][e])
                       ? v * a.scale
                       : REPRO_NEG_INF;
             }

@@ -7,7 +7,12 @@
 // with per-sequence lengths.  Causal over the last m positions, with an
 // optional sliding window (slot index = logical position, k_pos > q_pos -
 // window) or ancestor-bitmask masking of a speculation-tree buffer
-// (anc_bits); f32 or bf16.
+// (anc_bits); f32 or bf16.  The cache may be a slice of the sequence, its
+// slot 0 at position kv_offset (lengths and masks stay global: a rank's
+// block of a cache split over the sequence), and the kernel may hand out
+// each row's log-sum-exp beside the normalised output, so that ranks can
+// merge their partials (a row with no visible key in the slice writes 0
+// and reports -inf).
 //
 // Bound on this card: bytes.  As in the paged kernel, each KV row serves
 // only the g*m query rows of its head: ~g*m/2 operations per byte (about
@@ -60,7 +65,7 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_kernel(
             rg = blockIdx.y % a.n_groups, len = a.lengths[b];
   decode_core_body<float, float, D>(a, nullptr, nullptr, b, h, rg,
                                     blockIdx.z,
-                                    len, min(len, kv.n_slots),
+                                    len, min(len - a.kv_offset, kv.n_slots),
                                     contig_rows(kv, b, h));
 }
 
@@ -70,7 +75,8 @@ __global__ void __launch_bounds__(MmaCfg<D, NTC>::kThreads,
     decode_mma_kernel(DecodeArgs a, ContigKV<__nv_bfloat16> kv) {
   const int b = blockIdx.x, h = blockIdx.y / a.n_groups,
             rg = blockIdx.y % a.n_groups, len = a.lengths[b];
-  decode_mma_body<D, NTC>(a, b, h, rg, blockIdx.z, len, min(len, kv.n_slots),
+  decode_mma_body<D, NTC>(a, b, h, rg, blockIdx.z, len,
+                          min(len - a.kv_offset, kv.n_slots),
                           contig_rows(kv, b, h));
 }
 
@@ -120,7 +126,10 @@ int dispatch_mma(int rows, const DecodeArgs& a, const ContigKV<__nv_bfloat16>& k
 // (batch, head, slot) strides that k and v share (their last dimension is
 // contiguous).  n_groups / group_rows, part_acc / part_ml / counters: the
 // row groups and the merge workspace, as for paged_decode_attention.
-// window <= 0 means no sliding window; anc may be null.
+// window <= 0 means no sliding window; anc may be null.  kv_offset: the
+// position of the cache's slot 0 (the cache a slice of the sequence,
+// lengths global); lse, if not null, gets each row's log-sum-exp (B, Hq, m)
+// f32, contiguous.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* lengths, const void* anc,
                                 void* out, void* part_acc, void* part_ml,
@@ -128,17 +137,20 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int batch, int hq, int hkv, int m, int d,
                                 int n_slots, int n_split, int n_groups,
                                 int group_rows, float scale, int window,
-                                int dtype, void* stream) {
+                                int dtype, int kv_offset, void* lse,
+                                void* stream) {
   using namespace repro;
   if (hq % hkv != 0 || n_split < 1
       || !row_groups_valid(hq, hkv, m, d, n_groups, group_rows)
-      || (n_split > 1 && (part_acc == nullptr || counters == nullptr)))
+      || (n_split > 1 && (part_acc == nullptr || counters == nullptr))
+      || kv_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   DecodeArgs a{q, out, strides[0], strides[1], strides[2], strides[3],
                strides[4], strides[5], static_cast<const int*>(lengths),
                static_cast<const int*>(anc), static_cast<float*>(part_acc),
                static_cast<float2*>(part_ml), static_cast<int*>(counters),
-               hq, hkv, m, n_split, window, n_groups, group_rows, scale};
+               hq, hkv, m, n_split, window, n_groups, group_rows, scale,
+               kv_offset, static_cast<float*>(lse)};
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
     const ContigKV<float> kv{static_cast<const float*>(k),

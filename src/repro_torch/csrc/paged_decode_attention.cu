@@ -172,7 +172,8 @@ extern "C" int paged_decode_attention(
                strides[4], strides[5], static_cast<const int*>(lengths),
                static_cast<const int*>(anc), static_cast<float*>(part_acc),
                static_cast<float2*>(part_ml), static_cast<int*>(counters),
-               hq, hkv, m, n_split, 0, n_groups, group_rows, scale};
+               hq, hkv, m, n_split, 0, n_groups, group_rows, scale,
+               0, nullptr};      // the whole sequence; no log-sum-exp
   auto st = static_cast<cudaStream_t>(stream);
 #define REPRO_PAGED(QT, KT)                                                  \
   return dispatch_d<QT, KT>(                                                 \

@@ -6,7 +6,9 @@ decode_attention``.  On CPU tensors it returns the plain version
 (:func:`repro_torch.kernels.ref.decode_attention_ref`); on CUDA tensors
 it launches the kernel or raises.  ``launches`` counts kernel launches and
 ``route_launches`` those of each mask: ``causal``, ``window`` and
-``tree`` (a speculation tree's ``anc_bits``).
+``tree`` (a speculation tree's ``anc_bits``), and, beside them, the
+``partial`` launches (``return_lse``: a rank's slice of a cache split
+over the sequence, whose partial the ranks merge by log-sum-exp).
 The kernel is bound by bytes (see the source's note).
 """
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float]
-         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
 HEAD_DIMS = (64, 128, 240, 256)     # both bodies
 # the exact CUDA-core body (f32 here, f32 and int8 pools in the paged
 # kernel) also takes the reduced configs' head dim 32
@@ -109,7 +111,8 @@ def row_groups(rows: int, d: int) -> tuple:
 
 
 def decode_attention(q, k, v, lengths, *, scale=None, window=None,
-                     anc_bits=None):
+                     anc_bits=None, kv_offset: int = 0,
+                     return_lse: bool = False):
     """Verify attention against a contiguous cache.
 
     q (B, Hq, m, d) — the m new tokens, already written into the cache at
@@ -121,6 +124,13 @@ def decode_attention(q, k, v, lengths, *, scale=None, window=None,
     position) if given, or, with ``anc_bits`` (m,) int32, ancestor-bitmask
     masking of a speculation-tree buffer.  Returns (B, Hq, m, d), laid
     out like q where q is dense (``torch.empty_like``).
+
+    ``kv_offset``: k/v hold slots [kv_offset, kv_offset + S) of the
+    sequence (a rank's slice of a cache split over it); ``lengths`` and
+    every mask stay global, the tree's buffer may lie partly or wholly
+    outside the slice.  ``return_lse``: also return each row's
+    log-sum-exp (B, Hq, m) f32 over the slice's visible keys; a row with
+    none writes 0 and reports -inf.  Returns (out, lse) then.
     """
     b, hq, m, d = q.shape
     _build.require(k.dim() == 4 and k.shape[0] == b and k.shape[3] == d
@@ -133,17 +143,22 @@ def decode_attention(q, k, v, lengths, *, scale=None, window=None,
                    and k.dtype == q.dtype and v.dtype == q.dtype,
                    "q/k/v must share a float32 or bfloat16 dtype")
     _build.require(window is None or window > 0, "window must be positive")
+    _build.require(int(kv_offset) >= 0, "kv_offset must be >= 0")
     if anc_bits is not None:
         _build.require(anc_bits.shape == (m,) and window is None,
                        "anc_bits must be (m,), with no window")
     if _build.on_meta(q, k, v, lengths, anc_bits):   # every slot counted
         _build.count_meta("decode_attention", 4 * b * hq * m * k.shape[2] * d)
-        return torch.empty_like(q)
+        out = torch.empty_like(q)
+        return ((out, torch.empty((b, hq, m), device="meta"))
+                if return_lse else out)
     if not _build.use_kernel(q, k, v, lengths, anc_bits):
         anc = (None if anc_bits is None
                else ref.anc_mask_from_bits(anc_bits, m))
         return ref.decode_attention_ref(q, k, v, lengths, scale=scale,
-                                        window=window, anc_mask=anc)
+                                        window=window, anc_mask=anc,
+                                        kv_offset=int(kv_offset),
+                                        return_lse=return_lse)
 
     dims = CORE_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS
     _build.require(d in dims, f"head dim must be one of {dims} in {q.dtype}")
@@ -159,6 +174,8 @@ def decode_attention(q, k, v, lengths, *, scale=None, window=None,
         _build.require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte "
                        "aligned")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, m), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     strides = (ctypes.c_int64 * 9)(*(token_strides(q, "q")
                                      + token_strides(out, "out")
                                      + list(k.stride()[:3])))
@@ -174,14 +191,18 @@ def decode_attention(q, k, v, lengths, *, scale=None, window=None,
             b, hq, hkv, m, d, k.shape[2], splits, groups, per,
             float(d ** -0.5 if scale is None else scale),
             0 if window is None else int(window), _build.DTYPE_CODE[q.dtype],
-            stream)
+            int(kv_offset), _build.ptr(lse), stream)
     _build.check(rc, "decode_attention")
     decode_attention.launches += 1
     decode_attention.route_launches[
         "tree" if anc_bits is not None
         else "causal" if window is None else "window"] += 1
+    if return_lse:
+        decode_attention.route_launches["partial"] += 1
+        return out, lse
     return out
 
 
 decode_attention.launches = 0
-decode_attention.route_launches = {"causal": 0, "window": 0, "tree": 0}
+decode_attention.route_launches = {"causal": 0, "window": 0, "tree": 0,
+                                   "partial": 0}

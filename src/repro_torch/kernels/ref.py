@@ -102,10 +102,15 @@ def anc_mask_from_bits(anc_bits, m: int):
 
 
 def decode_attention_ref(q, k, v, lengths, *, scale=None, window=None,
-                         anc_mask=None):
+                         anc_mask=None, kv_offset: int = 0,
+                         return_lse: bool = False):
     """q (B,Hq,m,d); k/v (B,Hkv,S,d); lengths (B,).  Causal over the m new
     tokens at positions [len-m, len) — or, with ``anc_mask`` (m, m) bool,
-    ancestor-or-self masking of the m-row speculation buffer."""
+    ancestor-or-self masking of the m-row speculation buffer.  Slot i of
+    k/v holds position ``kv_offset + i`` (a slice of the sequence; the
+    lengths and masks are global).  A row with no visible key gives 0
+    (and, with ``return_lse``, a log-sum-exp of -inf).  With
+    ``return_lse`` returns (out, lse (B,Hq,m) f32)."""
     b, hq, m, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -114,15 +119,15 @@ def decode_attention_ref(q, k, v, lengths, *, scale=None, window=None,
     lengths = lengths.to(dev).long()
     qg = q.reshape(b, hkv, g, m, d).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    kpos = kv_offset + torch.arange(skv, device=dev)
     if anc_mask is not None:
         assert window is None, "tree masking requires full attention"
-        kp2 = torch.arange(skv, device=dev)[None, :]
-        col = kp2 - (lengths[:, None] - m)                       # (B, S)
+        col = kpos[None, :] - (lengths[:, None] - m)             # (B, S)
         allowed = anc_mask[:, col.clamp(0, m - 1)].permute(1, 0, 2)
         ok = ((col < 0)[:, None, :]
               | (((col >= 0) & (col < m))[:, None, :] & allowed))
     else:
-        kp = torch.arange(skv, device=dev)[None, None, :]
+        kp = kpos[None, None, :]
         qp = (lengths[:, None, None] - m
               + torch.arange(m, device=dev)[None, :, None])      # (B, m, 1)
         ok = (kp <= qp) & (kp < lengths[:, None, None])
@@ -130,8 +135,13 @@ def decode_attention_ref(q, k, v, lengths, *, scale=None, window=None,
             ok &= kp > qp - window
     s = torch.where(ok[:, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
+    seen = ok.any(-1)[:, None, None, :, None]                    # (B,1,1,m,1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return o.reshape(b, hq, m, d).to(q.dtype)
+    o = torch.where(seen, o, 0.0).reshape(b, hq, m, d).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(seen[..., 0], torch.logsumexp(s, -1), -math.inf)
+    return o, lse.reshape(b, hq, m)
 
 
 def gather_paged_kv_ref(k_pool, v_pool, block_tables, *, k_scale=None,

@@ -330,13 +330,17 @@ def reduce_scatter(t, mesh, axis, dim: int):
 
 def reshard(t, mesh, src: tuple, dst: tuple):
     """An activation from layout ``src`` to ``dst``: gather each dim split
-    in ``src`` but not in ``dst`` (backward: the rank's block), split
-    each dim split in ``dst`` but not in ``src`` (backward: gather)."""
-    for dim, (a, b) in enumerate(zip(src, dst)):
-        if a == b:
-            continue
+    in ``src`` but not in ``dst`` (backward: the rank's block), then split
+    each dim split in ``dst`` but not in ``src`` (backward: gather).  Every
+    gather comes before any split: a dim split first would mix other
+    ranks' blocks into a later gather over the same axis (``ep_psum``'s
+    output, its features over ``"data"``, back to rows over ``"data"``)."""
+    moved = [(dim, a, b) for dim, (a, b) in enumerate(zip(src, dst))
+             if a != b]
+    for dim, a, _ in moved:
         if a is not None:
             t = all_gather(t, mesh, a, dim)
+    for dim, _, b in moved:
         if b is not None:
             t = split(t, mesh, b, dim)
     return t

@@ -12,12 +12,14 @@ the functions that read only its axes any object with either
 ``mesh_dim_names`` and a ``shape`` tuple (torch's) or ``axis_names`` and
 a ``shape`` mapping (JAX's).
 
-Two functions return the JAX package's layouts for the record rather
-than the port's: :func:`kv_seq_spec` and :func:`cache_batch_spec` split
-a decode cache's sequence over ``"model"`` and its batch over the batch
-axes, while the port's decode caches hold every batch row on every rank,
-with the kv heads split where they divide (:func:`abstract_cache` builds
-what the port's decode reads, ``init_cache(..., mesh=)``).
+Decode and prefill caches take the JAX package's layout
+(:func:`abstract_cache`): :func:`cache_batch_spec` splits their batch
+over the batch axes and :func:`kv_seq_spec` their sequence over
+``"model"`` (over every axis at ``long_500k``), every kv head whole;
+the cache records the layout, and ``prefill`` / ``decode_step`` read it
+(:mod:`repro_torch.models.attention`: each rank attends its rows over
+its slots and the partials merge by log-sum-exp).  The model inputs
+stay whole on every rank, as the port's entry points take them.
 """
 from __future__ import annotations
 
@@ -112,11 +114,21 @@ def cache_batch_spec(shape: InputShape, mesh):
     return None
 
 
+def cache_layout(shape: InputShape, mesh) -> tuple:
+    """(batch spec, sequence spec) of a decode or prefill cache: the JAX
+    package's ``cache_specs`` arguments (``repro/launch/specs.py:
+    129-135``)."""
+    return cache_batch_spec(shape, mesh), kv_seq_spec(shape, mesh)
+
+
 def abstract_cache(cfg: ModelConfig, shape: InputShape, mesh):
-    """The cache the port's prefill and decode read on ``mesh``: every
-    batch row, the rank's kv heads where they split, the rank's
-    recurrent channels (``init_cache(..., mesh=)``), as meta tensors."""
-    return init_cache(cfg, shape.global_batch, shape.seq_len, "meta", mesh)
+    """The rank's block of the cache the port's prefill and decode read on
+    ``mesh``, as meta tensors: JAX's ``cache_specs(cfg,
+    cache_batch_spec, kv_seq_spec)`` (the rank's rows and slots, every kv
+    head; the recurrent states the rank's rows and channels), the layout
+    recorded in the cache (``init_cache(..., layout=)``)."""
+    return init_cache(cfg, shape.global_batch, shape.seq_len, "meta", mesh,
+                      layout=cache_layout(shape, mesh))
 
 
 # ---------------------------------------------------------------------------

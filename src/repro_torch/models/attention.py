@@ -32,8 +32,27 @@ the ``"data"`` blocks gathered for a prefill or training call).  Where
 caches hold its kv heads; otherwise the rank gathers the q/k/v
 activations over ``"model"``, attends over every head and keeps every
 kv head.  The same kernels run either way, on fewer heads when split.
-With the batch split over ``"data"`` (a prefill) the rows written to a
-cache are gathered first: every rank holds the whole batch's cache.
+
+Two cache layouts over a mesh.  The earlier one (a cache from
+``init_cache(..., mesh=)``, what ``SpecOffloadEngine`` on a mesh reads):
+every rank holds every batch row, and the rank's kv heads where the
+heads split; a prefill whose batch splits over ``"data"`` gathers the
+rows it writes.  The production one (``init_cache(..., layout=)``, the
+JAX package's ``cache_specs(cfg, cache_batch_spec, kv_seq_spec)``; the
+cache records it as a :class:`CacheLayout`): the rank holds its block of
+the rows over the batch axes and its contiguous block of the slots over
+the sequence axes (``"model"``, or every axis at ``long_500k``), with
+every kv head.  A prefill writes the rank's rows and slots of the K/V it
+holds (its rows already; the heads gathered where they split).  A decode
+step attends the rank's rows over its slots, at their global positions
+(``decode_attention`` with ``kv_offset`` and ``return_lse`` on a
+contiguous cache, the plain ring attention of a sliding-window layer),
+and the partials merge over the sequence axes by their log-sum-exp (the
+exact softmax: :func:`merge_partials`); the output rows are gathered
+over the batch axes before ``wo``, so every rank returns the whole
+output.  A write of positions that straddle two ranks' slots goes to
+both owners; the in-flight rows of a ring's multi-token verify are
+counted by the first rank of the sequence axes alone.
 
 Context parallelism (``repro/models/attention.py:587-598``): in prefill
 and training under the sequence-parallel profile (``seq``, see
@@ -59,6 +78,7 @@ two plain versions.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -68,10 +88,38 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fb
 from repro_torch.kernels import paged_decode_attention as _pd
 from repro_torch.kernels.ref import NEG_INF, gather_paged_kv_ref
-from repro_torch.launch.mesh import (all_gather, all_to_all, axis_index,
-                                     axis_size, block)
+from repro_torch.launch.mesh import (all_gather, all_reduce, all_to_all,
+                                     axis_index, axis_size, block)
 from repro_torch.models.layers import (COL, ROW, apply_rope, col_product,
                                        model_input, rope_table, row_product)
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheLayout:
+    """The production layout a cache records (under ``"layout"``): its
+    rows split over ``rows`` (the batch axes, or None: every row), its
+    slots over ``slots`` (an axis or a tuple of axes, or None), every kv
+    head whole."""
+    rows: object = None
+    slots: object = None
+
+
+def slot_geometry(n_local: int, mesh, slots) -> tuple:
+    """(offset, global slots) of a rank's ``n_local`` contiguous slots:
+    its block along ``slots``."""
+    if slots is None or mesh is None:
+        return 0, n_local
+    return axis_index(mesh, slots) * n_local, n_local * axis_size(mesh,
+                                                                 slots)
+
+
+def row_block(mesh, rows, b: int) -> slice:
+    """The rank's rows of a batch of ``b`` split over ``rows``."""
+    if rows is None:
+        return slice(0, b)
+    n = b // axis_size(mesh, rows)
+    r0 = axis_index(mesh, rows) * n
+    return slice(r0, r0 + n)
 
 
 def attention_specs() -> dict:
@@ -221,6 +269,52 @@ def attention_direct(q, k, v, mask, scale: float) -> torch.Tensor:
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
     return out.reshape(b, sq, -1).to(q.dtype)
+
+
+def attention_direct_lse(q, k, v, mask, scale: float) -> tuple:
+    """:func:`attention_direct` with each row's log-sum-exp: (out (B, Sq,
+    Hq*d) in q's dtype, lse (B, Sq, Hq) f32).  A row with no visible key
+    gives 0 and -inf (a rank's slice of a split cache may hold none)."""
+    b, sq, hq, d = q.shape
+    n_kv = k.shape[2]
+    qg = q.reshape(b, sq, n_kv, hq // n_kv, d).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    if mask.dim() == 2:
+        mask = mask[None]
+    s = s + mask[:, None, None]
+    seen = (mask > NEG_INF / 2).any(-1)[:, None, None]          # (B,1,1,Sq)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    out = torch.where(seen.permute(0, 3, 1, 2)[..., None], out, 0.0)
+    lse = torch.where(seen, torch.logsumexp(s, -1), -math.inf)
+    return (out.reshape(b, sq, -1).to(q.dtype),
+            lse.permute(0, 3, 1, 2).reshape(b, sq, hq))
+
+
+def lse_weights(every):
+    """The weight of each slice's normalised partial in the softmax over
+    all of them, from their log-sum-exps ``every`` (n, ...): exp(lse -
+    max) over the sum of those, 0 for a slice with no visible key (-inf),
+    never NaN (0 everywhere where no slice holds one)."""
+    top = every.amax(0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(every - top)
+    return w / w.sum(0).clamp_min(1e-30)
+
+
+def merge_partials(out, lse, mesh, axis):
+    """The attention over slots split over ``axis`` from each rank's
+    normalised partial ``out`` (B, Sq, Hq*d) and its log-sum-exp ``lse``
+    (B, Sq, Hq): every rank's lse gathered, the rank's partial weighted
+    by :func:`lse_weights` and the weighted partials summed over
+    ``axis``.  The result is in ``out``'s dtype."""
+    if mesh is None or axis is None or axis_size(mesh, axis) == 1:
+        return out
+    every = all_gather(lse[None], mesh, axis, 0)              # (n, B, Sq, Hq)
+    w = lse_weights(every)[axis_index(mesh, axis)]
+    b, sq, hq = lse.shape
+    o = out.float().reshape(b, sq, hq, -1) * w[..., None]
+    return all_reduce(o.reshape(b, sq, -1), mesh, axis).to(out.dtype)
 
 
 def attention_chunked(q, k, v, q_positions, kv_positions, scale: float,
@@ -443,9 +537,41 @@ def _gather_rows(cache: dict, pos, sq: int) -> dict:
     return {"k": cache["k"][rows, slots], "v": cache["v"][rows, slots]}
 
 
+def _local_slots(pos, sq: int, n_local: int, off: int, n_glob: int,
+                 ring: bool) -> tuple:
+    """(slot, owned), each (B, Sq): the rank's slot (clamped into its
+    block) of each of the global slots of [pos, pos+Sq) (:func:`_slots`
+    over ``n_glob``), and whether the rank's block [off, off + n_local)
+    holds it."""
+    loc = _slots(pos, sq, n_glob, ring) - off
+    owned = (loc >= 0) & (loc < n_local)
+    return loc.clamp(0, n_local - 1), owned
+
+
+def _write_owned(t, new, loc, owned) -> None:
+    """In place: ``new`` (B, Sq, ...) into ``t`` (B, slots, ...) at the
+    owned ``loc``, one token column at a time (the clamped slots of the
+    rows not owned write back what they read: no two writes of one
+    assignment meet)."""
+    rows = torch.arange(t.shape[0], device=t.device)
+    for i in range(loc.shape[1]):
+        li, own = loc[:, i], owned[:, i].reshape((-1,) + (1,) * (t.dim() - 2))
+        t[rows, li] = torch.where(own, new[:, i].to(t.dtype), t[rows, li])
+
+
 def restore_rejected_rows(cache: dict, saved: dict, pos, n_commit) -> dict:
     """In place: undo ring writes of rejected speculative tokens — row i of
-    ``saved`` goes back where ``i >= n_commit`` (per sequence)."""
+    ``saved`` goes back where ``i >= n_commit`` (per sequence).  A
+    ``saved`` of a rank's block of a split ring (its ``"rows"`` slice,
+    ``"slot"`` / ``"owned"``) restores the rank's rows and slots only."""
+    if "slot" in saved:
+        rows = saved["rows"]
+        reject = (torch.arange(saved["slot"].shape[1], device=pos.device)
+                  [None, :] >= n_commit.long()[rows, None])
+        for key in ("k", "v"):
+            _write_owned(cache[key], saved[key], saved["slot"],
+                         saved["owned"] & reject)
+        return cache
     b, n_slots = cache["k"].shape[:2]
     sq = saved["k"].shape[1]
     slots = _slots(pos, sq, n_slots, True)
@@ -458,16 +584,126 @@ def restore_rejected_rows(cache: dict, saved: dict, pos, n_commit) -> dict:
     return cache
 
 
-def _prefill_ring(cache: dict, k_new, v_new, window: int) -> dict:
-    """In place: bulk-write the last ``window`` of a prefilled sequence into
-    the ring."""
-    s = k_new.shape[1]
-    n_slots = cache["k"].shape[1]
-    length = torch.full((1,), s, device=k_new.device)
-    idx = ring_slot_positions(n_slots, length, window)[0].clamp(0, s - 1)
-    cache["k"].copy_(k_new[:, idx].to(cache["k"].dtype))
-    cache["v"].copy_(v_new[:, idx].to(cache["v"].dtype))
-    return cache
+def _prefill_write(cache: dict, k, v, window: int | None, off: int,
+                   n_glob: int) -> None:
+    """In place: a prefill's K/V (the cache's rows and heads, positions
+    [0, S)) into a cache that holds slots [off, off + n_local) of
+    ``n_glob`` (the whole cache: 0 and its own size): where a ring is
+    shorter than S, its slots' positions among the last ``window``,
+    else the positions the slots hold."""
+    s = k.shape[1]
+    n_loc = cache["k"].shape[1]
+    if window is not None and n_glob < s:
+        length = torch.full((1,), s, device=k.device)
+        idx = ring_slot_positions(n_glob, length, window)[0].clamp(0, s - 1)
+        idx = idx[off:off + n_loc]
+        cache["k"].copy_(k[:, idx].to(cache["k"].dtype))
+        cache["v"].copy_(v[:, idx].to(cache["v"].dtype))
+        return
+    if s > n_glob:
+        raise ValueError(f"a {s}-token prompt does not fit {n_glob} slots")
+    n = min(off + n_loc, s) - off            # positions the block holds
+    if n <= 0:
+        return
+    kw, vw = k[:, off:off + n], v[:, off:off + n]
+    if "k_scale" in cache:
+        kw, ks = quantize_rows(kw)
+        vw, vs = quantize_rows(vw)
+        cache["k_scale"][:, :n] = ks
+        cache["v_scale"][:, :n] = vs
+    cache["k"][:, :n] = kw.to(cache["k"].dtype)
+    cache["v"][:, :n] = vw.to(cache["v"].dtype)
+
+
+def _decode_split(q, k, v, cache: dict, pos, q_positions, window, scale,
+                  anc_bits, mesh, layout: CacheLayout) -> tuple:
+    """A decode step over the rank's block of a cache in the production
+    layout: q/k/v (B, Sq, heads, d) whole, every head.  The rank writes
+    the new rows it owns (its rows, its slots), attends its rows over its
+    slots at their global positions, and the partials merge over the
+    slots' axes; returns (out (B, Sq, Hq*d) whole, saved)."""
+    rs = row_block(mesh, layout.rows, q.shape[0])
+    q, k, v, pos, q_positions = (t[rs] for t in (q, k, v, pos, q_positions))
+    b, sq = q.shape[:2]
+    n_loc = cache["k"].shape[1]
+    off, n_glob = slot_geometry(n_loc, mesh, layout.slots)
+    ring = window is not None and n_glob <= window
+    quant = "k_scale" in cache
+    saved = {}
+    if ring:
+        assert not quant, "int8 cache unsupported on ring buffers"
+        loc, owned = _local_slots(pos, sq, n_loc, off, n_glob, True)
+        rows = torch.arange(b, device=pos.device)[:, None]
+        saved = {"k": cache["k"][rows, loc], "v": cache["v"][rows, loc],
+                 "slot": loc, "owned": owned, "rows": rs}
+        if sq > 1:
+            # as the whole ring: attend over [slots ++ new], then write;
+            # the new rows counted by the sequence axes' first rank alone
+            k_all, v_all = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+            kv_pos = ring_slot_positions(n_glob, pos, n_glob)[:,
+                                                             off:off + n_loc]
+            if layout.slots is None or axis_index(mesh, layout.slots) == 0:
+                k_all = torch.cat([k_all, k], dim=1)
+                v_all = torch.cat([v_all, v], dim=1)
+                kv_pos = torch.cat([kv_pos, q_positions], dim=1)
+            out, lse = attention_direct_lse(
+                q, k_all, v_all, attention_mask(q_positions, kv_pos, window),
+                scale)
+            _write_owned(cache["k"], k, loc, owned)
+            _write_owned(cache["v"], v, loc, owned)
+        else:
+            _write_owned(cache["k"], k, loc, owned)
+            _write_owned(cache["v"], v, loc, owned)
+            kv_pos = ring_slot_positions(n_glob, pos + sq, n_glob)[
+                :, off:off + n_loc]
+            out, lse = attention_direct_lse(
+                q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                attention_mask(q_positions, kv_pos, window), scale)
+    else:
+        loc, owned = _local_slots(pos, sq, n_loc, off, n_glob, False)
+        if quant:
+            kq, ks = quantize_rows(k)
+            vq, vs = quantize_rows(v)
+            for key, new in (("k", kq), ("v", vq), ("k_scale", ks),
+                             ("v_scale", vs)):
+                _write_owned(cache[key], new, loc, owned)
+            k_read = dequantize(cache["k"], cache["k_scale"], q.dtype)
+            v_read = dequantize(cache["v"], cache["v_scale"], q.dtype)
+        else:
+            _write_owned(cache["k"], k, loc, owned)
+            _write_owned(cache["v"], v, loc, owned)
+            k_read, v_read = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+        # the kernel on CUDA tensors, its plain version on CPU tensors
+        o, lse = _da.decode_attention(
+            q.transpose(1, 2), k_read.transpose(1, 2), v_read.transpose(1, 2),
+            (pos + sq).to(torch.int32), scale=scale, window=window,
+            anc_bits=anc_bits, kv_offset=off, return_lse=True)
+        out, lse = o.transpose(1, 2).reshape(b, sq, -1), lse.transpose(1, 2)
+    out = merge_partials(out, lse, mesh, layout.slots)
+    if layout.rows is not None:
+        out = all_gather(out, mesh, layout.rows, 0)
+    return out, saved
+
+
+def cache_rows(t, mesh, batch_split: bool, rows):
+    """``t`` (the rows x holds: the rank's ``"data"`` block with
+    ``batch_split``, else every row) as a cache whose rows split over
+    ``rows`` (None: every row) holds them."""
+    if batch_split == (rows is not None):
+        return t
+    if batch_split:
+        return all_gather(t, mesh, "data", 0)
+    return block(t, mesh, rows, 0)
+
+
+def input_rows(t, mesh, batch_split: bool, rows):
+    """The inverse of :func:`cache_rows`: a cache's rows as x holds
+    them."""
+    if batch_split == (rows is not None):
+        return t
+    if batch_split:
+        return block(t, mesh, "data", 0)
+    return all_gather(t, mesh, rows, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -480,7 +716,7 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
                     pos=None, phase: str = "prefill",
                     block_tables=None, spec_tree: dict | None = None,
                     mesh=None, batch_split: bool = False,
-                    seq=None) -> tuple:
+                    seq=None, layout: CacheLayout | None = None) -> tuple:
     """One attention layer; returns (out, cache, saved).
 
     phase="prefill": x is the whole prompt at positions [0, S); a given
@@ -502,12 +738,17 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
     holds the rank's ``"data"`` block of the batch (a prefill), whose
     cache rows are then gathered before they are written; ``seq`` is the
     sequence-parallel axis of a prefill or training call (context
-    parallelism where the heads do not split; None: none).
+    parallelism where the heads do not split; None: none).  ``layout``:
+    the production layout of ``cache`` (:class:`CacheLayout`), whose
+    decode computes every head of the rank's rows over its slots.
     """
     b, sq, _ = x.shape
     scale = head_dim ** -0.5
     stationary = phase == "decode"
     gather = not heads_split(n_heads, n_kv_heads, mesh)
+    split = layout is not None and cache is not None
+    if split and phase == "decode":
+        gather = True                # every head of the rank's rows
     if mesh is not None and block_tables is not None:
         raise ValueError("the paged pool serves off the mesh")
     cp = (gather and seq is not None and phase in ("prefill", "train")
@@ -566,20 +807,21 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
             out = attention_chunked(q, k, v, q_positions[0],
                                     kv_positions[0], scale, window=window)
         if cache is not None:
-            if batch_split:
-                k = all_gather(k, mesh, "data", 0)
-                v = all_gather(v, mesh, "data", 0)
-            if window is not None and cache["k"].shape[1] < sq:
-                _prefill_ring(cache, k, v, window)
-            else:                        # bulk write of the prefix at 0
-                kw, vw = k, v
-                if "k_scale" in cache:
-                    kw, ks = quantize_rows(k)
-                    vw, vs = quantize_rows(v)
-                    cache["k_scale"][:, :sq] = ks
-                    cache["v_scale"][:, :sq] = vs
-                cache["k"][:, :sq] = kw.to(cache["k"].dtype)
-                cache["v"][:, :sq] = vw.to(cache["v"].dtype)
+            rows = slots = None          # the earlier layout: every row
+            if split:
+                rows, slots = layout.rows, layout.slots
+                if not gather:           # the heads split: gather them
+                    k = all_gather(k, mesh, "model", 2)
+                    v = all_gather(v, mesh, "model", 2)
+            _prefill_write(cache, cache_rows(k, mesh, batch_split, rows),
+                           cache_rows(v, mesh, batch_split, rows), window,
+                           *slot_geometry(cache["k"].shape[1], mesh, slots))
+    elif phase == "decode" and split:
+        if tree and t_prev:
+            raise ValueError("a tree level fed after part of its buffer "
+                             "needs a cache in the earlier layout")
+        out, saved = _decode_split(q, k, v, cache, pos, q_positions, window,
+                                   scale, anc_bits, mesh, layout)
     elif phase == "decode" and block_tables is not None:
         assert cache is not None and window is None
         paged_write(cache, k, v, block_tables, pos)
@@ -684,22 +926,33 @@ def precompute_cross_kv(params: dict, enc_out, *, n_kv_heads: int,
 
 def apply_cross_attention(params: dict, x, cross_kv: dict, *, n_heads: int,
                           head_dim: int, n_kv_heads: int = 0, mesh=None,
-                          stationary: bool = False) -> torch.Tensor:
+                          stationary: bool = False,
+                          layout: CacheLayout | None = None) -> torch.Tensor:
     """x (B, Sq, D) attends, unmasked, over every encoder row of
     ``cross_kv``: on CUDA tensors, and wherever a gradient is needed,
     through the flash kernel with ``causal=False`` (Sq = the prompt in
     prefill or training, the m new tokens in decode, over Skv = T), on
     CPU tensors without a gradient through ``attention_direct`` with a
-    zero mask, as the JAX package computes it."""
+    zero mask, as the JAX package computes it.  ``layout``: the cross K/V
+    are a production-layout cache's, every head of the rank's rows (a
+    decode step attends the rank's rows over them on every head and
+    gathers the output rows)."""
     sq = x.shape[1]
     scale = head_dim ** -0.5
     gather = not heads_split(n_heads, n_kv_heads or n_heads, mesh)
+    rows = None if layout is None else layout.rows
+    if layout is not None:
+        gather = True
     q, = _heads_in(model_input(x, mesh, stationary), (params["wq"],), mesh,
                    stationary, gather, head_dim)
+    if rows is not None:
+        q = q[row_block(mesh, rows, q.shape[0])]
     k, v = cross_kv["ck"].to(q.dtype), cross_kv["cv"].to(q.dtype)
     if on_card(x) or needs_grad(q, k, v):
         out = flash_bshd(q, k, v, scale, causal=False)
     else:
         mask = torch.zeros((sq, k.shape[1]), device=x.device)
         out = attention_direct(q, k, v, mask, scale)
+    if rows is not None:
+        out = all_gather(out, mesh, rows, 0)
     return _heads_out(out, params["wo"], mesh, stationary, gather)

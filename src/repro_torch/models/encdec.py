@@ -11,21 +11,27 @@ final norm.  The JAX package stacks the layers for a ``lax.scan``; here
 with ``causal=False`` (T 1500, head dim 64 at Whisper-base), and in
 training its backward kernel through ``FlashAttentionFn`` (the plain
 versions on CPU tensors); on CPU tensors without a gradient the plain
-``attention_chunked``.  Over a mesh the encoder's blocks
-(:func:`encoder_specs`) are gathered whole for each call and the rank
-encodes its rows of the batch.
+``attention_chunked``.  Over a mesh the encoder runs on its blocks at
+rest (:func:`encoder_specs`), as the decoder's prefill does
+(:mod:`repro_torch.models.layers`): q/k/v and the MLP's first matrix
+are column products, ``wo`` and its second row products, each with its
+``"data"`` blocks gathered for the call and its ``"model"`` block kept;
+each rank attends over its own heads where the heads split over
+``"model"``, else over every head gathered (the decoder's gathered
+route); the rank encodes its rows of the batch.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.launch.mesh import gather_tree
-from repro_torch.models.attention import (attention_chunked,
+from repro_torch.models.attention import (_heads_in, _heads_out,
+                                          attention_chunked,
                                           attention_specs, flash_bshd,
-                                          needs_grad, on_card)
+                                          heads_split, needs_grad, on_card)
 from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_specs,
-                                       norm_specs, sinusoidal_positions)
+                                       model_input, norm_specs,
+                                       sinusoidal_positions)
 
 
 def encoder_specs(cfg: ModelConfig) -> dict:
@@ -40,25 +46,26 @@ def encoder_specs(cfg: ModelConfig) -> dict:
 
 def apply_encoder(params: dict, cfg: ModelConfig, frames,
                   mesh=None) -> torch.Tensor:
-    """frames (B, T, D) stub embeddings -> encoder states (B, T, D)."""
-    if mesh is not None:
-        params = gather_tree(params, encoder_specs(cfg), mesh)
+    """frames (B, T, D) stub embeddings -> encoder states (B, T, D); over
+    a ``mesh`` the frames and states are the rank's rows and ``params``
+    its blocks at rest."""
     b, t, d = frames.shape
     x = frames + sinusoidal_positions(t, d, frames.device).to(frames.dtype)
     scale = cfg.head_dim ** -0.5
     positions = torch.arange(t, device=frames.device)
+    gather = not heads_split(cfg.n_heads, cfg.n_kv_heads, mesh)
     for layer in params["layers"]:
         h = apply_norm(layer["ln1"], x, cfg.norm)
         attn = layer["attn"]
-        q = (h @ attn["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
-        k = (h @ attn["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-        v = (h @ attn["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+        q, k, v = _heads_in(model_input(h, mesh, False),
+                            (attn["wq"], attn["wk"], attn["wv"]), mesh, False,
+                            gather, cfg.head_dim)
         if on_card(x) or needs_grad(q, k, v):
             out = flash_bshd(q, k, v, scale, causal=False)
         else:
             out = attention_chunked(q, k, v, positions, positions, scale,
                                     causal=False)
-        x = x + out @ attn["wo"]
+        x = x + _heads_out(out, attn["wo"], mesh, False, gather)
         x = x + apply_mlp(layer["mlp"], apply_norm(layer["ln2"], x, cfg.norm),
-                          cfg.activation)
+                          cfg.activation, mesh)
     return apply_norm(params["final_norm"], x, cfg.norm)

@@ -154,7 +154,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens, cache: dict,
     cache.  With a ``mesh`` (:mod:`repro_torch.launch.mesh`) ``params``
     holds this rank's :func:`shard_model` blocks and ``cache`` comes from
     :func:`init_cache` with the mesh; each rank prefills its rows of the
-    batch, fills every row of its cache, and gets the whole result.
+    batch, fills its cache (every row, or in the production layout its
+    rows and slots), and gets the whole result.
 
     Returns (last-position logits (B, V) f32, cache with pos=L).
     """

@@ -25,6 +25,11 @@ row product.  The gate products read the conv output of every channel,
 gathered over ``"model"`` (an activation).  Decode moves no weight
 (:mod:`repro_torch.models.layers`' stationary products); the state and
 its rollback stack hold the rank's channels (:func:`rglru_state_specs`).
+With ``rows`` (a decode step on a cache in the production layout) the
+state ``h`` holds the rank's rows of the batch over that axis: the gates
+are computed for every row (the stationary products need the whole
+token block), the scan runs on the rank's rows from their ``h``, and its
+output rows are gathered for ``w_out``; ``conv`` comes whole.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.launch.mesh import all_gather
-from repro_torch.models.attention import needs_grad
+from repro_torch.models.attention import needs_grad, row_block
 from repro_torch.models.layers import col_product, model_input, row_product
 
 
@@ -89,32 +94,37 @@ class RGLRUScanFn(torch.autograd.Function):
         return _rg.rglru_gated_scan_bwd(*ctx.saved_tensors, dh.contiguous())
 
 
-def _rglru_scan(params: dict, x, h0, mesh=None, stationary=False):
+def _rglru_scan(params: dict, x, h0, mesh=None, stationary=False,
+                rows=None):
     """The RG-LRU over x (B,S,W) from h0 (B,W) f32: the gate products in
     f32, then the gates and the recurrence in one kernel (through
     :class:`RGLRUScanFn` when a gradient is needed).  Returns h_all
     (B,S,W) f32 (the output is the state).  Over a ``mesh`` x and h0
     hold the rank's channels, and the gate products read x's channels
-    gathered over ``"model"``."""
+    gathered over ``"model"``; with ``rows`` h0 and the result hold the
+    rank's rows of the batch over that axis."""
     xf = x.float()
     if mesh is not None:
         xf = model_input(all_gather(xf, mesh, "model", -1), mesh, stationary)
     gate = lambda w: col_product(xf, w.float(), mesh, stationary)  # noqa: E731
-    args = (gate(params["w_a"]), gate(params["w_i"]), x,
-            params["b_a"], params["b_i"], params["a_param"], h0)
+    xa, xi = gate(params["w_a"]), gate(params["w_i"])
+    if rows is not None:
+        rs = row_block(mesh, rows, x.shape[0])
+        xa, xi, x = xa[rs], xi[rs], x[rs]
+    args = (xa, xi, x, params["b_a"], params["b_i"], params["a_param"], h0)
     if needs_grad(*args):
         return RGLRUScanFn.apply(*args)
     return _rg.rglru_gated_scan(*args)
 
 
 def apply_rglru_block(params: dict, x, state: dict, mesh=None,
-                      stationary: bool = False):
+                      stationary: bool = False, rows=None):
     """Full recurrent block over x (B,S,D).  Returns (out (B,S,D),
     new_state, state_stack); ``state_stack`` (S <= 16 only, else None)
     is ``{"h": (B,S+1,W), "conv": (B,S+1,cw-1,W)}``.  Over a ``mesh``
     the parameters and the state are the rank's blocks (W its W/m
     channels) and ``stationary`` picks the decode products (see the
-    module's docstring)."""
+    module's docstring; ``rows``: ``h`` and its stack the rank's rows)."""
     xin = model_input(x, mesh, stationary)
     y_branch = F.gelu(col_product(xin, params["w_y"], mesh, stationary),
                       approximate="tanh")
@@ -122,8 +132,9 @@ def apply_rglru_block(params: dict, x, state: dict, mesh=None,
     cw = params["conv_w"].shape[0]
     conv_out, conv_final = _conv1d_causal(xb, state["conv"], params["conv_w"],
                                           params["conv_b"])
-    h_all = _rglru_scan(params, conv_out, state["h"], mesh, stationary)
-    out = row_product(h_all.to(x.dtype) * y_branch, params["w_out"], mesh,
+    h_all = _rglru_scan(params, conv_out, state["h"], mesh, stationary, rows)
+    h_rows = h_all if rows is None else all_gather(h_all, mesh, rows, 0)
+    out = row_product(h_rows.to(x.dtype) * y_branch, params["w_out"], mesh,
                       stationary)
     new_state = {"h": h_all[:, -1], "conv": conv_final}
 

@@ -31,6 +31,11 @@ column product and ``w_v`` a row product whose output's rank block
 gathered.  Decode moves no weight (the stationary products of
 :mod:`repro_torch.models.layers`); ``S`` and its rollback stack hold the
 rank's heads, the token-shift inputs are whole (:func:`rwkv_state_specs`).
+With ``rows`` (a decode step on a cache in the production layout) ``S``
+and its stack hold the rank's rows of the batch over that axis: r/k/v/w
+are computed for every row (the stationary products need the whole
+token block), the ``wkv6`` recurrence runs on the rank's rows from their
+``S``, and its output rows are gathered for the group norm and ``w_o``.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import wkv6 as _wk
 from repro_torch.launch.mesh import (all_gather, all_reduce_grad, block,
                                      gather_param, reduce_scatter)
-from repro_torch.models.attention import needs_grad
+from repro_torch.models.attention import needs_grad, row_block
 from repro_torch.models.layers import (ROW, col_product, model_input,
                                        row_product)
 
@@ -122,11 +127,12 @@ class WKV6Fn(torch.autograd.Function):
 
 
 def apply_rwkv_tmix(params: dict, x, state_S, ts_prev, head_size: int,
-                    mesh=None, stationary: bool = False):
+                    mesh=None, stationary: bool = False, rows=None):
     """Time mix over x (B,S,D).  Returns (out, S_stack, new ts (B,D)):
     ``S_stack`` is (B,S+1,H,hd,hd) — every state, index 0 = ``state_S`` —
     for S <= 16, else the final state as (B,1,H,hd,hd).  Over a ``mesh``
-    the heads are the rank's (see the module's docstring)."""
+    the heads are the rank's; with ``rows`` ``state_S`` and the stack
+    its rows (see the module's docstring)."""
     b, s, _ = x.shape
     xp = _token_shift(x, ts_prev)
     col = lambda mu, w: _mix_col(params, x, xp, mu, w, mesh,  # noqa: E731
@@ -152,6 +158,9 @@ def apply_rwkv_tmix(params: dict, x, state_S, ts_prev, head_size: int,
 
     u = params["u"].reshape(h, head_size)
     rh, kh, vh, wh = heads(r), heads(k), heads(v), heads(w)
+    if rows is not None:
+        rs = row_block(mesh, rows, b)
+        rh, kh, vh, wh = (t[rs] for t in (rh, kh, vh, wh))
     if needs_grad(rh, kh, vh, wh, u, state_S):
         # training: no per-step states (verify runs without a gradient)
         y, s_last = WKV6Fn.apply(rh, kh, vh, wh, u, state_S)
@@ -162,6 +171,8 @@ def apply_rwkv_tmix(params: dict, x, state_S, ts_prev, head_size: int,
         y, s_last = _wk.wkv6(rh, kh, vh, wh, u, state_S)
         S_stack = s_last[:, None]
     y = y.transpose(1, 2)                             # (B,S,H,hd)
+    if rows is not None:
+        y = all_gather(y, mesh, rows, 0)
 
     # per-head RMS "group norm"
     var = y.square().mean(-1, keepdim=True)
@@ -192,16 +203,16 @@ def apply_rwkv_cmix(params: dict, x, ts_prev, mesh=None,
 
 def apply_rwkv_block(tmix: dict, cmix: dict, ln1, ln2, x, state: dict,
                      head_size: int, norm_fn, mesh=None,
-                     stationary: bool = False):
+                     stationary: bool = False, rows=None):
     """Full RWKV layer (pre-norm residual twice).  Returns (out,
     new_state, state_stack|None); ``state_stack`` (S <= 16 only) holds
     the per-step S and token-shift inputs, index 0 the state before the
-    first step."""
+    first step; ``rows``: ``S`` and its stack the rank's rows."""
     s = x.shape[1]
     a_in = norm_fn(ln1, x)
     a_out, S_stack, ts_a = apply_rwkv_tmix(tmix, a_in, state["S"],
                                            state["ts_a"], head_size, mesh,
-                                           stationary)
+                                           stationary, rows)
     x = x + a_out
     c_in = norm_fn(ln2, x)
     c_out, ts_c = apply_rwkv_cmix(cmix, c_in, state["ts_c"], mesh,

@@ -30,11 +30,16 @@ are replicated.  The recurrent mixers run channel-parallel in every
 phase (``repro/models/rglru.py:95-129``, ``repro/models/rwkv.py:
 113-130``): the RG-LRU on the rank's W/m channels, RWKV on its H/m heads
 (an RWKV layer whose heads do not split over ``"model"`` is gathered
-whole for each call, as the encoder is).  Caches hold the whole batch on
-every rank; where the heads split over ``"model"`` the attention caches
-hold the rank's kv heads, and the recurrent states hold the rank's
-channels (:func:`init_cache` with the mesh; the state specs
-``rglru_state_specs`` / ``rwkv_state_specs``).
+whole for each call).  The recurrent states hold the rank's channels
+(the state specs ``rglru_state_specs`` / ``rwkv_state_specs``).  A
+cache takes one of two layouts (:func:`init_cache`): the earlier one
+holds the whole batch on every rank, with the rank's kv heads where the
+heads split over ``"model"`` (the engine's); the production one, which
+the cache records, holds the rank's block of the JAX package's
+``cache_specs(cfg, cache_batch_spec, kv_seq_spec)``: its rows, its
+slice of the slots, every kv head (:mod:`.attention`), and a layer
+converts a state between the rows x holds and the rows its cache
+holds.
 
 Under the sequence-parallel profile (``seq``, read once a call by
 :func:`forward_decoder`) the training carry between layer groups is
@@ -56,14 +61,16 @@ from repro_torch.configs import (ATTN, RGLRU, RWKV, SWA, ModelConfig,
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv as rwkv_lib
-from repro_torch.launch.mesh import all_gather, axis_size, block, gather_tree
-from repro_torch.models.attention import (apply_attention,
+from repro_torch.launch.mesh import all_gather, axis_size, gather_tree
+from repro_torch.models.attention import (CacheLayout, apply_attention,
                                           apply_cross_attention,
-                                          attention_specs, init_kv_cache,
-                                          init_paged_kv_pool, kv_cache_specs,
-                                          local_kv_heads, paged_row_indices,
+                                          attention_specs, cache_rows,
+                                          heads_split, init_kv_cache,
+                                          init_paged_kv_pool, input_rows,
+                                          kv_cache_specs, local_kv_heads,
+                                          paged_row_indices,
                                           precompute_cross_kv, quantize_rows,
-                                          restore_rejected_rows)
+                                          restore_rejected_rows, row_block)
 from repro_torch.models.layers import (active_seq_axis, apply_mlp,
                                        apply_norm, embedding_specs, mlp_specs,
                                        norm_specs, seq_gather, seq_split,
@@ -133,18 +140,40 @@ def _set_state(cache: dict | None, new_state: dict) -> None:
             cache[key].copy_(val)
 
 
-def _rows(state: dict, mesh, batch_split: bool) -> dict:
-    """A state's rows for the rank's block of the batch."""
-    if not batch_split:
-        return state
-    return {k: block(v, mesh, "data", 0) for k, v in state.items()}
+# the state whose recurrence a mixer runs on the rank's rows of a cache
+# in the production layout, in a decode step (x whole: the stationary
+# products need every row); the layer gathers its other states' rows
+_ROW_STATE = {RGLRU: "h", RWKV: "S"}
 
 
-def _whole(state: dict, mesh, batch_split: bool) -> dict:
-    """A state of the rank's rows gathered over the batch."""
-    if not batch_split:
-        return state
-    return {k: all_gather(v, mesh, "data", 0) for k, v in state.items()}
+def _rows(state: dict, mesh, batch_split: bool, rows=None,
+          keep=None) -> dict:
+    """A cache's state (its rows: the rank's block over ``rows``, or
+    every row) as the layer reads it: the rows x holds
+    (:func:`repro_torch.models.attention.input_rows`), ``keep`` (a key)
+    as the cache holds it."""
+    return {k: v if k == keep else input_rows(v, mesh, batch_split, rows)
+            for k, v in state.items()}
+
+
+def _whole(state: dict, mesh, batch_split: bool, rows=None,
+           keep=None) -> dict:
+    """The inverse of :func:`_rows`: a state of x's rows as the cache
+    holds it."""
+    return {k: v if k == keep else cache_rows(v, mesh, batch_split, rows)
+            for k, v in state.items()}
+
+
+def _stack_pending(stack: dict, mesh, rows, keep, b: int) -> dict:
+    """A decode's rollback stack (``keep`` the rank's rows, the rest all
+    ``b``: x is whole) as the pending of a cache whose rows split over
+    ``rows``: the rank's rows, and which they are (``commit_cache``
+    reads them)."""
+    if rows is None:
+        return {"stack": stack}
+    rs = row_block(mesh, rows, b)
+    return {"stack": {k: v if k == keep else v[rs]
+                      for k, v in stack.items()}, "rows": rs}
 
 
 def _state_shards(cfg: ModelConfig, kind: str, mesh) -> int:
@@ -161,7 +190,7 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
                 pos, phase: str, use_moe: bool = False,
                 block_tables=None, spec_tree: dict | None = None,
                 enc_out=None, mesh=None, batch_split: bool = False,
-                seq=None):
+                seq=None, layout: CacheLayout | None = None):
     """Returns (x, cache, pending).  ``spec_tree`` reaches the attention
     layers only (see :func:`apply_attention`).  With a ``mesh`` the
     layer's parameters are the rank's blocks (see the module's
@@ -172,11 +201,19 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
     cross K/V from ``enc_out`` and stores them in the cache's ``ck`` /
     ``cv`` (in place), decode reads them from there.  ``seq``: the
     sequence-parallel axis of a prefill or training call (context
-    parallelism, see :func:`repro_torch.models.attention.apply_attention`)."""
+    parallelism, see :func:`repro_torch.models.attention.apply_attention`).
+    ``layout``: the cache's production layout (:func:`init_cache`), whose
+    rows a layer converts to and from the rows x holds."""
     norm = lambda p, z: apply_norm(p, z, cfg.norm)
+    rows = layout.rows if layout is not None else None
     stationary = phase == "decode"
     shards = _state_shards(cfg, kind, mesh)
     rec_mesh = mesh if shards > 1 else None      # channel-parallel mixers
+    # a decode step on a production cache runs the recurrence on its rows
+    # (a mixer gathered whole gathers its state's rows instead)
+    mixer_rows = (rows if cache is not None and not batch_split
+                  and rec_mesh is not None else None)
+    keep = _ROW_STATE.get(kind) if mixer_rows is not None else None
     if mesh is not None and kind == RWKV and rec_mesh is None:
         params = dict(params,
                       tmix=gather_tree(params["tmix"], rwkv_lib.tmix_specs(),
@@ -184,29 +221,34 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
                       cmix=gather_tree(params["cmix"], rwkv_lib.cmix_specs(),
                                        mesh))
     if kind == RGLRU:
-        state = (_rows(cache, mesh, batch_split) if cache is not None else
-                 rglru_lib.init_rglru_state(x.shape[0],
+        state = (_rows(cache, mesh, batch_split, rows, keep)
+                 if cache is not None
+                 else rglru_lib.init_rglru_state(x.shape[0],
                                             cfg.rnn_width // shards,
                                             cfg.conv_width, x.dtype,
                                             x.device))
         out, new_state, stack = rglru_lib.apply_rglru_block(
             params["rec"], norm(params["ln1"], x), state, rec_mesh,
-            stationary)
+            stationary, mixer_rows)
         x = x + out
         x = x + apply_mlp(params["ffn"], norm(params["ln2"], x),
                           cfg.activation, mesh, stationary)
-        _set_state(cache, _whole(new_state, mesh, batch_split))
-        return x, cache, ({"stack": stack} if phase == "decode" else {})
+        _set_state(cache, _whole(new_state, mesh, batch_split, rows, keep))
+        return x, cache, (_stack_pending(stack, mesh, rows, keep, x.shape[0])
+                          if phase == "decode" else {})
     if kind == RWKV:
-        state = (_rows(cache, mesh, batch_split) if cache is not None else
-                 rwkv_lib.init_rwkv_state(x.shape[0], cfg.d_model,
+        state = (_rows(cache, mesh, batch_split, rows, keep)
+                 if cache is not None
+                 else rwkv_lib.init_rwkv_state(x.shape[0], cfg.d_model,
                                           cfg.rwkv_head_size, x.dtype,
                                           x.device, shards))
         x, new_state, stack = rwkv_lib.apply_rwkv_block(
             params["tmix"], params["cmix"], params["ln1"], params["ln2"], x,
-            state, cfg.rwkv_head_size, norm, rec_mesh, stationary)
-        _set_state(cache, _whole(new_state, mesh, batch_split))
-        return x, cache, ({"stack": stack} if phase == "decode" else {})
+            state, cfg.rwkv_head_size, norm, rec_mesh, stationary,
+            mixer_rows)
+        _set_state(cache, _whole(new_state, mesh, batch_split, rows, keep))
+        return x, cache, (_stack_pending(stack, mesh, rows, keep, x.shape[0])
+                          if phase == "decode" else {})
     if kind not in (ATTN, SWA):
         raise ValueError(kind)
     window = cfg.sliding_window if kind == SWA else None
@@ -216,24 +258,34 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
         head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
         use_rope=cfg.use_rope, window=window, cache=cache, pos=pos,
         phase=phase, block_tables=block_tables if kind == ATTN else None,
-        spec_tree=spec_tree, mesh=mesh, batch_split=batch_split, seq=seq)
+        spec_tree=spec_tree, mesh=mesh, batch_split=batch_split, seq=seq,
+        layout=layout)
     x = x + out
     if "xattn" in params:
         heads = dict(n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim)
-        if phase == "prefill" or cache is None or "ck" not in cache:
+        cached = phase != "prefill" and cache is not None and "ck" in cache
+        if cached:
+            cross = {"ck": cache["ck"], "cv": cache["cv"]}
+        else:
             cross = precompute_cross_kv(params["xattn"], enc_out,
                                         n_heads=cfg.n_heads, mesh=mesh,
                                         **heads)
             if cache is not None and "ck" in cache:
-                whole = _whole(cross, mesh, batch_split)
+                keep = cross
+                if layout is not None and heads_split(cfg.n_heads,
+                                                      cfg.n_kv_heads, mesh):
+                    # the production layout holds every head
+                    keep = {k: all_gather(v, mesh, "model", 2)
+                            for k, v in cross.items()}
+                whole = _whole(keep, mesh, batch_split, rows)
                 cache["ck"].copy_(whole["ck"])
                 cache["cv"].copy_(whole["cv"])
-        else:
-            cross = {"ck": cache["ck"], "cv": cache["cv"]}
         x = x + apply_cross_attention(params["xattn"],
                                       norm(params["ln_x"], x), cross,
                                       n_heads=cfg.n_heads, mesh=mesh,
-                                      stationary=stationary, **heads)
+                                      stationary=stationary,
+                                      layout=layout if cached else None,
+                                      **heads)
     h = apply_norm(params["ln2"], x, cfg.norm)
     if use_moe:
         # decode steps are few-token: dropless dispatch keeps speculative
@@ -257,17 +309,37 @@ def apply_layer(params: dict, cfg: ModelConfig, kind: str, x, cache,
 # caches
 
 
+def _block_size(n: int, mesh, axis, what: str) -> int:
+    """The rank's share of ``n`` split over ``axis`` (None: all of it);
+    a count that does not split raises."""
+    if axis is None:
+        return n
+    size = axis_size(mesh, axis)
+    if n % size:
+        raise ValueError(f"{n} {what} do not split over the {size} ranks of "
+                         f"axis {axis!r}")
+    return n // size
+
+
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     device, mesh=None) -> dict:
+                     device, mesh=None,
+                     layout: CacheLayout | None = None) -> dict:
     """One layer's cache; an encoder-decoder ATTN layer also holds the
     cross K/V ``ck`` / ``cv`` (B, encoder_len, Hkv, d).  Over a ``mesh``
-    the attention caches hold the rank's kv heads
-    (:func:`repro_torch.models.attention.local_kv_heads`) and the
-    recurrent states the rank's channels."""
-    hkv = local_kv_heads(cfg.n_heads, cfg.n_kv_heads, mesh)
+    the recurrent states hold the rank's channels; the attention caches
+    hold the rank's kv heads (:func:`repro_torch.models.attention.
+    local_kv_heads`) and every row, or, with a ``layout``, every kv head
+    of the rank's block of the rows and of the slots (the cross K/V: of
+    the rows), the recurrent states the rank's rows."""
     shards = _state_shards(cfg, kind, mesh)
+    hkv = (local_kv_heads(cfg.n_heads, cfg.n_kv_heads, mesh)
+           if layout is None else cfg.n_kv_heads)
+    layout = layout or CacheLayout()
+    batch = _block_size(batch, mesh, layout.rows, "batch rows")
+    slots = lambda n: _block_size(n, mesh, layout.slots,  # noqa: E731
+                                  "cache slots")
     if kind == ATTN:
-        c = init_kv_cache(batch, max_len, hkv, cfg.head_dim,
+        c = init_kv_cache(batch, slots(max_len), hkv, cfg.head_dim,
                           cfg.torch_dtype, device,
                           quant=cfg.kv_cache_dtype == "int8")
         if cfg.encoder_decoder:
@@ -276,7 +348,7 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
             c["cv"] = torch.zeros_like(c["ck"])
         return c
     if kind == SWA:
-        return init_kv_cache(batch, min(cfg.sliding_window, max_len),
+        return init_kv_cache(batch, slots(min(cfg.sliding_window, max_len)),
                              hkv, cfg.head_dim, cfg.torch_dtype, device)
     if kind == RGLRU:
         return rglru_lib.init_rglru_state(batch, cfg.rnn_width // shards,
@@ -290,12 +362,33 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda", mesh=None) -> dict:
+               device="cuda", mesh=None, layout=None) -> dict:
+    """The decode cache: one dict a layer (:func:`init_layer_cache`) and
+    ``pos`` (B,).  Over a ``mesh``, without ``layout``, the earlier
+    layout (every row, the rank's kv heads where they split); with
+    ``layout`` (a :class:`CacheLayout`, or the JAX package's
+    ``(cache_batch_spec, kv_seq_spec)`` pair) the rank's block of JAX's
+    ``cache_specs(cfg, batch_spec, seq_spec)``, recorded under
+    ``"layout"``, which ``prefill``, ``decode`` and ``commit_cache``
+    read.  ``pos`` stays whole."""
     device = resolve_device(device)
-    return {"layers": [init_layer_cache(cfg, cfg.layer_kind(l), batch,
-                                        max_len, device, mesh)
-                       for l in range(cfg.n_layers)],
-            "pos": torch.zeros((batch,), dtype=torch.int64, device=device)}
+    if layout is not None:
+        if mesh is None:
+            raise ValueError("a cache layout needs a mesh")
+        if not isinstance(layout, CacheLayout):
+            layout = CacheLayout(*layout)
+        names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+        if "pod" in names and layout.rows == "data":
+            # "data" names ("pod", "data") here (launch/mesh.py)
+            raise ValueError("rows split over 'data' alone on a mesh with "
+                             "'pod' have no name in the port")
+    cache = {"layers": [init_layer_cache(cfg, cfg.layer_kind(l), batch,
+                                         max_len, device, mesh, layout)
+                        for l in range(cfg.n_layers)],
+             "pos": torch.zeros((batch,), dtype=torch.int64, device=device)}
+    if layout is not None:
+        cache["layout"] = layout
+    return cache
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
@@ -496,6 +589,7 @@ def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
         assert cache is None, "the training forward takes no cache"
         return _forward_train(params, cfg, x, enc_out, mesh, seq), None, []
     pos = cache["pos"] if (cache is not None and phase == "decode") else None
+    layout = cache.get("layout") if cache is not None else None
     block_tables = (cache.get("block_tables")
                     if (cache is not None and phase == "decode") else None)
     pendings = []
@@ -506,7 +600,8 @@ def forward_decoder(params: dict, cfg: ModelConfig, x, *, phase: str,
                                  use_moe=cfg.layer_is_moe(l),
                                  block_tables=block_tables,
                                  spec_tree=spec_tree, enc_out=enc_out,
-                                 mesh=mesh, batch_split=batch_split, seq=seq)
+                                 mesh=mesh, batch_split=batch_split, seq=seq,
+                                 layout=layout)
         pendings.append(pend)
     return x, cache, pendings
 
@@ -532,7 +627,8 @@ def commit_cache(cfg: ModelConfig, cache: dict, pendings, n_commit,
     tokens, restore the ring rows of the rest (in place), set each
     recurrent layer to its state after ``n_commit`` steps (in place), and
     advance ``pos``.  Full-attention rows past ``pos`` are invisible, so
-    they need no undo."""
+    they need no undo.  In the production layout the pendings name the
+    rank's rows (and the ring's slots) they hold."""
     nc = n_commit.long()
     for l in range(cfg.n_layers):
         kind = cfg.layer_kind(l)
@@ -542,9 +638,11 @@ def commit_cache(cfg: ModelConfig, cache: dict, pendings, n_commit,
         elif kind in (RGLRU, RWKV):
             sel = (rglru_lib.select_rglru_state if kind == RGLRU
                    else rwkv_lib.select_rwkv_state)
+            mine = nc[pendings[l].get("rows", slice(None))]
             _set_state(cache["layers"][l],
-                       sel(pendings[l]["stack"], torch.clamp(nc, 0, sq)))
+                       sel(pendings[l]["stack"], torch.clamp(mine, 0, sq)))
     out = {"layers": cache["layers"], "pos": cache["pos"] + nc}
-    if "block_tables" in cache:
-        out["block_tables"] = cache["block_tables"]
+    for key in ("block_tables", "layout"):
+        if key in cache:
+            out[key] = cache[key]
     return out

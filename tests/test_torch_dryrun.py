@@ -3,7 +3,9 @@ subprocess as rank 0 of a ``"fake"`` group over a (2, 4) mesh: the
 argument bytes it reports are exactly the rank's ``shard_params`` blocks
 of the parameters (and their AdamW moments, and the inputs or the
 cache), counted here from the specs alone; the step runs on meta tensors
-and counts its FLOPs, its kernels' and its collectives.
+and counts its FLOPs, its kernels' and its collectives.  One catalog
+combination on the single pod, Gemma-3-12B's ``decode_32k``, holds the
+cache in the production layout: a 256th of the whole cache a rank.
 (``tests/test_torch_seq_parallel.py`` holds a dry run's collective bytes
 against what rank 0 of a real gloo group counted in the same step.)"""
 import dataclasses
@@ -29,16 +31,18 @@ CASES = {"dense6-train": ("dense6", "train", 32, 8,
          "rglru-prefill": ("rglru", "prefill", 32, 4,
                            {"flash_attention", "rglru_gated_scan"}),
          "rwkv-decode": ("rwkv", "decode", 32, 4, {"wkv6"})}
+# a catalog decode on the single pod (16, 16)
+POD = ("gemma3-12b", "decode_32k", (16, 16))
 
 
-def _block_bytes(cfg) -> int:
+def _block_bytes(cfg, sizes=SIZES) -> int:
     """The rank's parameter blocks' bytes under ``param_specs``."""
     whole = tree_flatten(init_params(cfg, None, "meta"))
-    specs = tree_flatten(TM.param_specs(cfg, SIZES["model"], SIZES["data"]),
+    specs = tree_flatten(TM.param_specs(cfg, sizes["model"], sizes["data"]),
                          is_leaf=is_spec)
     total = 0
     for path, t in whole.items():
-        n = math.prod(d // (SIZES[a] if a else 1)
+        n = math.prod(d // (sizes[a] if a else 1)
                       for d, a in zip(t.shape, specs[path]))
         total += n * t.element_size()
     return total
@@ -48,6 +52,9 @@ def _block_bytes(cfg) -> int:
 def records():
     procs = {name: dry_run(_cfg(key, TC), (name, s, b, phase))
              for name, (key, phase, s, b, _) in CASES.items()}
+    arch, shape, mesh = POD
+    procs["pod"] = dry_run(TC.get_config(arch),
+                           dataclasses.astuple(TC.INPUT_SHAPES[shape]), mesh)
     return {name: dry_result(p) for name, p in procs.items()}
 
 
@@ -98,3 +105,26 @@ def test_live_bytes_follow_frees_and_views():
         d = torch.empty(2048, device="meta")        # a freed: 40 + 8 KiB
     assert mem.peak == 8192 + 40, mem.peak
     del b, d
+
+
+def test_a_pod_rank_holds_a_256th_of_the_decode_cache(records):
+    """Gemma-3-12B's ``decode_32k`` on (16, 16): the rank's cache blocks
+    (``pos`` whole aside) are the whole cache's bytes over 256, and its
+    argument bytes its parameter blocks, that cache and the tokens."""
+    from repro_torch.launch.specs import abstract_cache
+    from repro_torch.models.transformer import init_cache
+    arch, name, sizes = POD
+    cfg, shape = TC.get_config(arch), TC.INPUT_SHAPES[name]
+    mesh = dataclasses.make_dataclass(
+        "M", ["mesh_dim_names", "shape"])(("data", "model"), sizes)
+    cache = abstract_cache(cfg, shape, mesh)
+    whole = init_cache(cfg, shape.global_batch, shape.seq_len, "meta")
+    pos = shape.global_batch * 8
+    assert (dryrun.tree_bytes(cache) - pos) * 256 == (
+        dryrun.tree_bytes(whole) - pos)
+    rec = records["pod"]
+    assert rec["status"] == "ok" and rec["n_ranks"] == 256, rec
+    params = _block_bytes(cfg, dict(zip(("data", "model"), sizes)))
+    assert rec["argument_bytes"] == (params + dryrun.tree_bytes(cache)
+                                     + shape.global_batch * 8)
+    assert rec["fits_80gb"], rec["peak_bytes"]
