@@ -33,8 +33,10 @@ on its own lines with its wall seconds:
    every split is empty;
    a 64-key tile boundary inside the last m positions, in f32, bf16,
    int8 and a tree; a sliding window; m = 1; q and the output as
-   (B, S, H, d) views; the serve-shape call made twice and its outputs
-   required to be bitwise equal; speculation trees at the serve shape,
+   (B, S, H, d) views; the serve-shape call made twice and replayed
+   twice from a CUDA graph of the call, every output required to be
+   bitwise equal (the graph's split-KV counters zero at each replay);
+   speculation trees at the serve shape,
    ``anc_bits`` of tree (3, 2) at m 10 and of (2, 2, 2, 2) at m 31, in
    f32 and bf16, each also with a 64-key tile boundary inside the last m
    rows, with ``scaled_dot_product_attention`` under the equivalent
@@ -60,8 +62,13 @@ on its own lines with its wall seconds:
    PyTorch call computes the same function;
 3. serve, bf16, weights from a seed, ``max_batch=4``, ``n_cand=4``,
    Poisson requests (prompt 512, gen 32-64), every kernel's launch count
-   read around each run: (a) paged, Mixtral-8x7B / Mistral-7B widths,
-   ``SERVE_LAYERS`` (2) layers each, 12 requests; (b) contiguous
+   read around each run (a graph's replays count the launches its
+   capture recorded), the rounds as the pipeline's CUDA graphs: every
+   serve and lossless run prints its ``graph_captures`` and capture wall
+   and must have captured the round; (a) paged, Mixtral-8x7B /
+   Mistral-7B widths, ``SERVE_LAYERS`` (2) layers each, 12 requests,
+   then (a-e) the same requests on the eager round (``graphs=False``),
+   every stream equal to (a)'s, the round times side by side; (b) contiguous
    (``paged=False``),
    RWKV-6-7B at full width, 8 of its 32 layers
    (``RECURRENT_SERVE_LAYERS``), with a 2-layer
@@ -365,6 +372,7 @@ PATH_RUN = {"paged_decode_attention": "3a", "flash_attention": "3a",
 # another entry of the kernel's source than the TPU kernel's counterpart
 PATH_ENTRY = {"rglru_scan": "rglru_gated_scan"}
 RUN_STATS: dict = {}                  # serve run label -> its stats()
+RUN_STREAMS: dict = {}                # serve run label -> {rid: tokens}
 # 3g: the interactive tenant's TTFT objective (seconds)
 SLO_TTFT_INTERACTIVE = 0.25
 
@@ -411,6 +419,23 @@ class Bench:
             e.record()
         torch.cuda.synchronize()
         return float(np.median([s.elapsed_time(e) for s, e in ev]))
+
+
+def _graph_outputs(call, replays: int = 2) -> list:
+    """``call()``'s output from ``replays`` replays of a CUDA graph
+    captured over it (the pipeline's ``RoundGraph``): the split-KV
+    counters the graph holds must be zero at every replay."""
+    import torch
+
+    from repro_torch.core.interleave import RoundGraph
+    box = {}
+    graph = RoundGraph(lambda: box.update(out=call()))
+    outs = []
+    for _ in range(replays):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(box["out"].clone())
+    return outs
 
 
 def _check(name, case, got, want, dtype, tol=None):
@@ -699,8 +724,11 @@ def kernel_cases(bench) -> dict:
             torch.cuda.synchronize()
             assert torch.equal(got, again), (
                 f"paged_decode_attention {label}: two calls differ")
-            print(f"  paged_decode_attention  {label}: two calls bitwise "
-                  "equal", flush=True)
+            assert all(torch.equal(got, r) for r in _graph_outputs(call)), (
+                f"paged_decode_attention {label}: a graph replay differs")
+            print(f"  paged_decode_attention  {label}: two calls and two "
+                  "replays of a CUDA graph of the call bitwise equal",
+                  flush=True)
         kg, vg = ref.gather_paged_kv_ref(kp, vp, bt, dtype=dt, **sc)
         kg = kg.transpose(1, 2).repeat_interleave(hq // hkv, 1).contiguous()
         vg = vg.transpose(1, 2).repeat_interleave(hq // hkv, 1).contiguous()
@@ -911,8 +939,11 @@ def kernel_cases(bench) -> dict:
             torch.cuda.synchronize()
             assert torch.equal(got, again), (
                 f"decode_attention {label}: two calls differ")
-            print(f"  decode_attention        {label}: two calls bitwise "
-                  "equal", flush=True)
+            assert all(torch.equal(got, r) for r in _graph_outputs(call)), (
+                f"decode_attention {label}: a graph replay differs")
+            print(f"  decode_attention        {label}: two calls and two "
+                  "replays of a CUDA graph of the call bitwise equal",
+                  flush=True)
         kpos = torch.arange(s, device=dev)[None, None, :]
         qpos = (lengths.long()[:, None, None] - m
                 + torch.arange(m, device=dev)[None, :, None])
@@ -1864,14 +1895,31 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
+def _graph_line(st) -> str:
+    return (f"graph_captures={st['graph_captures']} (capture wall "
+            f"{st['capture_s']:.3f}s)")
+
+
+def _check_graphs(label, st, graphs=None) -> None:
+    """A run on the default route captured the round (fused and, chain,
+    rollback graphs); ``graphs=False`` captured none."""
+    caps = st["graph_captures"]
+    if graphs is False:
+        assert not any(caps.values()), f"[{label}] eager run captured {caps}"
+        return
+    assert caps["fused"] > 0, f"[{label}] the round ran eagerly: {caps}"
+    assert st["spec_mode"] == "tree" or caps["rollback"] > 0, caps
+
+
 def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
               must_not_launch=(), spec_tree=None, prompt_lens=(512,),
-              gen=(32, 64)) -> dict:
+              gen=(32, 64), graphs=None) -> dict:
     """Serve ``n_requests`` Poisson requests (prompts of ``prompt_lens``
     tokens in turn, gen drawn from the ``gen`` range, ends included) with
-    ``max_batch=4``, ``n_cand=4`` (or tree speculation of ``spec_tree``);
-    every kernel's launches are counted from 0 over the run.  Returns
-    {kernel: launches}."""
+    ``max_batch=4``, ``n_cand=4`` (or tree speculation of ``spec_tree``),
+    the rounds as CUDA graphs (``graphs=False``: eager); every kernel's
+    launches are counted from 0 over the run.  Returns {kernel:
+    launches}."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launches
@@ -1882,7 +1930,8 @@ def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
     _free()           # an earlier run's engine left in a reference cycle
     eng = _engine(tcfg, dcfg, SchedulerConfig(max_batch=4, n_cand=4,
                                               paged=paged,
-                                              spec_tree=spec_tree), seed=0)
+                                              spec_tree=spec_tree,
+                                              graphs=graphs), seed=0)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, tcfg.vocab_size,
                             prompt_lens[i % len(prompt_lens)]).astype(np.int32)
@@ -1905,7 +1954,7 @@ def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
     mode = f"tree {spec_tree}" if spec_tree else "chain"
     print(f"  [{label}] {tcfg.name} {tcfg.n_layers} layers / draft "
           f"{dcfg.n_layers} layers, {'paged' if paged else 'contiguous'}, "
-          f"{mode}: "
+          f"{mode}, {'eager' if graphs is False else 'CUDA graphs'}: "
           f"served {len(done)} requests, {st['tokens_out']} tokens in "
           f"{wall:.3f}s wall: {st['tok_per_s']:.2f} tok/s over "
           f"{st['rounds']} rounds, occupancy {st['mean_occupancy']:.3f}")
@@ -1916,8 +1965,9 @@ def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
           f"{st['accept_hist']}")
     print(f"  [{label}] peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  fused shape "
-          f"signatures={fused}  launches={launches}")
+          f"signatures={fused}  {_graph_line(st)}  launches={launches}")
     assert len(done) == len(reqs), "not every request finished"
+    _check_graphs(label, st, graphs)
     for r in reqs:
         assert r.result is not None and len(r.result) == r.max_new_tokens
         assert ((r.result >= 0) & (r.result < tcfg.vocab_size)).all()
@@ -1940,6 +1990,7 @@ def serve_run(label, tcfg, dcfg, paged, n_requests, must_launch,
     print(f"  [{label}] {n_prefills} prefills, {st['rounds']} rounds; "
           f"run wall {time.perf_counter() - t_run:.1f}s", flush=True)
     RUN_STATS[label] = st
+    RUN_STREAMS[label] = {r.rid: r.result.tolist() for r in reqs}
     del eng, done
     _free()
     return launches
@@ -2198,6 +2249,17 @@ def serve_phase(rates) -> dict:
     runs["3a"] = serve_run("3a", mix, mis, True, 12,
                            ("paged_decode_attention", "flash_attention",
                             "moe_ffn"))
+    # 3a-e: the same requests on the eager round; the streams must agree
+    serve_run("3a-e", mix, mis, True, 12,
+              ("paged_decode_attention", "flash_attention", "moe_ffn"),
+              graphs=False)
+    for rid, toks in RUN_STREAMS["3a"].items():
+        assert RUN_STREAMS["3a-e"][rid] == toks, f"request {rid}: 3a-e != 3a"
+    g, e = RUN_STATS["3a"], RUN_STATS["3a-e"]
+    print(f"  [3a-e] {len(RUN_STREAMS['3a'])} streams equal 3a's request by "
+          f"request; round p50 graphs {1e3 * g['round_s_p50']:.2f}ms / eager "
+          f"{1e3 * e['round_s_p50']:.2f}ms, tok/s {g['tok_per_s']:.2f} / "
+          f"{e['tok_per_s']:.2f}", flush=True)
     rwkv = dataclasses.replace(RWKV6_7B, n_layers=RECURRENT_SERVE_LAYERS[0])
     rw_draft = draft_for(rwkv, 2)
     runs["3b"] = serve_run("3b", rwkv, rw_draft, False, 8,
@@ -2486,8 +2548,9 @@ def async_run(label) -> None:
           "written)")
     print(f"  [{label}] peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
-          f"launches={launches}")
+          f"{_graph_line(st)}  launches={launches}")
     assert len(handles) == len(reqs), "a submission was rejected"
+    _check_graphs(label, st)
     for h in handles:
         assert h.result is not None and len(h.result) == h.max_new_tokens, (
             f"[{label}] request {h.rid} ended with {h.result}")
@@ -2568,6 +2631,8 @@ def traced_run(label, steady=5) -> None:
         f"{k}={v:.4f}" for k, v in sorted(_track_totals(
             eng.obs.tracer).items())))
     assert len(done) == 12 and st["fused_compiles"] == 1
+    _check_graphs(label, st)
+    print(f"  [{label}] {_graph_line(st)}")
     for name in ("paged_decode_attention", "flash_attention", "moe_ffn"):
         assert launches[name] > 0, f"{name} was never launched in run {label}"
     trace = eng.chrome_trace()
@@ -2733,6 +2798,7 @@ def lossless_run(label, tcfg, dcfg, paged, must_launch, spec_tree=None,
     st = eng.stats()
     fused = st["fused_compiles"]
     assert fused == 1, f"fused round ran at {fused} shape signatures"
+    _check_graphs(label, st)
     for name in serve_must_launch:
         assert served[name] > 0, f"[{label}] serving never launched {name}"
     if serve_must_launch and spec_tree is None:
@@ -2756,7 +2822,8 @@ def lossless_run(label, tcfg, dcfg, paged, must_launch, spec_tree=None,
         assert launches[name] > 0, f"[{label}] greedy decode skipped {name}"
     print(f"  [{label}] {tcfg.name} {tcfg.n_layers} layers, "
           f"{'paged' if paged else 'contiguous'}: fused shape "
-          f"signatures={fused}; greedy decode launches={launches}; run wall "
+          f"signatures={fused}, {_graph_line(st)}; greedy decode "
+          f"launches={launches}; run wall "
           f"{time.perf_counter() - t_run:.1f}s", flush=True)
     del eng, done
     _free()
@@ -2874,6 +2941,8 @@ def preempt_run(label, tcfg, dcfg) -> None:
           f"{ {k: n for k, n in served.items() if n} }")
     assert st["preempted"] >= 1, f"[{label}] no preemption"
     assert st["fused_compiles"] == 1
+    _check_graphs(label, st)
+    print(f"  [{label}] {_graph_line(st)}")
     assert max(r.finished_s for r in high) <= max(r.finished_s for r in low)
     for name in ("paged_decode_attention", "flash_attention", "moe_ffn"):
         assert served[name] > 0, f"[{label}] serving never launched {name}"

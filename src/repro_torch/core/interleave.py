@@ -3,9 +3,11 @@ tree mode.
 
 Counterpart of ``repro/core/interleave.py``.  In slot t_n the target
 verifies batch V's drafts while the draft model generates candidates for
-batch D; the roles swap in t_{n+1}.  The JAX package fuses both halves
-into one jit program; here the fused round runs eagerly on one CUDA
-stream (overlapping draft and verify on two streams is later work).
+batch D; the roles swap in t_{n+1}.  The JAX package jits each of its
+three entry points once (the fused round, the draft warmup, the
+rollback); here each runs as a CUDA graph on the card, one stream, the
+counterpart of that one program (overlapping draft and verify on two
+streams is later work).
 
 All shapes inside a round are fixed by ``(batch, n_cand)``, or by
 ``(batch, tree)`` in tree mode, where the staged drafts are the (B, N)
@@ -13,12 +15,25 @@ BFS token buffer of a speculation tree and both caches of batch V are
 compacted to the accepted path inside the fused round (no separate
 rollback).
 ``trace_counts["fused"]`` counts the distinct input shape signatures the
-fused round has seen — the eager stand-in for the JAX package's compile
-count, so a shape-stable server keeps it at 1 (and a later CUDA-graph
-capture of the round stays possible).  Each round reads its tokens to
-the host once, and that is its only synchronisation; a tracer that
-fences (``obs``, off by default) adds one at the end of each device
-span.
+fused round has seen, the JAX package's compile count: a shape-stable
+server keeps it at 1.
+
+Graphs (``InterleavedPipeline(graphs=...)``).  A graph replays the
+addresses it captured, so a round reads and writes its
+:class:`BatchState` in place: the caches (``pos`` included), ``t_next``,
+and buffers the state's first round makes for what outlives a round
+(the staged drafts, the draft steps' rollback pendings, the round's
+output row).  Nothing a later round reads stays in the graphs' memory
+pool, which every graph of a pipeline shares and overwrites.  An entry
+point runs eagerly the first time it meets a key (its input shapes and
+the addresses of every tensor it touches): real work, and the warmup
+that builds the kernels outside any capture; the second time the key is
+captured and replayed at once, later times replayed.  The rotation swaps
+the halves, so each entry sees two keys.  A round over a mesh stays
+eager (gloo's collectives run on the host and cannot be captured).
+Each round reads its tokens to the host once, after the replay, and
+that is its only synchronisation; a tracer that fences (``obs``, off by
+default) adds one at the end of each device span.
 """
 from __future__ import annotations
 
@@ -36,13 +51,17 @@ from repro_torch.core.spec_decode import (draft_generate,
                                           tree_greedy_acceptance,
                                           tree_n_nodes, tree_spec,
                                           tree_supported)
+from repro_torch.kernels import _build, add_launches, launch_counts
 from repro_torch.models import model as M
 from repro_torch.obs import NULL_OBS
 
 
 @dataclass
 class BatchState:
-    """Per-interleaved-batch decoding state."""
+    """Per-interleaved-batch decoding state, read and written in place
+    at fixed addresses (see the module's docstring): ``drafts`` and
+    ``draft_pendings`` are the staged flags, ``draft_buf`` and
+    ``pend_buf`` while drafts await verification and None otherwise."""
     target_cache: dict
     draft_cache: dict
     t_next: torch.Tensor         # (B,) last committed token (not yet fed)
@@ -50,6 +69,11 @@ class BatchState:
                                  # ((B, N) tree buffer in tree mode)
     draft_pendings: list | None  # rollback info for the draft steps
     emitted: list                # host-side: list of (tokens, n_emitted)
+    draft_buf: torch.Tensor | None = None  # the drafts' storage
+    pend_buf: list | None = None           # the pendings' storage
+    out_buf: torch.Tensor | None = None    # (B, W + 2): the tokens, n_emitted
+                                 # and n_accept of the round that verified
+                                 # this batch last
 
 
 @dataclass
@@ -130,13 +154,14 @@ def fused_tree_verify_and_draft(target_params, target_cfg: ModelConfig,
     return verify_out, draft_out
 
 
-def _signature(*trees) -> tuple:
-    """Shapes and dtypes of every tensor in nested dicts/lists."""
+def _signature(*trees, leaf=lambda t: (tuple(t.shape), t.dtype)) -> tuple:
+    """Shapes and dtypes (or ``leaf`` of each tensor) of every tensor in
+    nested dicts/lists."""
     sig = []
 
     def walk(x):
         if isinstance(x, torch.Tensor):
-            sig.append((tuple(x.shape), x.dtype))
+            sig.append(leaf(x))
         elif isinstance(x, dict):
             for k in sorted(x):
                 sig.append(k)
@@ -150,22 +175,84 @@ def _signature(*trees) -> tuple:
     return tuple(sig)
 
 
+def _hold(buf, new):
+    """``new`` (a tensor, or dicts / lists of them) copied in place into
+    ``buf``, the buffers an earlier round made for it; a buffer is made
+    where ``buf`` holds none of ``new``'s shape, never inside a CUDA graph
+    capture.  Returns the buffers."""
+    if isinstance(new, torch.Tensor):
+        if not (isinstance(buf, torch.Tensor) and buf.shape == new.shape
+                and buf.dtype == new.dtype and buf.device == new.device):
+            if new.is_cuda and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a round buffer would be made inside a "
+                                   "CUDA graph capture")
+            buf = torch.empty_like(new, memory_format=torch.contiguous_format)
+        return buf.copy_(new)
+    if isinstance(new, dict):
+        buf = buf if isinstance(buf, dict) else {}
+        return {k: _hold(buf.get(k), v) for k, v in new.items()}
+    if isinstance(new, (list, tuple)):
+        if not (isinstance(buf, list) and len(buf) == len(new)):
+            buf = [None] * len(new)
+        return [_hold(b, v) for b, v in zip(buf, new)]
+    return new
+
+
+def capture_graph(body, pool=None):
+    """``body()``'s kernels captured as a CUDA graph (recorded on a side
+    stream, none run) to replay on the current stream, whose kernel
+    workspaces they use (:func:`repro_torch.kernels._build.replay_stream`).
+    ``thread_local``: the asyncio front door runs rounds in a worker
+    thread while its loop thread goes on."""
+    graph = torch.cuda.CUDAGraph()
+    with _build.replay_stream(torch.cuda.current_stream().cuda_stream), \
+            torch.cuda.graph(graph, pool=pool,
+                             capture_error_mode="thread_local"):
+        body()
+    return graph
+
+
+class RoundGraph:
+    """``body`` captured once by ``capture`` (:func:`capture_graph`; a
+    test passes a stand-in) and replayed at the addresses it captured.
+    The kernel wrappers count launches on the host, which the capture
+    runs and a replay does not: the capture's counts are taken back and
+    added again at every replay, so the counts are the launches the card
+    ran."""
+
+    def __init__(self, body, pool=None, capture=capture_graph):
+        before = launch_counts()
+        self.graph = capture(body, pool)
+        self.launches = {k: n - before[k] for k, n in launch_counts().items()
+                         if n != before[k]}
+        add_launches(self.launches, -1)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        add_launches(self.launches)
+
+
 class InterleavedPipeline:
     """Dual-batch rotation, drivable one round at a time.
 
     ``trace_counts`` records, per entry point, how many distinct input
     shape signatures it has run with; a scheduler that keeps shapes
     stable sees ``trace_counts['fused'] == 1`` for its whole lifetime.
-    ``tree`` (a branching tuple) selects tree mode, which needs
-    all-attention decoder-only target and draft models; its rounds never
-    call the rollback entry.  ``obs`` receives the warmup, verify, draft
-    and rollback spans.  Over a ``mesh`` (the parameters and caches the
+    ``graph_captures`` counts, per entry point, the CUDA graphs captured
+    (``capture_s`` their wall seconds).  ``graphs``: None runs the
+    entry points as graphs when the states are on a card and there is no
+    mesh, True insists (and raises on CPU tensors or with a mesh), False
+    keeps them eager.  A capture or replay that fails raises.  ``tree``
+    (a branching tuple) selects tree mode, which needs all-attention
+    decoder-only target and draft models; its rounds never call the
+    rollback entry.  ``obs`` receives the warmup, verify, draft and
+    rollback spans.  Over a ``mesh`` (the parameters and caches the
     rank's, :class:`repro_torch.core.pipeline.SpecOffloadEngine` with a
     mesh) every rank runs the same rounds on the same tokens.
     """
 
     def __init__(self, target_params, target_cfg, draft_params, draft_cfg,
-                 n_cand: int, tree=None, obs=None, mesh=None):
+                 n_cand: int, tree=None, obs=None, mesh=None, graphs=None):
         self.tp, self.tcfg = target_params, target_cfg
         self.dp, self.dcfg = draft_params, draft_cfg
         self.n_cand = n_cand
@@ -180,9 +267,19 @@ class InterleavedPipeline:
                         f"decoder-only {name} model (layer_pattern="
                         f"{cfg.layer_pattern!r})")
             tree_n_nodes(self.tree)          # validates shape and node cap
+        if graphs and mesh is not None:
+            raise ValueError("graphs=True with a mesh: its collectives run "
+                             "on the host and cannot be captured")
+        self.graphs = graphs
         self.trace_counts = {"fused": 0, "draft": 0, "rollback": 0}
         self._seen = {k: set() for k in self.trace_counts}
         self._exported_traces = {k: 0 for k in self.trace_counts}
+        self.graph_captures = {k: 0 for k in self.trace_counts}
+        self.capture_s = 0.0
+        self.capture = capture_graph     # a test may pass a stand-in
+        self._graphs: dict = {}          # key -> RoundGraph
+        self._eager: set = set()         # keys run eagerly once
+        self._pool = None                # one memory pool for every graph
 
     def _count(self, entry: str, *trees) -> None:
         sig = _signature(*trees)
@@ -205,7 +302,56 @@ class InterleavedPipeline:
             elif n == 0:
                 ctr.inc(0, entry=entry)   # materialize the zero series
 
+    def _use_graphs(self, state: BatchState) -> bool:
+        if self.graphs is None:
+            return self.mesh is None and state.t_next.is_cuda
+        if self.graphs and not state.t_next.is_cuda:
+            raise ValueError("graphs=True needs the states on a card")
+        return self.graphs
+
+    def _run(self, entry: str, touched, body, graphs: bool) -> None:
+        """Run ``body``, an entry point writing its results into the
+        states' buffers: eagerly, or by the graph protocol of the module's
+        docstring, keyed on the shapes and addresses of ``touched()``."""
+        if not graphs:
+            body()
+            return
+
+        def key():
+            trees = touched()
+            return (entry, _signature(*trees),
+                    _signature(*trees, leaf=lambda t: t.data_ptr()))
+        now = key()
+        graph = self._graphs.get(now)
+        if graph is None and now in self._eager:
+            t0 = time.perf_counter()
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = self._graphs[now] = RoundGraph(body, self._pool,
+                                                   self.capture)
+            self.graph_captures[entry] += 1
+            self.capture_s += time.perf_counter() - t0
+        if graph is not None:
+            graph.replay()
+            return
+        body()
+        self._eager.add(key())       # with any buffer the run made
+
     # ------------------------------------------------------------------
+    def _draft_body(self, state: BatchState) -> None:
+        if self.tree is not None:
+            d, _, dc = draft_tree_generate(self.dp, self.dcfg,
+                                           state.draft_cache, state.t_next,
+                                           self.tree, self.mesh)
+            pend = None
+        else:
+            d, _, dc, pend = draft_generate(self.dp, self.dcfg,
+                                            state.draft_cache, state.t_next,
+                                            self.n_cand, self.mesh)
+        state.draft_cache["pos"].copy_(dc["pos"])
+        state.draft_buf = _hold(state.draft_buf, d)
+        state.pend_buf = _hold(state.pend_buf, pend)
+
     def warmup(self, state: BatchState) -> None:
         """Slot t_0 (paper Fig. 4): draft candidates for ``state`` so the
         next :meth:`step` can verify it.  No-op if drafts are staged."""
@@ -214,27 +360,49 @@ class InterleavedPipeline:
         self._count("draft", state.draft_cache, state.t_next)
         with self.obs.tracer.span("draft_generate", "warmup",
                                   cat="device") as sp:
-            if self.tree is not None:
-                d, _, dc = draft_tree_generate(self.dp, self.dcfg,
-                                               state.draft_cache,
-                                               state.t_next, self.tree,
-                                               self.mesh)
-                pend = None
-            else:
-                d, _, dc, pend = draft_generate(self.dp, self.dcfg,
-                                                state.draft_cache,
-                                                state.t_next, self.n_cand,
-                                                self.mesh)
-            sp.fence(d)
-        state.drafts, state.draft_cache, state.draft_pendings = d, dc, pend
+            self._run("draft", lambda: (state.draft_cache, state.t_next,
+                                        state.draft_buf, state.pend_buf),
+                      lambda: self._draft_body(state),
+                      self._use_graphs(state))
+            sp.fence(state.draft_buf)
+        state.drafts, state.draft_pendings = state.draft_buf, state.pend_buf
+
+    def _fused_body(self, verify: BatchState, gen: BatchState,
+                    vstate: dict, dstate: dict) -> None:
+        if self.tree is not None:
+            vout, dout = fused_tree_verify_and_draft(
+                self.tp, self.tcfg, self.dp, self.dcfg, vstate, dstate,
+                self.tree, self.mesh)
+            # batch V's draft cache was compacted inside the fused round
+            verify.draft_cache["pos"].copy_(vout["draft_cache"]["pos"])
+        else:
+            vout, dout = fused_verify_and_draft(
+                self.tp, self.tcfg, self.dp, self.dcfg, vstate, dstate,
+                self.n_cand, self.mesh)
+        verify.target_cache["pos"].copy_(vout["target_cache"]["pos"])
+        verify.t_next.copy_(vout["t_next"])
+        verify.out_buf = _hold(verify.out_buf, torch.cat(
+            [vout["tokens"], vout["n_emitted"][:, None],
+             vout["n_accept"][:, None]], dim=1))
+        gen.draft_cache["pos"].copy_(dout["draft_cache"]["pos"])
+        gen.draft_buf = _hold(gen.draft_buf, dout["drafts"])
+        gen.pend_buf = _hold(gen.pend_buf, dout["pendings"])
+
+    def _rollback_body(self, verify: BatchState) -> None:
+        """Batch V: roll its draft cache back to the accepted prefix (the
+        round's ``n_emitted`` column of its output row)."""
+        n_emitted = verify.out_buf[:, -2]
+        dc = rollback_draft(self.dcfg, verify.draft_cache, verify.pend_buf,
+                            n_emitted)
+        verify.draft_cache["pos"].copy_(dc["pos"])
 
     def step(self, verify: BatchState, gen: BatchState,
              record: bool = True) -> RoundOutput:
         """One rotation round: verify ``verify``'s staged drafts while
         drafting fresh candidates for ``gen``.
 
-        Mutates both states; on return ``verify.drafts is None`` (the safe
-        window for slot surgery) and ``gen`` holds new drafts.
+        Mutates both states in place; on return ``verify.drafts is None``
+        (the safe window for slot surgery) and ``gen`` holds new drafts.
         ``record=False`` skips appending to ``verify.emitted``.
         """
         assert verify.drafts is not None, "verify batch has no staged drafts"
@@ -246,44 +414,35 @@ class InterleavedPipeline:
         if self.tree is not None:
             vstate["draft_cache"] = verify.draft_cache
         self._count("fused", vstate, dstate)
+        graphs = self._use_graphs(verify)
         tr = self.obs.tracer
         # the fused round does both phases: record it as anti-phase twins,
         # a verify span plus a draft span mirrored over the same interval
         # (bubble accounting unions the overlap)
         with tr.span("target_verify", "verify(fused)", cat="device") as sp:
-            if self.tree is not None:
-                vout, dout = fused_tree_verify_and_draft(
-                    self.tp, self.tcfg, self.dp, self.dcfg, vstate, dstate,
-                    self.tree, self.mesh)
-            else:
-                vout, dout = fused_verify_and_draft(
-                    self.tp, self.tcfg, self.dp, self.dcfg, vstate, dstate,
-                    self.n_cand, self.mesh)
-            sp.fence((vout, dout))
+            self._run("fused", lambda: (vstate, dstate, verify.out_buf,
+                                        gen.draft_buf, gen.pend_buf),
+                      lambda: self._fused_body(verify, gen, vstate, dstate),
+                      graphs)
+            sp.fence((verify.out_buf, gen.draft_buf))
         if tr.enabled:
             tr.complete("draft_generate", "draft(fused)", sp.t0, sp.t1,
                         cat="device")
-        if self.tree is not None:
-            # batch V's draft cache was compacted inside the fused round
-            verify.draft_cache = vout["draft_cache"]
-        else:
-            # batch V: roll its draft cache back to the accepted prefix
+        if self.tree is None:
             self._count("rollback", verify.draft_cache,
                         verify.draft_pendings)
             with tr.span("rollback", "rollback", cat="device") as rb:
-                verify.draft_cache = rb.fence(rollback_draft(
-                    self.dcfg, verify.draft_cache, verify.draft_pendings,
-                    vout["n_emitted"]))
-        verify.target_cache = vout["target_cache"]
-        verify.t_next = vout["t_next"]
+                self._run("rollback", lambda: (verify.draft_cache,
+                                               verify.pend_buf,
+                                               verify.out_buf),
+                          lambda: self._rollback_body(verify), graphs)
+                rb.fence(verify.draft_cache["pos"])
         verify.drafts, verify.draft_pendings = None, None
-        gen.drafts = dout["drafts"]
-        gen.draft_cache = dout["draft_cache"]
-        gen.draft_pendings = dout["pendings"]
-        # the round's one host synchronisation
-        host = torch.cat([vout["tokens"], vout["n_emitted"][:, None],
-                          vout["n_accept"][:, None]], dim=1).cpu().numpy()
-        m1 = vout["tokens"].shape[1]
+        gen.drafts, gen.draft_pendings = gen.draft_buf, gen.pend_buf
+        # the round's one host synchronisation (a copy: on the CPU numpy()
+        # would share the buffer the next round writes)
+        host = verify.out_buf.cpu().numpy().copy()
+        m1 = host.shape[1] - 2
         out = RoundOutput(tokens=host[:, :m1], n_emitted=host[:, m1],
                           n_accept=host[:, m1 + 1], t0=t0,
                           t1=time.perf_counter())

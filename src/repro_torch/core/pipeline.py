@@ -17,6 +17,10 @@ streamed target is :class:`repro_torch.core.offload.OffloadedModel`).
 
 ``obs`` (:func:`repro_torch.obs.make_obs`) receives the prefill span
 and reaches the pipeline and the planner, as in the JAX package.
+``graphs`` reaches the pipeline (:class:`repro_torch.core.interleave.
+InterleavedPipeline`: by default the rounds run as CUDA graphs on a card
+without a mesh); a pipeline rebuilt for another ``n_cand`` or tree drops
+the old one's graphs and their memory pool.  Prefill stays eager.
 
 ``mesh`` (:mod:`repro_torch.launch.mesh`): :meth:`SpecOffloadEngine.load`
 lays the target and the draft out over it
@@ -65,7 +69,7 @@ class GenerationResult:
 class SpecOffloadEngine:
     def __init__(self, target_cfg: ModelConfig, draft_cfg: ModelConfig,
                  hw: HardwareSpec = ENV1, policy: Policy | None = None,
-                 device="cuda", obs=None, mesh=None):
+                 device="cuda", obs=None, mesh=None, graphs=None):
         self.tcfg = target_cfg
         self.dcfg = draft_cfg
         self.hw = hw
@@ -74,6 +78,7 @@ class SpecOffloadEngine:
         self.placement = plan_placement(target_cfg, draft_cfg, hw)
         self.device = resolve_device(device)
         self.mesh = mesh
+        self.graphs = graphs
         self.tp = None
         self.dp = None
         self._pipe: InterleavedPipeline | None = None
@@ -147,7 +152,7 @@ class SpecOffloadEngine:
         t0 = torch.argmax(lg, dim=-1)
         return BatchState(target_cache=tc, draft_cache=dc, t_next=t0,
                           drafts=None, draft_pendings=None,
-                          emitted=[(t0.cpu().numpy()[:, None], 1)])
+                          emitted=[(_host(t0)[:, None], 1)])
 
     def resume(self, prompt, progress, max_len: int,
                chunk: int) -> BatchState:
@@ -187,7 +192,7 @@ class SpecOffloadEngine:
         t0 = torch.argmax(tlast, dim=-1)
         return BatchState(target_cache=tc, draft_cache=dc, t_next=t0,
                           drafts=None, draft_pendings=None,
-                          emitted=[(t0.cpu().numpy()[:, None], 1)])
+                          emitted=[(_host(t0)[:, None], 1)])
 
     def pipeline(self, n_cand: int, tree=None) -> InterleavedPipeline:
         """The (cached) dual-batch rotation pipeline for ``n_cand`` — or,
@@ -199,7 +204,8 @@ class SpecOffloadEngine:
                 or self._pipe.tree != tree):
             self._pipe = InterleavedPipeline(self.tp, self.tcfg, self.dp,
                                              self.dcfg, n_cand, tree=tree,
-                                             obs=self.obs, mesh=self.mesh)
+                                             obs=self.obs, mesh=self.mesh,
+                                             graphs=self.graphs)
         return self._pipe
 
     def decode_round(self, verify: BatchState, gen: BatchState,
@@ -252,6 +258,12 @@ class SpecOffloadEngine:
         s0, s1, rounds = self.pipeline(m).run(states, gen_len)
         out, accepts = self.finalize([s0, s1], gen_len)
         return GenerationResult(out, rounds, accepts, pol, self.placement)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` (a CPU tensor's ``numpy()`` shares its
+    memory, which the rounds write in place)."""
+    return t.cpu().numpy().copy()
 
 
 def _concat_caches(caches):

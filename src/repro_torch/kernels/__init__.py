@@ -2,7 +2,8 @@
 wrapper module here that launches it on CUDA tensors, and a plain
 PyTorch version in :mod:`repro_torch.kernels.ref` that the wrapper takes
 on CPU tensors.  Each wrapper function counts its kernel launches in its
-``launches`` attribute."""
+``launches`` attribute, on the host where it launches; a CUDA graph's
+replay adds the launches its capture counted (:func:`add_launches`)."""
 
 
 def wrappers() -> tuple:
@@ -36,6 +37,19 @@ def launch_counts() -> dict:
         if hasattr(fn, "offset_launches"):
             counts[f"{fn.__name__} q_offset"] = fn.offset_launches
     return counts
+
+
+def add_launches(counts: dict, sign: int = 1) -> None:
+    """Add ``sign`` times ``counts`` (keys of :func:`launch_counts`) to
+    the wrappers' counters."""
+    for fn in wrappers():
+        name = fn.__name__
+        fn.launches += sign * counts.get(name, 0)
+        for route in getattr(fn, "route_launches", {}):
+            fn.route_launches[route] += sign * counts.get(f"{name} {route}",
+                                                          0)
+        if hasattr(fn, "offset_launches"):
+            fn.offset_launches += sign * counts.get(f"{name} q_offset", 0)
 
 
 def reset_launches() -> None:

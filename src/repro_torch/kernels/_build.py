@@ -12,11 +12,16 @@ Libraries are named by a hash of their source and flags, so an edited
 source is rebuilt and a stale library is never loaded.  ``build_all``
 starts one ``nvcc`` per source at once and waits for all of them.
 
+Kernels that need zeroed scratch shared by the calls of one stream (the
+split-KV counters, the RG-LRU backward's sync words) take it from
+:func:`workspace`, which never allocates inside a CUDA graph capture.
+
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with no ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -202,6 +207,48 @@ def use_kernel(*tensors) -> bool:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_CAPTURE = threading.local()    # .stream: the stream a capture replays on
+_OUTGROWN: list = []            # workspaces replaced by larger ones
+
+
+@contextlib.contextmanager
+def replay_stream(stream: int):
+    """Inside the block :func:`workspace` hands out the buffers of
+    ``stream``, the stream a CUDA graph captured in the block will replay
+    on, in place of the capture stream's: the eager call before the
+    capture made them, and the kernel leaves them zero, so the graph
+    finds them zeroed at every replay."""
+    _CAPTURE.stream = stream
+    try:
+        yield
+    finally:
+        _CAPTURE.stream = None
+
+
+def workspace(table: dict, n: int, dtype, device, stream: int):
+    """At least ``n`` zeroed elements of ``dtype`` that one kernel's calls
+    on ``stream`` share (``table`` holds the kernel's buffers by device
+    and stream; the stream orders the calls, and the kernel leaves the
+    buffer zero).  Made once, or grown, outside any capture: a capture
+    (:func:`replay_stream`) that would make one raises.  A buffer grown
+    out stays allocated, as a captured graph may hold its address."""
+    replay = getattr(_CAPTURE, "stream", None)
+    if replay is not None:           # the legacy default stream is 0
+        stream = replay
+    key = (torch.device(device), stream)
+    buf = table.get(key)
+    if buf is None or buf.numel() < n:
+        if key[0].type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"a {n}-element kernel workspace would be made inside a CUDA "
+                "graph capture: run the call once before capturing it")
+        if buf is not None:
+            _OUTGROWN.append(buf)
+        buf = torch.zeros(n, dtype=dtype, device=device)
+        table[key] = buf
+    return buf
 
 
 def ptr(t) -> int | None:

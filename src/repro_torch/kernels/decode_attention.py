@@ -55,7 +55,8 @@ def split_workspace(b: int, hkv: int, splits: int, rows: int, d: int,
     partials (B, Hkv, n_split, rows, d) and their (m, l) pairs from
     ``torch.empty``, and int32 counters, one per (sequence, KV head),
     allocated zeroed once per device and stream (calls on one stream run
-    in order, so they may share them) and kept at zero by the kernel;
+    in order, so they may share them) and kept at zero by the kernel
+    (:func:`repro_torch.kernels._build.workspace`);
     (None, None, None) for one split.  The wrappers count each row group
     of a head as a head of its own, with ``rows`` the group's."""
     if splits == 1:
@@ -64,12 +65,8 @@ def split_workspace(b: int, hkv: int, splits: int, rows: int, d: int,
                            device=device)
     part_ml = torch.empty((b, hkv, splits, rows, 2), dtype=torch.float32,
                           device=device)
-    key = (torch.device(device), stream)
-    cnt = _COUNTERS.get(key)
-    if cnt is None or cnt.numel() < b * hkv:
-        cnt = torch.zeros(max(1024, b * hkv), dtype=torch.int32,
-                          device=device)
-        _COUNTERS[key] = cnt
+    cnt = _build.workspace(_COUNTERS, max(1024, b * hkv), torch.int32,
+                           device, stream)
     return part_acc, part_ml, cnt
 
 

@@ -155,12 +155,9 @@ def _sync_words(n: int, device, stream: int) -> torch.Tensor:
     """At least ``n`` zeroed int64 words for the chunked route's ticket,
     slab counts and carries on ``stream``: the kernel leaves them zero, so
     one buffer a stream is zeroed once, when it is made or grown (the
-    stream orders the calls that share it)."""
-    words = _SYNC.get((device, stream))
-    if words is None or words.numel() < n:
-        words = torch.zeros(n, dtype=torch.int64, device=device)
-        _SYNC[(device, stream)] = words
-    return words
+    stream orders the calls that share it;
+    :func:`repro_torch.kernels._build.workspace`)."""
+    return _build.workspace(_SYNC, n, torch.int64, device, stream)
 
 
 def bwd_route(w: int, x_dtype, *tensors) -> str:

@@ -2,6 +2,7 @@
 
     python -m repro_torch.launch.profile_serve [--arch mixtral-8x7b]
         [--layers 4] [--contiguous] [--tree 3,2] [--rounds 20] [--ttft 8]
+        [--eager]
 
 Builds a serving configuration of ``chip_smoke.py``'s serve phase
 (``--arch`` target — Mixtral-8x7B by default, or RWKV-6-7B or
@@ -18,13 +19,16 @@ untraced steps first (the profiler slows the host); then it prints the
 device time per round over the traced steps, the device's idle share
 (one minus device time over untraced wall time), and the device time
 and launches per round by kernel and by group (the port's kernels,
-cuBLAS products, the rest); in tree mode also the device time of the
-plain masked attention that the draft's level feeds run (the
-``models.attention.TREE_PLAIN_RANGE`` ranges: on the card a tree round
-enters one per level feed and layer).  ``--ttft N`` first serves N
-Poisson requests on the same engine as ``chip_smoke.py``'s serve runs do
-(prompt 512, generation 32-64, 4 requests/s, seed 0) and prints their
-time to first token on the virtual clock.  ``--trace PATH`` also writes
+cuBLAS products, the rest).  The rounds run as the pipeline's CUDA
+graphs (captured during the warmup steps), or eagerly with
+``--eager``; in tree mode the eager route also prints the device time
+of the plain masked attention that the draft's level feeds run (the
+``models.attention.TREE_PLAIN_RANGE`` ranges: a tree round enters one
+per level feed and layer), which a graph's replay does not enter.
+``--ttft N`` first serves N Poisson requests on the same engine as
+``chip_smoke.py``'s serve runs do (prompt 512, generation 32-64, 4
+requests/s, seed 0) and prints their time to first token on the
+virtual clock.  ``--trace PATH`` also writes
 the Chrome trace.  Needs a CUDA card.
 """
 from __future__ import annotations
@@ -108,6 +112,8 @@ def main(argv=None):
                     help="first serve this many requests and print TTFT")
     ap.add_argument("--trace", default=None,
                     help="write the Chrome trace of the traced steps here")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the rounds eagerly instead of as CUDA graphs")
     args = ap.parse_args(argv)
 
     tcfg = get_config(args.arch)
@@ -121,7 +127,8 @@ def main(argv=None):
     eng = ServingEngine(tcfg, dcfg, device="cuda",
                         config=SchedulerConfig(max_batch=4, n_cand=4,
                                                paged=not args.contiguous,
-                                               spec_tree=tree))
+                                               spec_tree=tree,
+                                               graphs=not args.eager))
     g = torch.Generator(device="cuda").manual_seed(0)
     eng.load(init_params(tcfg, g, "cuda"), init_params(dcfg, g, "cuda"))
     if args.ttft:
@@ -165,7 +172,9 @@ def main(argv=None):
           f"layers, draft {dcfg.n_layers} layers, "
           f"{'contiguous' if args.contiguous else 'paged'}, "
           + (f"tree {tree}" if tree else "chain n_cand 4")
-          + f", {args.rounds} steady-state rounds")
+          + f", {'eager' if args.eager else 'CUDA graphs'}, "
+          f"{args.rounds} steady-state rounds; graph captures "
+          f"{eng.stats()['graph_captures']}")
     print(f"wall {wall_ms:.3f} ms/round, device {busy:.3f} ms/round, "
           f"device idle share {1 - busy / wall_ms:.3f}")
     left = dict(dev_ms)
@@ -176,10 +185,13 @@ def main(argv=None):
         print(f"  {label:<32} {sum(hit.values()):9.3f} ms/round "
               f"({sum(hit.values()) / max(busy, 1e-9):.1%} of device time, "
               f"{sum(calls[k] for k in hit):.1f} launches/round)")
-    if tree:
+    if tree and args.eager:
         ms, n = _level_feed_ms(prof, args.rounds)
         print(f"  {TREE_PLAIN_RANGE:<32} {ms:9.3f} ms/round ({n:.1f} "
               "ranges/round; its kernels are inside the groups above)")
+    elif tree:
+        print(f"  {TREE_PLAIN_RANGE}: with --eager only (a graph's replay "
+              "enters no range)")
     print("top kernels by device time:")
     for k, v in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {v:9.4f} ms/round  {k[:110]}")

@@ -178,12 +178,13 @@ def apply_norm(params: dict, x: torch.Tensor, kind: str = "rmsnorm",
 
 def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
     """sin/cos tables for integer ``positions`` (any shape), each of shape
-    ``positions.shape + (head_dim // 2,)`` in f32."""
+    ``positions.shape + (head_dim // 2,)`` in f32.  The base is a host
+    scalar, never a tensor copied to the card (a CUDA graph's capture
+    cannot hold a copy from pageable memory)."""
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    freqs = torch.pow(float(theta), exps)
     angles = positions.float()[..., None] * freqs
     return torch.sin(angles), torch.cos(angles)
 
@@ -271,6 +272,5 @@ def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
     f32: sin of the ``d // 2`` angles, then their cos."""
     pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
-    angle = pos / torch.pow(torch.tensor(10_000.0, device=device),
-                            2 * dim / d)
+    angle = pos / torch.pow(10_000.0, 2 * dim / d)
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)

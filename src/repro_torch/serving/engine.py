@@ -8,7 +8,9 @@ request-level observability.
 * Each of the two interleaved half-batches is a fixed-shape
   :class:`BatchState` of ``max_batch`` slots, so the fused round runs at
   one input shape signature for the whole serving lifetime
-  (``trace_counts["fused"] == 1``).
+  (``trace_counts["fused"] == 1``); its tensors keep their addresses
+  (admission and retirement write them in place), so on a card the
+  round runs as CUDA graphs (``SchedulerConfig.graphs``).
 * Per-slot sequence state lives on the host.  A sequence retires the
   moment it emits EOS or reaches its own ``max_new_tokens``.
 * Freed slots are refilled mid-flight at round boundaries: a queued
@@ -166,6 +168,8 @@ class SchedulerConfig:
                                   # max_len
     kv_quant_cold: bool = False   # int8-quantize the pool on write (paged)
     prefix_cache: bool = True     # hash-chain dedup of full prompt blocks
+    graphs: bool | None = None    # the round as CUDA graphs: None on a
+                                  # card, False eager (InterleavedPipeline)
     # ---- observability (repro_torch.obs) ----
     metrics: bool = True          # counter/gauge/histogram registry; reads
                                   # only the round's host copy
@@ -267,7 +271,7 @@ class ServingEngine:
                             if self._slos else None)
         self.engine = SpecOffloadEngine(self.target_cfg, self.draft_cfg,
                                         self.hw, device=self.device,
-                                        obs=self.obs)
+                                        obs=self.obs, graphs=cfg.graphs)
         self._halves = None           # two BatchState of max_batch slots
         self._slots = None            # parallel host-side _Slot lists
         self._allocs = None           # per-half BlockAllocator
@@ -1150,6 +1154,9 @@ class ServingEngine:
             "accept_hist": hist.tolist(),
             "fused_compiles": 0 if pipe is None
             else pipe.trace_counts["fused"],
+            "graph_captures": ({} if pipe is None
+                               else dict(pipe.graph_captures)),
+            "capture_s": 0.0 if pipe is None else pipe.capture_s,
             "rejected": self.rejected_total,
             "preempted": self.preempted_total,
             "replans": len(self.replan_events),
