@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --eq-readings   # 5t-eq-k's limit readings only
+    python3 chip_smoke.py --trace-check   # run 3g-tr alone
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; imports nothing of JAX.  Phases, each printed
@@ -113,15 +114,22 @@ on its own lines with its wall seconds:
    ``max_new_tokens`` and equal to the request's result, at least one
    preemption, ``pipeline_traces_total{entry="fused"} == 1`` through the
    registry, the metrics snapshot, Prometheus text and timelines valid;
-   (g-tr) (a)'s trace again with the span tracer fencing every device
-   span and entering ``record_function`` ranges: tok/s beside (a)'s,
-   steady rounds in ABBA windows against an untraced engine on the same
-   weights (the fences' cost on one host), the bubble report (``gpu_busy_frac``, ``mean_round_busy_frac``,
-   stall, idle, rounds), span seconds per track, the Chrome trace
-   validated, then 5 steady rounds timed and 5 under ``torch.profiler``
-   (the ranges ``target_verify/verify(fused)`` and ``rollback/rollback``
+   (g-tr) (a)'s trace again with the span tracer on (device spans timed
+   by marks, never a synchronisation) and entering ``record_function``
+   ranges: tok/s beside (a)'s, steady rounds in ABBA windows against an
+   untraced engine on the same weights (the marks' cost on one host),
+   the bubble report (``gpu_busy_frac``, ``mean_round_busy_frac``,
+   stall, idle, rounds), span seconds per track, the round graphs' node
+   counts, the Chrome trace validated, then 5 steady rounds timed and 5
+   under ``torch.profiler`` (the ranges ``target_verify/verify(fused)``,
+   ``rollback/rollback``, ``launch/fused`` and ``launch/rollback``
    required): the device's kernel time over the rounds' wall beside the
-   report's busy fraction of the same rounds;
+   report's busy fraction of the same rounds, and the tracer's clock
+   against the profiler's (:func:`clock_check`: every device span's two
+   ends against the profiler's start of the mark kernels that timed
+   them, target 20 us; every host span's start against its
+   ``record_function`` range, target 50 us); ``--trace-check`` runs
+   (g-tr) alone;
 4. lossless, f32, ``max_batch=2``, 6 requests with mid-flight
    admission, every stream equal to the port's own target-only greedy
    decode: Mixtral / Mistral widths (2 layers) paged and contiguous,
@@ -2578,13 +2586,89 @@ def _track_totals(tracer) -> dict:
     return out
 
 
+def clock_check(label, tracer, prof) -> None:
+    """The tracer's clock against ``torch.profiler``'s over one profiled
+    stretch: each device span's two ends against the start of the mark
+    kernels that timed it (the nearest of the right name), each host
+    span's start against the start of its ``record_function`` range of
+    the same name; both traces' ``ts`` on the profiler's time base.
+    Printed with the targets (20 us, 50 us); an error over 1 ms fails."""
+    import tempfile
+
+    from repro_torch.obs.trace import tracer_track_name
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            ptrace = json.load(f)
+    finally:
+        os.remove(path)
+    events = ptrace["traceEvents"] if isinstance(ptrace, dict) else ptrace
+    shift = 0.0
+    if isinstance(ptrace, dict) and "baseTimeNanoseconds" in ptrace:
+        shift = (tracer.base_ns - int(ptrace["baseTimeNanoseconds"])) / 1e3
+    marks, ranges = {}, {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        name, cat = e.get("name", ""), e.get("cat", "")
+        if cat == "kernel" and name.startswith("obs_mark_"):
+            marks.setdefault(name.split("(")[0][9:], []).append(
+                float(e["ts"]))
+        elif cat == "user_annotation":
+            ranges.setdefault(name, []).append(float(e["ts"]))
+    if not marks:
+        print(f"  [{label}] clock check: no mark kernel in the profiler's "
+              "trace")
+        return
+    lo = min(min(v) for v in marks.values()) - 1e3
+    hi = max(max(v) for v in marks.values()) + 1e3
+    ends = {"verify(fused)": ("round_begin", "draft_begin"),
+            "draft(fused)": ("draft_begin", "round_end"),
+            "rollback": ("rollback_begin", "rollback_end")}
+
+    def near(ts, kind):
+        return min(abs(ts - t) for t in marks.get(kind, [float("inf")]))
+    dev_err, host_err = [], []
+    for ev in tracer.events:
+        if ev.get("ph") != "X":
+            continue
+        ts = ev["ts"] + shift
+        if not lo <= ts <= hi:
+            continue
+        args = ev.get("args", {})
+        if "device_ts" in args:
+            a = args["device_ts"] + shift
+            b = a + args["device_dur"]
+            k0, k1 = ends.get(ev["name"], ("span", "span"))
+            dev_err += [near(a, k0), near(b, k1)]
+        name = f"{tracer_track_name(tracer, ev['tid'])}/{ev['name']}"
+        if name in ranges:
+            host_err.append(min(abs(ts - t) for t in ranges[name]))
+    for what, errs, target in (("device spans vs mark kernels", dev_err,
+                                20.0),
+                               ("host spans vs record_function", host_err,
+                                50.0)):
+        if not errs:
+            print(f"  [{label}] clock check, {what}: nothing to compare")
+            continue
+        errs = sorted(errs)
+        print(f"  [{label}] clock check, {what}: {len(errs)} ends, error "
+              f"median {errs[len(errs) // 2]:.2f} us, max {errs[-1]:.2f} "
+              f"us (target {target:g} us: "
+              f"{'met' if errs[-1] <= target else 'MISSED'})")
+        assert errs[-1] < 1e3, f"[{label}] {what}: {errs[-1]:.1f} us"
+
+
 def traced_run(label, steady=5) -> None:
-    """3a's trace served closed loop with the span tracer fencing every
-    device span and entering ``record_function`` ranges; the bubble
-    report beside the untraced 3a; then ``steady`` full rounds timed and
-    ``steady`` more under ``torch.profiler``: the device's kernel time
-    over the rounds' wall beside the report's busy fraction of the
-    same rounds."""
+    """3a's trace served closed loop with the span tracer on (device spans
+    timed by marks) and entering ``record_function`` ranges; the bubble
+    report beside the untraced 3a (when it ran in this call); then
+    ``steady`` full rounds timed and ``steady`` more under
+    ``torch.profiler``: the device's kernel time over the rounds' wall
+    beside the report's busy fraction of the same rounds, and
+    :func:`clock_check` on them."""
     import torch
 
     from repro_torch.configs import MIXTRAL_8X7B, draft_for
@@ -2599,8 +2683,7 @@ def traced_run(label, steady=5) -> None:
     mix = dataclasses.replace(MIXTRAL_8X7B, n_layers=SERVE_LAYERS)
     mis = draft_for(mix, SERVE_LAYERS)
     eng = _engine(mix, mis, SchedulerConfig(
-        max_batch=4, n_cand=4, trace=True, trace_fence=True,
-        trace_annotations=True), seed=0)
+        max_batch=4, n_cand=4, trace=True, trace_annotations=True), seed=0)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, mix.vocab_size, 512).astype(np.int32)
                for _ in range(12)]
@@ -2614,14 +2697,15 @@ def traced_run(label, steady=5) -> None:
     launches = launch_counts()
     st = eng.stats()
     rep = bubble_report(eng.obs.tracer)
-    base = RUN_STATS["3a"]
-    print(f"  [{label}] traced (fence, record_function) 3a: served "
+    base = RUN_STATS.get("3a")
+    print(f"  [{label}] traced (marks, record_function) 3a: served "
           f"{len(done)} requests, {st['tokens_out']} tokens: "
           f"{st['tok_per_s']:.2f} tok/s over {st['rounds']} rounds, round "
-          f"p50={1e3 * st['round_s_p50']:.2f}ms; untraced 3a in this call "
-          f"{base['tok_per_s']:.2f} tok/s, round p50="
-          f"{1e3 * base['round_s_p50']:.2f}ms (traced / untraced tok/s "
-          f"{st['tok_per_s'] / base['tok_per_s']:.4f})")
+          f"p50={1e3 * st['round_s_p50']:.2f}ms" + (
+              f"; untraced 3a in this call {base['tok_per_s']:.2f} tok/s, "
+              f"round p50={1e3 * base['round_s_p50']:.2f}ms (traced / "
+              f"untraced tok/s {st['tok_per_s'] / base['tok_per_s']:.4f})"
+              if base else ""))
     print(f"  [{label}] bubble report: gpu_busy_frac={rep['gpu_busy_frac']:.4f}"
           f" mean_round_busy_frac={rep['mean_round_busy_frac']:.4f} "
           f"stall_s={rep['stall_s']:.4f} idle_s={rep['idle_s']:.4f} "
@@ -2630,20 +2714,25 @@ def traced_run(label, steady=5) -> None:
     print(f"  [{label}] span seconds per track: " + ", ".join(
         f"{k}={v:.4f}" for k, v in sorted(_track_totals(
             eng.obs.tracer).items())))
+    print(f"  [{label}] graph nodes: {st['graph_nodes']}; marks launched "
+          f"{eng.obs.tracer.marks.launches}")
     assert len(done) == 12 and st["fused_compiles"] == 1
     _check_graphs(label, st)
     print(f"  [{label}] {_graph_line(st)}")
     for name in ("paged_decode_attention", "flash_attention", "moe_ffn"):
         assert launches[name] > 0, f"{name} was never launched in run {label}"
+    timed = [e for e in eng.obs.tracer.events
+             if "device_ts" in e.get("args", {})]
+    assert timed, f"[{label}] no device span timed by marks"
     trace = eng.chrome_trace()
     probs = validate_chrome_trace(trace)
     assert probs == [], f"[{label}] chrome trace: {probs[:5]}"
     print(f"  [{label}] chrome trace valid ({len(trace['traceEvents'])} "
-          "events)")
+          f"events, {len(timed)} device spans timed by marks)")
 
     # steady rounds: every slot live, nobody retires in the windows; an
     # untraced engine on the same weights alternates with the traced one
-    # (ABBA) for the fences' cost on one host
+    # (ABBA) for the marks' cost on one host
     plain = ServingEngine(mix, mis, config=SchedulerConfig(
         max_batch=4, n_cand=4, max_len=eng._max_len), device="cuda")
     plain.load(eng.engine.tp, eng.engine.dp)
@@ -2668,7 +2757,7 @@ def traced_run(label, steady=5) -> None:
     med = {k: float(np.median(w)) for k, w in walls.items()}
     print(f"  [{label}] steady rounds, ABBA x2 of {steady} rounds: untraced "
           f"{[round(w, 3) for w in walls['untraced']]} ms/round (median "
-          f"{med['untraced']:.3f}), traced and fenced "
+          f"{med['untraced']:.3f}), traced "
           f"{[round(w, 3) for w in walls['traced']]} (median "
           f"{med['traced']:.3f}): traced / untraced "
           f"{med['traced'] / med['untraced']:.4f}")
@@ -2691,7 +2780,8 @@ def traced_run(label, steady=5) -> None:
         torch.cuda.synchronize()
     averages = prof.key_averages()
     ranges = {e.key for e in averages if e.key.split("/")[0] in TRACKS}
-    for want in ("target_verify/verify(fused)", "rollback/rollback"):
+    for want in ("target_verify/verify(fused)", "rollback/rollback",
+                 "launch/fused", "launch/rollback"):
         assert want in ranges, f"[{label}] no record_function range {want}"
     kernels = [e for e in averages
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -2699,10 +2789,11 @@ def traced_run(label, steady=5) -> None:
     dev_ms = sum(_device_us(e) for e in kernels) / 1e3 / steady
     print(f"  [{label}] record_function ranges: {sorted(ranges)}")
     print(f"  [{label}] {steady} steady rounds: wall {wall_ms:.3f} ms/round "
-          f"(traced, fenced), device kernels {dev_ms:.3f} ms/round under "
+          f"(traced), device kernels {dev_ms:.3f} ms/round under "
           f"the profiler: profiler busy share {dev_ms / wall_ms:.4f} "
           f"(idle share {1 - dev_ms / wall_ms:.4f}) vs bubble report "
           f"busy_frac {report_busy:.4f} over the same rounds")
+    clock_check(label, eng.obs.tracer, prof)
     eng.run()
     print(f"  [{label}] run wall {time.perf_counter() - t_run:.1f}s",
           flush=True)
@@ -4573,6 +4664,10 @@ def main() -> int:
     print(smi)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
+    if "--trace-check" in sys.argv[1:]:
+        print("== 3g-tr alone (kernels built at first use)")
+        traced_run("3g-tr")
+        return 0
     t0 = time.perf_counter()
     per_source = _build.build_all()
     print(f"  kernels built in {time.perf_counter() - t0:.2f}s wall "

@@ -32,11 +32,16 @@ captured and replayed at once, later times replayed.  The rotation swaps
 the halves, so each entry sees two keys.  A round over a mesh stays
 eager (gloo's collectives run on the host and cannot be captured).
 Each round reads its tokens to the host once, after the replay, and
-that is its only synchronisation; a tracer that fences (``obs``, off by
-default) adds one at the end of each device span.
+that is its only synchronisation.  A tracer with a stamp source (``obs``,
+off by default; :mod:`repro_torch.obs.trace`) adds none: the fused
+round puts marks at its start, at the verify / draft boundary and at its
+end, the rollback at its start and end (captured into the graphs only
+when the tracer is on), and the tracer reads them after the round's host
+read.  Each replay is a host span on the ``launch`` track.
 """
 from __future__ import annotations
 
+import ctypes
 import time
 from dataclasses import dataclass
 
@@ -89,12 +94,14 @@ class RoundOutput:
 def fused_verify_and_draft(target_params, target_cfg: ModelConfig,
                            draft_params, draft_cfg: ModelConfig,
                            verify_state: dict, draft_state: dict,
-                           n_cand: int, mesh=None):
+                           n_cand: int, mesh=None, mark=None):
     """The fused round: the target verifies batch V's drafts while the
     draft model generates candidates for batch D.
 
     verify_state: {target_cache, t_next, drafts}
     draft_state:  {draft_cache, t_next}
+    ``mark``: called with "draft_begin" between the target's commit and
+    the draft's passes (the tracer's boundary mark).
     Returns (verify_out, draft_out).
     """
     drafts = verify_state["drafts"]
@@ -104,6 +111,8 @@ def fused_verify_and_draft(target_params, target_cfg: ModelConfig,
                                       mesh)
     a, nxt, n_commit = greedy_acceptance(drafts, tlogits)
     tcache = M.commit(target_cfg, tcache, tpend, n_commit, n_cand + 1)
+    if mark is not None:
+        mark("draft_begin")
 
     new_drafts, _, dcache, dpend = draft_generate(
         draft_params, draft_cfg, draft_state["draft_cache"],
@@ -120,10 +129,11 @@ def fused_verify_and_draft(target_params, target_cfg: ModelConfig,
 def fused_tree_verify_and_draft(target_params, target_cfg: ModelConfig,
                                 draft_params, draft_cfg: ModelConfig,
                                 verify_state: dict, draft_state: dict,
-                                branching: tuple, mesh=None):
+                                branching: tuple, mesh=None, mark=None):
     """Tree-mode fused round: the target verifies batch V's speculation
     tree (ancestor-masked, one forward over all ``n_nodes`` buffer rows)
-    while the draft expands a fresh tree for batch D.
+    while the draft expands a fresh tree for batch D (``mark`` as in
+    :func:`fused_verify_and_draft`).
 
     verify_state: {target_cache, draft_cache, t_next, drafts} where
     ``drafts`` is the (B, N) BFS token buffer (column 0 == t_next).  Both
@@ -143,6 +153,8 @@ def fused_tree_verify_and_draft(target_params, target_cfg: ModelConfig,
     tcache = tree_commit_cache(target_cfg, tcache, path_idx, a, branching)
     vdcache = tree_commit_cache(draft_cfg, verify_state["draft_cache"],
                                 path_idx, a, branching, pos_offset=n_nodes)
+    if mark is not None:
+        mark("draft_begin")
 
     drafts, _, dcache = draft_tree_generate(
         draft_params, draft_cfg, draft_state["draft_cache"],
@@ -203,13 +215,29 @@ def capture_graph(body, pool=None):
     stream, none run) to replay on the current stream, whose kernel
     workspaces they use (:func:`repro_torch.kernels._build.replay_stream`).
     ``thread_local``: the asyncio front door runs rounds in a worker
-    thread while its loop thread goes on."""
-    graph = torch.cuda.CUDAGraph()
+    thread while its loop thread goes on.  The captured graph is kept
+    beside its instantiation (``keep_graph``), so :func:`graph_nodes` can
+    count it."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     with _build.replay_stream(torch.cuda.current_stream().cuda_stream), \
             torch.cuda.graph(graph, pool=pool,
                              capture_error_mode="thread_local"):
         body()
+    graph.instantiate()
     return graph
+
+
+def graph_nodes(graph) -> int | None:
+    """The nodes of a captured CUDA graph (``cuGraphGetNodes`` on
+    ``raw_cuda_graph()``), or None for a test's stand-in."""
+    try:
+        handle = graph.raw_cuda_graph()
+    except AttributeError:
+        return None
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(handle), None, ctypes.byref(n))
+    return int(n.value) if rc == 0 else None
 
 
 class RoundGraph:
@@ -218,7 +246,9 @@ class RoundGraph:
     The kernel wrappers count launches on the host, which the capture
     runs and a replay does not: the capture's counts are taken back and
     added again at every replay, so the counts are the launches the card
-    ran."""
+    ran.  ``nodes``: the graph's node count (:func:`graph_nodes`);
+    ``marks``: the tracer's marks the capture recorded, [(kind, slot)],
+    which every replay stamps anew."""
 
     def __init__(self, body, pool=None, capture=capture_graph):
         before = launch_counts()
@@ -226,6 +256,8 @@ class RoundGraph:
         self.launches = {k: n - before[k] for k, n in launch_counts().items()
                          if n != before[k]}
         add_launches(self.launches, -1)
+        self.nodes = graph_nodes(self.graph)
+        self.marks: list = []
 
     def replay(self) -> None:
         self.graph.replay()
@@ -245,10 +277,12 @@ class InterleavedPipeline:
     keeps them eager.  A capture or replay that fails raises.  ``tree``
     (a branching tuple) selects tree mode, which needs all-attention
     decoder-only target and draft models; its rounds never call the
-    rollback entry.  ``obs`` receives the warmup, verify, draft and
-    rollback spans.  Over a ``mesh`` (the parameters and caches the
-    rank's, :class:`repro_torch.core.pipeline.SpecOffloadEngine` with a
-    mesh) every rank runs the same rounds on the same tokens.
+    rollback entry.  ``obs`` receives the warmup, verify, draft, rollback
+    and launch spans, and ``pipeline_graph_nodes{entry}`` (the node count
+    of each entry's latest graph, also ``graph_nodes``).  Over a ``mesh``
+    (the parameters and caches the rank's,
+    :class:`repro_torch.core.pipeline.SpecOffloadEngine` with a mesh)
+    every rank runs the same rounds on the same tokens.
     """
 
     def __init__(self, target_params, target_cfg, draft_params, draft_cfg,
@@ -275,11 +309,14 @@ class InterleavedPipeline:
         self._seen = {k: set() for k in self.trace_counts}
         self._exported_traces = {k: 0 for k in self.trace_counts}
         self.graph_captures = {k: 0 for k in self.trace_counts}
+        self.graph_nodes: dict = {}
         self.capture_s = 0.0
         self.capture = capture_graph     # a test may pass a stand-in
         self._graphs: dict = {}          # key -> RoundGraph
         self._eager: set = set()         # keys run eagerly once
         self._pool = None                # one memory pool for every graph
+        self._got: list = []             # the run's marks, [(kind, handle)]
+        self._capturing = False
 
     def _count(self, entry: str, *trees) -> None:
         sig = _signature(*trees)
@@ -309,13 +346,22 @@ class InterleavedPipeline:
             raise ValueError("graphs=True needs the states on a card")
         return self.graphs
 
-    def _run(self, entry: str, touched, body, graphs: bool) -> None:
+    def _mark(self, kind: str) -> None:
+        """Put the tracer's mark ``kind`` on the stream (nothing without a
+        stamp source): eagerly, or into the graph being captured."""
+        tr = self.obs.tracer
+        if tr.marks is not None:
+            self._got.append((kind, tr.mark(kind, keep=self._capturing)))
+
+    def _run(self, entry: str, touched, body, graphs: bool) -> dict:
         """Run ``body``, an entry point writing its results into the
         states' buffers: eagerly, or by the graph protocol of the module's
-        docstring, keyed on the shapes and addresses of ``touched()``."""
+        docstring, keyed on the shapes and addresses of ``touched()``.
+        Returns the marks the run put on the stream, {kind: handle}."""
+        self._got = []
         if not graphs:
             body()
-            return
+            return dict(self._got)
 
         def key():
             trees = touched()
@@ -327,15 +373,29 @@ class InterleavedPipeline:
             t0 = time.perf_counter()
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            graph = self._graphs[now] = RoundGraph(body, self._pool,
-                                                   self.capture)
+            self._capturing = True
+            try:
+                graph = RoundGraph(body, self._pool, self.capture)
+            finally:
+                self._capturing = False
+            graph.marks = [(k, h[0]) for k, h in self._got if h is not None]
+            self._graphs[now] = graph
             self.graph_captures[entry] += 1
             self.capture_s += time.perf_counter() - t0
+            if graph.nodes is not None:
+                self.graph_nodes[entry] = graph.nodes
+                self.obs.metrics.gauge(
+                    "pipeline_graph_nodes",
+                    "nodes of each entry point's latest CUDA graph").set(
+                        graph.nodes, entry=entry)
         if graph is not None:
-            graph.replay()
-            return
+            with self.obs.tracer.span("launch", entry):
+                t = time.perf_counter()
+                graph.replay()
+            return {k: (slot, t) for k, slot in graph.marks}
         body()
         self._eager.add(key())       # with any buffer the run made
+        return dict(self._got)
 
     # ------------------------------------------------------------------
     def _draft_body(self, state: BatchState) -> None:
@@ -359,26 +419,26 @@ class InterleavedPipeline:
             return
         self._count("draft", state.draft_cache, state.t_next)
         with self.obs.tracer.span("draft_generate", "warmup",
-                                  cat="device") as sp:
+                                  cat="device", stream=True):
             self._run("draft", lambda: (state.draft_cache, state.t_next,
                                         state.draft_buf, state.pend_buf),
                       lambda: self._draft_body(state),
                       self._use_graphs(state))
-            sp.fence(state.draft_buf)
         state.drafts, state.draft_pendings = state.draft_buf, state.pend_buf
 
     def _fused_body(self, verify: BatchState, gen: BatchState,
                     vstate: dict, dstate: dict) -> None:
+        self._mark("round_begin")
         if self.tree is not None:
             vout, dout = fused_tree_verify_and_draft(
                 self.tp, self.tcfg, self.dp, self.dcfg, vstate, dstate,
-                self.tree, self.mesh)
+                self.tree, self.mesh, self._mark)
             # batch V's draft cache was compacted inside the fused round
             verify.draft_cache["pos"].copy_(vout["draft_cache"]["pos"])
         else:
             vout, dout = fused_verify_and_draft(
                 self.tp, self.tcfg, self.dp, self.dcfg, vstate, dstate,
-                self.n_cand, self.mesh)
+                self.n_cand, self.mesh, self._mark)
         verify.target_cache["pos"].copy_(vout["target_cache"]["pos"])
         verify.t_next.copy_(vout["t_next"])
         verify.out_buf = _hold(verify.out_buf, torch.cat(
@@ -387,14 +447,17 @@ class InterleavedPipeline:
         gen.draft_cache["pos"].copy_(dout["draft_cache"]["pos"])
         gen.draft_buf = _hold(gen.draft_buf, dout["drafts"])
         gen.pend_buf = _hold(gen.pend_buf, dout["pendings"])
+        self._mark("round_end")
 
     def _rollback_body(self, verify: BatchState) -> None:
         """Batch V: roll its draft cache back to the accepted prefix (the
         round's ``n_emitted`` column of its output row)."""
+        self._mark("rollback_begin")
         n_emitted = verify.out_buf[:, -2]
         dc = rollback_draft(self.dcfg, verify.draft_cache, verify.pend_buf,
                             n_emitted)
         verify.draft_cache["pos"].copy_(dc["pos"])
+        self._mark("rollback_end")
 
     def step(self, verify: BatchState, gen: BatchState,
              record: bool = True) -> RoundOutput:
@@ -416,32 +479,36 @@ class InterleavedPipeline:
         self._count("fused", vstate, dstate)
         graphs = self._use_graphs(verify)
         tr = self.obs.tracer
-        # the fused round does both phases: record it as anti-phase twins,
-        # a verify span plus a draft span mirrored over the same interval
+        # the fused round does both phases: a verify span and a draft
+        # span, on the device split by the round's boundary mark; timed
+        # on the host, the draft span mirrors the verify's interval
         # (bubble accounting unions the overlap)
         with tr.span("target_verify", "verify(fused)", cat="device") as sp:
-            self._run("fused", lambda: (vstate, dstate, verify.out_buf,
-                                        gen.draft_buf, gen.pend_buf),
-                      lambda: self._fused_body(verify, gen, vstate, dstate),
-                      graphs)
-            sp.fence((verify.out_buf, gen.draft_buf))
+            got = self._run("fused", lambda: (vstate, dstate, verify.out_buf,
+                                              gen.draft_buf, gen.pend_buf),
+                            lambda: self._fused_body(verify, gen, vstate,
+                                                     dstate), graphs)
+            sp.device(got.get("round_begin"), got.get("draft_begin"))
         if tr.enabled:
             tr.complete("draft_generate", "draft(fused)", sp.t0, sp.t1,
-                        cat="device")
+                        cat="device", device=(got.get("draft_begin"),
+                                              got.get("round_end")))
         if self.tree is None:
             self._count("rollback", verify.draft_cache,
                         verify.draft_pendings)
             with tr.span("rollback", "rollback", cat="device") as rb:
-                self._run("rollback", lambda: (verify.draft_cache,
-                                               verify.pend_buf,
-                                               verify.out_buf),
-                          lambda: self._rollback_body(verify), graphs)
-                rb.fence(verify.draft_cache["pos"])
+                got = self._run("rollback", lambda: (verify.draft_cache,
+                                                     verify.pend_buf,
+                                                     verify.out_buf),
+                                lambda: self._rollback_body(verify), graphs)
+                rb.device(got.get("rollback_begin"), got.get("rollback_end"))
         verify.drafts, verify.draft_pendings = None, None
         gen.drafts, gen.draft_pendings = gen.draft_buf, gen.pend_buf
         # the round's one host synchronisation (a copy: on the CPU numpy()
-        # would share the buffer the next round writes)
+        # would share the buffer the next round writes), after which the
+        # tracer reads the round's marks
         host = verify.out_buf.cpu().numpy().copy()
+        tr.resolve(time.perf_counter())
         m1 = host.shape[1] - 2
         out = RoundOutput(tokens=host[:, :m1], n_emitted=host[:, m1],
                           n_accept=host[:, m1 + 1], t0=t0,

@@ -32,6 +32,7 @@ are sharded, so its prefill takes the mesh too.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -141,18 +142,24 @@ class SpecOffloadEngine:
                                   device=self.device)
         bs_prefill = bs_prefill or max(1, prompts.shape[0])
         with self.obs.tracer.span("prefill", "zigzag_prefill",
-                                  cat="device") as sp:
+                                  cat="device", stream=True) as sp:
             lg, tc = self._prefill_zigzag(self.tp, self.tcfg, prompts,
                                           bs_prefill, max_len)
             _, dc = self._prefill_zigzag(self.dp, self.dcfg, prompts,
                                          bs_prefill, max_len)
-            sp.fence((lg, tc, dc))
             sp.set("batch", int(prompts.shape[0]))
             sp.set("prompt_len", int(prompts.shape[1]))
-        t0 = torch.argmax(lg, dim=-1)
+        return self._first_token(tc, dc, lg)
+
+    def _first_token(self, tc, dc, last_logits) -> BatchState:
+        """The state whose first greedy token is read to the host: the
+        synchronisation that resolves the tracer's device spans."""
+        t0 = torch.argmax(last_logits, dim=-1)
+        first = _host(t0)
+        self.obs.tracer.resolve(time.perf_counter())
         return BatchState(target_cache=tc, draft_cache=dc, t_next=t0,
                           drafts=None, draft_pendings=None,
-                          emitted=[(_host(t0)[:, None], 1)])
+                          emitted=[(first[:, None], 1)])
 
     def resume(self, prompt, progress, max_len: int,
                chunk: int) -> BatchState:
@@ -174,7 +181,7 @@ class SpecOffloadEngine:
         toks = torch.as_tensor(np.asarray(progress)[None], dtype=torch.int64,
                                device=self.device)
         with self.obs.tracer.span("prefill", "resume_decode",
-                                  cat="device") as sp:
+                                  cat="device", stream=True) as sp:
             caches = []
             for params, cfg, cache in ((self.tp, self.tcfg, st.target_cache),
                                        (self.dp, self.dcfg, st.draft_cache)):
@@ -186,13 +193,9 @@ class SpecOffloadEngine:
                     cache = M.commit(cfg, cache, pend, torch.full(
                         (1,), n, dtype=torch.int64, device=self.device), n)
                 caches.append((cache, lg[:, -1]))
-            sp.fence(caches)
             sp.set("progress", int(toks.shape[1]))
         (tc, tlast), (dc, _) = caches
-        t0 = torch.argmax(tlast, dim=-1)
-        return BatchState(target_cache=tc, draft_cache=dc, t_next=t0,
-                          drafts=None, draft_pendings=None,
-                          emitted=[(_host(t0)[:, None], 1)])
+        return self._first_token(tc, dc, tlast)
 
     def pipeline(self, n_cand: int, tree=None) -> InterleavedPipeline:
         """The (cached) dual-batch rotation pipeline for ``n_cand`` — or,

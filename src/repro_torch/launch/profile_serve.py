@@ -53,7 +53,8 @@ from repro_torch.serving.trace import poisson_requests
 # pattern comes first, since the contiguous one also matches its names.
 # The recurrences' patterns match both their earlier single kernels and
 # the serial / chunked (wkv6) and serial / time-parallel (RG-LRU) pairs;
-# their backward kernels (training) have groups of their own.
+# their backward kernels (training) have groups of their own, as do the
+# span tracer's marks (a traced run's one-thread stamp kernels).
 GROUPS = (("moe_ffn_bwd kernels", r"moe_bwd_(act|wgmma|f32)_kernel"),
           ("moe_ffn kernels", r"moe_wgmma_kernel|grouped_gemm_kernel"),
           ("paged_decode_attention kernel", r"paged_decode_(mma_)?kernel"),
@@ -65,6 +66,7 @@ GROUPS = (("moe_ffn_bwd kernels", r"moe_bwd_(act|wgmma|f32)_kernel"),
           ("flash_attention kernel", r"flash_fwd_(wgmma_)?kernel"),
           ("flash_attention_bwd kernels",
            r"bwd_(delta|dkdv_wgmma|dq_wgmma|dkdv_f32|dq_f32)_kernel"),
+          ("tracer marks", r"obs_mark_"),
           ("cuBLAS products", r"gemm|gemv|cutlass|xmma|cublas|nvjet|sm90_"),
           ("everything else", r""))
 

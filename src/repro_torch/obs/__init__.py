@@ -5,8 +5,9 @@ One facade object (:class:`Obs`) bundles the two backbones every layer
 shares:
 
 * ``obs.tracer`` — span tracer exporting Chrome trace-event JSON
-  (:mod:`repro_torch.obs.trace`), plus bubble accounting that derives the
-  paper's GPU-utilization metric from the recorded spans.
+  (:mod:`repro_torch.obs.trace`; device spans timed by marks on a card),
+  plus bubble accounting that derives the paper's GPU-utilization metric
+  from the recorded spans.
 * ``obs.metrics`` — labeled Counter/Gauge/Histogram registry with JSON
   snapshot and Prometheus text exposition (:mod:`repro_torch.obs.metrics`).
 
@@ -46,19 +47,25 @@ NULL_OBS = Obs(NULL_TRACER, NULL_REGISTRY)
 
 
 def make_obs(trace: bool = False, metrics: bool = True,
-             fence: bool = True, annotations: bool = False,
-             virtual_clock=None) -> Obs:
+             annotations: bool = False, virtual_clock=None,
+             device=None) -> Obs:
     """Build an :class:`Obs`; disabled backbones are the null singletons.
 
-    ``fence`` makes device-phase spans synchronise the CUDA device of
-    their results for honest timing (it serializes dispatch: that is the
-    point); ``annotations`` additionally enters
-    ``torch.profiler.record_function`` per span so phase names appear as
-    ranges in ``torch.profiler`` traces.
+    ``annotations`` additionally enters ``torch.profiler.record_function``
+    per span so phase names appear as ranges in ``torch.profiler`` traces;
+    ``device``: where the traced work runs.  On a CUDA device the tracer
+    times device spans by marks (:class:`repro_torch.kernels.obs_mark.
+    MarkRing`, built at the first mark); elsewhere on the host.
     """
     if not (trace or metrics):
         return NULL_OBS
-    tr = Tracer(fence=fence, annotations=annotations,
-                virtual_clock=virtual_clock) if trace else NULL_TRACER
+    tr = NULL_TRACER
+    if trace:
+        marks = None
+        if device is not None and str(device).startswith("cuda"):
+            from repro_torch.kernels.obs_mark import MarkRing
+            marks = MarkRing(device)
+        tr = Tracer(annotations=annotations, virtual_clock=virtual_clock,
+                    marks=marks)
     reg = Registry() if metrics else NULL_REGISTRY
     return Obs(tr, reg)

@@ -38,9 +38,11 @@ request-level observability.
   stream continues exactly where it stopped.
 * ``obs`` (:func:`repro_torch.obs.make_obs`): a metrics registry (on by
   default, host-side only: the round's host copy is all it reads), a
-  span tracer (off by default; with ``trace_fence`` each device span
-  ends with one synchronisation), per-request timelines, SLOs and the
-  flight recorder.
+  span tracer (off by default; on a card its device spans are timed by
+  marks, one-thread kernels that stamp the GPU's clock, read after the
+  synchronisations the round makes anyway, and the round's graphs carry
+  marks at the verify / draft / rollback boundaries), per-request
+  timelines, SLOs and the flight recorder.
 
 Round structure (one :meth:`ServingEngine.run_step`)::
 
@@ -175,7 +177,6 @@ class SchedulerConfig:
                                   # only the round's host copy
     trace: bool = False           # span tracer -> Chrome trace + bubble
                                   # accounting
-    trace_fence: bool = True      # synchronise the card at device-span exit
     trace_annotations: bool = False  # torch.profiler.record_function per span
     request_timeline: bool = False  # per-request phase timelines +
                                   # req:{rid} Chrome tracks (host-side)
@@ -246,9 +247,9 @@ class ServingEngine:
             tree_n_nodes(cfg.spec_tree)            # validates the node cap
         self.device = resolve_device(self.device)
         self.obs = make_obs(trace=cfg.trace, metrics=cfg.metrics,
-                            fence=cfg.trace_fence,
                             annotations=cfg.trace_annotations,
-                            virtual_clock=lambda: self._now)
+                            virtual_clock=lambda: self._now,
+                            device=self.device)
         # request-scoped observability: timelines, SLO monitor, flight
         # recorder (host-side; the NULL tracker when off)
         self.requests = (RequestTracker(tracer=self.obs.tracer,
@@ -564,7 +565,7 @@ class ServingEngine:
                 self._charge_tenant(req, len(prompt))
             t_wall = time.time()
             pt0 = time.perf_counter()
-            with self.obs.tracer.span("admit", "admit") as asp:
+            with self.obs.tracer.span("admit", "admit", stream=True) as asp:
                 if req.progress:
                     st = self.engine.resume(req.admitted_prompt,
                                             req.progress, self._max_len,
@@ -585,7 +586,6 @@ class ServingEngine:
                     _splice_slot(half.target_cache, st.target_cache,
                                  slot_idx)
                 _splice_slot(half.draft_cache, st.draft_cache, slot_idx)
-                asp.fence((half.target_cache, half.draft_cache))
                 asp.set("rid", req.rid)
                 asp.set("half", h)
                 asp.set("slot", slot_idx)
@@ -1157,6 +1157,8 @@ class ServingEngine:
             "graph_captures": ({} if pipe is None
                                else dict(pipe.graph_captures)),
             "capture_s": 0.0 if pipe is None else pipe.capture_s,
+            "graph_nodes": ({} if pipe is None
+                            else dict(pipe.graph_nodes)),
             "rejected": self.rejected_total,
             "preempted": self.preempted_total,
             "replans": len(self.replan_events),

@@ -1,12 +1,15 @@
 """The port's observability (``repro_torch.obs``) against the JAX
 package's ``repro.obs``: the registry, histogram percentiles and the
 Prometheus text byte for byte on the same observations, label escaping,
-the null tracer shared and allocation-free, the bubble union, and a
+the null tracer shared and allocation-free, the bubble union (of device
+intervals where marks timed a span), device spans that never
+synchronise and are resolved by the end of each round, and a
 traced serving run whose streams, counters and Chrome trace agree with
 an untraced one and with the JAX engine's (both packages' validators
 accept the trace), with one fused-round shape."""
 import dataclasses
 import threading
+import time
 import tracemalloc
 
 import numpy as np
@@ -175,7 +178,7 @@ def test_bubble_report_consistency_and_equal_to_jax_on_the_same_spans(traced):
 
 
 def test_bubble_union_does_not_double_count():
-    tr = Tracer(fence=False)
+    tr = Tracer()
     with tr.span("round", "round"):
         with tr.span("target_verify", "v", cat="device") as sp:
             pass
@@ -188,7 +191,7 @@ def test_bubble_union_does_not_double_count():
 
 
 def test_bubble_idle_rounds_excluded():
-    tr = Tracer(fence=False)
+    tr = Tracer()
     with tr.span("round", "idle"):
         pass
     with tr.span("round", "round"):
@@ -198,6 +201,31 @@ def test_bubble_idle_rounds_excluded():
     assert rep["rounds"] == 1
     assert rep["idle_s"] >= 0.0
     assert jtrace.bubble_report(tr) == rep
+
+
+def test_bubble_report_unions_device_intervals():
+    """Spans timed by marks count their device intervals: a round's
+    verify (1 ms) and draft (2 ms), which meet at the boundary mark,
+    union to 3 ms, however short the host's walls around them."""
+    src = _Stamps()
+    tr = Tracer(marks=src)
+    with tr.span("round", "round"):
+        with tr.span("target_verify", "v", cat="device") as sp:
+            b, m, e = (tr.mark(k) for k in ("round_begin", "draft_begin",
+                                             "round_end"))
+            sp.device(b, m)
+        tr.complete("draft_generate", "d", sp.t0, sp.t1, cat="device",
+                    device=(m, e))
+        g0 = tr._real_ns + int(b[1] * 1e9) + 500_000
+        for (slot, _), dt in zip((b, m, e), (0, 1_000_000, 3_000_000)):
+            src.stamps[slot] = g0 + dt
+        time.sleep(0.008)
+    rep = bubble_report(tr)
+    assert rep["rounds"] == 1
+    assert rep["busy_s"] == pytest.approx(3e-3, abs=1e-7)
+    assert rep["per_round"][0]["dur_s"] > 7e-3
+    host = [e for e in tr.events if e["name"] in ("v", "d")]
+    assert all(e["dur"] >= e["args"]["device_dur"] - 1e-3 for e in host)
 
 
 # ---------------------------------------------------------------------------
@@ -397,16 +425,18 @@ def test_registry_concurrent_snapshot_while_observe():
 
 
 # ---------------------------------------------------------------------------
-# disabled mode: shared, allocation-free; fences and annotations
+# disabled mode: shared, allocation-free; device marks and annotations
 
 
 def _null_round(tr, reg):
-    with tr.span("round", "round") as sp:
-        sp.fence(None)
+    with tr.span("round", "round", stream=True) as sp:
+        sp.device(tr.mark("round_begin"), tr.mark("draft_begin"))
         sp.set("k", 1)
         sp.rename("idle")
     tr.instant("admit", "admitted")
-    tr.complete("draft_generate", "d", 0.0, 1.0, cat="device")
+    tr.complete("draft_generate", "d", 0.0, 1.0, cat="device",
+                device=(None, None))
+    tr.resolve()
     reg.counter("c_total").inc(1.0, tier="h2d")
     reg.gauge("g").set(2.0)
     reg.histogram("h").observe(0.5)
@@ -431,7 +461,7 @@ def test_disabled_tracing_no_retained_allocations():
     tracemalloc.stop()
     assert grown < 4096, f"null obs retained {grown} bytes"
 
-    live = Obs(Tracer(fence=False), Registry())
+    live = Obs(Tracer(), Registry())
     tracemalloc.start()
     base = tracemalloc.get_traced_memory()[0]
     for _ in range(rounds):
@@ -441,37 +471,122 @@ def test_disabled_tracing_no_retained_allocations():
     assert grown_live > 100 * 1024, "sanity: a live tracer retains events"
 
 
-class _FakeCuda:
-    """Stands in for a CUDA tensor: the fence reads ``is_cuda``/``device``."""
-    is_cuda = True
-    device = "cuda:0"
+class _Stamps:
+    """A stand-in stamp source: a mark's slot holds 0 until the marks run
+    (``run``, or at once with ``auto``), as a card's ring holds nothing
+    until the device runs them; a mark stamps the real time when it runs,
+    plus ``lag_ns`` of queued device work for every mark after the
+    first."""
+
+    def __init__(self, auto=False):
+        self.auto, self.log, self.stamps, self.released = auto, [], [], []
+
+    def mark(self, kind, keep=False):
+        self.log.append((kind, keep))
+        self.stamps.append(time.time_ns() if self.auto else 0)
+        return len(self.stamps) - 1
+
+    def run(self, lag_ns=0):
+        todo = [i for i, g in enumerate(self.stamps) if not g]
+        for n, slot in enumerate(todo):
+            self.stamps[slot] = time.time_ns() + (lag_ns if n else 0)
+
+    def read(self, slot):
+        return self.stamps[slot]
+
+    def release(self, slot):
+        self.released.append(slot)
 
 
-def test_fence_synchronises_only_fenced_cuda_tensors(monkeypatch):
+def test_device_spans_never_synchronise(monkeypatch):
+    """No span synchronises the card, with a stamp source or without:
+    a stream span enqueues a mark at enter and exit and waits, unrecorded,
+    for a resolve after the marks ran; the host spans record at exit."""
     calls = []
     monkeypatch.setattr(torch.cuda, "synchronize",
                         lambda dev=None: calls.append(dev))
-    cpu = {"a": [torch.zeros(2)], "b": (torch.ones(1),)}
-    with Tracer(fence=True).span("kv", "cpu", cat="device") as sp:
-        assert sp.fence(cpu) is cpu
-    assert calls == []                     # CPU tensors: nothing to wait on
-    with Tracer(fence=False).span("kv", "off", cat="device") as sp:
-        sp.fence({"x": [_FakeCuda()]})
-    assert calls == []                     # the tracer does not fence
-    with Tracer(fence=True).span("kv", "on", cat="device") as sp:
-        sp.fence({"x": [_FakeCuda(), torch.zeros(1)], "y": _FakeCuda()})
-    assert calls == ["cuda:0"]             # one sync per fenced device
+    src = _Stamps()
+    tr = Tracer(marks=src)
+    with tr.span("prefill", "p", cat="device", stream=True):
+        pass
+    with tr.span("admit", "host"):
+        pass
+    assert [k for k, _ in src.log] == ["span", "span"]
+    names = [e["name"] for e in tr.events if e["ph"] == "X"]
+    assert names == ["host"]               # "p" waits for its marks
+    tr.resolve()
+    assert [e["name"] for e in tr.events if e["ph"] == "X"] == ["host"]
+    src.run()
+    tr.resolve()
+    assert [e["name"] for e in tr.events if e["ph"] == "X"] == ["host", "p"]
+    assert sorted(src.released) == [0, 1]
+    with Tracer().span("prefill", "cpu", cat="device", stream=True):
+        pass                               # no stamp source: the host
+    assert calls == []
+
+
+def test_device_span_resolved_by_the_end_of_run_step_reaching_its_end_mark():
+    """A device span keeps ``ts`` at the host's entry and stretches
+    ``dur`` to the device's end mark when the device ends later; ``args``
+    hold the device interval, exactly the stamps' difference."""
+    src = _Stamps()
+    tr = Tracer(marks=src)
+    with tr.span("prefill", "p", cat="device", stream=True) as sp:
+        pass
+    src.run(lag_ns=3_000_000)              # the device ends 3 ms later
+    time.sleep(0.005)
+    tr.resolve()
+    (ev,) = [e for e in tr.events if e["ph"] == "X"]
+    assert ev["ts"] == pytest.approx(tr._us(sp.t0))
+    args = ev["args"]
+    assert args["device_dur"] == (src.stamps[1] - src.stamps[0]) / 1e3
+    assert ev["ts"] + ev["dur"] == pytest.approx(
+        args["device_ts"] + args["device_dur"])
+    assert ev["dur"] > (sp.t1 - sp.t0) * 1e6
+
+
+def test_device_spans_resolved_by_the_end_of_run_step(models):
+    """A serving run whose tracer has a (stand-in) stamp source: the
+    round's marks run in order, and after every ``run_step`` no device
+    span is left pending; the verify, draft, rollback, prefill and admit
+    spans carry device intervals that their ``dur`` reaches."""
+    _, (tt, td, ttp, tdp) = models
+    eng = tserve.ServingEngine(tt, td, device=CPU, config=tserve.
+                               SchedulerConfig(trace=True, **CFG))
+    eng.load(ttp, tdp)
+    src = eng.obs.tracer.marks = _Stamps(auto=True)
+    for r in _requests(tserve, tt.vocab_size, n=3):
+        assert eng.submit(r)
+    while eng.has_work():
+        eng.run_step()
+        assert eng.obs.tracer._pending == []
+    round_marks = [k for k, _ in src.log if k != "span"]
+    assert round_marks == ["round_begin", "draft_begin", "round_end",
+                           "rollback_begin", "rollback_end"] * \
+        eng.stats()["rounds"]
+    timed = {}
+    for e in eng.obs.tracer.events:
+        if e["ph"] == "X" and "device_ts" in e.get("args", {}):
+            timed[e["name"]] = timed.get(e["name"], 0) + 1
+            a = e["args"]
+            assert e["ts"] + e["dur"] >= a["device_ts"] + a["device_dur"] \
+                - 1e-3
+    rounds = eng.stats()["rounds"]
+    assert timed["verify(fused)"] == timed["draft(fused)"] == rounds
+    assert timed["rollback"] == rounds
+    assert timed["admit"] == timed["zigzag_prefill"] == 3
+    assert sorted(src.released) == sorted(set(src.released))
 
 
 def test_annotations_enter_record_function():
-    tr = Tracer(fence=False, annotations=True)
+    tr = Tracer(annotations=True)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU]) as prof:
         with tr.span("target_verify", "verify(fused)", cat="device"):
             torch.ones(4) @ torch.ones(4)
     names = {e.key for e in prof.key_averages()}
     assert "target_verify/verify(fused)" in names
-    assert ttrace.Tracer(fence=False).use_annotations is False
+    assert ttrace.Tracer().use_annotations is False
 
 
 def test_make_obs_modes():

@@ -446,17 +446,18 @@ def test_profile_groups_name_every_kernel_of_its_source():
            "moe_ffn": "moe_ffn kernels", "rglru_scan": "rglru_scan kernels",
            "wkv6": "wkv6 kernels", "wkv6_bwd": "wkv6_bwd kernels",
            "rglru_scan_bwd": "rglru_scan_bwd kernels",
-           "moe_ffn_bwd": "moe_ffn_bwd kernels"}
+           "moe_ffn_bwd": "moe_ffn_bwd kernels", "obs_mark": "tracer marks"}
     # two kernels a source; the flash backward's five (the row sums D,
     # then dK/dV and dQ, each on wgmma and in exact f32); the wkv6
     # backward's four (the chunked kernel, the serial one of head size
     # 32, the slabs' dr / dk / dw, the batch's du); the expert FFN
     # backward's three (the products on wgmma and in exact f32, f32's
     # elementwise step); the RG-LRU backward's three (the chunked route,
-    # the sequence route, the partials' sum)
+    # the sequence route, the partials' sum); the tracer's six marks (the
+    # generic span mark and the round's five boundaries)
     n_kernels = dict.fromkeys(own, 2) | {"flash_attention_bwd": 5,
                                          "wkv6_bwd": 4, "moe_ffn_bwd": 3,
-                                         "rglru_scan_bwd": 3}
+                                         "rglru_scan_bwd": 3, "obs_mark": 6}
     seen = dict.fromkeys(own, 0)
     for path in sorted(glob.glob(os.path.join(_build.CSRC, "*.cu"))):
         src = os.path.basename(path)[:-3]

@@ -13,6 +13,7 @@ with a host-scalar base gives the bits of the former tensor base.
 The graph protocol (eager, capture, replays) also runs on the CPU with a
 stand-in capture whose replay runs the round's body."""
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -221,6 +222,74 @@ def test_graph_protocol_captures_each_key_once(tree):
         np.testing.assert_array_equal(
             r.result, _greedy(ttp, tt, r.prompt, r.max_new_tokens),
             err_msg=f"rid {r.rid} vs greedy")
+
+
+class _MarkLog:
+    """A stand-in stamp source that logs each mark (kind, made inside a
+    capture) and stamps the real time."""
+
+    def __init__(self):
+        self.log = []
+
+    def mark(self, kind, keep=False):
+        self.log.append((kind, keep))
+        return len(self.log) - 1
+
+    def read(self, slot):
+        return time.time_ns()
+
+    def release(self, slot):
+        pass
+
+
+ROUND_MARKS = ["round_begin", "draft_begin", "round_end", "rollback_begin",
+               "rollback_end"]
+
+
+@pytest.mark.parametrize("traced", [False, True], ids=["off", "on"])
+def test_captured_round_holds_marks_only_when_traced(traced):
+    """Under a stand-in capture that runs the body's host code once and
+    whose replay runs nothing (the first four rounds: each half's eager
+    round, then each half's capture, replayed at once), the round puts
+    no mark on the stream with tracing off, and with it on the five
+    marks in order every round: eagerly, then into the fused and the
+    rollback graphs, which keep them."""
+    from repro_torch.obs import NULL_REGISTRY, Obs
+    from repro_torch.obs.trace import NULL_TRACER, Tracer
+    _, (tt, td, ttp, tdp) = _models("mixtral", None)
+    src = _MarkLog()
+    obs = Obs(Tracer(marks=src) if traced else NULL_TRACER, NULL_REGISTRY)
+    eng = SpecOffloadEngine(tt, td, device=CPU, obs=obs)
+    eng.load(ttp, tdp)
+    prompts = np.random.default_rng(0).integers(0, tt.vocab_size, (4, 6))
+    states = [eng.prefill_batch(prompts[i:i + 2], 32) for i in (0, 2)]
+    pipe = eng.pipeline(2)
+    pipe._use_graphs = lambda state: True
+    pipe._pool = "host"
+
+    class Recorded:
+        def __init__(self, body, pool):
+            body()
+
+        def replay(self):
+            pass
+    pipe.capture = Recorded
+    verify, gen = states
+    pipe.warmup(verify)
+    for _ in range(4):
+        pipe.step(verify, gen)
+        verify, gen = gen, verify
+    assert pipe.graph_captures == {"fused": 2, "draft": 0, "rollback": 2}
+    graphs = [g.marks for g in pipe._graphs.values()]
+    round_marks = [(k, keep) for k, keep in src.log if k != "span"]
+    if not traced:
+        assert src.log == [] and graphs == [[], [], [], []]
+        return
+    assert round_marks == ([(k, False) for k in ROUND_MARKS] * 2
+                           + [(k, True) for k in ROUND_MARKS] * 2)
+    assert sorted(len(m) for m in graphs) == [2, 2, 3, 3]
+    assert [k for m in graphs for k, _ in m if len(m) == 3] == \
+        ROUND_MARKS[:3] * 2
 
 
 def test_graphs_true_raises_on_cpu_and_with_a_mesh():
