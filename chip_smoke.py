@@ -374,7 +374,7 @@ TRAIN_PATH = {"flash_attention_bwd": ("5t", "flash_attention_bwd"),
               "moe_ffn_bwd": ("5t-m", "moe_ffn_bwd")}
 # the serving run whose launches each kernel reports (its path)
 PATH_RUN = {"paged_decode_attention": "3a", "flash_attention": "3a",
-            "moe_ffn": "3a", "decode_attention": "3d", "rglru_scan": "3c",
+            "moe_ffn": "3a", "decode_attention": "3a", "rglru_scan": "3c",
             "wkv6": "3b"}
 # the wrapper whose launches a kernel reports, where the path calls
 # another entry of the kernel's source than the TPU kernel's counterpart
@@ -991,9 +991,19 @@ def kernel_cases(bench) -> dict:
     decode_case("verify f32 (lossless phase)", 2, 32, 8, 5, 640, 128,
                 main_lens[:2], torch.float32)
     split_note("decode_attention", 4, 8, 640)
-    main["decode_attention"] = decode_case(
-        "verify b4 m5 s640 (serve path)", 4, 32, 8, 5, 640, 128, main_lens,
-        torch.bfloat16, repeat=True)
+    decode_case("verify b4 m5 s640 (contiguous verify)", 4, 32, 8, 5, 640,
+                128, main_lens, torch.bfloat16, repeat=True)
+    # the serve path: the Mistral-7B draft's one-token step over its
+    # sliding-window ring (8 rows; the offline cells' 1,568 slots and the
+    # online cell's 3,168), lengths min(pos + 1, slots) from 1 to the full
+    # ring, every slot past a row's length holding stale rows
+    for slots in (1568, 3168):
+        split_note("decode_attention", 8, 8, slots)
+        ring = decode_case(f"draft ring b8 m1 s{slots} (serve path)", 8, 32,
+                           8, 1, slots, 128, [1, 2, 63, 64, 700, slots // 2,
+                                              slots - 1, slots],
+                           torch.bfloat16, repeat=True)
+        main.setdefault("decode_attention", ring)
     split_note("decode_attention", 8, 8, 32768)
     decode_case("stress b8 S32768 m5", 8, 32, 8, 5, 32768, 128, [32768] * 8,
                 torch.bfloat16)
@@ -1042,6 +1052,10 @@ def kernel_cases(bench) -> dict:
                 repeat=True)
     decode_case("whisper d64 m1 g1 (3j decode)", 4, 8, 8, 1, 448, 64,
                 [5, 20, 36, 36], torch.bfloat16)
+    # the serving example's draft (Mistral-7B reduced: 4 / 2 heads of 16,
+    # f32) over its 64-slot ring
+    decode_case("example draft ring d16 m1 s64 (6a)", 2, 4, 2, 1, 64, 16,
+                [1, 64], torch.float32)
     torch.cuda.empty_cache()
 
     # -- RG-LRU scan ----------------------------------------------------------
@@ -2254,13 +2268,14 @@ def serve_phase(rates) -> dict:
     offload_eq_run("3f-eq")
     mix = dataclasses.replace(MIXTRAL_8X7B, n_layers=SERVE_LAYERS)
     mis = draft_for(mix, SERVE_LAYERS)
+    # decode_attention: the draft's one-token steps over its rings
     runs["3a"] = serve_run("3a", mix, mis, True, 12,
                            ("paged_decode_attention", "flash_attention",
-                            "moe_ffn"))
+                            "moe_ffn", "decode_attention"))
     # 3a-e: the same requests on the eager round; the streams must agree
     serve_run("3a-e", mix, mis, True, 12,
-              ("paged_decode_attention", "flash_attention", "moe_ffn"),
-              graphs=False)
+              ("paged_decode_attention", "flash_attention", "moe_ffn",
+               "decode_attention"), graphs=False)
     for rid, toks in RUN_STREAMS["3a"].items():
         assert RUN_STREAMS["3a-e"][rid] == toks, f"request {rid}: 3a-e != 3a"
     g, e = RUN_STATS["3a"], RUN_STATS["3a-e"]
@@ -2330,9 +2345,11 @@ def gemma_run(label) -> dict:
     tcfg = dataclasses.replace(GEMMA3_12B, n_layers=GEMMA_SERVE_LAYERS)
     dcfg = draft_for(tcfg, 2)
     n = 8
+    # decode_attention: the draft's one-token steps over its rings (the
+    # target's local layers verify 5 tokens a round on the plain path)
     launches = serve_run(label, tcfg, dcfg, True, n,
-                         ("paged_decode_attention", "flash_attention"),
-                         ("moe_ffn", "decode_attention"),
+                         ("paged_decode_attention", "flash_attention",
+                          "decode_attention"), ("moe_ffn",),
                          prompt_lens=(512, 1280))
     rounds = RUN_STATS[label]["rounds"]
     n_attn = sum(tcfg.layer_kind(l) == ATTN for l in range(tcfg.n_layers))
@@ -3729,8 +3746,8 @@ EXAMPLES = (
     ("torch_quickstart", ("flash_attention", "decode_attention"),
      "lossless: speculative output == target greedy decoding  [OK]"),
     ("torch_serve_spec_offload",
-     ("flash_attention", "paged_decode_attention", "moe_ffn"),
-     "fused compiles=1"),
+     ("flash_attention", "paged_decode_attention", "moe_ffn",
+      "decode_attention"), "fused compiles=1"),
     ("torch_train_small", ("flash_attention", "flash_attention_bwd"),
      "training OK: loss fell >2x"),
     ("torch_planner_demo", (), "give it to the draft model instead."))

@@ -25,6 +25,9 @@ HEAD_DIMS = (64, 128, 240, 256)     # both bodies
 # the exact CUDA-core body (f32 here, f32 and int8 pools in the paged
 # kernel) also takes the reduced configs' head dim 32
 CORE_HEAD_DIMS = (32,) + HEAD_DIMS
+# and here 16 (the serving example's draft, whose sliding-window ring
+# decodes one token a step on this kernel)
+F32_HEAD_DIMS = (16,) + CORE_HEAD_DIMS
 _SMEM_FLOATS = 232_448 // 4          # a CTA's shared memory on Hopper
 _TILE = 32                           # kDecodeTile in common.cuh
 KEY_TILE = 64                        # kKeyTile in common.cuh: split unit
@@ -157,7 +160,7 @@ def decode_attention(q, k, v, lengths, *, scale=None, window=None,
                                         kv_offset=int(kv_offset),
                                         return_lse=return_lse)
 
-    dims = CORE_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS
+    dims = F32_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS
     _build.require(d in dims, f"head dim must be one of {dims} in {q.dtype}")
     _build.require(lengths.dtype == torch.int32, "lengths must be int32")
     if anc_bits is not None:

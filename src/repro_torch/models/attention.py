@@ -10,18 +10,19 @@ KV caches are updated **in place**: every write helper mutates the
 cache tensors it is given and returns the same dict.
 
 On CUDA tensors prefill and cross attention run the flash-attention
-kernel, paged verify the paged-decode kernel and verify over a
-contiguous, non-ring cache the decode-attention kernel; on CPU tensors
-they run the plain paths the JAX package runs off the TPU
-(``attention_chunked``; ``attention_direct``; ``paged_gather`` +
-``attention_direct``; ``attention_direct``).  A CUDA tensor never
+kernel, paged verify the paged-decode kernel, and verify over a
+contiguous, non-ring cache and a one-token decode over a sliding-window
+ring the decode-attention kernel; on CPU tensors they run the plain
+paths the JAX package runs off the TPU (``attention_chunked``;
+``attention_direct``; ``paged_gather`` + ``attention_direct``;
+``attention_direct``).  A CUDA tensor never
 reaches a plain version of a kernel.  A speculation tree's full buffer
 (``spec_tree`` with ``prev == 0``) goes to the verify kernels with its
 ancestor bitmasks; a tree level fed after ``prev > 0`` buffer rows takes
 the plain masked path on both devices, as in the JAX package (the
 kernels mask only the last m rows and cannot see a partial buffer).
-The ring-buffer decode of sliding-window layers has no TPU kernel and
-stays plain PyTorch on both devices.
+A multi-token verify over a sliding-window ring has no kernel and stays
+plain PyTorch on both devices.
 
 Over a mesh (``mesh``; the weights the rank's blocks at rest,
 :func:`attention_specs`) q/k/v are column products and ``wo`` a row
@@ -877,14 +878,23 @@ def apply_attention(params: dict, x, *, n_heads: int, n_kv_heads: int,
                 _write_cache(cache, k, v, pos, window if ring else None)
                 k_read = cache["k"].to(q.dtype)
                 v_read = cache["v"].to(q.dtype)
-            if kernel_ok and not ring:
+            if kernel_ok:
                 # slot index = logical position: the kernel reads the
                 # (B, S, Hkv, d) cache and the (B, S, H, d) q, and writes
-                # the output, through transposed views
+                # the output, through transposed views.  A ring reaches
+                # here with one token: the written slots hold the last
+                # min(pos + 1, n_slots) positions, all inside the window,
+                # and before the ring wraps slot j holds position j, so
+                # the visible keys are the slots [0, that count), in any
+                # order
+                lengths = pos + sq
+                if ring:
+                    lengths = lengths.clamp(max=n_slots)
                 out = _da.decode_attention(
                     q.transpose(1, 2), k_read.transpose(1, 2),
-                    v_read.transpose(1, 2), (pos + sq).to(torch.int32),
-                    scale=scale, window=window, anc_bits=anc_bits)
+                    v_read.transpose(1, 2), lengths.to(torch.int32),
+                    scale=scale, window=None if ring else window,
+                    anc_bits=anc_bits)
                 out = out.transpose(1, 2).reshape(b, sq, -1)
             elif tree:
                 out = _tree_attention_plain(q, k_read, v_read, t_base, t_mask,

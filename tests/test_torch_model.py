@@ -1,7 +1,10 @@
 """The port's model against the JAX package's on the same weights
 (``params.from_jax``): prefill logits and multi-token decode logits,
 f32, atol 1e-4, on a contiguous cache, a paged pool and an int8 paged
-pool; the MoE capacity drop order; the sliding-window ring wrapping."""
+pool; the MoE capacity drop order; the sliding-window ring wrapping.
+The one-token ring decode's kernel route (``decode_attention``, its
+plain version here) against the JAX package's draft steps and rollback,
+and against the plain masked ring attention."""
 import dataclasses
 
 import numpy as np
@@ -14,10 +17,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import MISTRAL_7B as J_MISTRAL  # noqa: E402
 from repro.configs.base import MIXTRAL_8X7B as J_MIXTRAL  # noqa: E402
+from repro.core import spec_decode as JS  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch.configs import MISTRAL_7B, MIXTRAL_8X7B  # noqa: E402
+from repro_torch.core.spec_decode import rollback_draft  # noqa: E402
+from repro_torch.models import attention as TA  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -180,3 +186,144 @@ def test_init_params_structure_matches_from_jax():
     assert flat(mine) == flat(conv)
     w = mine["layers"][0]["ffn"]["w_gate"]
     assert w.abs().max() <= 3 * tcfg.d_model ** -0.5 + 1e-6
+
+
+# (dtype, head dim): the smallest head dims the kernel takes in each (16:
+# the serving example's draft)
+RING_DTYPES = {"f32-d16": (torch.float32, 16),
+               "f32-d32": (torch.float32, 32),
+               "bf16-d64": (torch.bfloat16, 64)}
+# (window, max_len): a ring of as many slots as the window, and a shorter
+# one; 8 slots either way
+RING_SLOTS = {"slots-eq-window": (8, 32), "slots-lt-window": (16, 8)}
+
+
+def _ring_run(cfg, params, cache, kernel, monkeypatch,
+              da=TA._da.decode_attention):
+    """Five one-token steps at fixed tokens (a draft's feeds), a
+    ``rollback_draft`` keeping 0-5 of them per row, one step over the
+    restored rows and a 3-token verify, on the kernel route (``on_card``
+    forced true: ``decode_attention``'s plain version on the CPU) or the
+    plain path; returns (logits of each call, the caches, the kernel
+    calls' query lengths)."""
+    m = []
+
+    def spy(q, *a, **k):
+        m.append(q.shape[2])
+        return da(q, *a, **k)
+    monkeypatch.setattr(TA, "on_card", lambda x: kernel)
+    monkeypatch.setattr(TA._da, "decode_attention", spy)
+    toks = torch.arange(5 * 4).reshape(4, 5) % cfg.vocab_size
+    out, pends = [], []
+    for i in range(5):
+        lg, cache, pend = TM.decode(params, cfg, cache, toks[:, i:i + 1])
+        cache = {"layers": cache["layers"], "pos": cache["pos"] + 1}
+        out.append(lg)
+        pends.append(pend)
+    cache = rollback_draft(cfg, cache, pends, torch.tensor([0, 2, 5, 3]))
+    lg, cache, _ = TM.decode(params, cfg, cache, toks[:, :1])
+    cache = {"layers": cache["layers"], "pos": cache["pos"] + 1}
+    out.append(lg)
+    n_one = len(m)
+    lg, cache, _ = TM.decode(params, cfg, cache, toks[:, 1:4])
+    out.append(lg)
+    assert len(m) == n_one, "a 3-token verify on a ring took the kernel"
+    return out, cache, m
+
+
+@pytest.mark.parametrize("slots", RING_SLOTS)
+@pytest.mark.parametrize("dtype", RING_DTYPES)
+def test_ring_decode_kernel_route_equals_plain(dtype, slots, monkeypatch):
+    """Rows before the ring wraps (pos 2), at its edge (7), just past it
+    (8) and well past it (13) in one batch, every slot holding rows (the
+    stale ones past a row's length too): the kernel route's logits equal
+    the plain path's at each step, after a rollback restored rows, and in
+    a multi-token verify (plain on both); the caches end equal.  The
+    route engages at every one-token step of every layer, never at 3
+    tokens."""
+    dt, hd = RING_DTYPES[dtype]
+    window, max_len = RING_SLOTS[slots]
+    cfg = dataclasses.replace(MISTRAL_7B.reduced(d_model=4 * hd),
+                              sliding_window=window, dtype=str(dt)[6:])
+    assert cfg.head_dim == hd
+    params = init_params(cfg, torch.Generator().manual_seed(0), CPU)
+    gen = torch.Generator().manual_seed(1)
+    base = TT.init_cache(cfg, 4, max_len, CPU)
+    assert base["layers"][0]["k"].shape[1] == 8
+    for layer in base["layers"]:
+        for key in ("k", "v"):
+            layer[key].copy_(torch.randn(layer[key].shape, generator=gen))
+    base["pos"] = torch.tensor([2, 7, 8, 13])
+    runs = {}
+    for kernel in (False, True):
+        cache = {"layers": [{k: v.clone() for k, v in layer.items()}
+                            for layer in base["layers"]],
+                 "pos": base["pos"].clone()}
+        runs[kernel] = _ring_run(cfg, params, cache, kernel, monkeypatch)
+    (plain, pcache, pm), (got, kcache, km) = runs[False], runs[True]
+    assert pm == []
+    assert km == [1] * cfg.n_layers * 6
+    # f32: the two differ in summation order alone; bf16: the plain path
+    # rounds P to bf16 and the model's activations are bf16
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    for g, w in zip(got, plain):
+        np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
+                                   rtol=0, atol=tol * w.abs().max().item())
+    assert torch.equal(kcache["pos"], pcache["pos"])
+    for kl, pl in zip(kcache["layers"], pcache["layers"]):
+        for key in ("k", "v"):
+            np.testing.assert_allclose(kl[key].float().numpy(),
+                                       pl[key].float().numpy(), rtol=0,
+                                       atol=tol * pl[key].abs().max().item())
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+def test_ring_draft_steps_and_rollback_logits(route, monkeypatch):
+    """The draft's steps over its 8-slot ring against the JAX package's
+    on the same weights: a 4-token prefill, five one-token steps (the
+    ring wraps at the fifth), ``rollback_draft`` keeping 1 and 5 of
+    them, and five more steps from the restored rows (one row before
+    the ring wraps, one past it).  The port on the kernel route
+    (``on_card`` forced true: ``decode_attention``'s plain version on
+    the CPU, at a head dim the kernel takes) and on the plain path."""
+    jcfg, tcfg = (dataclasses.replace(c.reduced(d_model=128),
+                                      sliding_window=8)
+                  for c in (J_MISTRAL, MISTRAL_7B))
+    assert tcfg.head_dim == 32
+    jp, tp = _weights(jcfg, tcfg)
+    calls, da = [], TA._da.decode_attention
+
+    def spy(q, *a, **k):
+        calls.append(q.shape[2])
+        return da(q, *a, **k)
+    monkeypatch.setattr(TA, "on_card", lambda x: route == "kernel")
+    monkeypatch.setattr(TA._da, "decode_attention", spy)
+    toks = np.random.default_rng(2).integers(
+        0, tcfg.vocab_size, (2, 14)).astype(np.int32)
+    jc = JT.init_cache(jcfg, 2, 32)
+    tc = TT.init_cache(tcfg, 2, 32, CPU)
+    jl, jc = _jit("prefill")(jp, jcfg, jnp.asarray(toks[:, :4]), jc)
+    tl, tc = TM.prefill(tp, tcfg, torch.from_numpy(toks[:, :4]).long(), tc)
+    _close(tl, jl)
+
+    def steps(jc, tc, feed):
+        jpends, tpends = [], []
+        for i in range(feed.shape[1]):
+            jl, jc, jpend = _jit("decode")(jp, jcfg, jc,
+                                           jnp.asarray(feed[:, i:i + 1]))
+            tl, tc, tpend = TM.decode(tp, tcfg, tc,
+                                      torch.from_numpy(feed[:, i:i + 1]).long())
+            _close(tl, jl)
+            jc = {"layers": jc["layers"], "pos": jc["pos"] + 1}
+            tc = {"layers": tc["layers"], "pos": tc["pos"] + 1}
+            jpends.append(jpend)
+            tpends.append(tpend)
+        return jc, tc, jpends, tpends
+
+    jc, tc, jpends, tpends = steps(jc, tc, toks[:, 4:9])
+    keep = np.array([1, 5], np.int32)
+    jc = JS.rollback_draft(jcfg, jc, jpends, jnp.asarray(keep))
+    tc = rollback_draft(tcfg, tc, tpends, torch.from_numpy(keep))
+    assert tc["pos"].tolist() == np.asarray(jc["pos"]).tolist() == [5, 9]
+    steps(jc, tc, toks[:, 9:14])
+    assert calls == ([1] * tcfg.n_layers * 10 if route == "kernel" else [])
